@@ -1,0 +1,17 @@
+"""PoseNDF in PyTorch, with hand-written CUDA kernels for NVIDIA Hopper.
+
+A port of ``posendf_tpu`` (the JAX package, which stays the reference):
+the pose prior's main path, from a checkpoint to d(q), grad d(q) and the
+manifold projection. Imports ``torch`` and never ``jax``.
+
+    import posendf_torch
+    field = posendf_torch.load_field("docs/quality/ckpt_l8_best.msgpack", device="cuda")
+    d, g = field.distance_and_grad_fused(poses)          # (B, 21, 4) -> (B, 1), (B, 21, 4)
+    out, hist = posendf_torch.project(field, poses, steps=200, fused=True)
+"""
+
+from posendf_torch.field import Field, load_field, make_field
+from posendf_torch.models import PoseNDF
+from posendf_torch.projection import project
+
+__all__ = ["Field", "load_field", "make_field", "PoseNDF", "project"]

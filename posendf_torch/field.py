@@ -1,0 +1,115 @@
+"""Distance-field evaluation: value, value-and-gradient, and their kernels.
+
+Mirror of ``posendf_tpu/field.py``. The reference takes pose gradients with
+``torch.autograd.grad(outputs, inputs, grad_outputs=ones, create_graph=True)``;
+since each distance depends only on its own pose, that is one backward pass
+for the whole batch, and it stays differentiable for the eikonal term.
+
+``distance`` / ``distance_and_grad`` are the module path (PyTorch ops, the
+matrix products through ``torch.matmul``). ``distance_fused`` /
+``distance_and_grad_fused`` go through the hand-written kernels
+(``ops/fused_model.py``, ``ops/fused_grad.py``) for CUDA tensors.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Optional, Tuple
+
+import torch
+
+from posendf_torch.config import PoseNDFConfig, load_config
+from posendf_torch.ops.fused_grad import fused_distance_and_grad
+from posendf_torch.ops.fused_model import FieldWeights, fused_posendf_forward
+
+__all__ = ["Field", "make_field", "load_field", "distance_and_grad"]
+
+
+def distance_and_grad(module, pose: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Batched (d, dd/dpose): (B, 21, 4) -> ((B, 1), (B, 21, 4)).
+
+    The gradient is with respect to the raw pose, through the joint-axis
+    normalization inside the model. It is taken with ``create_graph=True``,
+    so both outputs can be differentiated again.
+    """
+    with torch.enable_grad():
+        p = pose if pose.requires_grad else pose.detach().requires_grad_(True)
+        d = module(p)
+        (g,) = torch.autograd.grad(d, p, torch.ones_like(d), create_graph=True)
+    return d, g.reshape(pose.shape)
+
+
+class Field:
+    """A PoseNDF module with the distance APIs of the JAX package's Field."""
+
+    def __init__(self, module):
+        self.module = module
+        self._weights: Optional[FieldWeights] = None
+        self._weights_key = None
+
+    def weights(self) -> FieldWeights:
+        """The kernels' view of the module, packed once; rebuilt if a
+        parameter was replaced or changed in place since."""
+        key = tuple((p.data_ptr(), p._version) for p in self.module.parameters())
+        if self._weights is None or key != self._weights_key:
+            self._weights = FieldWeights.from_module(self.module)
+            self._weights_key = key
+        return self._weights
+
+    def distance(self, pose: torch.Tensor) -> torch.Tensor:
+        """(B, 21, 4) -> (B, 1)."""
+        return self.module(pose)
+
+    def distance_fused(self, pose: torch.Tensor) -> torch.Tensor:
+        """Whole-model forward in one kernel; differentiable (its backward is
+        the plain formula's)."""
+        pose = pose.reshape(-1, self.module.num_joints, 4)
+        return fused_posendf_forward(pose, self.weights())
+
+    def distance_and_grad(self, pose: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        return distance_and_grad(self.module, pose)
+
+    def distance_and_grad_fused(self, pose: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(d, dd/dpose) in one kernel. Values only: the outputs carry no
+        autograd graph. The gradient comes back in the caller's pose shape."""
+        orig_shape = pose.shape
+        d, g = fused_distance_and_grad(pose.reshape(-1, self.module.num_joints, 4),
+                                       self.weights())
+        return d, g.reshape(orig_shape)
+
+
+def make_field(module, device=None) -> Field:
+    """A :class:`Field` of ``module``, moved to ``device`` if one is given."""
+    return Field(module if device is None else module.to(device))
+
+
+def load_field(ckpt_path=None, config=None, device="cpu") -> Field:
+    """One-line entry point: checkpoint file -> ready :class:`Field` on ``device``.
+
+    ``ckpt_path``: the reference's torch ``.tar``, the JAX package's
+    ``.msgpack`` file, or None for a freshly initialized field (seeded with
+    0). ``config``: a :class:`PoseNDFConfig`, a YAML path, or None for the
+    ``configs/amass.yaml`` hyperparameters.
+    """
+    from posendf_torch.checkpoints import load_msgpack_params, load_torch_checkpoint
+
+    if config is None:
+        cfg = PoseNDFConfig()
+    elif isinstance(config, (str, os.PathLike)):
+        cfg = load_config(os.fspath(config))
+    else:
+        cfg = config
+    module = cfg.make_model()
+    if ckpt_path:
+        path = os.fspath(ckpt_path)
+        if os.path.isdir(path):
+            raise NotImplementedError(
+                "checkpoint directories (CheckpointStore) are not ported yet: "
+                "ROADMAP Queue 1 item 11")
+        if path.endswith(".tar"):
+            state, _ = load_torch_checkpoint(
+                path, parents=module.parents, feature_size=cfg.strenc.out_dim)
+        else:
+            state, _ = load_msgpack_params(path)
+        module.load_state_dict(state, strict=True)
+    return Field(module.to(device))

@@ -1,0 +1,211 @@
+"""Plain versions of the port's CUDA kernels against the JAX package's Pallas
+kernels, which run here in TPU interpret mode as ``tests/test_fused_grad.py``
+runs them.
+
+Each kernel module of ``posendf_torch.ops`` holds a plain PyTorch version
+of its kernel (``fused_posendf_forward_ref``, ``fused_distance_and_grad_ref``,
+``project_step_ref``); on a CPU tensor the wrappers run it. The CUDA kernels
+themselves run only on the card (``chip_smoke.py`` holds them to these plain
+versions there). Small widths, every activation, a ragged batch (150 is not a
+multiple of the JAX tile of 128) and a zero pose. Bars as in
+``tests/test_fused_grad.py``: 1e-5 on d and g, rtol 1e-4 / atol 1e-5 on
+projections.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+from jax.experimental.pallas import tpu as pltpu  # noqa: E402
+
+from posendf_tpu.models import PoseNDF as JaxPoseNDF  # noqa: E402
+from posendf_tpu.ops.fused_grad import fused_distance_and_grad as jax_vag  # noqa: E402
+from posendf_tpu.ops.fused_grad import fused_project as jax_project  # noqa: E402
+from posendf_tpu.ops.fused_model import fused_posendf_forward as jax_forward  # noqa: E402
+
+from posendf_torch import _build  # noqa: E402
+from posendf_torch.checkpoints import params_from_jax  # noqa: E402
+from posendf_torch.field import Field  # noqa: E402
+from posendf_torch.models import PoseNDF  # noqa: E402
+from posendf_torch.ops import fused_grad, fused_model  # noqa: E402
+from posendf_torch.ops.fused_model import FieldWeights  # noqa: E402
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+DIMS = (24, 32)
+ACTS = ["lrelu", "relu", "softplus"]
+B = 150
+TILE = 128
+
+
+def _poses(seed, n, zero_at=None):
+    q = np.random.default_rng(seed).normal(size=(n, 21, 4)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=-1, keepdims=True)
+    if zero_at is not None:
+        q[zero_at] = 0.0
+    return q
+
+
+@pytest.fixture(scope="module", params=ACTS)
+def pair(request):
+    """(activation, JAX params, port FieldWeights) with identical weights."""
+    act = request.param
+    jm = JaxPoseNDF(dfnet_dims=DIMS, activation=act)
+    params = jm.init(jax.random.key(1), jnp.zeros((1, 21, 4)))["params"]
+    params = jax.tree_util.tree_map(lambda a: np.asarray(a) * np.float32(2.0), params)
+    params["dfnet"]["b2"] = np.abs(params["dfnet"]["b2"]) + np.float32(0.2)
+    tm = PoseNDF(dfnet_dims=DIMS, activation=act)
+    tm.load_state_dict(params_from_jax(params))
+    return act, params, FieldWeights.from_module(tm)
+
+
+def _jax_kw(act, params):
+    return dict(enc_params=params["enc"], dfnet_params=params["dfnet"],
+                parents=JaxPoseNDF().parents, activation=act, beta=100.0, tile_b=TILE)
+
+
+def test_forward_ref_matches_jax_kernel(pair):
+    act, params, w = pair
+    q = _poses(0, B)
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(jax_forward(jnp.asarray(q), **_jax_kw(act, params)))
+    got = fused_model.fused_posendf_forward_ref(torch.from_numpy(q), w).detach().numpy()
+    assert np.abs(want).max() > 1e-3
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+
+
+def test_value_and_grad_ref_matches_jax_kernel(pair):
+    """Including a zero pose, where g = gx / 1e-12 is huge but finite in
+    both (hence the relative bar on that pose)."""
+    act, params, w = pair
+    q = _poses(1, B, zero_at=5)
+    with pltpu.force_tpu_interpret_mode():
+        d_want, g_want = map(np.asarray, jax_vag(jnp.asarray(q), **_jax_kw(act, params)))
+    d, g = fused_grad.fused_distance_and_grad_ref(torch.from_numpy(q), w)
+    d, g = d.detach().numpy(), g.detach().numpy()
+    np.testing.assert_allclose(d, d_want, atol=1e-5, rtol=0)
+    rows = np.arange(B) != 5
+    np.testing.assert_allclose(g[rows], g_want[rows], atol=1e-5, rtol=0)
+    np.testing.assert_allclose(g[5], g_want[5], rtol=1e-4, atol=1e-5)
+    assert np.isfinite(g).all()
+
+
+@pytest.mark.parametrize("mode", ["renorm", "no-renorm", "tangent", "scaled"])
+def test_project_matches_jax_kernel(mode):
+    """Every projection mode goes through the same step math (lrelu field)."""
+    jm = JaxPoseNDF(dfnet_dims=DIMS)
+    params = jm.init(jax.random.key(2), jnp.zeros((1, 21, 4)))["params"]
+    params = jax.tree_util.tree_map(lambda a: np.asarray(a) * np.float32(2.0), params)
+    params["dfnet"]["b2"] = np.abs(params["dfnet"]["b2"]) + np.float32(0.2)
+    tm = PoseNDF(dfnet_dims=DIMS)
+    tm.load_state_dict(params_from_jax(params))
+    kw = {"renorm": {}, "no-renorm": dict(renormalize=False),
+          "tangent": dict(tangent=True), "scaled": dict(step_scale=0.5)}[mode]
+    q = _poses(3, B)
+    with pltpu.force_tpu_interpret_mode():
+        out_want, hist_want = map(np.asarray, jax_project(
+            jnp.asarray(q), steps=3, **_jax_kw("lrelu", params), **kw))
+    out, hist = fused_grad.fused_project(torch.from_numpy(q), FieldWeights.from_module(tm),
+                                         steps=3, **kw)
+    assert hist.shape == (3, B) and out.shape == (B, 21, 4)
+    np.testing.assert_allclose(out.numpy(), out_want, rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(hist.numpy(), hist_want, rtol=1e-4, atol=1e-5)
+    one = fused_grad.project_step_ref(torch.from_numpy(q), FieldWeights.from_module(tm), **kw)
+    np.testing.assert_allclose(one[0][:, 0].detach().numpy(), hist_want[0], rtol=1e-4, atol=1e-5)
+
+
+def test_wrappers_run_the_plain_version_on_cpu(pair):
+    """CPU tensors take the plain versions and launch nothing; the forward
+    stays differentiable, with the module path's gradient."""
+    act, params, w = pair
+    q = torch.from_numpy(_poses(5, 33))
+    before = (fused_model.LAUNCHES, fused_grad.VAG_LAUNCHES, fused_grad.PROJ_LAUNCHES)
+    d = fused_model.fused_posendf_forward(q, w)
+    torch.testing.assert_close(d, fused_model.fused_posendf_forward_ref(q, w), rtol=0, atol=0)
+    dv, gv = fused_grad.fused_distance_and_grad(q, w)
+    d_ref, g_ref = fused_grad.fused_distance_and_grad_ref(q, w)
+    torch.testing.assert_close(gv, g_ref, rtol=0, atol=0)
+    assert not gv.requires_grad and not dv.requires_grad
+    ds, qs = fused_grad.project_step(q, w, tangent=True)
+    torch.testing.assert_close(qs, fused_grad.project_step_ref(q, w, tangent=True)[1],
+                               rtol=0, atol=0)
+    assert (fused_model.LAUNCHES, fused_grad.VAG_LAUNCHES, fused_grad.PROJ_LAUNCHES) == before
+
+    qq = q.clone().requires_grad_(True)
+    (g_fused,) = torch.autograd.grad(fused_model.fused_posendf_forward(qq, w).sum(), qq)
+    np.testing.assert_allclose(g_fused.numpy(), g_ref.detach().numpy(), atol=1e-5)
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take(pair):
+    _, _, w = pair
+    q = torch.from_numpy(_poses(6, 8))
+    with pytest.raises(TypeError, match="float32"):
+        fused_grad.fused_distance_and_grad(q.double(), w)
+    with pytest.raises(ValueError, match="shape"):
+        fused_model.fused_posendf_forward(q.reshape(8, 84), w)
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_grad.project_step(q.to("meta"), w)
+
+
+def test_packed_layout_is_what_the_kernels_read():
+    """The flat buffers the kernels index: per layer W (in, out), b, W^T at
+    16-byte aligned offsets, and the encoder's w1 | b1 | w2 | b2."""
+    tm = PoseNDF(dfnet_dims=(24, 32), generator=torch.Generator().manual_seed(0))
+    field = Field(tm)
+    pk = field.weights().packed()
+    assert pk.num_layers == 3 and pk.maxw == 126 and pk.zsum == 24 + 32
+    assert pk.meta.dtype == torch.int32 and pk.parents.tolist() == list(tm.parents)
+    for l, (w, b) in enumerate(tm.dfnet.layers()):
+        fan_in, fan_out, off_w, off_b, off_wt, off_z = pk.meta[l].tolist()
+        assert (fan_in, fan_out) == tuple(w.shape)
+        assert off_w % 4 == 0 and off_b % 4 == 0 and off_wt % 4 == 0
+        assert torch.equal(pk.dfw[off_w:off_w + w.numel()].view(fan_in, fan_out), w.detach())
+        assert torch.equal(pk.dfw[off_b:off_b + fan_out], b.detach())
+        assert torch.equal(pk.dfw[off_wt:off_wt + w.numel()].view(fan_out, fan_in),
+                           w.detach().t())
+        assert off_z == sum(x.shape[1] for x, _ in tm.dfnet.layers()[:l])
+    enc = torch.cat([p.detach().reshape(-1) for p in (tm.enc.w1, tm.enc.b1, tm.enc.w2,
+                                                      tm.enc.b2)])
+    assert torch.equal(pk.enc, enc)
+    # the cache follows in-place parameter updates
+    assert field.weights().packed() is pk
+    with torch.no_grad():
+        tm.dfnet.b0.add_(1.0)
+    assert field.weights().packed() is not pk
+
+
+def test_build_needs_nvcc_and_keys_on_the_source(monkeypatch):
+    """Without a CUDA toolkit the build raises (there is no CPU fallback for
+    a CUDA tensor); the kernel signatures cover every launcher."""
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(_build.os.path, "exists", lambda path: False)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        _build._nvcc()
+    src = _build.SOURCE.read_text()
+    for name in _build._SIGNATURES:
+        assert f"{name}(" in src, name
+    assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
+
+
+def test_fused_forward_backward_is_the_module_gradient():
+    """distance_fused's backward (the plain formula under autograd) gives the
+    module path's parameter and pose gradients, frozen parameters included."""
+    tm = PoseNDF(dfnet_dims=DIMS, activation="softplus",
+                 generator=torch.Generator().manual_seed(4))
+    field = Field(tm)
+    q = torch.from_numpy(_poses(9, 12))
+    field.distance_fused(q).sum().backward()
+    fused = {n: p.grad.clone() for n, p in tm.named_parameters()}
+    tm.zero_grad()
+    field.distance(q).sum().backward()
+    for n, p in tm.named_parameters():
+        torch.testing.assert_close(fused[n], p.grad, rtol=1e-5, atol=1e-7)
+    tm.zero_grad()
+    tm.enc.requires_grad_(False)
+    qq = q.clone().requires_grad_(True)
+    field.distance_fused(qq).sum().backward()
+    assert qq.grad is not None and tm.enc.w1.grad is None and tm.dfnet.w0.grad is not None

@@ -1,0 +1,128 @@
+"""The port's main path end to end against the JAX package.
+
+checkpoint -> ``load_field`` -> ``distance_and_grad`` -> ``project``
+(module path and ``fused=True``) -> ``cli generate``, on the CPU, where the
+fused paths run their kernels' plain versions. The trained full-width field
+``docs/quality/ckpt_l8_best.msgpack`` is held to the JAX-made values in
+``tests/data/torch_port_l8_expected.npz`` (``scripts/make_torch_port_golden.py``)
+-- the same file ``chip_smoke.py`` holds the CUDA kernels to -- and the small
+golden field to ``examples/golden/expected.npz``.
+"""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+import posendf_tpu  # noqa: E402
+from posendf_tpu.projection import project as jax_project  # noqa: E402
+
+import posendf_torch  # noqa: E402
+from posendf_torch import cli  # noqa: E402
+from posendf_torch.projection import make_projector, project, random_poses  # noqa: E402
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+L8 = os.path.join(ROOT, "docs", "quality", "ckpt_l8_best.msgpack")
+L8_EXPECTED = os.path.join(ROOT, "tests", "data", "torch_port_l8_expected.npz")
+GOLDEN = os.path.join(ROOT, "examples", "golden")
+PROJ = dict(rtol=1e-4, atol=1e-5)
+
+
+@pytest.fixture(scope="module")
+def l8():
+    return posendf_torch.load_field(L8), np.load(L8_EXPECTED)
+
+
+def test_import_loads_no_jax():
+    code = ("import sys, posendf_torch, posendf_torch.field, posendf_torch.projection, "
+            "posendf_torch.cli, posendf_torch.checkpoints\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "{'jax', 'jaxlib', 'flax', 'msgpack', 'yaml', 'posendf_tpu'})\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join([ROOT] + [p for p in [env.get("PYTHONPATH")] if p])
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+
+
+def test_l8_distance_and_grad_reproduce_jax(l8):
+    field, ref = l8
+    probes = torch.from_numpy(ref["probes"])
+    d, g = field.distance_and_grad(probes)
+    np.testing.assert_allclose(d.detach().numpy(), ref["dist"], atol=1e-5, rtol=0)
+    np.testing.assert_allclose(g.detach().numpy(), ref["grad"], atol=1e-5, rtol=0)
+    d, g = field.distance_and_grad_fused(probes)
+    np.testing.assert_allclose(d.numpy(), ref["dist"], atol=1e-5, rtol=0)
+    np.testing.assert_allclose(g.numpy(), ref["grad"], atol=1e-5, rtol=0)
+    np.testing.assert_allclose(field.distance_fused(probes).detach().numpy(), ref["dist"],
+                               atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_l8_projection_reproduces_jax(l8, fused):
+    field, ref = l8
+    steps = ref["proj_hist"].shape[0]
+    out, hist = project(field, torch.from_numpy(ref["probes"]), steps=steps, fused=fused)
+    np.testing.assert_allclose(out.numpy(), ref["proj_out"], **PROJ)
+    np.testing.assert_allclose(hist.numpy(), ref["proj_hist"], **PROJ)
+    assert hist[-1].mean() < hist[0].mean()
+
+
+def test_golden_field_reproduces_recorded_distances():
+    """The same bar as ``tests/test_golden.py`` holds the JAX package to."""
+    expected = np.load(os.path.join(GOLDEN, "expected.npz"))
+    field = posendf_torch.load_field(os.path.join(GOLDEN, "golden.msgpack"),
+                                     config=os.path.join(GOLDEN, "golden.yaml"))
+    probes = torch.from_numpy(expected["probes"])
+    d = field.distance(probes).detach().numpy()
+    np.testing.assert_allclose(d, expected["dist"], atol=2e-4, rtol=2e-4)
+    _, hist = project(field, probes[64:80], steps=20, fused=True)
+    assert float(hist[-1].mean()) < 0.5 * float(hist[0].mean())
+
+
+@pytest.mark.parametrize("mode", ["renorm", "no-renorm-fused"])
+def test_cli_generate_matches_jax(tmp_path, mode):
+    """``python -m posendf_torch.cli generate`` writes the poses it drew and
+    their projection; the JAX package projects the same poses alike."""
+    out = str(tmp_path / "gen.npz")
+    argv = ["generate", "--ckpt", os.path.join(GOLDEN, "golden.msgpack"),
+            "--config", os.path.join(GOLDEN, "golden.yaml"), "--num-poses", "24",
+            "--steps", "4", "--seed", "3", "--out", out]
+    if mode == "no-renorm-fused":
+        argv += ["--no-renorm", "--fused"]
+    cli.main(argv)
+    got = np.load(out)
+    jfield = posendf_tpu.load_field(os.path.join(GOLDEN, "golden.msgpack"),
+                                    config=os.path.join(GOLDEN, "golden.yaml"))
+    project_jit = jax.jit(jax_project, static_argnames=("module", "steps", "renormalize"))
+    want_out, want_hist = project_jit(jfield.module, jfield.params,
+                                      jnp.asarray(got["pose_init"]), steps=4,
+                                      renormalize=mode == "renorm")
+    np.testing.assert_allclose(got["pose"], np.asarray(want_out), **PROJ)
+    np.testing.assert_allclose(got["dist_history"], np.asarray(want_hist), **PROJ)
+
+
+def test_random_poses_and_projector():
+    a = random_poses(torch.Generator().manual_seed(5), 8)
+    b = random_poses(torch.Generator().manual_seed(5), 8, device="cpu")
+    assert a.shape == (8, 21, 4) and torch.equal(a, b)
+    torch.testing.assert_close(a.norm(dim=-1), torch.ones(8, 21))
+    field = posendf_torch.load_field(os.path.join(GOLDEN, "golden.msgpack"),
+                                     config=os.path.join(GOLDEN, "golden.yaml"))
+    out, hist = make_projector(field, steps=3, fused=True)(a)
+    ref_out, ref_hist = project(field, a, steps=3)
+    torch.testing.assert_close(out, ref_out, **PROJ)
+    torch.testing.assert_close(hist, ref_hist, **PROJ)
+    empty_out, empty_hist = project(field, a, steps=0, fused=True)
+    assert torch.equal(empty_out, a) and empty_hist.shape == (0, 8)
