@@ -1,10 +1,13 @@
 """Smoke run of the PyTorch port (``posendf_torch``) on one CUDA card.
 
-Drives the pose prior's main path through its hand-written CUDA kernels on
-the full-width trained field ``docs/quality/ckpt_l8_best.msgpack``:
+Drives the pose prior's main path and the training path through their
+hand-written CUDA kernels on the full-width trained field
+``docs/quality/ckpt_l8_best.msgpack``:
 
   1. device: requires CUDA; prints the card's name and power limit
-  2. build: compiles ``posendf_torch/csrc/field_kernels.cu`` with nvcc (timed)
+  2. build: compiles ``posendf_torch/csrc/field_kernels.cu`` and
+     ``train_kernels.cu`` with nvcc, one process each, from two threads at
+     once (timed)
   3. load: ``posendf_torch.load_field(ckpt, device="cuda")``
   4. kernel vs plain on the card, at B = 4096 and a ragged B = 1000:
      ``distance_fused`` vs ``distance``, ``distance_and_grad_fused`` vs
@@ -16,11 +19,47 @@ the full-width trained field ``docs/quality/ckpt_l8_best.msgpack``:
      200-step ``project(fused=True)`` of 10,000 random poses, with the
      kernels' launch counts set to 0 before and read after; then times
      (CUDA events, after warm-up) of each kernel and its plain version
+  7. train kernels vs plain on the card, at B = M = 4096 and a ragged
+     B = 1000, M = 700: the tile kernel and the reduction each against its
+     plain version on the same inputs, ``fused_train_grads`` against
+     ``manual_train_grads`` (every loss term and gradient leaf), two calls
+     bitwise equal; the encoder kernel against its plain version at
+     B = 131,072 and 1000
+  8. against the JAX package: the gradient at 2,048 + 2,048 poses and three
+     fused Adam steps vs ``tests/data/torch_port_train_expected.npz``
+  9. main path, training: a synthetic dataset, ``Trainer(device="cuda")`` at
+     the amass widths and learning rate with ``fused_grads`` and
+     ``live_head``, batch 4 x 5000, matched-head init,
+     ``fit`` for one epoch of 11 steps, the checkpoint reloaded with
+     ``load_field``, then 2 autodiff steps with ``strenc.fused``; the train
+     and encoder kernels' launch counts set to 0 before and read after
+ 10. at the main path's batch of 20,000 + 20,000 poses: the checks of phase 7
+     on it, and the encoder kernel vs its plain version on both its halves;
+     then times: the fused step vs the autodiff step, ``fused_train_grads`` vs
+     ``manual_train_grads``, each train kernel vs its plain version (the
+     reduction also vs ``torch.matmul``), and the encoder kernel vs its plain
+     version at 131,072
 
-Tolerances (those of ``tests/test_fused_grad.py``): d and g ``atol=1e-5``;
-projection ``rtol=1e-4, atol=1e-5`` -- fp32 sums of up to 1024 terms taken in
-another order. TF32 is off for matrix products and convolutions, so the plain
-path runs true fp32.
+Kernel and plain times are medians over rounds of plain, kernel, kernel,
+plain, each round a mean over a few calls; the log gives their ranges.
+
+Tolerances: d and g ``atol=1e-5``; projection ``rtol=1e-4, atol=1e-5`` (those
+of ``tests/test_fused_grad.py``: fp32 sums of up to 1024 terms taken in
+another order); the encoder ``atol=1e-6``. Training gradients: loss terms
+``rtol=1e-5``; each gradient leaf ``atol = 1e-4 x max|leaf|``, five times the
+CPU bar of ``tests/test_train_grad.py`` (2e-5), because each leaf here is a
+sum over up to 40,000 poses taken in another order, and an L1 or ReLU kink
+(a pose whose d lies within rounding of its label or of 0) flips one pose's
+term; measured up to 7.4e-6 x max|leaf| on an H100 at 20,000 + 20,000. Adam's steps move a weight by
+about lr wherever |g| is well above eps, and by a fraction of lr decided by
+the sums' order where g is near 0: after the steps every sampled weight is
+within 2 x steps x lr of JAX's and 99% within lr / 20. TF32 is off for matrix
+products and convolutions, so the plain path runs true fp32.
+
+Bounds (``bound_ms``): the larger of the operations over the fp32 CUDA-core
+peak (67 TFLOP/s) and the bytes (each input read once, each output written
+once) over the memory rate (3.35 TB/s) of an H100 SXM, counted from this
+run's shapes.
 
 Any failure raises, so the script exits nonzero and prints no result. The
 second-to-last line is a JSON object describing the kernels, the last line is
@@ -33,21 +72,29 @@ from __future__ import annotations
 
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 CKPT = "docs/quality/ckpt_l8_best.msgpack"
 EXPECTED = "tests/data/torch_port_l8_expected.npz"
+TRAIN_EXPECTED = "tests/data/torch_port_train_expected.npz"
 D_ATOL = 1e-5
 G_ATOL = 1e-5
 PROJ_RTOL, PROJ_ATOL = 1e-4, 1e-5
+ENC_ATOL = 1e-6
+TERM_RTOL = 1e-5
+LEAF_TOL = 1e-4      # x max|leaf|; the reason is in the module docstring
 MAIN_BATCH, MAIN_STEPS = 10_000, 200
 SERVE_BATCH = 131_072
+TRAIN_FILES, TRAIN_PTS = 4, 5000       # the reference batch: 4 files x 5000 poses
 SEED = 0
+PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12  # H100 SXM: fp32 CUDA cores, HBM3
 
 
 def log(*args) -> None:
@@ -74,10 +121,12 @@ def assert_close(name: str, got: torch.Tensor, want: torch.Tensor, *, rtol: floa
     return float(err.max())
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean milliseconds per call over ``reps`` calls, after one warm-up."""
-    fn()
-    torch.cuda.synchronize()
+def cuda_ms(fn, reps: int, warm: bool = True) -> float:
+    """Mean milliseconds per call over ``reps`` calls, after one warm-up
+    call unless ``warm`` is false."""
+    if warm:
+        fn()
+        torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -88,13 +137,58 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def interleaved_ms(kernel, plain, reps: int):
-    """(kernel ms, plain ms), timed in turns plain, kernel, kernel, plain."""
-    p1 = cuda_ms(plain, reps)
-    k1 = cuda_ms(kernel, reps)
-    k2 = cuda_ms(kernel, reps)
-    p2 = cuda_ms(plain, reps)
-    return (k1 + k2) / 2, (p1 + p2) / 2
+def bound(flops: float, nbytes: float):
+    """(least milliseconds, what bounds them) for work of ``flops`` operations
+    moving ``nbytes`` bytes."""
+    t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def golden_inputs(seed: int, rows: int):
+    """The poses and labels of ``scripts/make_torch_port_train_golden.py``
+    (its ``make_inputs``): per-joint unit quaternions from a normal draw,
+    labels |N(0, 0.1^2)|."""
+    rng = np.random.default_rng(seed)
+
+    def unit(n):
+        q = rng.normal(size=(n, 21, 4)).astype(np.float32)
+        return q / np.linalg.norm(q, axis=-1, keepdims=True)
+
+    pose = unit(rows)
+    dist = (np.abs(rng.normal(size=rows)) * 0.1).astype(np.float32)
+    return pose, dist, unit(rows)
+
+
+def assert_leaves(name: str, got: dict, want: dict, tol: float = LEAF_TOL) -> float:
+    """Every gradient leaf within ``tol`` x its max |value|; returns the
+    largest error relative to that scale."""
+    worst = 0.0
+    for k, w in want.items():
+        scale = max(float(w.abs().max()), 1e-30)
+        err = float((got[k].detach() - w.detach()).abs().max())
+        if not bool(torch.isfinite(got[k]).all()) or err > tol * scale:
+            raise AssertionError(f"{name} {k}: max |err| {err:.3e} > {tol} x {scale:.3e}")
+        worst = max(worst, err / scale)
+    log(f"  ok {name}: largest error {worst:.3e} x max|leaf|")
+    return worst
+
+
+def interleaved_ms(name: str, kernel, plain, reps: int, rounds: int = 5):
+    """(kernel ms, plain ms): the medians of ``rounds`` rounds that each time
+    ``reps`` calls of plain, kernel, kernel, plain, after one warm-up call of
+    each. Logs both medians with their ranges."""
+    kernel()
+    plain()
+    torch.cuda.synchronize()
+    ks, ps = [], []
+    for _ in range(rounds):
+        ps.append(cuda_ms(plain, reps, warm=False))
+        ks.extend(cuda_ms(kernel, reps, warm=False) for _ in range(2))
+        ps.append(cuda_ms(plain, reps, warm=False))
+    k, p = statistics.median(ks), statistics.median(ps)
+    log(f"  time {name}: kernel {k:.4f} ms ({min(ks):.4f}-{max(ks):.4f}), plain {p:.4f} ms "
+        f"({min(ps):.4f}-{max(ps):.4f}); medians (ranges) of {2 * rounds} x {reps} calls")
+    return k, p
 
 
 def main() -> None:
@@ -115,12 +209,15 @@ def main() -> None:
 
     # ---- 2. build ----
     t0 = time.perf_counter()
-    info = _build.build_info()
-    log(f"build: {info['path']} compiled={info['built']} nvcc {info['seconds']:.1f} s, "
-        f"total {time.perf_counter() - t0:.1f} s")
-    for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
-            log("  " + line.strip())
+    with ThreadPoolExecutor(len(_build.SOURCES)) as pool:   # one nvcc per source, all at once
+        list(pool.map(_build.library, _build.SOURCES))
+    log(f"build: {len(_build.SOURCES)} sources, {time.perf_counter() - t0:.1f} s")
+    for name in _build.SOURCES:
+        info = _build.build_info(name)
+        log(f"  {info['path']} compiled={info['built']} nvcc {info['seconds']:.1f} s")
+        for line in info["log"].splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                log("    " + line.strip())
 
     # ---- 3. load ----
     field = posendf_torch.load_field(CKPT, device="cuda")
@@ -232,16 +329,16 @@ def main() -> None:
     serve = random_poses(gen, SERVE_BATCH, device="cuda")
     with torch.no_grad():
         fwd_ms, fwd_plain_ms = interleaved_ms(
-            lambda: field.distance_fused(poses),
+            f"forward B={MAIN_BATCH}", lambda: field.distance_fused(poses),
             lambda: fused_model.fused_posendf_forward_ref(poses, w), 20)
         fwd_big_ms, fwd_big_plain_ms = interleaved_ms(
-            lambda: field.distance_fused(serve),
+            f"forward B={SERVE_BATCH}", lambda: field.distance_fused(serve),
             lambda: fused_model.fused_posendf_forward_ref(serve, w), 5)
         vag_ms, vag_plain_ms = interleaved_ms(
-            lambda: field.distance_and_grad_fused(poses),
+            f"value-and-grad B={MAIN_BATCH}", lambda: field.distance_and_grad_fused(poses),
             lambda: fused_grad.fused_distance_and_grad_ref(poses, w), 20)
         proj_ms, proj_plain_ms_step = interleaved_ms(
-            lambda: fused_grad.project_step(poses, w),
+            f"projection step B={MAIN_BATCH}", lambda: fused_grad.project_step(poses, w),
             lambda: fused_grad.project_step_ref(poses, w), 20)
         fwd_mod_ms = cuda_ms(lambda: field.distance(poses), 20)
     vag_mod_ms = cuda_ms(lambda: field.distance_and_grad(poses), 20)
@@ -255,22 +352,357 @@ def main() -> None:
     log(f"projection step B={MAIN_BATCH}: kernel {proj_ms:.4f} ms, plain "
         f"{proj_plain_ms_step:.4f} ms  [{card}]")
 
+    train = train_phases(field, card)
+
+    # bounds of the serving kernels at the main path's shapes
+    flop = traversal_flops(w)
+    param_bytes = 4 * sum(p.numel() for p in field.module.parameters())
+    pose_bytes = 4 * 21 * 4 * MAIN_BATCH
+    fwd_bound = bound(flop * MAIN_BATCH, pose_bytes + 4 * MAIN_BATCH + param_bytes)
+    vag_bound = bound(2 * flop * MAIN_BATCH, 2 * pose_bytes + 4 * MAIN_BATCH + param_bytes)
+    big_bound = bound(flop * SERVE_BATCH, 4 * SERVE_BATCH * (21 * 4 + 1) + param_bytes)
+    log(f"bounds: {flop} operations a pose a pass; forward {fwd_bound[0]:.4f} ms at "
+        f"{MAIN_BATCH} and {big_bound[0]:.4f} ms at {SERVE_BATCH}, value-and-grad and projection "
+        f"step {vag_bound[0]:.4f} ms at {MAIN_BATCH} (all bound by {fwd_bound[1]})")
     src = "posendf_torch/csrc/field_kernels.cu"
     kernels = [
         {"name": "posendf_forward", "route": "cuda", "source": src,
          "replaces": "posendf_tpu/ops/fused_model.py:38", "launches": launches["fwd"],
-         "max_abs_err": errs["fwd"], "ms": fwd_ms, "plain_ms": fwd_plain_ms},
+         "max_abs_err": errs["fwd"], "ms": fwd_ms, "plain_ms": fwd_plain_ms,
+         "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1], "library_ms": None},
         {"name": "posendf_value_and_grad", "route": "cuda", "source": src,
          "replaces": "posendf_tpu/ops/fused_grad.py:229", "launches": launches["vag"],
-         "max_abs_err": errs["vag"], "ms": vag_ms, "plain_ms": vag_plain_ms},
+         "max_abs_err": errs["vag"], "ms": vag_ms, "plain_ms": vag_plain_ms,
+         "bound_ms": vag_bound[0], "bound_by": vag_bound[1], "library_ms": None},
         {"name": "posendf_project_step", "route": "cuda", "source": src,
          "replaces": "posendf_tpu/ops/fused_grad.py:245", "launches": launches["proj"],
-         "max_abs_err": errs["proj"], "ms": proj_ms, "plain_ms": proj_plain_ms_step},
-    ]
+         "max_abs_err": errs["proj"], "ms": proj_ms, "plain_ms": proj_plain_ms_step,
+         "bound_ms": vag_bound[0], "bound_by": vag_bound[1], "library_ms": None},
+    ] + train
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": torch.cuda.get_device_name(0),
                                               "count": torch.cuda.device_count()}}), flush=True)
+
+
+def traversal_flops(w) -> int:
+    """Operations of one pass of one pose through the network: two per
+    multiply-add of the encoder's and the DFNet's weights."""
+    E, F = 4 + w.feature_size, w.feature_size
+    return 2 * (w.num_joints * (E * E + E * F) + sum(wl.numel() for wl, _ in w.layers))
+
+
+def train_phases(field, card: str) -> list:
+    """Phases 7-10; returns the train and encoder kernels' JSON entries."""
+    import copy
+    import tempfile
+
+    from posendf_torch import load_field
+    from posendf_torch.data.pipeline import TrainingBatcher
+    from posendf_torch.data.splits import AMASS_SPLITS
+    from posendf_torch.data.synthetic import write_synthetic_dataset
+    from posendf_torch.models.encoder import structure_encoder_apply
+    from posendf_torch.ops import fused_encoder, fused_train
+    from posendf_torch.ops.fused_model import FieldWeights
+    from posendf_torch.ops.train_grad import manual_train_grads
+    from posendf_torch.projection import random_poses
+    from posendf_torch.training.trainer import Trainer, make_optimizer, make_train_step
+
+    module = field.module
+    w = field.weights()
+    gen = torch.Generator().manual_seed(SEED + 1)
+    errs = {"tile": 0.0, "reduce": 0.0, "enc": 0.0}
+
+    def batch_on_card(rows_n, rows_m, seed):
+        pose, dist, man = golden_inputs(seed, max(rows_n, rows_m))
+        return (torch.from_numpy(pose[:rows_n]).cuda(), torch.from_numpy(dist[:rows_n]).cuda(),
+                torch.from_numpy(man[:rows_m]).cuda())
+
+    def check_train_kernels(pose, dist, man, kw) -> None:
+        """The tile kernel and the reduction each against its plain version on
+        the same inputs, ``fused_train_grads`` against ``manual_train_grads``
+        (every loss term and gradient leaf), and two calls bitwise equal."""
+        kw_n, kw_m = fused_train.branch_args(w, pose, dist, man, **kw)
+        tiles = (fused_train.launch_tile(w, pose, dist, **kw_n),
+                 fused_train.launch_tile(w, man, None, **kw_m))
+        rows_k = [t.branch_rows(w) for t in tiles]
+        with torch.no_grad():
+            plain = (fused_train.branch_ref(w, pose, dist, **kw_n),
+                     fused_train.branch_ref(w, man, torch.zeros_like(man[:, 0, 0]), **kw_m))
+            g_pp, l_pp = fused_train.reduce_ref(w, *plain)
+            del plain
+            g_kp, l_kp = fused_train.reduce_ref(w, *rows_k)
+        flat, l_kk = fused_train.launch_reduce(w, *tiles)
+        del tiles, rows_k
+        g_kk, off = {}, 0
+        for k, v in g_pp.items():            # the flat layout: encoder, then per layer W, b
+            g_kk[k] = flat[off:off + v.numel()].view(v.shape)
+            off += v.numel()
+        # the tile kernel: its rows and the plain rows through the same (plain) reduction
+        assert_leaves("tile kernel vs branch_ref (plain reduction of both)", g_kp, g_pp)
+        assert_close("tile kernel loss sums vs branch_ref", l_kp, l_pp, rtol=TERM_RTOL, atol=0.0)
+        errs["tile"] = max(errs["tile"], max(float((g_kp[k] - g_pp[k]).abs().max()) for k in g_pp))
+        # the reduction: the kernel's rows through both reductions
+        assert_leaves("reduce kernel vs reduce_ref (same rows)", g_kk, g_kp)
+        assert_close("reduce kernel loss sums vs reduce_ref", l_kk, l_kp, rtol=1e-6, atol=0.0)
+        errs["reduce"] = max(errs["reduce"],
+                             max(float((g_kk[k] - g_kp[k]).abs().max()) for k in g_kp))
+        # the whole gradient against manual_train_grads, and a repeat
+        t_k, te_k, g_k = fused_train.fused_train_grads(w, pose, dist, man, **kw)
+        t_r, te_r, g_r = fused_train.fused_train_grads(w, pose, dist, man, **kw)
+        if not (torch.equal(t_k, t_r) and all(torch.equal(g_k[k], g_r[k]) for k in g_k)):
+            raise AssertionError("two calls of fused_train_grads differ")
+        log("  ok two calls of fused_train_grads: the same bits")
+        del t_r, te_r, g_r
+        t_m, te_m, g_m = manual_train_grads(sd, pose, dist, man, parents=module.parents,
+                                            activation=module.activation, **kw)
+        for k in te_m:
+            assert_close(f"term {k} vs manual_train_grads", te_k[k], te_m[k], rtol=TERM_RTOL,
+                         atol=0.0)
+        assert_leaves("fused_train_grads vs manual_train_grads", g_k, g_m)
+
+    def check_encoder(q) -> None:
+        e = module.enc
+        with torch.no_grad():
+            got = fused_encoder.fused_structure_encoder(q, e.w1, e.b1, e.w2, e.b2,
+                                                        parents=module.parents,
+                                                        activation=module.activation)
+            want = structure_encoder_apply(q, e.w1, e.b1, e.w2, e.b2, parents=module.parents,
+                                           activation=module.activation)
+        errs["enc"] = max(errs["enc"], assert_close(f"encoder kernel vs plain, B = {q.shape[0]}",
+                                                    got, want, atol=ENC_ATOL))
+
+    # ---- 7. train kernels vs plain on the card ----
+    sd = dict(module.state_dict())
+    for (B, M), loss_type in (((4096, 4096), "l1"), ((1000, 700), "l2")):
+        log(f"train kernels vs plain, B = {B}, M = {M}, {loss_type}")
+        pose, dist, man = batch_on_card(B, M, SEED + 7 + B)
+        check_train_kernels(pose, dist, man, dict(loss_type=loss_type, weight_dist=0.7,
+                                                  weight_man=1.3, weight_eikonal=0.9))
+    for B in (SERVE_BATCH, 1000):
+        check_encoder(random_poses(gen, B, device="cuda"))
+
+    # ---- 8. against the JAX package ----
+    ref = np.load(TRAIN_EXPECTED)
+    seed, rows, steps = int(ref["seed"]), int(ref["rows"]), int(ref["steps"])
+    log(f"train kernels vs the JAX package ({TRAIN_EXPECTED}, {rows} + {rows} poses)")
+    pose, dist, man = batch_on_card(rows, rows, seed)
+    total, terms, grads = fused_train.fused_train_grads(w, pose, dist, man)
+    assert_close("total vs JAX", total, torch.tensor(float(ref["grad_total"])), rtol=TERM_RTOL,
+                 atol=0.0)
+    for k in terms:
+        assert_close(f"term {k} vs JAX", terms[k], torch.tensor(float(ref[f"grad_term_{k}"])),
+                     rtol=TERM_RTOL, atol=0.0)
+    check_summaries("gradient", "grad", grads, ref)
+    trained = load_field(CKPT, device="cuda").module
+    lr = float(ref["lr"])
+    step = make_train_step(trained, make_optimizer(trained.parameters(), lr,
+                                                   float(ref["weight_decay"])),
+                           loss_type="l1", weights={"dist": 1.0, "man_loss": 1.0, "eikonal": 1.0},
+                           fused=True)
+    for s_ in range(steps):
+        b_pose, b_dist, b_man = batch_on_card(rows, rows, seed + 1 + s_)
+        m = step({"pose": b_pose, "dist": b_dist, "man_poses": b_man})
+        for i, k in enumerate(("total", "dist", "man_loss", "eikonal")):
+            assert_close(f"step {s_} {k} vs JAX", m[k], torch.tensor(ref["step_terms"][s_, i]),
+                         rtol=TERM_RTOL, atol=0.0)
+    worst = 0.0
+    for k, v in trained.state_dict().items():
+        a = v.double().reshape(-1).cpu()
+        err = np.abs(a[torch.from_numpy(ref[f"idx_{k}"]).long()].numpy() - ref[f"param_at_{k}"])
+        if not (err.max() <= 2 * steps * lr and np.mean(err > lr / 20) <= 0.01):
+            raise AssertionError(f"weights after {steps} steps, {k}: max |err| {err.max():.3e}, "
+                                 f"{np.mean(err > lr / 20):.4f} of them above lr / 20")
+        worst = max(worst, float(err.max()))
+    log(f"  ok weights after {steps} fused Adam steps vs JAX: max |err| {worst:.3e} "
+        f"(lr {lr})")
+
+    # ---- 9. main path: training ----
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        labeled, amass = write_synthetic_dataset(
+            os.path.join(tmp, "data"), subsets=AMASS_SPLITS["train"], seqs_per_subset=4,
+            poses_per_seq=128, queries_per_seq=64, seed=SEED)
+        from posendf_torch.config import PoseNDFConfig
+
+        cfg = PoseNDFConfig()
+        cfg.data.data_dir, cfg.data.amass_dir = labeled, amass
+        cfg.experiment.root_dir = os.path.join(tmp, "runs")
+        cfg.dfnet.live_head = True
+        cfg.train.fused_grads = True
+        cfg.train.batch_size, cfg.train.num_pts = TRAIN_FILES, TRAIN_PTS
+        batcher = TrainingBatcher(labeled, amass, batch_size=TRAIN_FILES, num_pts=TRAIN_PTS,
+                                  seed=SEED)
+        log(f"main path, training: {len(batcher.labeled)} labelled files, {len(batcher)} steps "
+            f"of {TRAIN_FILES} x {TRAIN_PTS} poses; data made in "
+            f"{time.perf_counter() - t0:.1f} s")
+        fused_train.TILE_LAUNCHES = fused_train.REDUCE_LAUNCHES = fused_encoder.LAUNCHES = 0
+        t0 = time.perf_counter()
+        trainer = Trainer(cfg, device="cuda")
+        stats = trainer.matched_head_init(batcher.sample_batch())
+        before = {k: v.clone() for k, v in trainer.module.state_dict().items()}
+        trainer.fit(batcher, epochs=1)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        rec = [json.loads(x) for x in open(os.path.join(trainer.exp_dir, "metrics.jsonl"))][-1]
+        # strenc.fused: autodiff steps through the encoder kernel
+        cfg2 = copy.deepcopy(cfg)
+        cfg2.strenc.fused, cfg2.train.fused_grads = True, False
+        cfg2.experiment.root_dir = os.path.join(tmp, "runs_enc")
+        enc_trainer = Trainer(cfg2, device="cuda")
+        enc_metrics = [enc_trainer.train_step(batcher.sample_batch()) for _ in range(2)]
+        torch.cuda.synchronize()
+        launches = {"tile": fused_train.TILE_LAUNCHES, "reduce": fused_train.REDUCE_LAUNCHES,
+                    "enc": fused_encoder.LAUNCHES}
+        log(f"  matched-head init {stats}")
+        log(f"  1 epoch, {len(batcher)} fused steps in {fit_s:.3f} s (first run, build and "
+            f"data included): {rec}  [{card}]")
+        log(f"  launches {launches}")
+        for name, n in launches.items():
+            if n <= 0:
+                raise AssertionError(f"the training path launched no {name} kernel")
+        if launches["reduce"] != len(batcher) or launches["tile"] != 2 * len(batcher):
+            raise AssertionError(f"expected {len(batcher)} fused steps, launches {launches}")
+        for k in ("train/total", "train/dist", "train/man_loss", "train/eikonal"):
+            if not np.isfinite(rec[k]):
+                raise AssertionError(f"training gave a non-finite {k}")
+        for m in enc_metrics:
+            if not all(bool(torch.isfinite(v)) for v in m.values()):
+                raise AssertionError("an autodiff step with strenc.fused gave a non-finite loss")
+        moved = sum(int((v != before[k]).sum()) for k, v in trainer.module.state_dict().items())
+        if moved == 0:
+            raise AssertionError("training did not move the weights")
+        log(f"  {moved} weights moved; strenc.fused autodiff losses "
+            f"{[round(float(m['total']), 6) for m in enc_metrics]}")
+        reloaded = load_field(trainer.store.directory, config=cfg, device="cuda")
+        q = random_poses(gen, 1000, device="cuda")
+        with torch.no_grad():
+            assert_close("reloaded checkpoint d vs the trained module", reloaded.distance(q),
+                         trainer.module(q), atol=1e-6)
+        batch = {k: torch.from_numpy(v).cuda() for k, v in batcher.sample_batch().items()}
+        with torch.no_grad():
+            live = (float((trainer.module(batch["pose"]) > 0).float().mean()),
+                    float((trainer.module(batch["man_poses"], False) > 0).float().mean()))
+        log(f"  after training, d > 0 on {live[0]:.4f} of the noisy poses and {live[1]:.4f} of "
+            "the manifold poses of a batch")
+        if live[0] == 0.0:
+            raise AssertionError("the trained field is 0 on every noisy pose")
+
+    # ---- 10. checks and times at the main path's batch, 20,000 + 20,000 poses ----
+    pose, dist, man = batch["pose"], batch["dist"], batch["man_poses"]
+    B, M = pose.shape[0], man.shape[0]
+    kw = dict(loss_type="l1", weight_dist=1.0, weight_man=1.0, weight_eikonal=1.0)
+    log(f"train kernels vs plain at the main path's batch, B = {B}, M = {M}")
+    check_train_kernels(pose, dist, man, kw)
+    check_encoder(pose)
+    check_encoder(man)
+
+    timed = copy.deepcopy(module)
+    opt = make_optimizer(timed.parameters(), 1e-9)
+    weights = {"dist": 1.0, "man_loss": 1.0, "eikonal": 1.0}
+    step_f = make_train_step(timed, opt, loss_type="l1", weights=weights, fused=True)
+    step_a = make_train_step(timed, opt, loss_type="l1", weights=weights, fused=False)
+    b = {"pose": pose, "dist": dist, "man_poses": man}
+    fused_step_ms, auto_step_ms = interleaved_ms("train step: fused vs autodiff",
+                                                 lambda: step_f(b), lambda: step_a(b), 3)
+    grads_ms, manual_ms = interleaved_ms(
+        "gradient: fused_train_grads vs manual_train_grads",
+        lambda: fused_train.fused_train_grads(w, pose, dist, man, **kw),
+        lambda: manual_train_grads(sd, pose, dist, man, parents=module.parents,
+                                   activation=module.activation, **kw), 3)
+    kw_n, kw_m = fused_train.branch_args(w, pose, dist, man, **kw)
+    zeros = torch.zeros_like(man[:, 0, 0])
+    tiles = []
+
+    def tile_kernel():
+        tiles[:] = [fused_train.launch_tile(w, pose, dist, **kw_n),
+                    fused_train.launch_tile(w, man, None, **kw_m)]
+
+    def tile_plain():
+        with torch.no_grad():
+            fused_train.branch_ref(w, pose, dist, **kw_n)
+            fused_train.branch_ref(w, man, zeros, **kw_m)
+
+    tile_ms, tile_plain_ms = interleaved_ms("tile kernel, both branches", tile_kernel,
+                                            tile_plain, 3)
+    rows = [t.branch_rows(w) for t in tiles]
+    stacked = [(torch.cat([torch.cat([rows[0].a[l], rows[1].a[l]]),
+                           torch.cat([rows[0].dd, rows[1].dd])[:, None]], dim=1),
+                torch.cat([rows[0].c[l], rows[1].c[l]])) for l in range(len(w.layers))]
+
+    def library():
+        for a, c in stacked:
+            torch.matmul(a.T, c)
+
+    with torch.no_grad():
+        reduce_ms, reduce_plain_ms = interleaved_ms(
+            "reduction", lambda: fused_train.launch_reduce(w, *tiles),
+            lambda: fused_train.reduce_ref(w, *rows), 5)
+        library_ms = cuda_ms(library, 5)
+        serve = random_poses(gen, SERVE_BATCH, device="cuda")
+        e = module.enc
+        enc_ms, enc_plain_ms = interleaved_ms(
+            f"encoder B={SERVE_BATCH}",
+            lambda: fused_encoder.fused_structure_encoder(serve, e.w1, e.b1, e.w2, e.b2,
+                                                          parents=module.parents),
+            lambda: structure_encoder_apply(serve, e.w1, e.b1, e.w2, e.b2,
+                                            parents=module.parents), 20)
+    log(f"train step, {B} + {M} poses: fused {fused_step_ms:.4f} ms, autodiff "
+        f"{auto_step_ms:.4f} ms; gradient alone: fused_train_grads {grads_ms:.4f} ms, "
+        f"manual_train_grads {manual_ms:.4f} ms  [{card}]")
+    log(f"  tile kernel (both branches) {tile_ms:.4f} ms, plain {tile_plain_ms:.4f} ms; "
+        f"reduction {reduce_ms:.4f} ms, plain {reduce_plain_ms:.4f} ms, torch.matmul per layer "
+        f"{library_ms:.4f} ms  [{card}]")
+    log(f"encoder B={SERVE_BATCH}: kernel {enc_ms:.4f} ms, plain {enc_plain_ms:.4f} ms  [{card}]")
+
+    flop = traversal_flops(w)
+    ins = sum(wl.shape[0] for wl, _ in w.layers)
+    outs = sum(wl.shape[1] for wl, _ in w.layers)
+    nenc = sum(v.numel() for v in w.enc.values())
+    nparam = sum(p.numel() for p in module.parameters())
+    slots = (-(-B // 16) + -(-M // 16)) * (nenc + 2)
+    scratch = (B + M) * (ins + outs + 1)
+    tile_bound = bound((3 * B + 2 * M) * flop,
+                       4 * ((B + M) * 84 + B + nparam + scratch + slots))
+    reduce_bound = bound(2 * (B + M) * sum((wl.shape[0] + 1) * wl.shape[1] for wl, _ in w.layers)
+                         + 2 * slots, 4 * (scratch + slots + nparam + 3))
+    E = 4 + w.feature_size
+    enc_bound = bound(SERVE_BATCH * 2 * w.num_joints * (E * E + E * w.feature_size),
+                      4 * (SERVE_BATCH * 21 * (4 + w.feature_size) + nenc))
+    src = "posendf_torch/csrc/train_kernels.cu"
+    return [
+        {"name": "posendf_encoder", "route": "cuda", "source": src,
+         "replaces": "posendf_tpu/ops/fused_encoder.py:46", "launches": launches["enc"],
+         "max_abs_err": errs["enc"], "ms": enc_ms, "plain_ms": enc_plain_ms,
+         "bound_ms": enc_bound[0], "bound_by": enc_bound[1], "library_ms": None},
+        {"name": "posendf_train_tile", "route": "cuda", "source": src,
+         "replaces": "posendf_tpu/ops/fused_train.py:78", "launches": launches["tile"],
+         "max_abs_err": errs["tile"], "ms": tile_ms, "plain_ms": tile_plain_ms,
+         "bound_ms": tile_bound[0], "bound_by": tile_bound[1], "library_ms": None},
+        {"name": "posendf_train_reduce", "route": "cuda", "source": src,
+         "replaces": "posendf_tpu/ops/fused_train.py:78", "launches": launches["reduce"],
+         "max_abs_err": errs["reduce"], "ms": reduce_ms, "plain_ms": reduce_plain_ms,
+         "bound_ms": reduce_bound[0], "bound_by": reduce_bound[1], "library_ms": library_ms},
+    ]
+
+
+def check_summaries(what: str, prefix: str, leaves: dict, ref) -> None:
+    """Each leaf's sum (to LEAF_TOL x sum|leaf|), L2 norm (rtol LEAF_TOL) and
+    sampled values (LEAF_TOL x max|leaf|) against the JAX-made file."""
+    worst = 0.0
+    for k, v in leaves.items():
+        a = v.detach().double().reshape(-1).cpu()
+        scale = float(ref[f"{prefix}_max_{k}"])
+        errs = (abs(float(a.sum()) - float(ref[f"{prefix}_sum_{k}"]))
+                / float(ref[f"{prefix}_abssum_{k}"]),
+                abs(float(a.norm()) - float(ref[f"{prefix}_norm_{k}"]))
+                / float(ref[f"{prefix}_norm_{k}"]),
+                float(np.abs(a[torch.from_numpy(ref[f"idx_{k}"]).long()].numpy()
+                             - ref[f"{prefix}_at_{k}"]).max()) / scale)
+        if max(errs) > LEAF_TOL:
+            raise AssertionError(f"{what} {k} vs JAX: sum, norm, samples off by {errs}")
+        worst = max(worst, *errs)
+    log(f"  ok {what} vs JAX: largest relative error {worst:.3e}")
 
 
 if __name__ == "__main__":

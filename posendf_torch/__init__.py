@@ -2,10 +2,11 @@
 
 A port of ``posendf_tpu`` (the JAX package, which stays the reference):
 the pose prior's main path, from a checkpoint to d(q), grad d(q) and the
-manifold projection. Imports ``torch`` and never ``jax``.
+manifold projection, and its training (``posendf_torch.training``).
+Imports ``torch`` and never ``jax``.
 
     import posendf_torch
-    field = posendf_torch.load_field("docs/quality/ckpt_l8_best.msgpack", device="cuda")
+    field = posendf_torch.load_field("docs/quality/ckpt_l8_best.msgpack")   # on the card
     d, g = field.distance_and_grad_fused(poses)          # (B, 21, 4) -> (B, 1), (B, 21, 4)
     out, hist = posendf_torch.project(field, poses, steps=200, fused=True)
 """

@@ -1,12 +1,18 @@
 """Build the CUDA kernels with ``nvcc`` at first use and bind them with ctypes.
 
-``csrc/field_kernels.cu`` has a plain C interface and includes no PyTorch
-header, so it compiles in seconds. The shared library goes to
-``build/posendf_torch/field_kernels_<hash>.so`` under the repository root,
-keyed by a hash of the source and the compiler flags: an edited source is
-rebuilt, an unchanged one is loaded as it is. Pointers and the CUDA stream
-are passed as ``c_void_p``; each launcher returns ``cudaGetLastError()``,
-and :func:`check` raises on any nonzero value.
+Each source in ``csrc/`` has a plain C interface and includes no PyTorch
+header, so it compiles in seconds:
+
+  ``field``  ``csrc/field_kernels.cu``  forward, value-and-grad, projection step
+  ``train``  ``csrc/train_kernels.cu``  encoder, training gradient (tile + reduction)
+
+Both include ``csrc/common.cuh``. A library goes to
+``build/posendf_torch/<name>_<hash>.so`` under the repository root, keyed by
+a hash of its source, the header and the compiler flags: an edited source is
+rebuilt, an unchanged one is loaded as it is. Different libraries may be
+built at once from several threads. Pointers and the CUDA stream are
+passed as ``c_void_p``; each launcher returns ``cudaGetLastError()``, and
+:func:`check` raises on any nonzero value.
 """
 
 from __future__ import annotations
@@ -19,13 +25,16 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+from typing import Dict
 
-__all__ = ["library", "check", "build_info", "SOURCE", "ACT_CODES"]
+__all__ = ["library", "check", "build_info", "SOURCES", "ACT_CODES"]
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "field_kernels.cu"
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = {"field": CSRC / "field_kernels.cu", "train": CSRC / "train_kernels.cu"}
+HEADERS = [CSRC / "common.cuh"]
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "posendf_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-I", str(CSRC)]
 
 # activation codes of the kernels' `act` argument
 ACT_CODES = {"lrelu": 0, "relu": 1, "softplus": 2}
@@ -34,18 +43,36 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # (pose, B, enc, parents, J, F, dfw, meta, L, maxw, zsum, act, beta, ...)
 _COMMON = [_P, _I, _P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _F]
 _SIGNATURES = {
-    # ..., d_out, stream
-    "posendf_forward": (_COMMON + [_P, _P], _I),
-    # ..., d_out, g_out, zscratch, stream
-    "posendf_value_and_grad": (_COMMON + [_P, _P, _P, _P], _I),
-    # ..., d_out, q_out, zscratch, step_scale, tangent, renormalize, stream
-    "posendf_project_step": (_COMMON + [_P, _P, _P, _F, _I, _I, _P], _I),
-    # (J, F, L, maxw) -> dynamic shared memory bytes of one block
-    "posendf_smem_bytes": ([_I, _I, _I, _I], _I),
-    "posendf_error_string": ([_I], ctypes.c_char_p),
+    "field": {
+        # ..., d_out, stream
+        "posendf_forward": (_COMMON + [_P, _P], _I),
+        # ..., d_out, g_out, zscratch, stream
+        "posendf_value_and_grad": (_COMMON + [_P, _P, _P, _P], _I),
+        # ..., d_out, q_out, zscratch, step_scale, tangent, renormalize, stream
+        "posendf_project_step": (_COMMON + [_P, _P, _P, _F, _I, _I, _P], _I),
+        # (J, F, L, maxw) -> dynamic shared memory bytes of one block
+        "posendf_smem_bytes": ([_I, _I, _I, _I], _I),
+        "posendf_error_string": ([_I], ctypes.c_char_p),
+    },
+    "train": {
+        # quat, B, enc, parents, J, F, act, beta, out, stream
+        "posendf_encoder": ([_P, _I, _P, _P, _I, _I, _I, _F, _P, _P], _I),
+        # pose, B, gt, enc, parents, J, F, dfw, meta, L, maxw, zsum, act, eikonal, l2,
+        # dd_coef, eik_coef, a_scr, c_scr, dd_out, enc_slot, loss_slot, stream
+        "posendf_train_tile": ([_P, _I, _P, _P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I,
+                                _F, _F, _P, _P, _P, _P, _P, _P], _I),
+        # meta, meta_host, L, a_n, c_n, dd_n, rows_n, a_m, c_m, dd_m, rows_m, enc_slot,
+        # loss_slot, nslots_n, nslots_m, J, F, partial, grads, loss, stream
+        "posendf_train_reduce": ([_P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _I, _I,
+                                  _I, _I, _P, _P, _P, _P], _I),
+        # (meta_host, L, rows) -> floats of the reduction's partial buffer
+        "posendf_train_reduce_partial_floats": ([_P, _I, _I], _I),
+        "posendf_train_error_string": ([_I], ctypes.c_char_p),
+    },
 }
+_ERROR_STRING = {"field": "posendf_error_string", "train": "posendf_train_error_string"}
 
-_INFO: dict = {}
+_INFO: Dict[str, dict] = {}
 
 
 def _nvcc() -> str:
@@ -56,44 +83,51 @@ def _nvcc() -> str:
     return path
 
 
-def _build(out: Path) -> None:
+def _target(name: str) -> Path:
+    blob = SOURCES[name].read_bytes() + b"".join(h.read_bytes() for h in HEADERS)
+    key = hashlib.sha256(blob + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"{name}_{key}.so"
+
+
+def _compile(name: str) -> None:
+    out = _target(name)
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {SOURCES[name].name} ({proc.returncode}):\n"
+                           f"{proc.stdout}")
     os.replace(tmp, out)
-    _INFO.update(built=True, seconds=time.perf_counter() - t0,
-                 log=(res.stdout + res.stderr).strip())
+    _INFO[name] = dict(path=str(out), built=True, seconds=time.perf_counter() - t0,
+                       log=proc.stdout.strip())
 
 
 @functools.cache
-def library() -> ctypes.CDLL:
-    """The kernels' shared library, built first if the source changed."""
-    key = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"field_kernels_{key}.so"
-    _INFO.update(path=str(out), built=False, seconds=0.0, log="")
+def library(name: str = "field") -> ctypes.CDLL:
+    """The named kernels' shared library, built first if its source changed."""
+    out = _target(name)
     if not out.exists():
-        _build(out)
+        _compile(name)
+    _INFO.setdefault(name, dict(path=str(out), built=False, seconds=0.0, log=""))
     lib = ctypes.CDLL(str(out))
-    for name, (argtypes, restype) in _SIGNATURES.items():
-        fn = getattr(lib, name)
+    for fn_name, (argtypes, restype) in _SIGNATURES[name].items():
+        fn = getattr(lib, fn_name)
         fn.argtypes = argtypes
         fn.restype = restype
     return lib
 
 
-def build_info() -> dict:
+def build_info(name: str = "field") -> dict:
     """Path, whether this process compiled it, seconds taken and nvcc's
     output (``-Xptxas -v``: registers, shared memory and spills per kernel)."""
-    library()
-    return dict(_INFO)
+    library(name)
+    return dict(_INFO[name])
 
 
-def check(err: int, what: str) -> None:
-    """Raise if a launcher returned a CUDA error."""
+def check(err: int, what: str, name: str = "field") -> None:
+    """Raise if a launcher of library ``name`` returned a CUDA error."""
     if err != 0:
-        msg = library().posendf_error_string(err).decode()
+        msg = getattr(library(name), _ERROR_STRING[name])(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")

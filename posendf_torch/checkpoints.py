@@ -25,7 +25,7 @@ from posendf_torch import kinematics
 
 __all__ = [
     "msgpack_restore", "load_msgpack_params", "params_from_jax",
-    "params_from_torch_state_dict", "load_torch_checkpoint",
+    "params_from_torch_state_dict", "torch_state_dict_from_params", "load_torch_checkpoint",
 ]
 
 # flax's msgpack extension type codes
@@ -184,6 +184,30 @@ def params_from_torch_state_dict(
         l += 1
     if l == 0:
         raise ValueError("state dict has no dfnet.lin* keys: not a PoseNDF checkpoint")
+    return out
+
+
+def torch_state_dict_from_params(
+    params: Mapping[str, torch.Tensor], *,
+    parents: Sequence[int] = kinematics.REFERENCE_PARENTS,
+) -> Dict[str, torch.Tensor]:
+    """Inverse of :func:`params_from_torch_state_dict`: the port's state dict
+    -> the reference's keys and layouts (CPU tensors); root BoneMLP weights
+    are cut back to their 4 input columns."""
+    sd = {k: v.detach().to("cpu", torch.float32) for k, v in params.items()}
+    out: Dict[str, torch.Tensor] = {}
+    if "enc.w1" in sd:
+        for j, p in enumerate(parents):
+            fan_in = 4 if p == -1 else sd["enc.w1"].shape[1]
+            out[f"enc.net.{j}.net.0.weight"] = sd["enc.w1"][j, :fan_in, :].T.contiguous()
+            out[f"enc.net.{j}.net.0.bias"] = sd["enc.b1"][j].clone()
+            out[f"enc.net.{j}.net.2.weight"] = sd["enc.w2"][j].T.contiguous()
+            out[f"enc.net.{j}.net.2.bias"] = sd["enc.b2"][j].clone()
+    l = 0
+    while f"dfnet.w{l}" in sd:
+        out[f"dfnet.lin{l}.weight"] = sd[f"dfnet.w{l}"].T.contiguous()
+        out[f"dfnet.lin{l}.bias"] = sd[f"dfnet.b{l}"].clone()
+        l += 1
     return out
 
 

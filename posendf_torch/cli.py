@@ -1,10 +1,14 @@
-"""Command line of the PyTorch port: ``generate`` (pose sampling by manifold
-projection), as ``posendf_tpu/cli.py generate`` without the mesh output.
+"""Command line of the PyTorch port, as ``posendf_tpu/cli.py``: ``train``
+(the distance field, on one device) and ``generate`` (pose sampling by
+manifold projection, without the mesh output).
 
 Usage::
 
+    python -m posendf_torch.cli train --config run.json --fused-grads --max-epoch 10
     python -m posendf_torch.cli generate --ckpt docs/quality/ckpt_l8_best.msgpack \\
-        --num-poses 100 --steps 200 --fused --device cuda --out poses.npz
+        --num-poses 100 --steps 200 --fused --out poses.npz
+
+Both run on the card unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -13,6 +17,65 @@ import argparse
 from typing import Optional, Sequence
 
 __all__ = ["build_parser", "main"]
+
+
+def cmd_train(args) -> None:
+    from posendf_torch.config import PoseNDFConfig, load_config
+    from posendf_torch.data.pipeline import TrainingBatcher
+    from posendf_torch.training.trainer import Trainer
+
+    if args.test:
+        # the reference CLI's `trainer.py --test` generates poses
+        argv = ["generate", "--device", args.device]
+        argv += ["--config", args.config] if args.config else []
+        argv += ["--ckpt", args.ckpt] if args.ckpt else []
+        gen_args = build_parser().parse_args(argv)
+        return gen_args.fn(gen_args)
+    cfg = load_config(args.config) if args.config else PoseNDFConfig()
+    if args.max_epoch is not None:
+        cfg.train.max_epoch = args.max_epoch
+    if args.fused_grads:
+        cfg.train.fused_grads = True
+    if args.early_stop_patience is not None:
+        cfg.train.early_stop_patience = args.early_stop_patience
+    if cfg.train.early_stop_patience:
+        cfg.experiment.val = True  # patience means nothing without validation
+    if args.val_every is not None:
+        cfg.experiment.val_every = args.val_every
+    t = cfg.train
+    batcher = TrainingBatcher(cfg.data.data_dir, cfg.data.amass_dir, batch_size=t.batch_size,
+                              num_pts=t.num_pts, flip=t.flip)
+    val_batcher = None
+    if cfg.experiment.val:
+        try:
+            val_batcher = TrainingBatcher(cfg.data.data_dir, cfg.data.amass_dir, split="vald",
+                                          batch_size=t.batch_size, num_pts=t.num_pts, flip=t.flip)
+        except FileNotFoundError as e:
+            if t.early_stop_patience:
+                raise SystemExit(
+                    "early-stop patience requires validation data, but no vald-split files "
+                    f"were found ({e}); provide a vald split under data.data_dir or drop the "
+                    "flag/config key") from e
+            print("experiment.val=True but no vald-split data found; skipping validation")
+    trainer = Trainer(cfg, device=args.device, config_path=args.config)
+    if args.matched_head_init:
+        stats = trainer.matched_head_init(batcher.sample_batch())
+        if stats is None:
+            print("matched-head init skipped: resuming from a checkpoint")
+        else:
+            print(f"matched-head init: z {stats['z_mean']:+.4f} +- {stats['z_std']:.4f} -> "
+                  f"x{stats['scale']:.4f}, head bias {stats['new_bias']:+.4f} (labels "
+                  f"{stats['label_mean']:.4f} +- {stats['label_std']:.4f})")
+    epochs = t.max_epoch - trainer.epoch
+    print(f"training {cfg.exp_name()} from epoch {trainer.epoch} for {epochs} epochs "
+          f"on {trainer.device}")
+    trainer.fit(batcher, epochs=epochs, val_batcher=val_batcher,
+                val_every=cfg.experiment.val_every, early_stop_patience=t.early_stop_patience)
+    if val_batcher is not None:
+        info = trainer.store.best_info()
+        if info:
+            print(f"best checkpoint: epoch {info['epoch']} ({info['mode']} "
+                  f"total={info['metric']:.6f}) -> {trainer.store.directory}/checkpoint_best.tar")
 
 
 def cmd_generate(args) -> None:
@@ -42,14 +105,39 @@ def cmd_generate(args) -> None:
         print(f"wrote {args.out}")
 
 
+def _add_common(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--config", "-c", default=None,
+                   help="config, YAML or JSON (default: the configs/amass.yaml hyperparameters)")
+    p.add_argument("--ckpt", default=None,
+                   help="checkpoint: the JAX package's .msgpack, the reference's .tar or a "
+                        "training run's checkpoint directory")
+    p.add_argument("--device", default="cuda",
+                   help="torch device (default cuda; raises without a card): cuda or cpu")
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="python -m posendf_torch.cli")
     sub = parser.add_subparsers(dest="command", required=True)
+
+    p = sub.add_parser("train", help="train the distance field")
+    _add_common(p)
+    p.add_argument("--max-epoch", type=int, default=None)
+    p.add_argument("--test", action="store_true",
+                   help="reference-CLI parity: generate poses instead of training")
+    p.add_argument("--matched-head-init", action="store_true",
+                   help="from-scratch aid: moment-match the distance head to the first "
+                        "batch's labels (training/init_utils.py); ignored when resuming")
+    p.add_argument("--fused-grads", action="store_true",
+                   help="loss and gradient from the CUDA train kernels (lrelu/relu, fp32)")
+    p.add_argument("--early-stop-patience", type=int, default=None, metavar="N",
+                   help="stop after N consecutive non-improving validations "
+                        "(enables experiment.val)")
+    p.add_argument("--val-every", type=int, default=None, metavar="E",
+                   help="validation cadence in epochs (default 100, the reference cadence)")
+    p.set_defaults(fn=cmd_train)
+
     p = sub.add_parser("generate", help="sample poses by manifold projection")
-    p.add_argument("--ckpt", default=None,
-                   help="checkpoint: the JAX package's .msgpack or the reference's .tar")
-    p.add_argument("--config", "-c", default=None,
-                   help="config YAML (default: the configs/amass.yaml hyperparameters)")
+    _add_common(p)
     p.add_argument("--num-poses", type=int, default=10)
     p.add_argument("--steps", type=int, default=10)
     p.add_argument("--seed", type=int, default=0)
@@ -58,7 +146,6 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--fused", action="store_true",
                    help="one CUDA kernel launch per projection step")
     p.add_argument("--out", default=None, help="output .npz path")
-    p.add_argument("--device", default="cpu", help="torch device, e.g. cpu or cuda")
     p.set_defaults(fn=cmd_generate)
     return parser
 

@@ -2,19 +2,22 @@
 
 The defaults are the ``configs/amass.yaml`` spec (the reference's
 hyperparameters of record), so a caller with no YAML file needs no YAML
-parser: ``yaml`` is imported only when :func:`load_config` is given a path.
-Unknown keys of the reference schema are kept in each section's ``extra``.
+parser: ``yaml`` is imported only when :func:`load_config` is given a YAML
+path. :func:`save_config` writes JSON (the same nested schema), which
+:func:`load_config` reads back without ``yaml``. Unknown keys of the
+reference schema are kept in each section's ``extra``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 from dataclasses import dataclass, field
 from typing import Any, Dict, List
 
 __all__ = [
     "DataConfig", "ExperimentConfig", "DFNetConfig", "StrEncConfig",
-    "TrainConfig", "PoseNDFConfig", "load_config", "config_from_dict",
+    "TrainConfig", "PoseNDFConfig", "load_config", "config_from_dict", "save_config",
 ]
 
 
@@ -99,15 +102,20 @@ class PoseNDFConfig:
     strenc: StrEncConfig = field(default_factory=StrEncConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
 
+    def exp_name(self) -> str:
+        """Hyperparameter-encoding experiment directory name, the reference's
+        scheme (as ``posendf_tpu.config.PoseNDFConfig.exp_name``)."""
+        prefix = "flip_" if self.train.flip else ""
+        return (
+            f"{prefix}{self.experiment.exp_name}_{self.dfnet.act}_{self.train.loss_type}"
+            f"_{self.train.optimizer_param}_dist{self.train.dist}_eik{self.train.eikonal}"
+        )
+
     def make_model(self, generator=None, device=None):
         """A freshly initialized :class:`~posendf_torch.models.PoseNDF`."""
         from posendf_torch import kinematics
         from posendf_torch.models import PoseNDF
 
-        if self.strenc.fused:
-            raise NotImplementedError(
-                "strenc.fused (the fused encoder kernel) is not ported yet: "
-                "ROADMAP Queue 2 item 2")
         return PoseNDF(
             num_joints=self.experiment.num_part,
             use_encoder=self.strenc.use,
@@ -116,6 +124,7 @@ class PoseNDFConfig:
             activation=self.dfnet.act,
             beta=self.dfnet.beta,
             parents=kinematics.parent_table(self.strenc.corrected_tree),
+            use_fused=self.strenc.fused,
             ff_enc=self.dfnet.ff_enc,
             compute_dtype=self.dfnet.compute_dtype,
             live_head=self.dfnet.live_head,
@@ -134,12 +143,16 @@ def _take(d: Dict[str, Any], cls) -> Any:
 
 
 def load_config(path: str) -> PoseNDFConfig:
-    """Load the reference ``amass.yaml`` schema or the native one."""
-    import yaml
-
+    """Load the reference ``amass.yaml`` schema or the native one, from YAML
+    or (``.json``) from JSON."""
     with open(path) as f:
-        raw = yaml.safe_load(f) or {}
-    return config_from_dict(raw)
+        if path.endswith(".json"):
+            raw = json.load(f)
+        else:
+            import yaml
+
+            raw = yaml.safe_load(f) or {}
+    return config_from_dict(raw or {})
 
 
 def config_from_dict(raw: Dict[str, Any]) -> PoseNDFConfig:
@@ -153,3 +166,21 @@ def config_from_dict(raw: Dict[str, Any]) -> PoseNDFConfig:
     if "flip" in data.extra and "flip" not in raw.get("train", {}):
         train.flip = bool(data.extra["flip"])
     return PoseNDFConfig(data=data, experiment=exp, dfnet=dfnet, strenc=strenc, train=train)
+
+
+def save_config(cfg: PoseNDFConfig, path: str) -> None:
+    """Write ``cfg`` as JSON in the nested schema ``posendf_tpu``'s
+    ``save_config`` writes as YAML (``extra`` keys inline)."""
+    def enc(dc):
+        d = dataclasses.asdict(dc)
+        d.update(d.pop("extra", {}))
+        return d
+
+    raw = {
+        "data": enc(cfg.data),
+        "experiment": enc(cfg.experiment),
+        "model": {"DFNet": enc(cfg.dfnet), "StrEnc": enc(cfg.strenc)},
+        "train": enc(cfg.train),
+    }
+    with open(path, "w") as f:
+        json.dump(raw, f, indent=2)

@@ -49,29 +49,19 @@
 //     a global scratch buffer the caller allocates; the output activation's
 //     derivative is recovered from d, as on the TPU.
 //
-// Derivatives at z == 0 follow JAX's autodiff: lrelu'(0) = 1, relu'(0) = 0.
-// Softplus is (max(bz, 0) + log1p(exp(-|bz|))) / b everywhere.
+// The activations and the tile product live in common.cuh, shared with
+// train_kernels.cu.
 //
 // Each launcher returns cudaGetLastError(); the Python wrapper raises on a
 // nonzero value. No launcher synchronizes or allocates.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
 
-constexpr int kTile = 16;      // poses per block
-constexpr int kThreads = 512;  // threads per block
-constexpr int kLoads = 16;     // weight reads a thread keeps in flight
-constexpr int kMaxF = 8;       // encoder feature width limit
-constexpr int kMaxE = 4 + kMaxF;
-constexpr int kMaxJ = 32;
-constexpr int kMaxL = 16;
-constexpr int kMeta = 6;       // per layer: in, out, off W, off b, off W^T, off z
-constexpr float kEps2 = 1e-24f;  // eps^2 of the normalizations (eps = 1e-12)
+using namespace posendf;
 
 enum Mode { kForward = 0, kValueAndGrad = 1, kProjectStep = 2 };
-enum Act { kLRelu = 0, kRelu = 1, kSoftplus = 2 };
 
 struct Args {
   const float* pose;   // (B, J, 4)
@@ -91,133 +81,6 @@ struct Args {
   float step_scale;
   int tangent, renormalize;
 };
-
-__host__ __device__ constexpr int round4(int x) { return (x + 3) & ~3; }
-
-__device__ __forceinline__ float softplus(float beta, float z) {
-  const float bz = beta * z;
-  return (fmaxf(bz, 0.f) + log1pf(expf(-fabsf(bz)))) / beta;
-}
-
-__device__ __forceinline__ float act_fwd(int act, float beta, float z) {
-  if (act == kLRelu) return z >= 0.f ? z : 0.01f * z;
-  if (act == kRelu) return z > 0.f ? z : 0.f;
-  return softplus(beta, z);
-}
-
-__device__ __forceinline__ float out_act_fwd(int act, float beta, float z) {
-  if (act == kSoftplus) return softplus(beta, z);
-  return z > 0.f ? z : 0.f;
-}
-
-__device__ __forceinline__ float act_grad(int act, float beta, float z) {
-  if (act == kLRelu) return z >= 0.f ? 1.f : 0.01f;
-  if (act == kRelu) return z > 0.f ? 1.f : 0.f;
-  return 1.f / (1.f + expf(-beta * z));
-}
-
-// relu'(z) = [relu(z) > 0]; softplus: sigmoid(beta z) = 1 - exp(-beta d)
-__device__ __forceinline__ float out_act_grad_from_value(int act, float beta, float d) {
-  if (act == kSoftplus) return 1.f - expf(-beta * d);
-  return d > 0.f ? 1.f : 0.f;
-}
-
-// For the block's kTile poses: acc(n, t) = sum_k x[k][t] * W[k][n], with x a
-// (K, kTile) tile in shared memory and W (K, N) row-major in global memory.
-// Thread i owns the C columns base + r * kThreads + i; `epi(n, acc)` receives
-// each finished column's kTile sums. The weights of the next kLoads / C rows
-// are loaded while the current rows are multiplied, so kLoads L2 reads stay
-// in flight per thread.
-template <int C, class Epilogue>
-__device__ __forceinline__ void tile_matmul_cols(const float* __restrict__ W, int K, int N,
-                                                 const float* x, Epilogue epi) {
-  constexpr int kRows = kLoads / C;
-  for (int base = 0; base < N; base += kThreads * C) {
-    int col[C];
-    bool ok[C];
-#pragma unroll
-    for (int r = 0; r < C; ++r) {
-      col[r] = base + r * kThreads + static_cast<int>(threadIdx.x);
-      ok[r] = col[r] < N;
-    }
-    if (!ok[0]) break;  // this thread's columns lie beyond N from here on
-    float acc[C][kTile];
-#pragma unroll
-    for (int r = 0; r < C; ++r)
-#pragma unroll
-      for (int t = 0; t < kTile; ++t) acc[r][t] = 0.f;
-    float wcur[kRows][C], wnext[kRows][C];
-    auto load_rows = [&](int k0, float(&w)[kRows][C]) {
-#pragma unroll
-      for (int kk = 0; kk < kRows; ++kk)
-#pragma unroll
-        for (int r = 0; r < C; ++r)
-          w[kk][r] = (k0 + kk < K && ok[r])
-                         ? __ldg(W + static_cast<size_t>(k0 + kk) * N + col[r])
-                         : 0.f;
-    };
-    load_rows(0, wcur);
-    for (int k0 = 0; k0 < K; k0 += kRows) {
-      if (k0 + kRows < K) load_rows(k0 + kRows, wnext);
-#pragma unroll
-      for (int kk = 0; kk < kRows; ++kk) {
-        if (k0 + kk < K) {
-          const float4* xk = reinterpret_cast<const float4*>(x + (k0 + kk) * kTile);
-          float xv[kTile];
-#pragma unroll
-          for (int v = 0; v < kTile / 4; ++v) {
-            const float4 f = xk[v];
-            xv[4 * v] = f.x;
-            xv[4 * v + 1] = f.y;
-            xv[4 * v + 2] = f.z;
-            xv[4 * v + 3] = f.w;
-          }
-#pragma unroll
-          for (int r = 0; r < C; ++r)
-#pragma unroll
-            for (int t = 0; t < kTile; ++t) acc[r][t] = fmaf(wcur[kk][r], xv[t], acc[r][t]);
-        }
-      }
-#pragma unroll
-      for (int kk = 0; kk < kRows; ++kk)
-#pragma unroll
-        for (int r = 0; r < C; ++r) wcur[kk][r] = wnext[kk][r];
-    }
-#pragma unroll
-    for (int r = 0; r < C; ++r)
-      if (ok[r]) epi(col[r], acc[r]);
-  }
-}
-
-// Columns per thread follow N, so the widest layer keeps every thread busy:
-// 2 for N = 1024, 1 below.
-template <class Epilogue>
-__device__ __forceinline__ void tile_matmul(const float* __restrict__ W, int K, int N,
-                                            const float* x, Epilogue epi) {
-  if (N > kThreads)
-    tile_matmul_cols<2>(W, K, N, x, epi);
-  else
-    tile_matmul_cols<1>(W, K, N, x, epi);
-}
-
-__device__ __forceinline__ void store_tile_column(float* dst, const float (&v)[kTile]) {
-  float4* d4 = reinterpret_cast<float4*>(dst);
-#pragma unroll
-  for (int i = 0; i < kTile / 4; ++i)
-    d4[i] = make_float4(v[4 * i], v[4 * i + 1], v[4 * i + 2], v[4 * i + 3]);
-}
-
-__device__ __forceinline__ void load_tile_column(const float* src, float (&v)[kTile]) {
-  const float4* s4 = reinterpret_cast<const float4*>(src);
-#pragma unroll
-  for (int i = 0; i < kTile / 4; ++i) {
-    const float4 f = s4[i];
-    v[4 * i] = f.x;
-    v[4 * i + 1] = f.y;
-    v[4 * i + 2] = f.z;
-    v[4 * i + 3] = f.w;
-  }
-}
 
 // Shared memory layout, in floats (every region a multiple of 4):
 //   encoder weights | meta (int) | parents (int) | activations A | activations B |

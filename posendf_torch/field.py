@@ -22,7 +22,18 @@ from posendf_torch.config import PoseNDFConfig, load_config
 from posendf_torch.ops.fused_grad import fused_distance_and_grad
 from posendf_torch.ops.fused_model import FieldWeights, fused_posendf_forward
 
-__all__ = ["Field", "make_field", "load_field", "distance_and_grad"]
+__all__ = ["Field", "make_field", "load_field", "distance_and_grad", "resolve_device"]
+
+
+def resolve_device(device="cuda") -> torch.device:
+    """The device an entry point runs on: the card unless the caller asks for
+    the CPU. Raises when a CUDA device is asked for and there is none (no
+    silent fall back to the CPU)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device!r} asked for, but torch.cuda.is_available() is "
+                           "false; pass device='cpu' to run on the CPU")
+    return dev
 
 
 def distance_and_grad(module, pose: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -83,16 +94,21 @@ def make_field(module, device=None) -> Field:
     return Field(module if device is None else module.to(device))
 
 
-def load_field(ckpt_path=None, config=None, device="cpu") -> Field:
-    """One-line entry point: checkpoint file -> ready :class:`Field` on ``device``.
+def load_field(ckpt_path=None, config=None, device="cuda") -> Field:
+    """One-line entry point: checkpoint -> ready :class:`Field` on ``device``
+    (the card by default; ``device="cpu"`` for the CPU).
 
     ``ckpt_path``: the reference's torch ``.tar``, the JAX package's
-    ``.msgpack`` file, or None for a freshly initialized field (seeded with
-    0). ``config``: a :class:`PoseNDFConfig`, a YAML path, or None for the
+    ``.msgpack`` file, a training run's checkpoint directory (its latest,
+    falling back to the previous one, see
+    :class:`~posendf_torch.training.checkpoints.CheckpointStore`), or None
+    for a freshly initialized field (seeded with 0). ``config``: a
+    :class:`PoseNDFConfig`, a YAML or JSON path, or None for the
     ``configs/amass.yaml`` hyperparameters.
     """
     from posendf_torch.checkpoints import load_msgpack_params, load_torch_checkpoint
 
+    dev = resolve_device(device)
     if config is None:
         cfg = PoseNDFConfig()
     elif isinstance(config, (str, os.PathLike)):
@@ -103,13 +119,15 @@ def load_field(ckpt_path=None, config=None, device="cpu") -> Field:
     if ckpt_path:
         path = os.fspath(ckpt_path)
         if os.path.isdir(path):
-            raise NotImplementedError(
-                "checkpoint directories (CheckpointStore) are not ported yet: "
-                "ROADMAP Queue 1 item 11")
-        if path.endswith(".tar"):
-            state, _ = load_torch_checkpoint(
-                path, parents=module.parents, feature_size=cfg.strenc.out_dim)
+            from posendf_torch.training.checkpoints import CheckpointStore
+
+            if CheckpointStore(path, create=False).restore(module) is None:
+                raise FileNotFoundError(f"no checkpoint in directory {path!r}")
         else:
-            state, _ = load_msgpack_params(path)
-        module.load_state_dict(state, strict=True)
-    return Field(module.to(device))
+            if path.endswith(".tar"):
+                state, _ = load_torch_checkpoint(
+                    path, parents=module.parents, feature_size=cfg.strenc.out_dim)
+            else:
+                state, _ = load_msgpack_params(path)
+            module.load_state_dict(state, strict=True)
+    return Field(module.to(dev))

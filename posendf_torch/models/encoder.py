@@ -10,7 +10,8 @@ roots), so the weights are four stacked tensors ``w1 (J, 4+F, H)``,
 ``b1 (J, H)``, ``w2 (J, H, F)``, ``b2 (J, F)`` with H = 4 + F, stored
 (in, out) as in the JAX package; a checkpoint's arrays copy over unchanged.
 The forward runs one batched product per dependency level of the kinematic
-tree (``kinematics.level_schedule``).
+tree (``kinematics.level_schedule``), or, with ``use_fused``, the whole walk
+in one CUDA kernel (``ops/fused_encoder.py``) for CUDA tensors.
 """
 
 from __future__ import annotations
@@ -42,8 +43,8 @@ class StructureEncoder(nn.Module):
 
     def __init__(self, parents: Tuple[int, ...] = kinematics.REFERENCE_PARENTS,
                  feature_size: int = 6, activation: str = "lrelu",
-                 beta: float = 100.0, generator: Optional[torch.Generator] = None,
-                 device=None):
+                 beta: float = 100.0, use_fused: bool = False,
+                 generator: Optional[torch.Generator] = None, device=None):
         super().__init__()
         if generator is None:  # no global RNG: a fixed seed
             generator = torch.Generator().manual_seed(0)
@@ -51,6 +52,7 @@ class StructureEncoder(nn.Module):
         self.feature_size = feature_size
         self.activation = activation
         self.beta = beta
+        self.use_fused = use_fused
         J, F = len(self.parents), feature_size
         H = 4 + F
         fan_in = [4 if p == -1 else H for p in self.parents]
@@ -71,6 +73,12 @@ class StructureEncoder(nn.Module):
         return self.num_joints * self.feature_size
 
     def forward(self, quat: torch.Tensor) -> torch.Tensor:
+        if self.use_fused:
+            from posendf_torch.ops.fused_encoder import fused_structure_encoder
+
+            return fused_structure_encoder(
+                quat, self.w1, self.b1, self.w2, self.b2, parents=self.parents,
+                activation=self.activation, beta=self.beta)
         return structure_encoder_apply(
             quat, self.w1, self.b1, self.w2, self.b2, parents=self.parents,
             activation=self.activation, beta=self.beta)

@@ -24,6 +24,9 @@ __all__ = ["PoseNDF"]
 class PoseNDF(nn.Module):
     """Distance field d(pose): (B, 21, 4) quaternion pose -> (B, 1).
 
+    ``use_fused`` runs the structure encoder through its CUDA kernel
+    (``ops/fused_encoder.py``) for CUDA tensors.
+
     ``ff_enc=True`` (positional encoding of the DFNet input) and
     ``compute_dtype="bfloat16"`` are not ported yet (ROADMAP Queue 1 item 5)
     and raise ``NotImplementedError``.
@@ -34,7 +37,7 @@ class PoseNDF(nn.Module):
                  dfnet_dims: Tuple[int, ...] = (256, 512, 1024, 512, 256, 64),
                  activation: str = "lrelu", beta: float = 100.0,
                  parents: Tuple[int, ...] = kinematics.REFERENCE_PARENTS,
-                 ff_enc: bool = False, compute_dtype: str = "float32",
+                 use_fused: bool = False, ff_enc: bool = False, compute_dtype: str = "float32",
                  live_head: bool = False,
                  generator: Optional[torch.Generator] = None, device=None):
         super().__init__()
@@ -52,10 +55,13 @@ class PoseNDF(nn.Module):
         self.activation = activation
         self.beta = beta
         self.parents = tuple(parents)
+        self.ff_enc = ff_enc
+        self.compute_dtype = compute_dtype
         if use_encoder:
             self.enc = StructureEncoder(parents=self.parents, feature_size=feature_size,
                                         activation=activation, beta=beta,
-                                        generator=generator, device=device)
+                                        use_fused=use_fused, generator=generator,
+                                        device=device)
             in_dim = num_joints * feature_size
         else:
             self.enc = None

@@ -1,2 +1,2 @@
-"""Hand-written CUDA kernels of the distance field, each beside its plain
-PyTorch version (see ``csrc/field_kernels.cu``)."""
+"""Hand-written CUDA kernels of the distance field and of its training, each
+beside its plain PyTorch version (sources in ``csrc/``)."""

@@ -9,12 +9,14 @@ one program; only the poses come in and d goes out through device memory.
 PyTorch version, ``fused_posendf_forward_ref``, for a CPU tensor. Under
 autograd it is a ``torch.autograd.Function`` whose backward differentiates
 the plain version, as the JAX kernel's ``custom_vjp`` differentiates the
-XLA formula. This module also holds :class:`FieldWeights`, the view of a
-model that all three kernels read, and its packing into device buffers.
+XLA formula; that backward is itself differentiable. This module also holds
+:class:`FieldWeights`, the view of a model that the kernels read, and its
+packing into device buffers.
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
@@ -24,7 +26,8 @@ from posendf_torch import _build
 from posendf_torch.models.activations import resolve
 from posendf_torch.quat import joint_axis_normalize
 
-__all__ = ["FieldWeights", "fused_posendf_forward", "fused_posendf_forward_ref", "LAUNCHES"]
+__all__ = ["FieldWeights", "fused_posendf_forward", "fused_posendf_forward_ref", "replay_backward",
+           "int_table", "LAUNCHES"]
 
 # launches of the forward kernel since the count was last set to 0
 LAUNCHES = 0
@@ -40,6 +43,7 @@ class Packed:
     parents: torch.Tensor    # (J,) int32
     dfw: torch.Tensor        # per layer: W (in, out) | b | W^T (out, in), flat fp32
     meta: torch.Tensor       # (L, 6) int32: in, out, off W, off b, off W^T, off z
+    meta_host: torch.Tensor  # the same table on the CPU
     num_layers: int
     maxw: int                # widest activation, input code included
     zsum: int                # sum of hidden widths (pre-activations kept per pose)
@@ -92,6 +96,13 @@ class FieldWeights:
         return self._packed
 
 
+@functools.lru_cache(maxsize=None)
+def int_table(values: tuple, device: str) -> torch.Tensor:
+    """An int32 table (the parents, a layer table) on ``device``, made once:
+    each copy from the host would make the host wait for the stream."""
+    return torch.tensor(values, dtype=torch.int32, device=device)
+
+
 def _pack(w: FieldWeights) -> Packed:
     J, F, L = w.num_joints, w.feature_size, len(w.layers)
     if J > _MAX_JOINTS or F > _MAX_FEATURE or L > _MAX_LAYERS:
@@ -122,11 +133,10 @@ def _pack(w: FieldWeights) -> Packed:
         zsum = zoff - w.layers[-1][0].shape[1]            # the output's z is not kept
         dfw = torch.cat(chunks).contiguous()
         widths = [w.layers[0][0].shape[0]] + [wl.shape[1] for wl, _ in w.layers]
+        meta = tuple(map(tuple, meta))
         return Packed(
-            enc=enc,
-            parents=torch.tensor(w.parents, dtype=torch.int32, device=enc.device),
-            dfw=dfw,
-            meta=torch.tensor(meta, dtype=torch.int32, device=enc.device),
+            enc=enc, parents=int_table(tuple(w.parents), str(enc.device)), dfw=dfw,
+            meta=int_table(meta, str(enc.device)), meta_host=int_table(meta, "cpu"),
             num_layers=L, maxw=max(widths), zsum=zsum)
 
 
@@ -200,6 +210,29 @@ def _launch_forward(quat: torch.Tensor, weights: FieldWeights) -> torch.Tensor:
     return out
 
 
+def replay_backward(plain, inp: torch.Tensor, params: List[torch.Tensor], grad: torch.Tensor,
+                    needs_inp: bool) -> tuple:
+    """Backward of a kernel's ``autograd.Function``: differentiate its plain
+    version ``plain(inp)`` (which reads ``params``) at the saved input.
+
+    With grad mode on inside the backward (an outer ``create_graph=True``,
+    as the eikonal term's gradient-of-a-gradient takes it), the gradients
+    are built with ``create_graph`` from the caller's own input, so they can
+    be differentiated again, with respect to the parameters and the input.
+    Returns the input's gradient (None unless ``needs_inp``), then one per
+    parameter (None for a frozen one)."""
+    create = torch.is_grad_enabled()
+    with torch.enable_grad():
+        x = inp if (create and inp.requires_grad) else inp.detach().requires_grad_(True)
+        live = [p for p in params if p.requires_grad]
+        out = plain(x)
+        grads = iter(torch.autograd.grad(out, [x] + live, grad, allow_unused=True,
+                                         create_graph=create))
+    g_inp = next(grads)
+    return (g_inp if needs_inp else None,) + tuple(
+        next(grads) if p.requires_grad else None for p in params)
+
+
 class _FusedForward(torch.autograd.Function):
     @staticmethod
     def forward(ctx, quat, weights, *params):
@@ -213,21 +246,18 @@ class _FusedForward(torch.autograd.Function):
     def backward(ctx, grad):
         (quat,) = ctx.saved_tensors
         weights = ctx.weights
-        params = weights.tensors()
-        live = [p for p in params if p.requires_grad]
-        with torch.enable_grad():
-            q = quat.detach().requires_grad_(True)
-            d = fused_posendf_forward_ref(q, weights)
-            grads = iter(torch.autograd.grad(d, [q] + live, grad, allow_unused=True))
-        g_quat = next(grads)
-        return (g_quat, None) + tuple(next(grads) if p.requires_grad else None for p in params)
+        g_quat, *g_params = replay_backward(
+            lambda q: fused_posendf_forward_ref(q, weights), quat, weights.tensors(), grad,
+            ctx.needs_input_grad[0])
+        return (g_quat, None, *g_params)
 
 
 def fused_posendf_forward(quat: torch.Tensor, weights: FieldWeights) -> torch.Tensor:
     """Whole-model forward: (B, J, 4) -> (B, 1) distances.
 
     A CUDA tensor goes through the kernel, a CPU tensor through the plain
-    version; both are differentiable (the backward is the plain version's).
+    version; both are differentiable, twice (the backward is the plain
+    version's, see :func:`replay_backward`).
     """
     check_poses(quat, weights)
     return _FusedForward.apply(quat, weights, *weights.tensors())

@@ -180,14 +180,19 @@ def test_packed_layout_is_what_the_kernels_read():
 
 def test_build_needs_nvcc_and_keys_on_the_source(monkeypatch):
     """Without a CUDA toolkit the build raises (there is no CPU fallback for
-    a CUDA tensor); the kernel signatures cover every launcher."""
+    a CUDA tensor); the kernel signatures cover every launcher of every
+    source, and the library's name follows its source and the shared header."""
     monkeypatch.setattr(_build.shutil, "which", lambda name: None)
     monkeypatch.setattr(_build.os.path, "exists", lambda path: False)
     with pytest.raises(RuntimeError, match="nvcc"):
         _build._nvcc()
-    src = _build.SOURCE.read_text()
-    for name in _build._SIGNATURES:
-        assert f"{name}(" in src, name
+    assert set(_build._SIGNATURES) == set(_build.SOURCES)
+    for lib, source in _build.SOURCES.items():
+        src = source.read_text()
+        assert '#include "common.cuh"' in src, lib
+        for name in _build._SIGNATURES[lib]:
+            assert f"{name}(" in src, name
+        assert _build._target(lib).name.startswith(f"{lib}_")
     assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
 
 
@@ -209,3 +214,65 @@ def test_fused_forward_backward_is_the_module_gradient():
     qq = q.clone().requires_grad_(True)
     field.distance_fused(qq).sum().backward()
     assert qq.grad is not None and tm.enc.w1.grad is None and tm.dfnet.w0.grad is not None
+
+
+@pytest.mark.parametrize("act", ["lrelu", "softplus"])
+def test_distance_fused_is_differentiable_twice_like_jax(act):
+    """An eikonal-style loss of the pose gradient of ``distance_fused`` has
+    the module path's parameter gradient and the one JAX takes through its
+    fused forward's custom VJP (interpret mode). The norm carries the
+    ``losses.py`` epsilon (a pose whose ReLU head is off has g == 0)."""
+    from tests.test_torch_training import make_case
+
+    jm, params, tm, q, _, _ = make_case(act, B=20, dims=DIMS, seed=11)
+
+    def eikonal(g, norm, sqrt):
+        return ((sqrt(norm(g.reshape(g.shape[0], -1)) + 1e-12) - 1.0) ** 2).sum()
+
+    def jax_loss(p):
+        fwd = lambda x: jax_forward(x, p["enc"], p["dfnet"], parents=jm.parents,  # noqa: E731
+                                    activation=act, beta=100.0, tile_b=TILE)
+        d, pull = jax.vjp(fwd, jnp.asarray(q))
+        (g,) = pull(jnp.ones_like(d))
+        return eikonal(g, lambda x: jnp.sum(x * x, axis=-1), jnp.sqrt)
+
+    with pltpu.force_tpu_interpret_mode():
+        want = params_from_jax(jax.grad(jax_loss)(params))
+
+    field = Field(tm)
+    got = {}
+    for name, fn in (("fused", field.distance_fused), ("module", field.distance)):
+        qq = torch.from_numpy(q).requires_grad_(True)
+        d = fn(qq)
+        (g,) = torch.autograd.grad(d, qq, torch.ones_like(d), create_graph=True)
+        assert g.grad_fn is not None
+        loss = eikonal(g, lambda x: torch.sum(x * x, dim=-1), torch.sqrt)
+        got[name] = dict(zip([n for n, _ in tm.named_parameters()],
+                             torch.autograd.grad(loss, list(tm.parameters()))))
+    assert max(float(w.abs().max()) for w in want.values()) > 1e-3
+    for k, w in want.items():
+        scale = max(1e-6, float(w.abs().max()))
+        torch.testing.assert_close(got["fused"][k], got["module"][k], rtol=0, atol=1e-6 * scale)
+        np.testing.assert_allclose(got["fused"][k].numpy(), w.numpy(), rtol=0, atol=1e-5 * scale,
+                                   err_msg=k)
+
+
+def test_entry_points_need_a_card_unless_asked_for_the_cpu(monkeypatch, tmp_path):
+    """No silent CPU fallback: ``load_field``, ``cli generate`` and the
+    ``Trainer`` default to the card and raise without one."""
+    import posendf_torch
+    from posendf_torch import cli
+    from posendf_torch.config import PoseNDFConfig
+    from posendf_torch.training.trainer import Trainer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        posendf_torch.load_field()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli.main(["generate", "--num-poses", "2", "--steps", "1"])
+    cfg = PoseNDFConfig()
+    cfg.experiment.root_dir = str(tmp_path)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Trainer(cfg)
+    field = posendf_torch.load_field(device="cpu")
+    assert field.module.dfnet.w0.device.type == "cpu"

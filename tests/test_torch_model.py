@@ -143,7 +143,7 @@ def test_tar_checkpoint_round_trip(tmp_path):
     save_torch_checkpoint(path, params, epoch=7)
     cfg = PoseNDFConfig()
     cfg.dfnet.dims = list(DIMS)
-    field = posendf_torch.load_field(path, config=cfg)
+    field = posendf_torch.load_field(path, config=cfg, device="cpu")
     q = _poses(7, 19)
     want = np.asarray(jax.jit(jm.apply)({"params": params}, jnp.asarray(q)))
     np.testing.assert_allclose(field.distance(torch.from_numpy(q)).detach().numpy(), want,
@@ -189,14 +189,18 @@ def test_fresh_init_layout_matches_jax():
 
 
 def test_unported_options_raise():
+    """ff_enc and bf16 still raise; strenc.fused (ported since) builds the
+    encoder on its kernel, with the same weights as the plain encoder."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         PoseNDF(ff_enc=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         PoseNDF(compute_dtype="bfloat16")
     cfg = PoseNDFConfig()
     cfg.strenc.fused = True
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cfg.make_model()
+    fused = cfg.make_model()
+    assert fused.enc.use_fused
+    for k, v in PoseNDFConfig().make_model().state_dict().items():
+        assert torch.equal(fused.state_dict()[k], v), k
 
 
 def test_config_yaml_matches_defaults():

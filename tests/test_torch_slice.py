@@ -40,12 +40,17 @@ PROJ = dict(rtol=1e-4, atol=1e-5)
 
 @pytest.fixture(scope="module")
 def l8():
-    return posendf_torch.load_field(L8), np.load(L8_EXPECTED)
+    return posendf_torch.load_field(L8, device="cpu"), np.load(L8_EXPECTED)
 
 
 def test_import_loads_no_jax():
     code = ("import sys, posendf_torch, posendf_torch.field, posendf_torch.projection, "
-            "posendf_torch.cli, posendf_torch.checkpoints\n"
+            "posendf_torch.cli, posendf_torch.checkpoints, posendf_torch.losses, "
+            "posendf_torch.ops.fused_encoder, posendf_torch.ops.fused_train, "
+            "posendf_torch.ops.train_grad, posendf_torch.data.synthetic, "
+            "posendf_torch.data.splits, posendf_torch.data.pipeline, "
+            "posendf_torch.training.metrics, posendf_torch.training.checkpoints, "
+            "posendf_torch.training.init_utils, posendf_torch.training.trainer\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "{'jax', 'jaxlib', 'flax', 'msgpack', 'yaml', 'posendf_tpu'})\n"
             "assert not bad, bad\n")
@@ -83,7 +88,7 @@ def test_golden_field_reproduces_recorded_distances():
     """The same bar as ``tests/test_golden.py`` holds the JAX package to."""
     expected = np.load(os.path.join(GOLDEN, "expected.npz"))
     field = posendf_torch.load_field(os.path.join(GOLDEN, "golden.msgpack"),
-                                     config=os.path.join(GOLDEN, "golden.yaml"))
+                                     config=os.path.join(GOLDEN, "golden.yaml"), device="cpu")
     probes = torch.from_numpy(expected["probes"])
     d = field.distance(probes).detach().numpy()
     np.testing.assert_allclose(d, expected["dist"], atol=2e-4, rtol=2e-4)
@@ -98,7 +103,7 @@ def test_cli_generate_matches_jax(tmp_path, mode):
     out = str(tmp_path / "gen.npz")
     argv = ["generate", "--ckpt", os.path.join(GOLDEN, "golden.msgpack"),
             "--config", os.path.join(GOLDEN, "golden.yaml"), "--num-poses", "24",
-            "--steps", "4", "--seed", "3", "--out", out]
+            "--steps", "4", "--seed", "3", "--out", out, "--device", "cpu"]
     if mode == "no-renorm-fused":
         argv += ["--no-renorm", "--fused"]
     cli.main(argv)
@@ -119,7 +124,7 @@ def test_random_poses_and_projector():
     assert a.shape == (8, 21, 4) and torch.equal(a, b)
     torch.testing.assert_close(a.norm(dim=-1), torch.ones(8, 21))
     field = posendf_torch.load_field(os.path.join(GOLDEN, "golden.msgpack"),
-                                     config=os.path.join(GOLDEN, "golden.yaml"))
+                                     config=os.path.join(GOLDEN, "golden.yaml"), device="cpu")
     out, hist = make_projector(field, steps=3, fused=True)(a)
     ref_out, ref_hist = project(field, a, steps=3)
     torch.testing.assert_close(out, ref_out, **PROJ)
