@@ -2,12 +2,13 @@
 
 Drives the pose prior's main path and the training path through their
 hand-written CUDA kernels on the full-width trained field
-``docs/quality/ckpt_l8_best.msgpack``:
+``docs/quality/ckpt_l8_best.msgpack``, and the data-manufacturing path
+(kNN labelling) against a 1,048,576-pose corpus:
 
   1. device: requires CUDA; prints the card's name and power limit
-  2. build: compiles ``posendf_torch/csrc/field_kernels.cu`` and
-     ``train_kernels.cu`` with nvcc, one process each, from two threads at
-     once (timed)
+  2. build: compiles ``posendf_torch/csrc/field_kernels.cu``,
+     ``train_kernels.cu`` and ``knn_kernels.cu`` with nvcc, one process
+     each, from three threads at once (timed)
   3. load: ``posendf_torch.load_field(ckpt, device="cuda")``
   4. kernel vs plain on the card, at B = 4096 and a ragged B = 1000:
      ``distance_fused`` vs ``distance``, ``distance_and_grad_fused`` vs
@@ -39,9 +40,33 @@ hand-written CUDA kernels on the full-width trained field
      ``manual_train_grads``, each train kernel vs its plain version (the
      reduction also vs ``torch.matmul``), and the encoder kernel vs its plain
      version at 131,072
+ 11. the kNN kernel vs its plain version ``knn_topk_ref`` on the card, every
+     engine (exact ``vpu``, ``mxu_bf16``, the ``mxu_fast`` bound), at
+     Q in {1000, 4096} x N in {20,000 (ragged), 65,536} x k in {1, 5, 8, 16,
+     32}, unweighted and joint-weighted, tie-aware; a corpus of duplicated
+     rows (the same indices, lowest first); two calls and split counts
+     S = default, 1, 7 bitwise equal; ``fused_geodesic_topk_fast`` vs its
+     plain composition
+ 12. against the JAX package: exact top-k, the kernel's engines,
+     ``fused_geodesic_topk_fast``, ``probe_fast_safety`` and a
+     ``label_sequence`` on a 16,384-pose corpus vs
+     ``tests/data/torch_port_knn_expected.npz``
+ 13. main path, labelling: a sampled directory of 64 x 16,384 synthetic
+     poses (1,048,576, 352 MB of fp32 on the card); ``label_split`` labels
+     one sequence (shard 0 of 64, 10,000 queries, k = 5) with
+     ``precision="auto"`` (on the card the exact engine), "highest", "fast"
+     and "default", the kNN launch counts set to 0 before and read after
+     and the plain version refused meanwhile; 'auto' equal to 'highest' to
+     the byte; ``probe_fast_safety`` on the whole corpus; the exact labels
+     held to plain ``geodesic_topk``, the fast ones to the exact (every
+     rank within 1e-6, top-5 overlap 1); then times at Q = 4,096,
+     N = 1,048,576, k = 5, where every engine's kernel output is held to its
+     plain version's (and the main path's exact and bf16 labels of those
+     queries too), and the bound engine's to the ``torch.matmul`` yardstick
 
 Kernel and plain times are medians over rounds of plain, kernel, kernel,
-plain, each round a mean over a few calls; the log gives their ranges.
+plain, each round a mean over a few calls (one call of the kNN plain
+versions at 1,048,576 poses); the log gives their ranges.
 
 Tolerances: d and g ``atol=1e-5``; projection ``rtol=1e-4, atol=1e-5`` (those
 of ``tests/test_fused_grad.py``: fp32 sums of up to 1024 terms taken in
@@ -56,10 +81,33 @@ the sums' order where g is near 0: after the steps every sampled weight is
 within 2 x steps x lr of JAX's and 99% within lr / 20. TF32 is off for matrix
 products and convolutions, so the plain path runs true fp32.
 
+kNN: the exact and bf16 engines compute each operation rounded on its own,
+in the plain version's order, so their distances are expected to be its bits;
+they are held to 1e-6 (x sum_j w_j when weighted) and to 1e-6 against JAX
+(fp32 sums in another order). The bound engine's 84-term sums differ in
+order from the plain version's matrix products: 1e-5. Indices must match
+wherever a rank lies more than the bar from its neighbours. bf16 operands
+move a distance by at most (2^-8 + 2^-18) x sum_j w_j (``tests/
+test_torch_fused_knn.py`` derives it). The bound engine against one fp32
+product of the same rows (the ``torch.matmul`` yardstick): with x = hi + L,
+|L| <= 2^-8 |x| and |L - lo| <= 2^-16 |x| (bf16 keeps 8 significant bits),
+q c - (hi hi' + hi lo' + lo hi') is at most 3 x 2^-16 |q c| a product; the
+weights sit in the corpus rows, so the 84 terms sum to at most
+sum_j w_j |q_j| |c_j| = 1 for unit joints, and the bar is 3 x 2^-16 plus
+the sums' 1e-5. A sorted list of values each moved by at most e moves by at
+most e rank by rank, so the top-k values are held to it too.
+
 Bounds (``bound_ms``): the larger of the operations over the fp32 CUDA-core
-peak (67 TFLOP/s) and the bytes (each input read once, each output written
-once) over the memory rate (3.35 TB/s) of an H100 SXM, counted from this
-run's shapes.
+peak (67 TFLOP/s, an FMA counted as two) and the bytes (each input read
+once, each output written once) over the memory rate (3.35 TB/s) of an H100
+SXM, counted from this run's shapes. The kNN exact and bf16 engines, the
+unweighted distance the main path times: per joint and pair 4 products and
+3 sums for <q_j, c_j> and one sum of |.| into the pair's total (abs is an
+operand modifier), 8; per pair 1 - total / 21, one FMA, 2; so 8 x 21 + 2 =
+170 a pair (the rounding of the operands to bf16 is once per row, and the
+top-k selection's comparisons are not counted). The kNN bound engine's
+operations count at the bf16 tensor-core peak (989 TFLOP/s): three passes of
+its K = 84 product.
 
 Any failure raises, so the script exits nonzero and prints no result. The
 second-to-last line is a JSON object describing the kernels, the last line is
@@ -95,6 +143,15 @@ SERVE_BATCH = 131_072
 TRAIN_FILES, TRAIN_PTS = 4, 5000       # the reference batch: 4 files x 5000 poses
 SEED = 0
 PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12  # H100 SXM: fp32 CUDA cores, HBM3
+PEAK_BF16 = 989e12                       # H100 SXM: bf16 tensor cores, dense
+KNN_EXPECTED = "tests/data/torch_port_knn_expected.npz"
+KNN_ATOL = 1e-6       # distances: exact and bf16 engines (x W when weighted); reason in the docstring
+BOUND_ATOL = 1e-5     # the bound engine: fp32 sums of 84 products in another order
+BF16_BAR = 2.0 ** -8 + 2.0 ** -18      # x sum_j w_j: how far bf16 operands move a distance
+YARD_BAR = 3 * 2.0 ** -16 + BOUND_ATOL  # the 3-pass bf16 split vs one fp32 product; docstring
+KNN_PAIR_OPS = 8 * 21 + 2              # fp32 operations of the distance a pair; docstring
+CORPUS_FILES, CORPUS_ROWS = 64, 16_384   # the main path's corpus: 1,048,576 poses
+KNN_Q, KNN_K = 4096, 5
 
 
 def log(*args) -> None:
@@ -137,10 +194,10 @@ def cuda_ms(fn, reps: int, warm: bool = True) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(flops: float, nbytes: float):
+def bound(flops: float, nbytes: float, peak: float = PEAK_FLOPS):
     """(least milliseconds, what bounds them) for work of ``flops`` operations
-    moving ``nbytes`` bytes."""
-    t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    at ``peak`` operations a second, moving ``nbytes`` bytes."""
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -173,21 +230,24 @@ def assert_leaves(name: str, got: dict, want: dict, tol: float = LEAF_TOL) -> fl
     return worst
 
 
-def interleaved_ms(name: str, kernel, plain, reps: int, rounds: int = 5):
+def interleaved_ms(name: str, kernel, plain, reps: int, rounds: int = 5, plain_reps=None):
     """(kernel ms, plain ms): the medians of ``rounds`` rounds that each time
-    ``reps`` calls of plain, kernel, kernel, plain, after one warm-up call of
-    each. Logs both medians with their ranges."""
+    ``reps`` calls (``plain_reps`` of the plain version) of plain, kernel,
+    kernel, plain, after one warm-up call of each. Logs both medians with
+    their ranges."""
+    plain_reps = reps if plain_reps is None else plain_reps
     kernel()
     plain()
     torch.cuda.synchronize()
     ks, ps = [], []
     for _ in range(rounds):
-        ps.append(cuda_ms(plain, reps, warm=False))
+        ps.append(cuda_ms(plain, plain_reps, warm=False))
         ks.extend(cuda_ms(kernel, reps, warm=False) for _ in range(2))
-        ps.append(cuda_ms(plain, reps, warm=False))
+        ps.append(cuda_ms(plain, plain_reps, warm=False))
     k, p = statistics.median(ks), statistics.median(ps)
     log(f"  time {name}: kernel {k:.4f} ms ({min(ks):.4f}-{max(ks):.4f}), plain {p:.4f} ms "
-        f"({min(ps):.4f}-{max(ps):.4f}); medians (ranges) of {2 * rounds} x {reps} calls")
+        f"({min(ps):.4f}-{max(ps):.4f}); medians (ranges) of {2 * rounds} x {reps} and "
+        f"{2 * rounds} x {plain_reps} calls")
     return k, p
 
 
@@ -353,6 +413,7 @@ def main() -> None:
         f"{proj_plain_ms_step:.4f} ms  [{card}]")
 
     train = train_phases(field, card)
+    knn = knn_phases(card)
 
     # bounds of the serving kernels at the main path's shapes
     flop = traversal_flops(w)
@@ -378,7 +439,7 @@ def main() -> None:
          "replaces": "posendf_tpu/ops/fused_grad.py:245", "launches": launches["proj"],
          "max_abs_err": errs["proj"], "ms": proj_ms, "plain_ms": proj_plain_ms_step,
          "bound_ms": vag_bound[0], "bound_by": vag_bound[1], "library_ms": None},
-    ] + train
+    ] + train + knn
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": torch.cuda.get_device_name(0),
@@ -703,6 +764,350 @@ def check_summaries(what: str, prefix: str, leaves: dict, ref) -> None:
             raise AssertionError(f"{what} {k} vs JAX: sum, norm, samples off by {errs}")
         worst = max(worst, *errs)
     log(f"  ok {what} vs JAX: largest relative error {worst:.3e}")
+
+
+def _np(x) -> np.ndarray:
+    return np.asarray(x.cpu() if isinstance(x, torch.Tensor) else x)
+
+
+def apart_ranks(d_ref, atol: float, d_next=None) -> np.ndarray:
+    """Where the reference's sorted distance lies more than ``atol`` from
+    both neighbouring ranks (``d_next``: its next distance after the last
+    rank; without it the last rank never counts as apart)."""
+    d_ref = _np(d_ref)
+    nxt = np.zeros((len(d_ref), 1)) if d_next is None else _np(d_next).reshape(-1, 1)
+    gap_prev = np.diff(d_ref, axis=1, prepend=-np.inf)
+    gap_next = np.diff(np.concatenate([d_ref, nxt], axis=1), axis=1)
+    if d_next is None:
+        gap_next[:, -1] = 0.0
+    return (gap_prev > atol) & (gap_next > atol)
+
+
+def check_topk(name: str, d, i, d_ref, i_ref, atol: float, d_next=None,
+               exact_idx: bool = False) -> float:
+    """Tie-aware top-k comparison: distances within ``atol`` rank by rank,
+    indices equal wherever the ranks are apart (:func:`apart_ranks`), or
+    everywhere with ``exact_idx``. Returns the largest distance error."""
+    d, i, d_ref, i_ref = (_np(x) for x in (d, i, d_ref, i_ref))
+    if d.shape != d_ref.shape or not np.isfinite(d).all():
+        raise AssertionError(f"{name}: shape {d.shape} vs {d_ref.shape}, or non-finite")
+    err = float(np.abs(d - d_ref).max())
+    if err > atol:
+        raise AssertionError(f"{name}: max |err| {err:.3e} > {atol}")
+    sure = np.ones(d.shape, bool) if exact_idx else apart_ranks(d_ref, atol, d_next)
+    bad = int((i[sure] != i_ref[sure]).sum())
+    if bad:
+        raise AssertionError(f"{name}: {bad} indices differ where the ranks are apart")
+    return err
+
+
+def knn_golden_inputs(seed: int, n_corpus: int, n_queries: int, latents: int):
+    """The corpus and queries of ``scripts/make_torch_port_knn_golden.py``
+    (its ``make_inputs``), through the port's byte-identical copies of the
+    synthetic manifold and the query sampler."""
+    from posendf_torch.data.prepare import NoiseSpec, sample_noisy_queries
+    from posendf_torch.data.synthetic import manifold_family, synthetic_manifold_poses
+
+    rng = np.random.default_rng(seed)
+    family = manifold_family(rng, latents=latents)
+    corpus = synthetic_manifold_poses(rng, n_corpus, family=family)
+    return corpus, sample_noisy_queries(corpus, n_queries, NoiseSpec(), rng)
+
+
+def knn_phases(card: str) -> list:
+    """Phases 11-13; returns the kNN kernel's JSON entries, one per engine."""
+    import tempfile
+
+    from posendf_torch.data import prepare
+    from posendf_torch.data.synthetic import manifold_family, synthetic_manifold_poses
+    from posendf_torch.ops import fused_knn
+    from posendf_torch.ops.knn import geodesic_rerank, geodesic_topk
+    from posendf_torch.quat import JOINT_WEIGHTS
+
+    engines = list(fused_knn.ENGINES)
+    w_np = JOINT_WEIGHTS.numpy()
+    w_sum = float(w_np.sum())
+    errs = dict.fromkeys(engines, 0.0)
+    rng = np.random.default_rng(SEED + 11)
+
+    def unit(n):
+        q = rng.normal(size=(n, 21, 4)).astype(np.float32)
+        return torch.from_numpy(q / np.linalg.norm(q, axis=-1, keepdims=True)).cuda()
+
+    def plain(q, c, k, engine, weights=None):
+        qf, cf, wj, wt = fused_knn.kernel_operands(q, c, weights, engine)
+        return fused_knn.knn_topk_ref(qf, cf, k, weights=wj, w_total=wt, dot_impl=engine)
+
+    def atol_of(engine, weights):
+        return BOUND_ATOL if engine == "mxu_fast" else KNN_ATOL * (1.0 if weights is None else w_sum)
+
+    # ---- 11. the kNN kernel vs its plain version on the card ----
+    for Q in (1000, KNN_Q):
+        for N in (20_000, 65_536):
+            q, c = unit(Q), unit(N)
+            for weights in (None, w_np):
+                for engine in engines:
+                    d_p, i_p = plain(q, c, 33, engine, weights)
+                    for k in (1, 5, 8, 16, 32):
+                        d_k, i_k = fused_knn.fused_geodesic_topk(q, c, k, weights=weights,
+                                                                 dot_impl=engine)
+                        errs[engine] = max(errs[engine], check_topk(
+                            f"{engine} Q={Q} N={N} k={k}", d_k, i_k, d_p[:, :k], i_p[:, :k],
+                            atol_of(engine, weights), d_p[:, k]))
+            log(f"  ok kNN kernel vs knn_topk_ref, Q = {Q}, N = {N}, unweighted and weighted, "
+                f"k in 1, 5, 8, 16, 32: max |err| {errs}")
+    base = unit(10_000)
+    c = torch.cat([base, base])              # row j + 10,000 duplicates row j
+    q = torch.cat([base[:500], unit(500)])
+    for engine in engines:
+        d_k, i_k = fused_knn.fused_geodesic_topk(q, c, 8, dot_impl=engine)
+        d_p, i_p = plain(q, c, 8, engine)
+        check_topk(f"{engine} duplicated rows", d_k, i_k, d_p, i_p, atol_of(engine, None),
+                   exact_idx=engine != "mxu_fast")
+        want = torch.stack([torch.arange(500), torch.arange(500) + 10_000], dim=1)
+        if not torch.equal(i_k[:500, :2].cpu(), want):
+            raise AssertionError(f"{engine}: a query's two copies in the corpus are not "
+                                 "its first two neighbours, lowest index first")
+    log("  ok duplicated rows: the kernel's indices are the plain version's, and each "
+        "query's two copies come first, lowest index first")
+    q, c = unit(KNN_Q), unit(65_536)
+    for engine in engines:
+        qf, cf, wj, wt = fused_knn.kernel_operands(q, c, None, engine)
+        runs = [fused_knn.fused_geodesic_topk(q, c, KNN_K, dot_impl=engine) for _ in range(2)]
+        runs += [fused_knn._launch(qf, cf, KNN_K, wj, wt, engine, S) for S in (1, 7)]
+        if not all(torch.equal(a, b) for r in runs[1:] for a, b in zip(r, runs[0])):
+            raise AssertionError(f"{engine}: two calls or two split counts differ")
+    log("  ok two calls, and split counts S = default, 1 and 7: the same bits")
+    for weights in (None, w_np):
+        d_k, i_k = fused_knn.fused_geodesic_topk_fast(q, c, KNN_K, weights=weights)
+        _, cand = plain(q, c, 10, "mxu_fast", weights)
+        wt = None if weights is None else torch.from_numpy(weights).cuda()
+        d_p, i_p = geodesic_rerank(q, c, cand, KNN_K, wt)
+        check_topk("fused_geodesic_topk_fast vs its plain composition", d_k, i_k, d_p, i_p,
+                   atol_of("vpu", weights), exact_idx=True)
+    log("  ok fused_geodesic_topk_fast vs knn_topk_ref's prescreen + geodesic_rerank")
+
+    # ---- 12. against the JAX package ----
+    ref = np.load(KNN_EXPECTED)
+    seed = int(ref["seed"])
+    corpus_np, queries_np = knn_golden_inputs(seed, int(ref["n_corpus"]), int(ref["n_queries"]),
+                                              int(ref["latents"]))
+    q, c = torch.from_numpy(queries_np).cuda(), torch.from_numpy(corpus_np).cuda()
+    k = int(ref["k"])
+    log(f"kNN vs the JAX package ({KNN_EXPECTED}, {len(q)} queries x {len(c)} poses, k = {k})")
+    wt = torch.from_numpy(w_np).cuda()
+    checks = [
+        ("plain geodesic_topk vs JAX geodesic_topk", geodesic_topk(q, c, k), "geo", KNN_ATOL),
+        ("plain geodesic_topk weighted vs JAX", geodesic_topk(q, c, k, weights=wt), "geo_w",
+         KNN_ATOL * w_sum),
+        ("vpu kernel vs JAX's kernel (interpret)", fused_knn.fused_geodesic_topk(q, c, k), "vpu",
+         KNN_ATOL),
+        ("vpu kernel vs JAX geodesic_topk", fused_knn.fused_geodesic_topk(q, c, k), "geo",
+         KNN_ATOL),
+        ("vpu kernel weighted vs JAX geodesic_topk weighted",
+         fused_knn.fused_geodesic_topk(q, c, k, weights=w_np), "geo_w", KNN_ATOL * w_sum),
+        ("mxu_fast kernel (the bound) vs JAX's kernel (interpret)",
+         fused_knn.fused_geodesic_topk(q, c, k, dot_impl="mxu_fast"), "mxu_fast", BOUND_ATOL),
+        ("fused_geodesic_topk_fast vs JAX", fused_knn.fused_geodesic_topk_fast(q, c, k), "fast",
+         KNN_ATOL),
+    ]
+    for name, (d, i), key, atol in checks:
+        err = check_topk(name, d, i, ref[f"{key}_d"], ref[f"{key}_i"], atol)
+        log(f"  ok {name}: max |err| {err:.3e}")
+    d, _ = fused_knn.fused_geodesic_topk(q, c, k, dot_impl="mxu_bf16")
+    err = float(np.abs(d.cpu().numpy() - ref["vpu_d"]).max())
+    if err > BF16_BAR + KNN_ATOL:
+        raise AssertionError(f"mxu_bf16 kernel vs JAX's exact distances: {err:.3e}")
+    log(f"  ok mxu_bf16 kernel vs JAX's exact distances: max |err| {err:.3e} "
+        f"(bar {BF16_BAR + KNN_ATOL:.3e})")
+    stats = prepare.probe_fast_safety(corpus_np, np.random.default_rng(seed + 1), device="cuda")
+    for key, v in stats.items():
+        want = ref[f"probe_{key}"]
+        ok = (abs(v - float(want)) <= KNN_ATOL if key.startswith("label_mae")
+              else v == want.item())
+        if not ok:
+            raise AssertionError(f"probe_fast_safety {key}: {v} vs JAX {want}")
+    log(f"  ok probe_fast_safety on the card vs JAX: {stats}")
+    labels = prepare.label_sequence(corpus_np[:512], c, num_queries=int(ref["label_queries"]),
+                                    k=k, rng=np.random.default_rng(seed + 2),
+                                    precision="highest")
+    if float(labels["pose"].astype(np.float64).sum()) != float(ref["label_pose_sum"]):
+        raise AssertionError("label_sequence drew other queries than JAX")
+    assert_close("label_sequence(precision='highest') dist on the card vs JAX",
+                 torch.from_numpy(labels["dist"]), torch.from_numpy(ref["label_dist"]),
+                 atol=KNN_ATOL)
+
+    # ---- 13. main path: labelling against a 1,048,576-pose corpus ----
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        sampled = os.path.join(tmp, "sampled")
+        os.makedirs(os.path.join(sampled, "ACCAD"))
+        g = np.random.default_rng(SEED + 13)
+        family = manifold_family(g, latents=8)
+        for f in range(CORPUS_FILES):
+            np.savez(os.path.join(sampled, "ACCAD", f"seq{f:02d}.npz"),
+                     pose=synthetic_manifold_poses(g, CORPUS_ROWS, family=family))
+        log(f"main path, labelling: {CORPUS_FILES} sampled files x {CORPUS_ROWS} poses, made in "
+            f"{time.perf_counter() - t0:.1f} s")
+
+        def refuse(*args, **kwargs):
+            raise AssertionError("the main path called the kNN kernel's plain version")
+
+        for e in engines:
+            fused_knn.LAUNCHES[e] = 0
+        saved_ref, fused_knn.knn_topk_ref = fused_knn.knn_topk_ref, refuse
+        walls, out = {}, {}
+        for prec in ("auto", "highest", "fast", "default"):
+            t0 = time.perf_counter()
+            files = prepare.label_split(sampled, os.path.join(tmp, f"labeled_{prec}"), ["ACCAD"],
+                                        num_queries=100, runs=100, k=KNN_K, precision=prec,
+                                        shard=(0, CORPUS_FILES), device="cuda")
+            torch.cuda.synchronize()
+            walls[prec] = time.perf_counter() - t0
+            if len(files) != 1:
+                raise AssertionError(f"label_split labelled {len(files)} sequences, not 1")
+            with np.load(files[0]) as z:
+                out[prec] = {key: z[key] for key in z.files}
+        fused_knn.knn_topk_ref = saved_ref
+        launches = dict(fused_knn.LAUNCHES)
+        n_q = len(out["auto"]["pose"])
+        log(f"  label_split, {n_q} queries x {CORPUS_FILES * CORPUS_ROWS} poses: wall "
+            + ", ".join(f"{p} {walls[p]:.3f} s ({n_q / walls[p]:.1f} queries/s)" for p in walls)
+            + f"; kNN launches {launches}  [{card}]")
+        for e, n in launches.items():
+            if n <= 0:
+                raise AssertionError(f"the labelling path launched no {e} kNN kernel")
+        exact, fast, bf16 = out["highest"], out["fast"], out["default"]
+        if any(out["auto"][key].tobytes() != exact[key].tobytes() for key in exact):
+            raise AssertionError("'auto' on the card gave other labels than exact 'highest'")
+        for o in (fast, bf16):
+            if o["pose"].tobytes() != exact["pose"].tobytes():
+                raise AssertionError("the labelling runs drew other queries")
+        for name, o in (("exact", exact), ("fast", fast), ("bf16", bf16)):
+            if o["dist"].shape != (n_q, KNN_K) or not np.isfinite(o["dist"]).all() \
+                    or o["nn_pose"].shape != (n_q, KNN_K, 21, 4):
+                raise AssertionError(f"{name} labels: bad shape or non-finite")
+        log("  ok 'auto' gave the exact engine's labels, to the byte (on the card the bound "
+            "engine is the slower one: prepare.FAST_ENGINE_BACKENDS)")
+        t0 = time.perf_counter()
+        corpus_np, _ = prepare.build_corpus(sampled, ["ACCAD"])
+        read_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    corpus = torch.from_numpy(corpus_np).cuda()
+    torch.cuda.synchronize()
+    log(f"  of a label_split's wall: reading the {CORPUS_FILES} files {read_s:.3f} s, the "
+        f"corpus to the card {time.perf_counter() - t0:.3f} s")
+    stats = prepare.probe_fast_safety(corpus_np, np.random.default_rng(SEED + 14), device="cuda")
+    if not stats["safe"]:
+        raise AssertionError(f"probe_fast_safety finds 'fast' unsafe on the pose corpus: {stats}")
+    log(f"  ok probe_fast_safety on the whole corpus (is 'fast' exact on it): {stats}")
+    q_all = torch.from_numpy(exact["pose"]).cuda()
+    d_p, i_p = geodesic_topk(q_all[:256], corpus, KNN_K + 1)
+    d_p, i_p, d_next = _np(d_p[:, :KNN_K]), _np(i_p[:, :KNN_K]), _np(d_p[:, KNN_K])
+    err = float(np.abs(exact["dist"][:256] - d_p).max())
+    sure = apart_ranks(d_p, KNN_ATOL, d_next)
+    if err > KNN_ATOL or not np.array_equal(exact["nn_pose"][:256][sure], corpus_np[i_p][sure]):
+        raise AssertionError(f"exact labels vs plain geodesic_topk: max |err| {err:.3e}, or "
+                             "other neighbours where the ranks are apart")
+    log(f"  ok exact labels vs plain geodesic_topk on the first 256 queries against the whole "
+        f"corpus: max |err| {err:.3e}, the same neighbours on {sure.mean():.4f} of the ranks "
+        f"(the rest lie within {KNN_ATOL} of a neighbouring rank)")
+
+    def rows(nn):
+        return [set(x.tobytes() for x in r) for r in nn]
+
+    overlap = float(np.mean([len(a & b) / KNN_K for a, b in zip(rows(fast["nn_pose"]),
+                                                                 rows(exact["nn_pose"]))]))
+    gap = np.abs(fast["dist"] - exact["dist"])
+    if float(gap.max()) > KNN_ATOL or overlap != 1.0:
+        raise AssertionError(f"'fast' labels vs the exact ones: max |err| {float(gap.max()):.3e}, "
+                             f"top-{KNN_K} overlap {overlap}")
+    err_bf16 = float(np.abs(bf16["dist"] - exact["dist"]).max())
+    if err_bf16 > BF16_BAR + KNN_ATOL:
+        raise AssertionError(f"bf16 labels off the exact ones by {err_bf16:.3e}")
+    log(f"  ok fast labels vs exact, every query: max |err| {float(gap.max()):.3e} (bar "
+        f"{KNN_ATOL}), top-{KNN_K} overlap {overlap:.6f}, label MAE {float(gap.mean()):.3e}; "
+        f"bf16 labels within {err_bf16:.3e} of the exact ones (bar {BF16_BAR + KNN_ATOL:.3e})")
+
+    # times at Q = 4096, N = 1,048,576, k = 5; every engine's kernel held to
+    # its plain version on the same inputs, the main path's first batch
+    q = q_all[:KNN_Q]
+    Q, N = q.shape[0], corpus.shape[0]
+    log(f"kNN times, Q = {Q}, N = {N}, k = {KNN_K}")
+    times, got = {}, {}
+    for e in engines:
+        def kernel(e=e):
+            got[e] = fused_knn.fused_geodesic_topk(q, corpus, KNN_K, dot_impl=e)
+
+        def plain_call(e=e):
+            got[e, "plain"] = plain(q, corpus, KNN_K, e)
+
+        times[e] = interleaved_ms(f"kNN {e} (both launches) vs knn_topk_ref", kernel, plain_call,
+                                  3, rounds=1, plain_reps=1)
+        d_p, i_p = got[e, "plain"]
+        d_next = plain(q, corpus, KNN_K + 1, e)[0][:, KNN_K]
+        err = check_topk(f"{e} at Q = {Q}, N = {N}", *got[e], d_p, i_p, atol_of(e, None), d_next)
+        errs[e] = max(errs[e], err)
+        msg = f"  ok {e} kernel vs knn_topk_ref at Q = {Q}, N = {N}, k = {KNN_K}: max |err| {err:.3e}"
+        label = {"vpu": exact, "mxu_bf16": bf16}.get(e)
+        if label is not None:
+            # the labels of the main path's first batch, which are these queries
+            d_p, i_p, d_next = _np(d_p), _np(i_p), _np(d_next)
+            err = float(np.abs(label["dist"][:Q] - d_p).max())
+            sure = apart_ranks(d_p, KNN_ATOL, d_next)
+            if err > KNN_ATOL or not np.array_equal(label["nn_pose"][:Q][sure],
+                                                    corpus_np[i_p][sure]):
+                raise AssertionError(f"{e} labels of the first {Q} queries vs knn_topk_ref: "
+                                     f"max |err| {err:.3e}, or other neighbours where the "
+                                     "ranks are apart")
+            msg += f"; the main path's labels of these queries too: max |err| {err:.3e}"
+        log(msg)
+    fast_ms = cuda_ms(lambda: fused_knn.fused_geodesic_topk_fast(q, corpus, KNN_K), 3)
+    geo_ms = cuda_ms(lambda: geodesic_topk(q, corpus, KNN_K), 1)
+    qf, cf, _, _ = fused_knn.kernel_operands(q, corpus, None, "mxu_fast")
+    chunk = 65_536
+    lib = {}
+
+    def library():
+        ds, idx = [], []
+        for s0 in range(0, N, chunk):
+            v, i = torch.topk(1.0 - torch.matmul(qf, cf[s0:s0 + chunk].T), KNN_K, dim=1,
+                              largest=False)
+            ds.append(v)
+            idx.append(i + s0)
+        v, i = torch.topk(torch.cat(ds, dim=1), KNN_K, dim=1, largest=False)
+        lib["d"] = v
+
+    lib_ms = cuda_ms(library, 3)
+    lib_err = float((lib["d"] - got["mxu_fast"][0]).abs().max())
+    if lib_err > YARD_BAR:
+        raise AssertionError(f"the bound engine's values vs one fp32 product's: {lib_err:.3e} "
+                             f"> {YARD_BAR:.3e}")
+    log(f"  fused_geodesic_topk_fast (prescreen + rerank) {fast_ms:.4f} ms; plain "
+        f"geodesic_topk {geo_ms:.4f} ms; the bound's top-k by torch.matmul + torch.topk over "
+        f"{chunk}-row chunks {lib_ms:.4f} ms (ok: its values within {lib_err:.3e} of the "
+        f"kernel's, bar {YARD_BAR:.3e})  [{card}]")
+
+    nbytes = 4 * (Q * 84 + N * 84 + 21) + Q * KNN_K * (4 + 8)
+    exact_bound = bound(KNN_PAIR_OPS * Q * N, nbytes)
+    bound_bound = bound(3 * 2 * 84 * Q * N, nbytes, PEAK_BF16)
+    log(f"bounds: exact and bf16 engines {exact_bound[0]:.4f} ms ({exact_bound[1]}, "
+        f"{KNN_PAIR_OPS} operations a pair on the fp32 CUDA cores), bound engine "
+        f"{bound_bound[0]:.4f} ms ({bound_bound[1]}, 3 bf16 passes of the K = 84 product on "
+        f"the tensor cores); reading the corpus once {N * 84 * 4 / PEAK_BYTES * 1e3:.4f} ms")
+    src = "posendf_torch/csrc/knn_kernels.cu"
+    rows_out = []
+    for e in engines:
+        b = bound_bound if e == "mxu_fast" else exact_bound
+        row = {"name": f"posendf_knn_partial + posendf_knn_merge ({e})", "route": "cuda",
+               "source": src, "replaces": "posendf_tpu/ops/fused_knn.py:68",
+               "launches": launches[e], "max_abs_err": errs[e], "ms": times[e][0],
+               "plain_ms": times[e][1], "bound_ms": b[0], "bound_by": b[1],
+               "library_ms": lib_ms if e == "mxu_fast" else None}
+        if e == "mxu_fast":
+            row["library"] = f"torch.matmul + torch.topk per {chunk}-row chunk, one torch.topk"
+        rows_out.append(row)
+    return rows_out
 
 
 if __name__ == "__main__":

@@ -5,8 +5,9 @@ header, so it compiles in seconds:
 
   ``field``  ``csrc/field_kernels.cu``  forward, value-and-grad, projection step
   ``train``  ``csrc/train_kernels.cu``  encoder, training gradient (tile + reduction)
+  ``knn``    ``csrc/knn_kernels.cu``    geodesic top-k (per corpus range + merge)
 
-Both include ``csrc/common.cuh``. A library goes to
+All include ``csrc/common.cuh``. A library goes to
 ``build/posendf_torch/<name>_<hash>.so`` under the repository root, keyed by
 a hash of its source, the header and the compiler flags: an edited source is
 rebuilt, an unchanged one is loaded as it is. Different libraries may be
@@ -30,7 +31,8 @@ from typing import Dict
 __all__ = ["library", "check", "build_info", "SOURCES", "ACT_CODES"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = {"field": CSRC / "field_kernels.cu", "train": CSRC / "train_kernels.cu"}
+SOURCES = {"field": CSRC / "field_kernels.cu", "train": CSRC / "train_kernels.cu",
+           "knn": CSRC / "knn_kernels.cu"}
 HEADERS = [CSRC / "common.cuh"]
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "posendf_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -69,8 +71,16 @@ _SIGNATURES = {
         "posendf_train_reduce_partial_floats": ([_P, _I, _I], _I),
         "posendf_train_error_string": ([_I], ctypes.c_char_p),
     },
+    "knn": {
+        # q, Q, c, N, w, w_total, engine, kpad, S, part_d, part_i, stream
+        "posendf_knn_partial": ([_P, _I, _P, _I, _P, _F, _I, _I, _I, _P, _P, _P], _I),
+        # part_d, part_i, S, Q, kpad, k, d_out, i_out, stream
+        "posendf_knn_merge": ([_P, _P, _I, _I, _I, _I, _P, _P, _P], _I),
+        "posendf_knn_error_string": ([_I], ctypes.c_char_p),
+    },
 }
-_ERROR_STRING = {"field": "posendf_error_string", "train": "posendf_train_error_string"}
+_ERROR_STRING = {"field": "posendf_error_string", "train": "posendf_train_error_string",
+                 "knn": "posendf_knn_error_string"}
 
 _INFO: Dict[str, dict] = {}
 

@@ -1,14 +1,16 @@
 """Command line of the PyTorch port, as ``posendf_tpu/cli.py``: ``train``
-(the distance field, on one device) and ``generate`` (pose sampling by
-manifold projection, without the mesh output).
+(the distance field, on one device), ``generate`` (pose sampling by
+manifold projection, without the mesh output) and ``prepare-data`` (AMASS
+sampling and kNN distance labelling).
 
 Usage::
 
     python -m posendf_torch.cli train --config run.json --fused-grads --max-epoch 10
     python -m posendf_torch.cli generate --ckpt docs/quality/ckpt_l8_best.msgpack \\
         --num-poses 100 --steps 200 --fused --out poses.npz
+    python -m posendf_torch.cli prepare-data --amass-raw raw/ --out-dir data/ --stage label
 
-Both run on the card unless ``--device cpu`` is given.
+Each runs on the card unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -105,6 +107,12 @@ def cmd_generate(args) -> None:
         print(f"wrote {args.out}")
 
 
+def cmd_prepare_data(args) -> None:
+    from posendf_torch.data.prepare import run_cli
+
+    run_cli(args)
+
+
 def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--config", "-c", default=None,
                    help="config, YAML or JSON (default: the configs/amass.yaml hyperparameters)")
@@ -147,6 +155,44 @@ def build_parser() -> argparse.ArgumentParser:
                    help="one CUDA kernel launch per projection step")
     p.add_argument("--out", default=None, help="output .npz path")
     p.set_defaults(fn=cmd_generate)
+
+    p = sub.add_parser("prepare-data", help="AMASS sampling + kNN distance labelling")
+    _add_common(p)
+    p.add_argument("--amass-raw", required=True, help="raw AMASS root")
+    p.add_argument("--out-dir", required=True)
+    p.add_argument("--stage", choices=["sample", "label", "all"], default="all")
+    p.add_argument("--split", default="train")
+    p.add_argument("--num-samples", type=int, default=100)
+    p.add_argument("--runs", type=int, default=1000)
+    p.add_argument("--k-candidates", type=int, default=0,
+                   help="0 (default): exact single-stage top-k; >0: the reference-shaped "
+                        "two-stage search (L2 candidates of this width, then exact re-rank)")
+    p.add_argument("--k", type=int, default=5)
+    p.add_argument("--metric", choices=["geo", "euc"], default="geo")
+    p.add_argument("--weighted", action="store_true",
+                   help="joint-rank-weighted distance (dist_utils.py:39)")
+    p.add_argument("--space", choices=["quat", "joints"], default="quat",
+                   help="candidate-search embedding: raw quats ('joints', the SMPL "
+                        "joint positions, is not ported yet)")
+    p.add_argument("--bm-path", default=None, help="SMPL model for --space joints")
+    p.add_argument("--knn-precision", choices=["auto", "highest", "high", "default", "fast"],
+                   default="auto",
+                   help="search engine: 'auto' (default) takes the faster engine that gives "
+                        "exact labels, which on the card is exact 'highest' for now (see "
+                        "data/prepare.py FAST_ENGINE_BACKENDS); 'highest' is exact fp32; "
+                        "'fast' is the bound prescreen + exact rerank; "
+                        "'default' rounds the distance products' inputs to bf16")
+    p.add_argument("--fused-knn", choices=["auto", "on", "off"], default="auto",
+                   help="the CUDA kNN kernel (auto: single-stage geodesic searches on the card)")
+    p.add_argument("--per-pose-noise", action="store_true",
+                   help="an independent noise draw per query pose (default: the reference's "
+                        "one (21, 4) draw per sigma group, create_data.py:88)")
+    p.add_argument("--structured-frac", type=float, default=0.0,
+                   help="fraction of queries given limb-structured noise instead of the "
+                        "sigma grid (0.0 = the reference's sampler)")
+    p.add_argument("--structured-sigma", type=float, nargs=2, default=[0.3, 1.0],
+                   help="per-query sigma range of structured chain noise")
+    p.set_defaults(fn=cmd_prepare_data)
     return parser
 
 

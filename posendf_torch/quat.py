@@ -1,15 +1,24 @@
-"""The two quaternion normalizations on the pose prior's path.
+"""The two quaternion normalizations on the pose prior's path, and the joint
+weights of the weighted distance.
 
-Mirror of ``posendf_tpu/quat.py::quat_normalize`` and
-``joint_axis_normalize``. Both divide by ``sqrt(max(sum of squares, eps^2))``
-(the clamp is taken of the squared sum, so the gradient is finite at zero).
+Mirror of ``posendf_tpu/quat.py::quat_normalize``, ``joint_axis_normalize``
+and ``SMPL_JOINT_RANK``. Both normalizations divide by
+``sqrt(max(sum of squares, eps^2))`` (the clamp is taken of the squared sum,
+so the gradient is finite at zero).
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["quat_normalize", "joint_axis_normalize"]
+__all__ = ["quat_normalize", "joint_axis_normalize", "SMPL_JOINT_RANK", "JOINT_WEIGHTS"]
+
+# Per-joint importance ranks of the weighted distance (the reference's
+# joint_rank, data/dist_utils.py:16,39), and their L2-normalized float32 form,
+# the weights every weighted kNN search and label uses.
+SMPL_JOINT_RANK = torch.tensor([7, 7, 7, 6, 6, 6, 5, 5, 5, 4, 4, 4, 4, 4, 3, 3, 3, 2, 2, 1, 1],
+                               dtype=torch.float32)
+JOINT_WEIGHTS = SMPL_JOINT_RANK / torch.linalg.norm(SMPL_JOINT_RANK)
 
 
 def quat_normalize(q: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:

@@ -258,11 +258,15 @@ def test_distance_fused_is_differentiable_twice_like_jax(act):
 
 
 def test_entry_points_need_a_card_unless_asked_for_the_cpu(monkeypatch, tmp_path):
-    """No silent CPU fallback: ``load_field``, ``cli generate`` and the
-    ``Trainer`` default to the card and raise without one."""
+    """No silent CPU fallback: ``load_field``, ``cli generate``, the
+    ``Trainer``, ``label_split``, ``cli prepare-data``, ``probe_fast_safety``
+    and ``resolve_knn_precision('auto')`` default to the card and raise
+    without one."""
     import posendf_torch
     from posendf_torch import cli
     from posendf_torch.config import PoseNDFConfig
+    from posendf_torch.data.prepare import label_split, probe_fast_safety, resolve_knn_precision
+    from posendf_torch.data.synthetic import synthetic_manifold_poses
     from posendf_torch.training.trainer import Trainer
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -274,5 +278,16 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu(monkeypatch, tmp_path
     cfg.experiment.root_dir = str(tmp_path)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Trainer(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli.main(["prepare-data", "--amass-raw", str(tmp_path), "--out-dir",
+                  str(tmp_path / "prep"), "--stage", "label"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        label_split(str(tmp_path), str(tmp_path / "labeled"), ["ACCAD"])
+    corpus = synthetic_manifold_poses(np.random.default_rng(0), 64)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        probe_fast_safety(corpus, n_queries=8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_knn_precision("auto", corpus, verbose=False)
+    assert resolve_knn_precision("auto", corpus, device="cpu", verbose=False) == ("highest", None)
     field = posendf_torch.load_field(device="cpu")
     assert field.module.dfnet.w0.device.type == "cpu"
