@@ -1,14 +1,16 @@
 """Smoke run of the PyTorch port (``posendf_torch``) on one CUDA card.
 
-Drives the pose prior's main path and the training path through their
-hand-written CUDA kernels on the full-width trained field
-``docs/quality/ckpt_l8_best.msgpack``, and the data-manufacturing path
-(kNN labelling) against a 1,048,576-pose corpus:
+Drives the pose prior's main path, the training path and the serving path
+(the int8 forward, ``torch.export`` artifacts) through their hand-written
+CUDA kernels on the full-width trained field
+``docs/quality/ckpt_l8_best.msgpack``, the data-manufacturing path (kNN
+labelling) against a 1,048,576-pose corpus, and the bf16 / int8
+tensor-core probe:
 
   1. device: requires CUDA; prints the card's name and power limit
   2. build: compiles ``posendf_torch/csrc/field_kernels.cu``,
-     ``train_kernels.cu`` and ``knn_kernels.cu`` with nvcc, one process
-     each, from three threads at once (timed)
+     ``train_kernels.cu``, ``knn_kernels.cu`` and ``int8_kernels.cu`` with
+     nvcc, one process each, from four threads at once (timed)
   3. load: ``posendf_torch.load_field(ckpt, device="cuda")``
   4. kernel vs plain on the card, at B = 4096 and a ragged B = 1000:
      ``distance_fused`` vs ``distance``, ``distance_and_grad_fused`` vs
@@ -63,6 +65,30 @@ hand-written CUDA kernels on the full-width trained field
      N = 1,048,576, k = 5, where every engine's kernel output is held to its
      plain version's (and the main path's exact and bf16 labels of those
      queries too), and the bound engine's to the ``torch.matmul`` yardstick
+ 14. the int8 kernel vs its plain version on the card: the trained field
+     quantized on 4,096 numpy-seeded poses (``Field.quantize_int8``),
+     ``QuantizedField.distance`` held to ``distance_ref`` at B = 4,096, a
+     ragged 1,000 and 131,072; the int8 field held to the fp32 field at
+     131,072 poses with the bars of ``tests/test_fused_int8.py:190-201``
+     (MAE < 0.03 std, Pearson > 0.998, Spearman > 0.995)
+ 15. against the JAX package (``tests/data/torch_port_int8_expected.npz``):
+     the kernel on JAX's own qparams (carried over by
+     ``qparams_from_numpy``) vs ``reference_int8_forward`` and the Pallas
+     kernel in interpret mode; the port's ``quantize_posendf`` on the card vs
+     JAX's on the same calibration poses; the probe kernels vs JAX's chains
+ 16. main path, serving: ``load_field`` -> ``quantize_int8`` -> ``save`` ->
+     ``QuantizedField.load(device="cuda")`` (the same bits) -> ``distance``
+     of 131,072 poses, the int8 launch count set to 0 before and read after
+     and the plain version refused meanwhile; ``cli export --int8
+     --quantized`` and ``cli export --what forward`` on the card, both
+     artifacts reloaded with ``load_artifact`` and held at two batch sizes
+     to ``distance_ref`` / ``distance``; then times: the int8 kernel vs its
+     plain version, vs the fp32 ``posendf_forward`` kernel in the same
+     rounds, and the int8 products alone as ``torch._int_mm``
+ 17. the probe kernels vs their plain versions at (131,072, 512), 1 and 8
+     layers; ``python -m posendf_torch.ops.int8_probe``'s run (its launch
+     counts set to 0 before and read after); times of both chains against
+     their library chains, rates and shares of the dense peaks
 
 Kernel and plain times are medians over rounds of plain, kernel, kernel,
 plain, each round a mean over a few calls (one call of the kNN plain
@@ -97,6 +123,42 @@ sum_j w_j |q_j| |c_j| = 1 for unit joints, and the bar is 3 x 2^-16 plus
 the sums' 1e-5. A sorted list of values each moved by at most e moves by at
 most e rank by rank, so the top-k values are held to it too.
 
+int8 serving: every int8 layer's sums are exact integers in the kernel and
+in the plain version alike (|acc| <= K 127^2 < 2^24), so their d can differ
+only through the fp32 part before the window: the encoder and layer 0 sum
+in another order (the kernel's FMA chains against cuBLAS), which moves a
+layer-1 input x by a few 1e-7. That moves nothing downstream unless
+x inv_sa lies that close to a rounding boundary n + 1/2, where the
+requantized level moves by one. One level of input channel i changes layer
+1's pre-activation j by wq_ij dq_j ~ sa_i w_ij: 1/127 of the channel's
+calibration maximum times the weight, and
+layers 2-6 carry that on: up to a few 1e-4 in d, far above the fp32 part's
+1e-6. No fixed bar both admits that and stays tight, so the bar of such a
+pose is the plain d itself with the level moved: a pose off by more than
+1e-5 passes only if its layer-1 inputs lie within 3e-5 of a boundary and
+the plain d with those levels on the other side is within 1e-5 of the
+kernel's (``fused_int8.hold_to_ref``); the log counts those poses. The
+port's quantization on the card against JAX's on the CPU: window, floored
+channels, w_absmax and the fp32 layers equal; dq within rtol 1e-6; the
+activation scales within 1e-6 of the layer's largest (a calibration maximum
+is a sum whose rounding is relative to its terms, so a nearly dead
+channel's scale moves by more than 1e-6 of itself; the log counts them);
+wq equal but for at most 1e-4 of the entries, one level apart (a folded
+weight on a rounding boundary). The artifacts run the plain paths' own
+operations: 1e-6. Probes: int8 bitwise (s = 1/64, every sum an exact
+integer); bf16 after one layer each element within one bf16 spacing plus
+both fp32 sums' worst-case rounding, 2 K 2^-24 sum_k |x_k w_k|
+(``int8_probe.bf16_layer_excess``: where a sum cancels, its rounding is
+relative to the terms and not to the small result), each of the 8 layers
+alone on the plain chain's input. Over 8 layers such differences feed
+forward and grow, and the share of elements more than one spacing apart is
+held under 10%: measured 6.58% against the plain version (131,072 rows) and
+6.95% against JAX's chain (256 rows) on an H100, where the tensor cores'
+fp32 accumulation rounds otherwise than IEEE adds (one layer differs from
+the plain version in 0.028% of its elements, against 0.011% between two
+IEEE fp32 orders, the plain version and JAX's on the CPU, which end 2.5%
+apart after 8 layers); a wrong layer puts most elements off.
+
 Bounds (``bound_ms``): the larger of the operations over the fp32 CUDA-core
 peak (67 TFLOP/s, an FMA counted as two) and the bytes (each input read
 once, each output written once) over the memory rate (3.35 TB/s) of an H100
@@ -107,7 +169,11 @@ operand modifier), 8; per pair 1 - total / 21, one FMA, 2; so 8 x 21 + 2 =
 170 a pair (the rounding of the operands to bf16 is once per row, and the
 top-k selection's comparisons are not counted). The kNN bound engine's
 operations count at the bf16 tensor-core peak (989 TFLOP/s): three passes of
-its K = 84 product.
+its K = 84 product. The int8 forward: its int8 products at the int8
+tensor-core peak (1,979 TOPS) plus its fp32 multiply-adds (the encoder,
+layers 0, 5 and 6) at 67 TFLOP/s, against the poses in, d out and the
+weights once; the probe chains: 2 x rows x 512^2 x 8 operations at the bf16
+(989 TFLOP/s) or int8 peak, against x, w and the output once.
 
 Any failure raises, so the script exits nonzero and prints no result. The
 second-to-last line is a JSON object describing the kernels, the last line is
@@ -152,6 +218,13 @@ YARD_BAR = 3 * 2.0 ** -16 + BOUND_ATOL  # the 3-pass bf16 split vs one fp32 prod
 KNN_PAIR_OPS = 8 * 21 + 2              # fp32 operations of the distance a pair; docstring
 CORPUS_FILES, CORPUS_ROWS = 64, 16_384   # the main path's corpus: 1,048,576 poses
 KNN_Q, KNN_K = 4096, 5
+PEAK_INT8 = 1979e12                      # H100 SXM: int8 tensor cores, dense
+INT8_EXPECTED = "tests/data/torch_port_int8_expected.npz"
+INT8_CALIB = 4096
+INT8_ATOL = 1e-5      # int8 d; poses with a level on a rounding boundary: docstring
+WQ_FLIP_SHARE = 1e-4  # quantization on the card vs JAX's: wq entries one level apart
+BF16_CHAIN_SHARE = 0.10  # probe bf16, 8 layers: elements more than one spacing apart; docstring
+EXPORT_ATOL = 1e-6
 
 
 def log(*args) -> None:
@@ -414,6 +487,7 @@ def main() -> None:
 
     train = train_phases(field, card)
     knn = knn_phases(card)
+    serving = serving_phases(field, card)
 
     # bounds of the serving kernels at the main path's shapes
     flop = traversal_flops(w)
@@ -439,7 +513,7 @@ def main() -> None:
          "replaces": "posendf_tpu/ops/fused_grad.py:245", "launches": launches["proj"],
          "max_abs_err": errs["proj"], "ms": proj_ms, "plain_ms": proj_plain_ms_step,
          "bound_ms": vag_bound[0], "bound_by": vag_bound[1], "library_ms": None},
-    ] + train + knn
+    ] + train + knn + serving
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": torch.cuda.get_device_name(0),
@@ -1108,6 +1182,318 @@ def knn_phases(card: str) -> list:
             row["library"] = f"torch.matmul + torch.topk per {chunk}-row chunk, one torch.topk"
         rows_out.append(row)
     return rows_out
+
+
+def unit_poses(seed: int, n: int) -> np.ndarray:
+    """Per-joint unit quaternions from a normal draw, as
+    ``scripts/make_torch_port_int8_golden.py`` makes its calibration and
+    probe poses."""
+    q = np.random.default_rng(seed).normal(size=(n, 21, 4)).astype(np.float32)
+    return q / np.linalg.norm(q, axis=-1, keepdims=True)
+
+
+def hold_int8(name: str, qfield, pose: torch.Tensor, d: torch.Tensor, d_ref) -> float:
+    """The int8 kernel's d against a plain d of the same poses
+    (``fused_int8.hold_to_ref``: INT8_ATOL, or the plain d with the first
+    int8 layer's boundary levels moved); returns the largest |err| of all
+    poses, the moved ones included."""
+    from posendf_torch.ops import fused_int8
+
+    d_ref = torch.as_tensor(d_ref).to(d.device)
+    m = qfield.module
+    r = fused_int8.hold_to_ref(d, d_ref, pose, qfield.qparams, parents=m.parents,
+                               activation=m.activation, beta=m.beta, atol=INT8_ATOL)
+    err = max_err(d.float(), d_ref.float())
+    log(f"  ok {name}: max |err| {r['max_abs_err']:.3e} on {d.shape[0] - r['one_level']} poses; "
+        f"{r['one_level']} poses held to the plain d with a boundary level moved (their "
+        f"|err| up to {r['one_level_max']:.3e})")
+    return err
+
+
+def check_qparams(name: str, port: dict, ref: dict, max_flip_share: float) -> None:
+    """The port's quantization against a reference tree of the same weights
+    and poses: window and floored channels equal, fp32 layers and w_absmax
+    to the bit, dq within rtol 1e-6, the activation scales sa = 1/inv_sa
+    within 1e-6 x the layer's largest (the count beyond rtol 1e-6 logged),
+    wq equal but for at most ``max_flip_share`` of its entries, each one
+    level apart."""
+    if tuple(port["window"]) != tuple(ref["window"]):
+        raise AssertionError(f"{name}: window {port['window']} vs {ref['window']}")
+    if list(port["report"]["floored_channels"]) != list(ref["report"]["floored_channels"]):
+        raise AssertionError(f"{name}: floored channels differ")
+    if list(port["report"]["w_absmax"]) != [float(v) for v in ref["report"]["w_absmax"]]:
+        raise AssertionError(f"{name}: w_absmax differs")
+    flips = entries = sa_rel = 0
+    for l, (lp, lr) in enumerate(zip(port["layers"], ref["layers"])):
+        if "w" in lr:
+            if not np.array_equal(lp["w"], lr["w"]) or not np.array_equal(lp["b"], lr["b"]):
+                raise AssertionError(f"{name}: fp32 layer {l} differs")
+            continue
+        dq_err = np.abs(lp["dq"] / lr["dq"] - 1).max()
+        sa_p, sa_r = 1.0 / lp["inv_sa"].astype(np.float64), 1.0 / lr["inv_sa"].astype(np.float64)
+        diff = np.abs(lp["wq"].astype(int) - lr["wq"].astype(int))
+        if dq_err > 1e-6 or np.abs(sa_p - sa_r).max() > 1e-6 * sa_r.max() or diff.max() > 1:
+            raise AssertionError(f"{name} layer {l}: dq rel {dq_err:.3e}, sa "
+                                 f"{np.abs(sa_p - sa_r).max() / sa_r.max():.3e} of the largest, "
+                                 f"wq up to {diff.max()} levels apart")
+        sa_rel += int((np.abs(sa_p / sa_r - 1) > 1e-6).sum())
+        flips += int(diff.sum())
+        entries += diff.size
+    if flips > max_flip_share * entries:
+        raise AssertionError(f"{name}: {flips} of {entries} wq entries one level apart")
+    log(f"  ok {name}: window {tuple(port['window'])}, floored channels "
+        f"{list(port['report']['floored_channels'])}; {flips} of {entries} wq entries one level "
+        f"apart; {sa_rel} activation scales beyond rtol 1e-6 (within 1e-6 x the layer's largest)")
+
+
+def serving_phases(field, card: str) -> list:
+    """Phases 14-17; returns the int8 kernel's and the probe kernels' JSON
+    entries."""
+    import tempfile
+
+    from posendf_torch import _build, cli, load_field
+    from posendf_torch.export import load_artifact
+    from posendf_torch.field import QuantizedField
+    from posendf_torch.ops import fused_int8, int8_probe
+
+    serve = torch.from_numpy(unit_poses(SEED + 40, SERVE_BATCH)).cuda()
+
+    # ---- 14. the int8 kernel vs its plain version on the card ----
+    qfield = field.quantize_int8(torch.from_numpy(unit_poses(SEED + 41, INT8_CALIB)).cuda())
+    rep = qfield.qparams["report"]
+    pk = fused_int8.packed(qfield.qparams, field.module.parents)
+    smem = _build.library("int8").posendf_int8_smem_bytes(
+        pk.parents.numel(), qfield.qparams["enc"]["w2"].shape[-1], pk.num_layers, pk.maxw, pk.maxq)
+    log(f"int8 kernel vs plain: {CKPT} quantized on {INT8_CALIB} poses on the card, window "
+        f"{qfield.qparams['window']}, floored channels {rep['floored_channels']}, {smem} bytes "
+        f"of shared memory per block")
+    int8_err = 0.0
+    for B in (4096, 1000, SERVE_BATCH):
+        p = serve[:B] if B == SERVE_BATCH else torch.from_numpy(unit_poses(SEED + 42 + B, B)).cuda()
+        int8_err = max(int8_err, hold_int8(f"distance (kernel) vs distance_ref, B = {B}", qfield,
+                                           p, qfield.distance(p), qfield.distance_ref(p)))
+    with torch.no_grad():
+        d32 = field.distance(serve).double().cpu().numpy().ravel()
+    d8 = qfield.distance(serve).double().cpu().numpy().ravel()
+    mae, std = float(np.mean(np.abs(d8 - d32))), float(np.std(d32))
+    pearson = float(np.corrcoef(d8, d32)[0, 1])
+    spearman = float(np.corrcoef(*(np.argsort(np.argsort(v)).astype(np.float64)
+                                   for v in (d8, d32)))[0, 1])
+    if not (mae < 0.03 * std and pearson > 0.998 and spearman > 0.995):
+        raise AssertionError(f"int8 vs fp32 field: MAE {mae:.3e} (std {std:.3e}), Pearson "
+                             f"{pearson:.6f}, Spearman {spearman:.6f}")
+    log(f"  ok int8 kernel vs the fp32 field at {SERVE_BATCH} poses: MAE {mae:.4e} = "
+        f"{mae / std:.4f} std (bar 0.03), Pearson {pearson:.6f} (bar 0.998), Spearman "
+        f"{spearman:.6f} (bar 0.995)")
+
+    # ---- 15. against the JAX package ----
+    ref = np.load(INT8_EXPECTED)
+    jq = fused_int8.qparams_from_numpy({k[3:]: ref[k] for k in ref.files if k.startswith("qp/")},
+                                       "cuda")
+    jfield = QuantizedField(field.module, jq)
+    probes = torch.from_numpy(ref["probes"]).cuda()
+    log(f"int8 vs the JAX package ({INT8_EXPECTED}, {probes.shape[0]} probes)")
+    d = jfield.distance(probes)
+    int8_err = max(int8_err, hold_int8("kernel on JAX's qparams vs reference_int8_forward",
+                                       jfield, probes, d, torch.from_numpy(ref["d_ref"])),
+                   hold_int8("kernel on JAX's qparams vs JAX's kernel (interpret)", jfield,
+                             probes, d, torch.from_numpy(ref["d_kernel"])))
+    own = field.quantize_int8(torch.from_numpy(unit_poses(int(ref["seed"]), int(ref["calib"]))).cuda())
+    check_qparams("quantize_posendf on the card vs JAX's", fused_int8.qparams_to_numpy(own.qparams),
+                  fused_int8.qparams_to_numpy(jq), WQ_FLIP_SHARE)
+    rows, layers = int(ref["probe_b"]), int(ref["probe_layers"])
+    g = np.random.default_rng(int(ref["probe_seed"]))      # probe_chain_inputs of the script
+    xb = torch.from_numpy(g.normal(size=(rows, 512)).astype(np.float32)).cuda().bfloat16()
+    wb = torch.from_numpy((g.normal(size=(layers, 512, 512)) * 0.05).astype(np.float32))
+    wb = wb.cuda().bfloat16()
+    xi = torch.from_numpy(g.integers(-127, 128, size=(rows, 512)).astype(np.int8)).cuda()
+    wi = torch.from_numpy(g.integers(-127, 128, size=(layers, 512, 512)).astype(np.int8)).cuda()
+    si = torch.full((1, layers), 1.0 / 64.0, device="cuda")
+    if not torch.equal(int8_probe.run_int8(xi, wi, si, layers).cpu(),
+                       torch.from_numpy(ref["int8_out"].astype(np.float32))):
+        raise AssertionError("probe_int8_chain vs JAX's int8 chain: not bitwise equal")
+    jb = torch.from_numpy(ref["bf16_out"].view(np.int16).copy()).view(torch.bfloat16)
+    share = float((int8_probe.bf16_ulps(int8_probe.run_bf16(xb, wb, layers).cpu(), jb) > 1)
+                  .float().mean())
+    if share >= BF16_CHAIN_SHARE:
+        raise AssertionError(f"probe_bf16_chain vs JAX: {share:.4%} of elements more than one "
+                             f"bf16 spacing apart")
+    log(f"  ok probe chains vs JAX's ({rows} x 512, {layers} layers): int8 bitwise; bf16 "
+        f"{share:.4%} of elements more than one spacing apart (bar {BF16_CHAIN_SHARE:.0%})")
+
+    # ---- 16. main path: serving ----
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "field.int8.msgpack")
+        t0 = time.perf_counter()
+        f32 = load_field(CKPT, device="cuda")
+        qf = f32.quantize_int8(torch.from_numpy(unit_poses(SEED + 41, INT8_CALIB)).cuda())
+        qf.save(path)
+        loaded = QuantizedField.load(path, device="cuda")
+        for a, b in zip(fused_int8._tensors(loaded.qparams), fused_int8._tensors(qf.qparams)):
+            if a.dtype != b.dtype or not torch.equal(a, b):
+                raise AssertionError("QuantizedField.save then load changed the quantized field")
+        if loaded.qparams["window"] != qf.qparams["window"] or \
+                loaded.qparams["report"] != qf.qparams["report"]:
+            raise AssertionError("QuantizedField.save then load changed the window or report")
+
+        def refuse(*args, **kwargs):
+            raise AssertionError("the serving path called the int8 kernel's plain version")
+
+        saved = fused_int8.fused_posendf_forward_int8_ref, fused_int8.int8_layers_ref
+        fused_int8.fused_posendf_forward_int8_ref = fused_int8.int8_layers_ref = refuse
+        fused_int8.LAUNCHES = 0
+        try:
+            d_main = loaded.distance(serve)
+            torch.cuda.synchronize()
+        finally:
+            fused_int8.fused_posendf_forward_int8_ref, fused_int8.int8_layers_ref = saved
+        int8_launches = fused_int8.LAUNCHES
+        wall = time.perf_counter() - t0
+        log(f"main path, serving: load_field -> quantize_int8 ({INT8_CALIB} poses) -> save -> "
+            f"QuantizedField.load (the same bits) -> distance of {SERVE_BATCH} poses in "
+            f"{wall:.3f} s (first run); int8 launches {int8_launches}")
+        if int8_launches <= 0:
+            raise AssertionError("the serving path launched no int8 kernel")
+        if tuple(d_main.shape) != (SERVE_BATCH, 1) or not bool(torch.isfinite(d_main).all()):
+            raise AssertionError("serving d: bad shape or non-finite")
+        int8_err = max(int8_err, hold_int8("the main path's d vs distance_ref", loaded, serve,
+                                           d_main, loaded.distance_ref(serve)))
+        art8, art32 = os.path.join(tmp, "model.int8.pt2"), os.path.join(tmp, "model.pt2")
+        t0 = time.perf_counter()
+        cli.main(["export", "--device", "cuda", "--out", art8, "--int8", "--quantized", path])
+        cli.main(["export", "--device", "cuda", "--ckpt", CKPT, "--out", art32,
+                  "--what", "forward"])
+        export_s = time.perf_counter() - t0
+        served8, served32 = load_artifact(art8).module(), load_artifact(art32).module()
+        for B in (4096, 1000):
+            p = serve[:B]
+            with torch.no_grad():
+                assert_close(f"int8 artifact vs distance_ref, B = {B}", served8(p),
+                             loaded.distance_ref(p), atol=EXPORT_ATOL)
+                assert_close(f"fp32 artifact vs distance, B = {B}", served32(p),
+                             f32.distance(p), atol=EXPORT_ATOL)
+        log(f"  cli export --int8 --quantized and --what forward: {export_s:.3f} s, artifacts "
+            f"{os.path.getsize(art8)} and {os.path.getsize(art32)} bytes")
+
+    with torch.no_grad():
+        int8_ms, int8_plain_ms = interleaved_ms(
+            f"int8 forward B={SERVE_BATCH}", lambda: qfield.distance(serve),
+            lambda: qfield.distance_ref(serve), 5)
+        int8_ms2, fp32_ms = interleaved_ms(
+            f"int8 forward vs the fp32 posendf_forward kernel, B={SERVE_BATCH}",
+            lambda: qfield.distance(serve), lambda: field.distance_fused(serve), 5)
+    qlayers = [lyr for lyr in qfield.qparams["layers"] if "wq" in lyr]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 43)
+    xq = [torch.randint(-127, 128, (SERVE_BATCH, lyr["wq"].shape[0]), generator=gen,
+                        device="cuda", dtype=torch.int8) for lyr in qlayers]
+    int_mm_ms = cuda_ms(lambda: [torch._int_mm(x, lyr["wq"]) for x, lyr in zip(xq, qlayers)], 10)
+    log(f"int8 forward B={SERVE_BATCH}: kernel {int8_ms:.4f} ms ({SERVE_BATCH / int8_ms * 1e3:.4g} "
+        f"evals/s), plain {int8_plain_ms:.4f} ms; the fp32 kernel {fp32_ms:.4f} ms against "
+        f"{int8_ms2:.4f} ms in the same rounds: int8 / fp32 speed {fp32_ms / int8_ms2:.3f}x; "
+        f"the {len(qlayers)} int8 products alone as torch._int_mm {int_mm_ms:.4f} ms  [{card}]")
+
+    # ---- 17. the probe kernels ----
+    xb, wb, xi, wi, si = int8_probe.probe_inputs(rows=SERVE_BATCH, seed=SEED + 44)
+    log(f"probe kernels vs plain at ({SERVE_BATCH}, 512)")
+    probe_err = {"bf16": 0.0, "int8": 0.0}
+    # one layer at a time, each fed the plain chain's input: the bf16 layer bar
+    x_in, worst, differ = xb, 0.0, []
+    for l in range(int8_probe.LAYERS):
+        ob = int8_probe.run_bf16(x_in, wb[l:l + 1], 1)
+        rb = int8_probe.run_bf16_ref(x_in, wb[l:l + 1], 1)
+        excess = float(int8_probe.bf16_layer_excess(ob, rb, x_in, wb[l]).max())
+        if excess > 1:
+            raise AssertionError(f"probe_bf16_chain, layer {l} alone: {excess:.3f} of the bar")
+        worst = max(worst, excess)
+        differ.append(float((ob != rb).float().mean()))
+        probe_err["bf16"] = max(probe_err["bf16"], max_err(ob.float(), rb.float()))
+        x_in = rb
+    log(f"  ok bf16, each of the {int8_probe.LAYERS} layers alone on the plain chain's input: "
+        f"the largest difference {worst:.3f} of its bar (one spacing + both sums' rounding), "
+        f"max |err| {probe_err['bf16']:.3e}; elements that differ, layer by layer: "
+        + ", ".join(f"{v:.4%}" for v in differ))
+    for layers in (1, int8_probe.LAYERS):
+        oi, ri = int8_probe.run_int8(xi, wi, si, layers), int8_probe.run_int8_ref(xi, wi, si, layers)
+        if not torch.equal(oi, ri):
+            raise AssertionError(f"probe_int8_chain, {layers} layers: not bitwise equal")
+        ob, rb = int8_probe.run_bf16(xb, wb, layers), int8_probe.run_bf16_ref(xb, wb, layers)
+        ulps = int8_probe.bf16_ulps(ob, rb)
+        share = float((ulps > 1).float().mean())
+        log(f"  ok {layers} layer(s): int8 bitwise; bf16 chain {float((ulps > 0).float().mean()):.4%} "
+            f"of elements differ, {share:.4%} by more than one spacing (bar "
+            f"{BF16_CHAIN_SHARE:.0%}), max |err| {max_err(ob.float(), rb.float()):.3e}")
+        if share >= BF16_CHAIN_SHARE:
+            raise AssertionError(f"probe_bf16_chain, {layers} layers: {share:.4%} of elements "
+                                 f"more than one spacing apart")
+        del oi, ri, ob, rb, ulps
+    for k in int8_probe.LAUNCHES:
+        int8_probe.LAUNCHES[k] = 0
+    log("python -m posendf_torch.ops.int8_probe:")
+    int8_probe.main()
+    probe_launches = dict(int8_probe.LAUNCHES)
+    log(f"  probe launches {probe_launches}")
+    for k, n in probe_launches.items():
+        if n <= 0:
+            raise AssertionError(f"the probe launched no {k} kernel")
+    bf16_ms, bf16_plain_ms = interleaved_ms("probe bf16 chain", lambda: int8_probe.run_bf16(xb, wb),
+                                            lambda: int8_probe.run_bf16_ref(xb, wb), 5)
+    i8_ms, i8_plain_ms = interleaved_ms("probe int8 chain", lambda: int8_probe.run_int8(xi, wi, si),
+                                        lambda: int8_probe.run_int8_ref(xi, wi, si), 5)
+    def library_bf16():                      # one torch.matmul (cuBLAS) a layer
+        x = xb
+        for l in range(int8_probe.LAYERS):
+            x = torch.matmul(x, wb[l])
+
+    def library_int8():                      # torch._int_mm and requantization a layer
+        x = xi
+        for l in range(int8_probe.LAYERS):
+            f = torch._int_mm(x, wi[l]).float() * si[0, l]
+            x = torch.clamp(torch.round(f), -127.0, 127.0).to(torch.int8)
+
+    bf16_lib_ms = cuda_ms(library_bf16, 10)
+    i8_lib_ms = cuda_ms(library_int8, 10)
+    ops = 2.0 * SERVE_BATCH * 512 * 512 * int8_probe.LAYERS
+    for name, t, lib, peak in (("bf16", bf16_ms, bf16_lib_ms, PEAK_BF16),
+                               ("int8", i8_ms, i8_lib_ms, PEAK_INT8)):
+        log(f"probe {name}: kernel {t:.4f} ms, {ops / t / 1e9:.1f} T{'FLOP' if name == 'bf16' else 'OP'}"
+            f"/s = {ops / t * 1e3 / peak:.2%} of the dense peak; library chain {lib:.4f} ms, "
+            f"{ops / lib / 1e9:.1f} T/s  [{card}]")
+    log(f"probe int8 / bf16 speed: kernels {bf16_ms / i8_ms:.3f}x, library chains "
+        f"{bf16_lib_ms / i8_lib_ms:.3f}x  [{card}]")
+
+    # bounds
+    enc, qp_layers = qfield.qparams["enc"], qfield.qparams["layers"]
+    int8_macs = sum(lyr["wq"].numel() for lyr in qp_layers if "wq" in lyr)
+    f32_macs = (enc["w1"].numel() + enc["w2"].numel()
+                + sum(lyr["w"].numel() for lyr in qp_layers if "w" in lyr))
+    wbytes = sum(t.numel() * t.element_size() for t in fused_int8._tensors(qfield.qparams))
+    t_ops = (2 * int8_macs * SERVE_BATCH / PEAK_INT8 + 2 * f32_macs * SERVE_BATCH / PEAK_FLOPS) * 1e3
+    t_bytes = (4 * SERVE_BATCH * (21 * 4 + 1) + wbytes) / PEAK_BYTES * 1e3
+    int8_bound = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    n_l, rows_b = int8_probe.LAYERS, SERVE_BATCH * 512
+    bf16_bound = bound(ops, 2 * (2 * rows_b + n_l * 512 * 512), PEAK_BF16)
+    i8_bound = bound(ops, rows_b + n_l * 512 * 512 + 4 * n_l + 4 * rows_b, PEAK_INT8)
+    log(f"bounds: int8 forward {int8_bound[0]:.4f} ms ({int8_bound[1]}: {int8_macs} int8 and "
+        f"{f32_macs} fp32 multiply-adds a pose); probe bf16 {bf16_bound[0]:.4f} ms, int8 "
+        f"{i8_bound[0]:.4f} ms ({bf16_bound[1]})")
+    src = "posendf_torch/csrc/int8_kernels.cu"
+    return [
+        {"name": "posendf_forward_int8", "route": "cuda", "source": src,
+         "replaces": "posendf_tpu/ops/fused_int8.py:181", "launches": int8_launches,
+         "max_abs_err": int8_err, "ms": int8_ms, "plain_ms": int8_plain_ms,
+         "bound_ms": int8_bound[0], "bound_by": int8_bound[1], "library_ms": int_mm_ms,
+         "library": f"the {len(qlayers)} int8 products alone, torch._int_mm each"},
+        {"name": "probe_bf16_chain", "route": "cuda", "source": src,
+         "replaces": "scripts/int8_probe.py:33", "launches": probe_launches["bf16"],
+         "max_abs_err": probe_err["bf16"], "ms": bf16_ms, "plain_ms": bf16_plain_ms,
+         "bound_ms": bf16_bound[0], "bound_by": bf16_bound[1], "library_ms": bf16_lib_ms,
+         "library": "torch.matmul on bf16 a layer"},
+        {"name": "probe_int8_chain", "route": "cuda", "source": src,
+         "replaces": "scripts/int8_probe.py:41", "launches": probe_launches["int8"],
+         "max_abs_err": probe_err["int8"], "ms": i8_ms, "plain_ms": i8_plain_ms,
+         "bound_ms": i8_bound[0], "bound_by": i8_bound[1], "library_ms": i8_lib_ms,
+         "library": "torch._int_mm, scale, round, clamp, cast a layer"},
+    ]
 
 
 if __name__ == "__main__":

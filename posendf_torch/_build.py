@@ -6,6 +6,7 @@ header, so it compiles in seconds:
   ``field``  ``csrc/field_kernels.cu``  forward, value-and-grad, projection step
   ``train``  ``csrc/train_kernels.cu``  encoder, training gradient (tile + reduction)
   ``knn``    ``csrc/knn_kernels.cu``    geodesic top-k (per corpus range + merge)
+  ``int8``   ``csrc/int8_kernels.cu``   int8 serving forward, bf16 / int8 probe chains
 
 All include ``csrc/common.cuh``. A library goes to
 ``build/posendf_torch/<name>_<hash>.so`` under the repository root, keyed by
@@ -32,7 +33,7 @@ __all__ = ["library", "check", "build_info", "SOURCES", "ACT_CODES"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = {"field": CSRC / "field_kernels.cu", "train": CSRC / "train_kernels.cu",
-           "knn": CSRC / "knn_kernels.cu"}
+           "knn": CSRC / "knn_kernels.cu", "int8": CSRC / "int8_kernels.cu"}
 HEADERS = [CSRC / "common.cuh"]
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "posendf_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -78,9 +79,21 @@ _SIGNATURES = {
         "posendf_knn_merge": ([_P, _P, _I, _I, _I, _I, _P, _P, _P], _I),
         "posendf_knn_error_string": ([_I], ctypes.c_char_p),
     },
+    "int8": {
+        # pose, B, enc, parents, J, F, fw, qw, meta, L, maxw, maxq, act, beta, d_out, stream
+        "posendf_forward_int8": ([_P, _I, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P],
+                                 _I),
+        # (J, F, L, maxw, maxq) -> dynamic shared memory bytes of one block
+        "posendf_int8_smem_bytes": ([_I, _I, _I, _I, _I], _I),
+        # x, w, B, layers, out, stream
+        "probe_bf16_chain": ([_P, _P, _I, _I, _P, _P], _I),
+        # x, w, s, B, layers, out, stream
+        "probe_int8_chain": ([_P, _P, _P, _I, _I, _P, _P], _I),
+        "posendf_int8_error_string": ([_I], ctypes.c_char_p),
+    },
 }
 _ERROR_STRING = {"field": "posendf_error_string", "train": "posendf_train_error_string",
-                 "knn": "posendf_knn_error_string"}
+                 "knn": "posendf_knn_error_string", "int8": "posendf_int8_error_string"}
 
 _INFO: Dict[str, dict] = {}
 

@@ -9,8 +9,9 @@ go through the same key mapping as ``posendf_tpu/training/torch_import.py``
 zero-padded to 10 input rows).
 
 The msgpack files are read by a small decoder of the subset flax writes
-(``flax.serialization.msgpack_serialize``), so neither ``msgpack`` nor
-``flax`` is needed.
+(``flax.serialization.msgpack_serialize``) and written by a matching
+encoder (:func:`msgpack_serialize`), so neither ``msgpack`` nor ``flax`` is
+needed.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ import torch
 from posendf_torch import kinematics
 
 __all__ = [
-    "msgpack_restore", "load_msgpack_params", "params_from_jax",
+    "msgpack_restore", "msgpack_serialize", "load_msgpack_params", "params_from_jax",
     "params_from_torch_state_dict", "torch_state_dict_from_params", "load_torch_checkpoint",
 ]
 
@@ -128,6 +129,102 @@ def msgpack_restore(data: bytes) -> Any:
     if r.pos != len(r.buf):
         raise ValueError("trailing bytes after the msgpack object")
     return out
+
+
+class _Writer:
+    """Encoder of the same subset, in flax's layout: a numpy array is ext type
+    1 whose payload is the msgpack of ``[shape, dtype name, C-order bytes]``,
+    a numpy scalar ext type 3 with the same payload, tuples are lists, floats
+    are float64, map keys are sorted. Each object takes msgpack's shortest
+    form, as the ``msgpack`` package writes it."""
+
+    def __init__(self):
+        self.out = bytearray()
+
+    def _head(self, n: int, fix: Optional[int], fix_max: int, codes: Tuple[int, ...]) -> None:
+        if fix is not None and n <= fix_max:
+            self.out.append(fix | n)
+        elif len(codes) == 3 and n < 1 << 8:
+            self.out += struct.pack(">BB", codes[0], n)
+        elif n < 1 << 16:
+            self.out += struct.pack(">BH", codes[-2], n)
+        else:
+            self.out += struct.pack(">BI", codes[-1], n)
+
+    def _ext(self, code: int, data: bytes) -> None:
+        n = len(data)
+        fixed = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+        if n in fixed:
+            self.out += struct.pack(">Bb", fixed[n], code)
+        else:
+            self._head(n, None, -1, (0xC7, 0xC8, 0xC9))
+            self.out += struct.pack(">b", code)
+        self.out += data
+
+    @staticmethod
+    def _array_payload(arr: np.ndarray) -> bytes:
+        return msgpack_serialize([list(arr.shape), arr.dtype.name, arr.tobytes("C")])
+
+    def write(self, x: Any) -> None:
+        if isinstance(x, np.ndarray):          # before float: np.float64 is a float
+            self._ext(_EXT_NDARRAY, self._array_payload(x))
+        elif isinstance(x, np.generic):
+            self._ext(_EXT_NPSCALAR, self._array_payload(np.asarray(x)))
+        elif x is None:
+            self.out.append(0xC0)
+        elif isinstance(x, bool):
+            self.out.append(0xC3 if x else 0xC2)
+        elif isinstance(x, int):
+            self._int(x)
+        elif isinstance(x, float):
+            self.out += struct.pack(">Bd", 0xCB, x)
+        elif isinstance(x, str):
+            b = x.encode()
+            self._head(len(b), 0xA0, 31, (0xD9, 0xDA, 0xDB))
+            self.out += b
+        elif isinstance(x, bytes):             # an array's payload
+            self._head(len(x), None, -1, (0xC4, 0xC5, 0xC6))
+            self.out += x
+        elif isinstance(x, (list, tuple)):
+            self._head(len(x), 0x90, 15, (0xDC, 0xDD))
+            for v in x:
+                self.write(v)
+        elif isinstance(x, Mapping):
+            self._head(len(x), 0x80, 15, (0xDE, 0xDF))
+            for k in sorted(x):               # flax's tree copy sorts the keys
+                self.write(k)
+                self.write(x[k])
+        else:
+            raise TypeError(f"cannot serialize {type(x).__name__} to msgpack")
+
+    def _int(self, x: int) -> None:
+        if 0 <= x <= 0x7F:
+            self.out.append(x)
+        elif -32 <= x < 0:
+            self.out.append(x & 0xFF)
+        elif x >= 0:
+            for code, fmt, lim in ((0xCC, ">B", 1 << 8), (0xCD, ">H", 1 << 16),
+                                   (0xCE, ">I", 1 << 32), (0xCF, ">Q", 1 << 64)):
+                if x < lim:
+                    self.out += struct.pack(">B" + fmt[1], code, x)
+                    return
+            raise OverflowError(x)
+        else:
+            for code, fmt, lim in ((0xD0, ">b", 1 << 7), (0xD1, ">h", 1 << 15),
+                                   (0xD2, ">i", 1 << 31), (0xD3, ">q", 1 << 63)):
+                if x >= -lim:
+                    self.out += struct.pack(">B" + fmt[1], code, x)
+                    return
+            raise OverflowError(x)
+
+
+def msgpack_serialize(tree: Any) -> bytes:
+    """Encode a tree of dicts, lists, tuples, scalars and numpy arrays as
+    ``flax.serialization.msgpack_serialize`` does (arrays below its 1 GiB
+    chunking size), so the JAX package reads the bytes back."""
+    w = _Writer()
+    w.write(tree)
+    return bytes(w.out)
 
 
 def params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:

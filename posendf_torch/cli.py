@@ -1,7 +1,8 @@
 """Command line of the PyTorch port, as ``posendf_tpu/cli.py``: ``train``
 (the distance field, on one device), ``generate`` (pose sampling by
-manifold projection, without the mesh output) and ``prepare-data`` (AMASS
-sampling and kNN distance labelling).
+manifold projection, without the mesh output), ``prepare-data`` (AMASS
+sampling and kNN distance labelling) and ``export`` (a ``torch.export``
+artifact of the forward, the int8 forward or a whole projection).
 
 Usage::
 
@@ -9,6 +10,8 @@ Usage::
     python -m posendf_torch.cli generate --ckpt docs/quality/ckpt_l8_best.msgpack \\
         --num-poses 100 --steps 200 --fused --out poses.npz
     python -m posendf_torch.cli prepare-data --amass-raw raw/ --out-dir data/ --stage label
+    python -m posendf_torch.cli export --ckpt docs/quality/ckpt_l8_best.msgpack --int8 \
+        --calib poses.npz --save-quantized field.int8.msgpack --out model.int8.pt2
 
 Each runs on the card unless ``--device cpu`` is given.
 """
@@ -113,14 +116,92 @@ def cmd_prepare_data(args) -> None:
     run_cli(args)
 
 
-def _add_common(p: argparse.ArgumentParser) -> None:
+def cmd_export(args) -> None:
+    from posendf_torch.export import (export_forward, export_forward_int8, export_project,
+                                      save_artifact)
+    from posendf_torch.field import load_field
+
+    batch = args.batch if args.batch is not None else "symbolic"
+    if args.int8 or args.quantized:
+        if args.what != "forward":
+            raise SystemExit("--int8 exports the forward only (the int8 path is value-only; "
+                             "projection needs the fp32 gradient paths)")
+        qfield = _load_quantized(args)
+        save_artifact(export_forward_int8(qfield, batch=args.batch), args.out)
+        start, stop = qfield.qparams["window"]
+        print(f"exported int8 forward (quantized layers {start}..{stop - 1}, batch={batch}, "
+              f"device={qfield.device}) -> {args.out}")
+        return
+    field = load_field(args.ckpt, config=args.config, device=args.device)
+    if args.what == "forward":
+        exp = export_forward(field.module, batch=args.batch)
+    else:
+        exp = export_project(field.module, steps=args.steps, batch=args.batch,
+                             renormalize=not args.no_renorm)
+    save_artifact(exp, args.out)
+    print(f"exported {args.what} (batch={batch}, device={args.device}) -> {args.out}")
+
+
+CALIB_KEYS = ("pose", "pose_body", "quats", "poses")
+
+
+def _load_quantized(args):
+    """The int8 source of ``export --int8``: a saved quantized field
+    (--quantized), or post-training quantization of the loaded checkpoint on
+    the --calib poses (4,096 random poses with a warning otherwise)."""
+    import numpy as np
+    import torch
+
+    from posendf_torch.field import QuantizedField, load_field
+    from posendf_torch.projection import random_poses
+    from posendf_torch.quat import axis_angle_to_quaternion
+
+    if args.quantized:
+        return QuantizedField.load(args.quantized, device=args.device)
+    field = load_field(args.ckpt, config=args.config, device=args.device)
+    J = field.module.num_joints
+    if args.calib:
+        with np.load(args.calib) as z:
+            key = next((k for k in CALIB_KEYS if k in z), None)
+            if key is None:
+                raise SystemExit(f"--calib {args.calib}: no recognized pose key; found "
+                                 f"{sorted(z.files)}, expected one of {'/'.join(CALIB_KEYS)}")
+            calib = np.asarray(z[key], np.float32)
+        if calib.ndim == 2 and calib.shape[1] in (63, 69, 72, 156):
+            # 72/156: the full pose with the root; the body joints start at index 3
+            # (the reference slices 3:72, data/sample_poses.py:48-56)
+            start = 3 if calib.shape[1] in (72, 156) else 0
+            calib = axis_angle_to_quaternion(torch.from_numpy(
+                calib[:, start:start + 63].reshape(len(calib), 21, 3).copy())).numpy()
+        elif calib.ndim == 2 and calib.shape[1] != J * 4:
+            raise SystemExit(f"--calib {args.calib}: key {key!r} has width {calib.shape[1]}; "
+                             f"expected axis-angle 63/69/72/156 or quaternion {J * 4}")
+        try:
+            calib = calib.reshape(-1, J, 4)
+        except ValueError:
+            raise SystemExit(f"--calib {args.calib}: key {key!r} shape {calib.shape} does not "
+                             f"reshape to (-1, {J}, 4) quaternions") from None
+        calib = torch.from_numpy(calib)
+    else:
+        print("WARNING: no --calib set; calibrating activation scales on 4096 uniform random "
+              "poses (pass a representative pose file for tighter scales)")
+        calib = random_poses(torch.Generator().manual_seed(0), 4096)
+    qfield = field.quantize_int8(calib)
+    if args.save_quantized:
+        qfield.save(args.save_quantized)
+        print(f"saved quantized field -> {args.save_quantized}")
+    return qfield
+
+
+def _add_common(p: argparse.ArgumentParser,
+                device_help: str = "torch device (default cuda; raises without a card): "
+                                   "cuda or cpu") -> None:
     p.add_argument("--config", "-c", default=None,
                    help="config, YAML or JSON (default: the configs/amass.yaml hyperparameters)")
     p.add_argument("--ckpt", default=None,
                    help="checkpoint: the JAX package's .msgpack, the reference's .tar or a "
                         "training run's checkpoint directory")
-    p.add_argument("--device", default="cuda",
-                   help="torch device (default cuda; raises without a card): cuda or cpu")
+    p.add_argument("--device", default="cuda", help=device_help)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -193,6 +274,31 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--structured-sigma", type=float, nargs=2, default=[0.3, 1.0],
                    help="per-query sigma range of structured chain noise")
     p.set_defaults(fn=cmd_prepare_data)
+
+    p = sub.add_parser("export", help="serialize the model to a torch.export artifact")
+    _add_common(p, device_help="torch device the artifact is traced on and runs on (default "
+                               "cuda; raises without a card): cuda or cpu. It takes the place "
+                               "of the JAX CLI's --platforms")
+    p.add_argument("--out", required=True, help="artifact path")
+    p.add_argument("--what", choices=["forward", "project"], default="forward")
+    p.add_argument("--steps", type=int, default=10, help="projection steps (--what project)")
+    p.add_argument("--batch", type=int, default=None,
+                   help="static batch size (default: symbolic, any batch of 2 or more)")
+    p.add_argument("--no-renorm", action="store_true",
+                   help="projection without per-step renormalization")
+    p.add_argument("--int8", action="store_true",
+                   help="export the int8 forward (post-training quantization on --calib)")
+    p.add_argument("--calib", default=None,
+                   help="calibration poses for --int8: an .npz with a pose/pose_body/quats/"
+                        "poses key, (N, 21, 4) or (N, 84) quaternions or (N, 63/69/72/156) "
+                        "axis-angle. Without it, 4,096 random poses from "
+                        "torch.Generator().manual_seed(0): other poses than the JAX CLI's "
+                        "(the two packages' generators differ)")
+    p.add_argument("--save-quantized", default=None,
+                   help="also write the quantized field (posendf-int8-v1 msgpack) here")
+    p.add_argument("--quantized", default=None,
+                   help="export the int8 forward of a saved quantized field (implies --int8)")
+    p.set_defaults(fn=cmd_export)
     return parser
 
 

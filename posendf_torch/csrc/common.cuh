@@ -1,6 +1,7 @@
-// Device helpers shared by the port's kernels (field_kernels.cu, train_kernels.cu):
-// the activations with JAX's derivative conventions, and the tile product that
-// every DFNet layer of every kernel runs.
+// Device helpers shared by the port's kernels (field_kernels.cu, train_kernels.cu,
+// int8_kernels.cu): the activations with JAX's derivative conventions, the
+// input normalization and encoder walk of the forward kernels, and the tile
+// product that every fp32 DFNet layer of every kernel runs.
 //
 // Derivatives at z == 0 follow JAX's autodiff: lrelu'(0) = 1, relu'(0) = 0.
 // Softplus is (max(bz, 0) + log1p(exp(-|bz|))) / b everywhere.
@@ -135,6 +136,84 @@ __device__ __forceinline__ void tile_matmul(const float* __restrict__ W, int K, 
     tile_matmul_cols<2>(W, K, N, x, epi);
   else
     tile_matmul_cols<1>(W, K, N, x, epi);
+}
+
+// Joint-axis input normalization and the encoder walk of one pose, slot t of
+// the block's tile (one thread per pose). Reads the pose's J quaternions q4
+// (zeros when !valid), the encoder's weights w1 (J,E,E) | b1 (J,E) | w2 (J,E,F)
+// | b2 (J,F), E = 4 + F, and the parent table from shared memory; writes the
+// features to feats[(j * F + k) * kTile + t], the squared column sums s and
+// norms n to norm[c * kTile + t] and norm[(4 + c) * kTile + t], and, with
+// kKeep, the pre-activations to encz[(j * (E + F) + o) * kTile + t]. Joints
+// are walked in index order (a parent's index is below its child's); a root
+// reads a zero parent feature.
+template <bool kKeep>
+__device__ __forceinline__ void encode_pose(const float4* q4, bool valid, int t, int J, int F,
+                                            const float* encw, const int* par, int act,
+                                            float beta, float* feats, float* norm, float* encz) {
+  const int E = 4 + F;
+  const float* w1 = encw;
+  const float* b1 = w1 + J * E * E;
+  const float* w2 = b1 + J * E;
+  const float* b2 = w2 + J * E * F;
+  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
+  float s[4] = {0.f, 0.f, 0.f, 0.f}, n[4];
+  for (int j = 0; j < J; ++j) {
+    const float4 q = valid ? q4[j] : zero4;
+    s[0] = fmaf(q.x, q.x, s[0]);
+    s[1] = fmaf(q.y, q.y, s[1]);
+    s[2] = fmaf(q.z, q.z, s[2]);
+    s[3] = fmaf(q.w, q.w, s[3]);
+  }
+#pragma unroll
+  for (int c = 0; c < 4; ++c) n[c] = sqrtf(fmaxf(s[c], kEps2));
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    norm[c * kTile + t] = s[c];
+    norm[(4 + c) * kTile + t] = n[c];
+  }
+  for (int j = 0; j < J; ++j) {
+    const float4 q = valid ? q4[j] : zero4;
+    const int p = par[j];
+    float in[kMaxE];
+    in[0] = q.x / n[0];
+    in[1] = q.y / n[1];
+    in[2] = q.z / n[2];
+    in[3] = q.w / n[3];
+#pragma unroll
+    for (int k = 0; k < kMaxF; ++k)
+      in[4 + k] = (k < F && p >= 0) ? feats[(p * F + k) * kTile + t] : 0.f;
+    const float* w1j = w1 + j * E * E;
+    const float* w2j = w2 + j * E * F;
+    float* zj = kKeep ? encz + j * (E + F) * kTile : nullptr;
+    float h[kMaxE];
+#pragma unroll
+    for (int o = 0; o < kMaxE; ++o) {
+      if (o < E) {
+        float z = 0.f;
+#pragma unroll
+        for (int i = 0; i < kMaxE; ++i)
+          if (i < E) z = fmaf(in[i], w1j[i * E + o], z);
+        z += b1[j * E + o];
+        if (kKeep) zj[o * kTile + t] = z;
+        h[o] = act_fwd(act, beta, z);
+      } else {
+        h[o] = 0.f;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kMaxF; ++k) {
+      if (k < F) {
+        float z = 0.f;
+#pragma unroll
+        for (int o = 0; o < kMaxE; ++o)
+          if (o < E) z = fmaf(h[o], w2j[o * F + k], z);
+        z += b2[j * F + k];
+        if (kKeep) zj[(E + k) * kTile + t] = z;
+        feats[(j * F + k) * kTile + t] = act_fwd(act, beta, z);
+      }
+    }
+  }
 }
 
 __device__ __forceinline__ void store_tile_column(float* dst, const float (&v)[kTile]) {

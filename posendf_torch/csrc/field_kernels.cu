@@ -32,7 +32,8 @@
 // Work split inside a block (512 threads):
 //   * encoder (forward and backward): one thread per pose walks the 21
 //     joints in index order (every parent index is smaller than its child's),
-//     with the encoder's 3.7k weights in shared memory. Roots read a zero
+//     with the encoder's 3.7k weights in shared memory (the forward walk is
+//     common.cuh's encode_pose, shared with int8_kernels.cu). Roots read a zero
 //     parent feature. The backward walks in reverse and adds W1b^T gh into
 //     the parent's feature gradient.
 //   * DFNet layers: each thread owns 1 or 2 output columns (2 only for the
@@ -114,77 +115,17 @@ __global__ void __launch_bounds__(kThreads) field_kernel(const Args a) {
   for (int i = threadIdx.x; i < J; i += kThreads) par[i] = a.parents[i];
   __syncthreads();
 
-  const float* w1 = encw;                 // (J, E, E)
-  const float* b1 = w1 + J * E * E;       // (J, E)
-  const float* w2 = b1 + J * E;           // (J, E, F)
-  const float* b2 = w2 + J * E * F;       // (J, F)
+  const float* w1 = encw;                      // (J, E, E), then b1 (J, E)
+  const float* w2 = w1 + J * E * E + J * E;    // (J, E, F), then b2 (J, F)
 
   const int t = threadIdx.x;              // pose slot in the per-pose phases
   const int b = blockIdx.x * kTile + t;
   const bool valid = t < kTile && b < a.B;
   const float4* q4 = reinterpret_cast<const float4*>(a.pose) + static_cast<size_t>(b) * J;
-  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
 
   // ---- input normalization and encoder forward: one thread per pose ----
-  if (t < kTile) {
-    float s[4] = {0.f, 0.f, 0.f, 0.f}, n[4];
-    for (int j = 0; j < J; ++j) {
-      const float4 q = valid ? q4[j] : zero4;
-      s[0] = fmaf(q.x, q.x, s[0]);
-      s[1] = fmaf(q.y, q.y, s[1]);
-      s[2] = fmaf(q.z, q.z, s[2]);
-      s[3] = fmaf(q.w, q.w, s[3]);
-    }
-#pragma unroll
-    for (int c = 0; c < 4; ++c) n[c] = sqrtf(fmaxf(s[c], kEps2));
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      norm[c * kTile + t] = s[c];
-      norm[(4 + c) * kTile + t] = n[c];
-    }
-    for (int j = 0; j < J; ++j) {
-      const float4 q = valid ? q4[j] : zero4;
-      const int p = par[j];
-      float in[kMaxE];
-      in[0] = q.x / n[0];
-      in[1] = q.y / n[1];
-      in[2] = q.z / n[2];
-      in[3] = q.w / n[3];
-#pragma unroll
-      for (int k = 0; k < kMaxF; ++k)
-        in[4 + k] = (k < F && p >= 0) ? bufA[(p * F + k) * kTile + t] : 0.f;
-      const float* w1j = w1 + j * E * E;
-      const float* w2j = w2 + j * E * F;
-      float* zj = encz + j * (E + F) * kTile;
-      float h[kMaxE];
-#pragma unroll
-      for (int o = 0; o < kMaxE; ++o) {
-        if (o < E) {
-          float z = 0.f;
-#pragma unroll
-          for (int i = 0; i < kMaxE; ++i)
-            if (i < E) z = fmaf(in[i], w1j[i * E + o], z);
-          z += b1[j * E + o];
-          if (kMode != kForward) zj[o * kTile + t] = z;
-          h[o] = act_fwd(a.act, a.beta, z);
-        } else {
-          h[o] = 0.f;
-        }
-      }
-#pragma unroll
-      for (int k = 0; k < kMaxF; ++k) {
-        if (k < F) {
-          float z = 0.f;
-#pragma unroll
-          for (int o = 0; o < kMaxE; ++o)
-            if (o < E) z = fmaf(h[o], w2j[o * F + k], z);
-          z += b2[j * F + k];
-          if (kMode != kForward) zj[(E + k) * kTile + t] = z;
-          bufA[(j * F + k) * kTile + t] = act_fwd(a.act, a.beta, z);
-        }
-      }
-    }
-  }
+  if (t < kTile)
+    encode_pose<kMode != kForward>(q4, valid, t, J, F, encw, par, a.act, a.beta, bufA, norm, encz);
   __syncthreads();
 
   // ---- DFNet forward: activations ping-pong between A and B ----

@@ -9,11 +9,15 @@ for the whole batch, and it stays differentiable for the eikonal term.
 matrix products through ``torch.matmul``). ``distance_fused`` /
 ``distance_and_grad_fused`` go through the hand-written kernels
 (``ops/fused_model.py``, ``ops/fused_grad.py``) for CUDA tensors.
+``Field.quantize_int8`` gives the int8 serving view, :class:`QuantizedField`
+(``ops/fused_int8.py``), which saves to and loads from the JAX package's
+``posendf-int8-v1`` file.
 """
 
 from __future__ import annotations
 
 import os
+from types import SimpleNamespace
 from typing import Optional, Tuple
 
 import torch
@@ -22,7 +26,8 @@ from posendf_torch.config import PoseNDFConfig, load_config
 from posendf_torch.ops.fused_grad import fused_distance_and_grad
 from posendf_torch.ops.fused_model import FieldWeights, fused_posendf_forward
 
-__all__ = ["Field", "make_field", "load_field", "distance_and_grad", "resolve_device"]
+__all__ = ["Field", "QuantizedField", "make_field", "load_field", "distance_and_grad",
+           "resolve_device"]
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -80,6 +85,29 @@ class Field:
     def distance_and_grad(self, pose: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         return distance_and_grad(self.module, pose)
 
+    def quantize_int8(self, calib_poses: torch.Tensor) -> "QuantizedField":
+        """Post-training int8 quantization of the DFNet stack for serving
+        (``ops/fused_int8.py``). ``calib_poses`` (N, 21, 4), moved to the
+        field's device, set the static activation scales; a few thousand
+        representative poses suffice. Value-only: gradients stay on the fp32
+        paths."""
+        from posendf_torch.ops.fused_int8 import quantize_posendf
+
+        m = self.module
+        if not m.use_encoder or m.ff_enc:
+            raise ValueError("quantize_int8 supports the standard encoder+DFNet "
+                             "architecture (use_encoder=True, ff_enc=False)")
+        dev = m.dfnet.w0.device
+        params = dict(m.named_parameters())
+        qparams = quantize_posendf(
+            {k: params[f"enc.{k}"] for k in ("w1", "b1", "w2", "b2")},
+            {k[len("dfnet."):]: v for k, v in params.items() if k.startswith("dfnet.")},
+            calib_poses.to(dev, torch.float32).reshape(-1, m.num_joints, 4),
+            parents=m.parents, activation=m.activation, beta=m.beta)
+        return QuantizedField(SimpleNamespace(num_joints=m.num_joints, parents=tuple(m.parents),
+                                              activation=m.activation, beta=float(m.beta)),
+                              qparams)
+
     def distance_and_grad_fused(self, pose: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """(d, dd/dpose) in one kernel. Values only: the outputs carry no
         autograd graph. The gradient comes back in the caller's pose shape."""
@@ -87,6 +115,97 @@ class Field:
         d, g = fused_distance_and_grad(pose.reshape(-1, self.module.num_joints, 4),
                                        self.weights())
         return d, g.reshape(orig_shape)
+
+
+class QuantizedField:
+    """int8 serving view of a :class:`Field` (``ops/fused_int8.py``).
+
+    ``distance`` runs the int8 kernel for poses on the card and its plain
+    version for poses on the CPU; ``distance_ref`` runs the plain version
+    on any device (the counterpart of JAX's ``distance_xla``). The
+    calibration report is at ``qparams["report"]``. ``module`` holds what
+    the forward needs: ``num_joints``, ``parents``, ``activation``, ``beta``.
+
+    ``save(path)`` writes the JAX package's self-contained ``posendf-int8-v1``
+    msgpack file (the int8 layers, the encoder, window, report and those
+    attributes) and ``QuantizedField.load(path)`` reads it back with no
+    config; files cross between the two packages both ways.
+    """
+
+    MAGIC = "posendf-int8-v1"
+
+    def __init__(self, module, qparams):
+        self.module = module
+        self.qparams = qparams
+
+    @property
+    def device(self) -> torch.device:
+        return self.qparams["enc"]["w1"].device
+
+    def save(self, path: str) -> None:
+        """One msgpack file, written to ``path + ".tmp"`` and renamed."""
+        from posendf_torch.checkpoints import msgpack_serialize
+        from posendf_torch.ops.fused_int8 import qparams_to_numpy
+
+        m = self.module
+        tree = qparams_to_numpy(self.qparams)
+        report = dict(tree["report"])
+        report["window"] = list(report.get("window", tree["window"]))
+        payload = {
+            "magic": self.MAGIC,
+            "meta": {"num_joints": int(m.num_joints), "parents": [int(p) for p in m.parents],
+                     "activation": str(m.activation), "beta": float(m.beta),
+                     "window": list(tree["window"]), "report": report},
+            "enc": tree["enc"],
+            "layers": {str(i): lyr for i, lyr in enumerate(tree["layers"])},
+        }
+        tmp = path + ".tmp"
+        with open(tmp, "wb") as f:
+            f.write(msgpack_serialize(payload))
+        os.replace(tmp, path)
+
+    @classmethod
+    def load(cls, path: str, device="cuda") -> "QuantizedField":
+        """Read a :meth:`save` file (of either package) onto ``device``, the
+        card by default; raises ValueError for any other file."""
+        from posendf_torch.checkpoints import msgpack_restore
+        from posendf_torch.ops.fused_int8 import qparams_from_numpy
+
+        dev = resolve_device(device)
+        with open(path, "rb") as f:
+            try:
+                payload = msgpack_restore(f.read())
+            except (ValueError, UnicodeDecodeError, IndexError) as e:
+                raise ValueError(f"{path!r} is not a posendf int8 field file ({e})") from None
+        if not isinstance(payload, dict) or payload.get("magic") != cls.MAGIC:
+            raise ValueError(f"{path!r} is not a posendf int8 field file")
+        meta = payload["meta"]
+        qparams = qparams_from_numpy({"enc": payload["enc"], "layers": payload["layers"],
+                                      "window": meta["window"], "report": meta["report"]}, dev)
+        module = SimpleNamespace(num_joints=int(meta["num_joints"]),
+                                 parents=tuple(int(p) for p in meta["parents"]),
+                                 activation=str(meta["activation"]), beta=float(meta["beta"]))
+        return cls(module, qparams)
+
+    def _kw(self) -> dict:
+        m = self.module
+        return dict(parents=m.parents, activation=m.activation, beta=m.beta)
+
+    def distance(self, pose: torch.Tensor) -> torch.Tensor:
+        """(B, 21, 4) -> (B, 1): the int8 kernel on the card, the plain
+        version on the CPU."""
+        from posendf_torch.ops.fused_int8 import fused_posendf_forward_int8
+
+        return fused_posendf_forward_int8(pose.reshape(-1, self.module.num_joints, 4),
+                                          self.qparams, **self._kw())
+
+    def distance_ref(self, pose: torch.Tensor) -> torch.Tensor:
+        """The plain version on any device."""
+        from posendf_torch.ops.fused_int8 import fused_posendf_forward_int8_ref
+
+        with torch.no_grad():
+            return fused_posendf_forward_int8_ref(pose.reshape(-1, self.module.num_joints, 4),
+                                                  self.qparams, **self._kw())
 
 
 def make_field(module, device=None) -> Field:

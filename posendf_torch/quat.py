@@ -1,8 +1,8 @@
 """The two quaternion normalizations on the pose prior's path, and the joint
 weights of the weighted distance.
 
-Mirror of ``posendf_tpu/quat.py::quat_normalize``, ``joint_axis_normalize``
-and ``SMPL_JOINT_RANK``. Both normalizations divide by
+Mirror of ``posendf_tpu/quat.py::quat_normalize``, ``joint_axis_normalize``,
+``axis_angle_to_quaternion`` and ``SMPL_JOINT_RANK``. Both normalizations divide by
 ``sqrt(max(sum of squares, eps^2))`` (the clamp is taken of the squared sum,
 so the gradient is finite at zero).
 """
@@ -11,7 +11,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["quat_normalize", "joint_axis_normalize", "SMPL_JOINT_RANK", "JOINT_WEIGHTS"]
+__all__ = ["quat_normalize", "joint_axis_normalize", "axis_angle_to_quaternion",
+           "SMPL_JOINT_RANK", "JOINT_WEIGHTS"]
 
 # Per-joint importance ranks of the weighted distance (the reference's
 # joint_rank, data/dist_utils.py:16,39), and their L2-normalized float32 form,
@@ -36,3 +37,20 @@ def joint_axis_normalize(pose: torch.Tensor, eps: float = 1e-12) -> torch.Tensor
     """
     n = torch.sum(pose * pose, dim=1, keepdim=True).clamp_min(eps * eps).sqrt()
     return pose / n
+
+
+def axis_angle_to_quaternion(aa: torch.Tensor) -> torch.Tensor:
+    """Axis-angle (..., 3) -> unit quaternion (..., 4), (w, x, y, z).
+
+    pytorch3d's convention: q = [cos(t/2), sin(t/2) axis], with sin(t/2)/t
+    and cos(t/2) taken from their Taylor series below t = 1e-6, written as
+    the JAX package writes it (the square root's argument guarded, so the
+    gradient is finite at the zero rotation).
+    """
+    sq = torch.sum(aa * aa, dim=-1, keepdim=True)
+    small = sq < 1e-12
+    angle = torch.sqrt(torch.where(small, torch.ones_like(sq), sq))
+    half = 0.5 * angle
+    sin_half_over_angle = torch.where(small, 0.5 - sq / 48.0, torch.sin(half) / angle)
+    w = torch.where(small, 1.0 - sq / 8.0, torch.cos(half))
+    return torch.cat([w, aa * sin_half_over_angle], dim=-1)

@@ -50,7 +50,8 @@ def test_import_loads_no_jax():
             "posendf_torch.ops.train_grad, posendf_torch.data.synthetic, "
             "posendf_torch.data.splits, posendf_torch.data.pipeline, "
             "posendf_torch.training.metrics, posendf_torch.training.checkpoints, "
-            "posendf_torch.training.init_utils, posendf_torch.training.trainer\n"
+            "posendf_torch.training.init_utils, posendf_torch.training.trainer, "
+            "posendf_torch.ops.fused_int8, posendf_torch.ops.int8_probe, posendf_torch.export\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "{'jax', 'jaxlib', 'flax', 'msgpack', 'yaml', 'posendf_tpu'})\n"
             "assert not bad, bad\n")
