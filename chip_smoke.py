@@ -67,8 +67,10 @@ tensor-core probe:
      queries too), and the bound engine's to the ``torch.matmul`` yardstick
  14. the int8 kernel vs its plain version on the card: the trained field
      quantized on 4,096 numpy-seeded poses (``Field.quantize_int8``),
-     ``QuantizedField.distance`` held to ``distance_ref`` at B = 4,096, a
-     ragged 1,000 and 131,072; the int8 field held to the fp32 field at
+     nvcc's ``-Xptxas -v`` lines of the two wgmma kernels (registers, spills,
+     shared memory), ``QuantizedField.distance`` held to ``distance_ref`` at
+     B = 1, 63, 65, 129, 1,000, 4,096 and 131,072 (cutting the kernel's
+     64-pose CTAs); the int8 field held to the fp32 field at
      131,072 poses with the bars of ``tests/test_fused_int8.py:190-201``
      (MAE < 0.03 std, Pearson > 0.998, Spearman > 0.995)
  15. against the JAX package (``tests/data/torch_port_int8_expected.npz``):
@@ -85,10 +87,12 @@ tensor-core probe:
      to ``distance_ref`` / ``distance``; then times: the int8 kernel vs its
      plain version, vs the fp32 ``posendf_forward`` kernel in the same
      rounds, and the int8 products alone as ``torch._int_mm``
- 17. the probe kernels vs their plain versions at (131,072, 512), 1 and 8
-     layers; ``python -m posendf_torch.ops.int8_probe``'s run (its launch
-     counts set to 0 before and read after); times of both chains against
-     their library chains, rates and shares of the dense peaks
+ 17. the probe kernels vs their plain versions at (1,000, 512) and
+     (131,072, 512), 1 and 8 layers; ``python -m posendf_torch.ops.int8_probe``'s
+     run (its launch counts set to 0 before and read after); times of both
+     chains against their library chains, rates and shares of the dense
+     peaks; the int8 / bf16 ratio is one of two routes (``wmma`` int8
+     against ``wgmma`` bf16), not of the card's rates
 
 Kernel and plain times are medians over rounds of plain, kernel, kernel,
 plain, each round a mean over a few calls (one call of the kNN plain
@@ -225,6 +229,9 @@ INT8_ATOL = 1e-5      # int8 d; poses with a level on a rounding boundary: docst
 WQ_FLIP_SHARE = 1e-4  # quantization on the card vs JAX's: wq entries one level apart
 BF16_CHAIN_SHARE = 0.10  # probe bf16, 8 layers: elements more than one spacing apart; docstring
 EXPORT_ATOL = 1e-6
+INT8_BATCHES = (1, 63, 65, 129, 1000, 4096, SERVE_BATCH)  # cut the 64-pose tile
+PROBE_ROWS = (1000, SERVE_BATCH)
+WGMMA_KERNELS = ("int8_forward_kernel", "probe_bf16_kernel")
 
 
 def log(*args) -> None:
@@ -1192,6 +1199,18 @@ def unit_poses(seed: int, n: int) -> np.ndarray:
     return q / np.linalg.norm(q, axis=-1, keepdims=True)
 
 
+def ptxas_lines(log_text: str, kernels) -> list:
+    """nvcc's ``-Xptxas -v`` lines (registers, spills, shared memory) of the
+    named kernels: each entry's lines up to the next entry."""
+    out, keep = [], False
+    for line in log_text.splitlines():
+        if "Compiling entry function" in line:
+            keep = any(k in line for k in kernels)
+        if keep:
+            out.append(line.strip())
+    return out
+
+
 def hold_int8(name: str, qfield, pose: torch.Tensor, d: torch.Tensor, d_ref) -> float:
     """The int8 kernel's d against a plain d of the same poses
     (``fused_int8.hold_to_ref``: INT8_ATOL, or the plain d with the first
@@ -1262,13 +1281,14 @@ def serving_phases(field, card: str) -> list:
     qfield = field.quantize_int8(torch.from_numpy(unit_poses(SEED + 41, INT8_CALIB)).cuda())
     rep = qfield.qparams["report"]
     pk = fused_int8.packed(qfield.qparams, field.module.parents)
-    smem = _build.library("int8").posendf_int8_smem_bytes(
-        pk.parents.numel(), qfield.qparams["enc"]["w2"].shape[-1], pk.num_layers, pk.maxw, pk.maxq)
+    smem = _build.library("int8").posendf_int8_smem_bytes(*pk.x_bytes, pk.maxn)
     log(f"int8 kernel vs plain: {CKPT} quantized on {INT8_CALIB} poses on the card, window "
         f"{qfield.qparams['window']}, floored channels {rep['floored_channels']}, {smem} bytes "
-        f"of shared memory per block")
+        f"of shared memory per CTA")
+    for line in ptxas_lines(_build.build_info("int8")["log"], WGMMA_KERNELS):
+        log("  nvcc -Xptxas -v: " + line)
     int8_err = 0.0
-    for B in (4096, 1000, SERVE_BATCH):
+    for B in INT8_BATCHES:
         p = serve[:B] if B == SERVE_BATCH else torch.from_numpy(unit_poses(SEED + 42 + B, B)).cuda()
         int8_err = max(int8_err, hold_int8(f"distance (kernel) vs distance_ref, B = {B}", qfield,
                                            p, qfield.distance(p), qfield.distance_ref(p)))
@@ -1394,38 +1414,44 @@ def serving_phases(field, card: str) -> list:
 
     # ---- 17. the probe kernels ----
     xb, wb, xi, wi, si = int8_probe.probe_inputs(rows=SERVE_BATCH, seed=SEED + 44)
-    log(f"probe kernels vs plain at ({SERVE_BATCH}, 512)")
     probe_err = {"bf16": 0.0, "int8": 0.0}
-    # one layer at a time, each fed the plain chain's input: the bf16 layer bar
-    x_in, worst, differ = xb, 0.0, []
-    for l in range(int8_probe.LAYERS):
-        ob = int8_probe.run_bf16(x_in, wb[l:l + 1], 1)
-        rb = int8_probe.run_bf16_ref(x_in, wb[l:l + 1], 1)
-        excess = float(int8_probe.bf16_layer_excess(ob, rb, x_in, wb[l]).max())
-        if excess > 1:
-            raise AssertionError(f"probe_bf16_chain, layer {l} alone: {excess:.3f} of the bar")
-        worst = max(worst, excess)
-        differ.append(float((ob != rb).float().mean()))
-        probe_err["bf16"] = max(probe_err["bf16"], max_err(ob.float(), rb.float()))
-        x_in = rb
-    log(f"  ok bf16, each of the {int8_probe.LAYERS} layers alone on the plain chain's input: "
-        f"the largest difference {worst:.3f} of its bar (one spacing + both sums' rounding), "
-        f"max |err| {probe_err['bf16']:.3e}; elements that differ, layer by layer: "
-        + ", ".join(f"{v:.4%}" for v in differ))
-    for layers in (1, int8_probe.LAYERS):
-        oi, ri = int8_probe.run_int8(xi, wi, si, layers), int8_probe.run_int8_ref(xi, wi, si, layers)
-        if not torch.equal(oi, ri):
-            raise AssertionError(f"probe_int8_chain, {layers} layers: not bitwise equal")
-        ob, rb = int8_probe.run_bf16(xb, wb, layers), int8_probe.run_bf16_ref(xb, wb, layers)
-        ulps = int8_probe.bf16_ulps(ob, rb)
-        share = float((ulps > 1).float().mean())
-        log(f"  ok {layers} layer(s): int8 bitwise; bf16 chain {float((ulps > 0).float().mean()):.4%} "
-            f"of elements differ, {share:.4%} by more than one spacing (bar "
-            f"{BF16_CHAIN_SHARE:.0%}), max |err| {max_err(ob.float(), rb.float()):.3e}")
-        if share >= BF16_CHAIN_SHARE:
-            raise AssertionError(f"probe_bf16_chain, {layers} layers: {share:.4%} of elements "
-                                 f"more than one spacing apart")
-        del oi, ri, ob, rb, ulps
+    for rows in PROBE_ROWS:
+        log(f"probe kernels vs plain at ({rows}, 512); bf16 on {int8_probe.ROUTES['bf16']}, int8 "
+            f"on {int8_probe.ROUTES['int8']}")
+        # one layer at a time, each fed the plain chain's input: the bf16 layer bar
+        x_in, worst, differ = xb[:rows], 0.0, []
+        for l in range(int8_probe.LAYERS):
+            ob = int8_probe.run_bf16(x_in, wb[l:l + 1], 1)
+            rb = int8_probe.run_bf16_ref(x_in, wb[l:l + 1], 1)
+            excess = float(int8_probe.bf16_layer_excess(ob, rb, x_in, wb[l]).max())
+            if excess > 1:
+                raise AssertionError(f"probe_bf16_chain, {rows} rows, layer {l} alone: "
+                                     f"{excess:.3f} of the bar")
+            worst = max(worst, excess)
+            differ.append(float((ob != rb).float().mean()))
+            probe_err["bf16"] = max(probe_err["bf16"], max_err(ob.float(), rb.float()))
+            x_in = rb
+        log(f"  ok bf16, each of the {int8_probe.LAYERS} layers alone on the plain chain's input: "
+            f"the largest difference {worst:.3f} of its bar (one spacing + both sums' rounding), "
+            f"max |err| {probe_err['bf16']:.3e}; elements that differ, layer by layer: "
+            + ", ".join(f"{v:.4%}" for v in differ))
+        for layers in (1, int8_probe.LAYERS):
+            oi = int8_probe.run_int8(xi[:rows], wi, si, layers)
+            if not torch.equal(oi, int8_probe.run_int8_ref(xi[:rows], wi, si, layers)):
+                raise AssertionError(f"probe_int8_chain, {rows} rows, {layers} layers: not "
+                                     f"bitwise equal")
+            ob = int8_probe.run_bf16(xb[:rows], wb, layers)
+            rb = int8_probe.run_bf16_ref(xb[:rows], wb, layers)
+            ulps = int8_probe.bf16_ulps(ob, rb)
+            share = float((ulps > 1).float().mean())
+            log(f"  ok {layers} layer(s): int8 bitwise; bf16 chain "
+                f"{float((ulps > 0).float().mean()):.4%} of elements differ, {share:.4%} by more "
+                f"than one spacing (bar {BF16_CHAIN_SHARE:.0%}), max |err| "
+                f"{max_err(ob.float(), rb.float()):.3e}")
+            if share >= BF16_CHAIN_SHARE:
+                raise AssertionError(f"probe_bf16_chain, {rows} rows, {layers} layers: "
+                                     f"{share:.4%} of elements more than one spacing apart")
+            del oi, ob, rb, ulps
     for k in int8_probe.LAUNCHES:
         int8_probe.LAUNCHES[k] = 0
     log("python -m posendf_torch.ops.int8_probe:")
@@ -1458,8 +1484,9 @@ def serving_phases(field, card: str) -> list:
         log(f"probe {name}: kernel {t:.4f} ms, {ops / t / 1e9:.1f} T{'FLOP' if name == 'bf16' else 'OP'}"
             f"/s = {ops / t * 1e3 / peak:.2%} of the dense peak; library chain {lib:.4f} ms, "
             f"{ops / lib / 1e9:.1f} T/s  [{card}]")
-    log(f"probe int8 / bf16 speed: kernels {bf16_ms / i8_ms:.3f}x, library chains "
-        f"{bf16_lib_ms / i8_lib_ms:.3f}x  [{card}]")
+    log(f"probe int8 / bf16 speed: kernels {bf16_ms / i8_ms:.3f}x ({int8_probe.ROUTES['int8']} int8 "
+        f"against {int8_probe.ROUTES['bf16']} bf16: a ratio of two routes, not of the card's int8 "
+        f"and bf16 rates), library chains {bf16_lib_ms / i8_lib_ms:.3f}x  [{card}]")
 
     # bounds
     enc, qp_layers = qfield.qparams["enc"], qfield.qparams["layers"]

@@ -8,9 +8,10 @@ header, so it compiles in seconds:
   ``knn``    ``csrc/knn_kernels.cu``    geodesic top-k (per corpus range + merge)
   ``int8``   ``csrc/int8_kernels.cu``   int8 serving forward, bf16 / int8 probe chains
 
-All include ``csrc/common.cuh``. A library goes to
+All include ``csrc/common.cuh``; ``int8`` also ``csrc/hopper.cuh`` (the
+PTX of wgmma, mbarriers and bulk copies). A library goes to
 ``build/posendf_torch/<name>_<hash>.so`` under the repository root, keyed by
-a hash of its source, the header and the compiler flags: an edited source is
+a hash of its source, the headers and the compiler flags: an edited source is
 rebuilt, an unchanged one is loaded as it is. Different libraries may be
 built at once from several threads. Pointers and the CUDA stream are
 passed as ``c_void_p``; each launcher returns ``cudaGetLastError()``, and
@@ -34,7 +35,7 @@ __all__ = ["library", "check", "build_info", "SOURCES", "ACT_CODES"]
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = {"field": CSRC / "field_kernels.cu", "train": CSRC / "train_kernels.cu",
            "knn": CSRC / "knn_kernels.cu", "int8": CSRC / "int8_kernels.cu"}
-HEADERS = [CSRC / "common.cuh"]
+HEADERS = [CSRC / "common.cuh", CSRC / "hopper.cuh"]
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "posendf_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-I", str(CSRC)]
@@ -80,12 +81,13 @@ _SIGNATURES = {
         "posendf_knn_error_string": ([_I], ctypes.c_char_p),
     },
     "int8": {
-        # pose, B, enc, parents, J, F, fw, qw, meta, L, maxw, maxq, act, beta, d_out, stream
-        "posendf_forward_int8": ([_P, _I, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P],
-                                 _I),
-        # (J, F, L, maxw, maxq) -> dynamic shared memory bytes of one block
-        "posendf_int8_smem_bytes": ([_I, _I, _I, _I, _I], _I),
-        # x, w, B, layers, out, stream
+        # pose, B, enc, parents, J, F, fw, qw, meta, L, x0_bytes, x1_bytes, maxn8, act, beta,
+        # d_out, stream
+        "posendf_forward_int8": ([_P, _I, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P,
+                                  _P], _I),
+        # (x0_bytes, x1_bytes, maxn8) -> dynamic shared memory bytes of one CTA
+        "posendf_int8_smem_bytes": ([_I, _I, _I], _I),
+        # x, packed w, B, layers, out, stream
         "probe_bf16_chain": ([_P, _P, _I, _I, _P, _P], _I),
         # x, w, s, B, layers, out, stream
         "probe_int8_chain": ([_P, _P, _P, _I, _I, _P, _P], _I),

@@ -8,72 +8,172 @@
 //                         (the measurement probe: a chain of 512 x 512
 //                         products in bf16 or int8 on the tensor cores)
 //
+// posendf_forward_int8 and probe_bf16_chain share one shape (hopper.cuh has
+// the PTX): consumer warpgroups (two in the bf16 chain, four in the int8
+// forward) issue wgmma.mma_async with both operands in shared memory in the
+// K-major 128-byte-swizzled layout; a producer warp fills a ring of weight
+// slabs with cp.async.bulk, guarded by full / empty mbarrier pairs, so that
+// copies overlap products; a consumer warpgroup frees a slot (one arrival on
+// its empty barrier) as soon as its products of it are done. The wrappers
+// store the weights in that layout already (fused_int8.sw128_kmajor_offsets),
+// one slab one contiguous run of bytes. Every CTA copies its own slabs:
+// thread-block clusters that multicast each slab to 2 or 4 CTAs were measured
+// on an H100 and gained nothing in either kernel (PERF.md), so the kernels
+// launch without them. Between layers the consumers pass a named barrier,
+// after fence.proxy.async has made their plain stores visible to wgmma.
+//
 // ---- posendf_forward_int8 ----
-// A block owns kTile = 16 poses, as posendf_forward does, and reuses its
-// pieces: common.cuh's encode_pose (normalization and encoder walk, one
-// thread per pose) and tile_matmul for the fp32 layers (layer 0, the 64-wide
-// tail and the output). Activations ping-pong in shared memory as (width,
-// kTile) fp32 columns. An int8 layer l first requantizes its input with the
-// per-input-channel inverse scale row: x_q = clip(rint(x * inv_sa), +-127)
-// (rintf rounds half to even, as jnp.round; __fmul_rn keeps nvcc from
-// contracting the product into anything else). x_q, (K, kTile) int8 in
-// shared memory, is the wmma matrix A (16 x 16 x 16 signed char fragments,
-// int accumulators); each of the 16 warps owns N / 16 / 16 output column
-// tiles and streams its packed weight tiles (the wrapper stores wq as
-// [N/16][K/16][16 x 16], 256 contiguous bytes a fragment) from L2, loading
-// kChunk fragments before it multiplies them so that many loads are in
-// flight. The int32 sums are exact in any order (|acc| <= K * 127^2 < 2^24
-// for K <= 1040, so the int -> float conversion is exact too), and are
-// dequantized as JAX does, acc * dq + b, in two roundings
-// (__fmul_rn, __fadd_rn: no FMA). The accumulator tile is stored straight
-// into the next fp32 buffer in column-major order, which is the (width,
-// kTile) layout, and converted in place.
+// Bound at the serving batch of 131,072 poses (an H100 SXM's peaks): the int8
+// products, 96% of the DFNet's multiply-adds, at 1,979 TOPS (0.17 ms), plus the
+// fp32 encoder and layers 0, 5, 6 at 67 TFLOP/s (0.20 ms); bytes (poses in, d
+// out, 1.5 MB of weights) 0.014 ms. Each 64-pose CTA reads the weights from
+// L2 (1.3 MB): 2.7 GB a call. A CTA owns 64 poses (one wgmma M): 544
+// threads, four consumer warpgroups and a producer warp; the int8 products
+// need only two, but the CUDA-core phases (encoder, fp32 layers, epilogues)
+// need the warps to hide their latency, as one 213 KB CTA fills an SM.
+// * Encoder: the CTA's poses and the encoder's weights copied to shared
+//   memory with coalesced loads, then one thread per pose and eighth of the
+//   hidden units (512 threads, 64 poses), two named barriers per joint; the
+//   joint-axis normalization as common.cuh's encode_pose computes it. The
+//   code is (J * F, 64) fp32.
+// * fp32 layers (0 and the tail) on the CUDA cores in fp32 (not TF32: it
+//   would move layer-1 levels): a thread owns one output column of 32
+//   poses (8, or 1, where N is too small to give every thread a task), FMA
+//   chains over K in order, the weights of the next 8 rows loaded from L2
+//   while the current ones multiply.
+// * int8 layers: A is the requantized input, (64 poses, K) int8; B the
+//   packed wq^T, N in chunks of NC = 256 (128 where N is not a multiple of
+//   256), each chunk's K in slabs of 128 bytes (NC x 128 bytes, one ring
+//   slot); each warpgroup runs m64n(NC/4)k32 s8 products into s32
+//   accumulators, 4 per slab. The sums are exact integers (|acc| <= K 127^2
+//   < 2^24, K <= 1024), so the order does not matter and the int -> float
+//   conversion is exact.
+// * Epilogues: dq, b and the next layer's inv_sa staged in shared memory at
+//   the start of the layer; z = acc * dq + b in two roundings (__fmul_rn,
+//   __fadd_rn: no FMA), as JAX; the activation; where the next layer is int8, its input
+//   requantized at once, clip(rint(x * inv_sa), +-127) (rintf rounds half
+//   to even, as jnp.round), and stored as int8 straight into the next A
+//   buffer; else fp32 (width, 64). Two buffers ping-pong: the input of layer l
+//   lives in buffer l % 2, each sized for the largest activation of its
+//   parity (96 KB for the trained field), beside a 3-slot ring of 32 KB.
 //
-// Bound at the serving batch of 131,072 poses (an H100 SXM's peaks): the
-// int8 products, 96% of the DFNet's multiply-adds, at 1,979 TOPS (0.17 ms),
-// plus the fp32 encoder and layers 0, 5, 6 at 67 TFLOP/s (0.20 ms); bytes
-// (poses in, d out, 1.5 MB of weights) are 0.014 ms. The design leaves most
-// of that on the table, knowingly: with 16 poses a tile the tensor cores
-// take M = 16, each weight fragment is used once per block and read from L2
-// 8,192 times at that batch, the encoder walk keeps 16 of 512 threads busy,
-// and no wgmma or TMA is used. Simple and right first.
+// ---- probe_bf16_chain ----
+// Bound at (131,072, 512) x 8 layers: the products, 5.5e11 operations, at
+// 989 TFLOP/s bf16 (0.56 ms); bytes 0.08 ms. A CTA keeps 128 rows of x (128 KB
+// of bf16, swizzled) in shared memory for all the layers, as the TPU kernel
+// keeps its row tile in VMEM, and every layer reads all 512 KB of its weights
+// through a 3-slot ring of 32 KB slabs (256 output channels x 64 of K): the
+// SM takes in 32 KB of weights per 4.2 MFLOP, about 58 GB/s an SM at the
+// tensor-core rate. (At 64 rows a CTA it would be twice that, more than the
+// L2-to-SM path delivered on an H100.) A layer's output has to be complete
+// before it overwrites x, and 128 x 512 fp32 sums do not fit the registers:
+// each consumer warpgroup owns 64 rows, sums output channels 0-255
+// (m64n256k16, 128 accumulators a thread), keeps them rounded to bf16 (64
+// registers of pairs), then sums 256-511. With the producer warpgroup at 24
+// registers (setmaxnreg) the consumers get 240. Then both warpgroups pass a
+// named barrier (every product has read x), write the fp32 sums rounded to
+// bf16 (__float2bfloat16_rn, nearest even) over x, fence, and pass it again;
+// the last layer writes out row-major, rows past B masked.
 //
-// ---- probe chains ----
+// ---- probe_int8_chain (wmma) ----
 // A block keeps a tile of kPT = 64 rows of x in shared memory for all the
-// layers (as the TPU kernel keeps its row tile in VMEM) and streams each
-// layer's weights through shared memory in slabs of KC rows, stored as
-// 16 x 16 fragment tiles. Each warp owns two output column tiles of all four
-// row tiles, so a B fragment serves four products. After a layer the block
-// waits until every warp has read x, then writes the converted outputs over
-// it: bf16: the fp32 sums rounded to bf16 (__float2bfloat16_rn, nearest
-// even); int8: clip(rint(acc * s_l), +-127) (s is a power of two in the
-// probe, so the chain is exact). Bound at (131,072, 512) x 8 layers: the
-// products, 5.5e11 operations, at 989 TFLOP/s bf16 (0.56 ms) or 1,979 TOPS
-// int8 (0.28 ms); bytes 0.08 / 0.10 ms. wmma's mma.sync path reaches only a
-// part of Hopper's tensor-core rate (the full rate needs wgmma), so the
-// probe measures what this route gives, not the card's ceiling.
+// layers and streams each layer's weights through shared memory in slabs of
+// 64 rows, stored as 16 x 16 fragment tiles. Each warp owns two output column
+// tiles of all four row tiles. After a layer the block waits until every warp
+// has read x, then writes clip(rint(acc * s_l), +-127) over it (s is a power
+// of two in the probe, so the chain is exact). Bound: 1,979 TOPS int8
+// (0.28 ms). wmma's mma.sync path reaches only a part of Hopper's tensor-core
+// rate, so this chain measures what that route gives, not the card's ceiling.
 //
-// Each launcher returns cudaGetLastError(); the Python wrapper raises on a
-// nonzero value. No launcher synchronizes or allocates.
+// Each launcher returns the launch's error (cudaFuncSetAttribute's, then
+// cudaGetLastError's); the Python wrapper raises on a nonzero value. No
+// launcher synchronizes or allocates.
 
 #include <cuda_bf16.h>
 #include <mma.h>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 using namespace posendf;
+using namespace hopper;
 using namespace nvcuda;
 
-constexpr int kMeta8 = 7;    // per layer: in, out, kind, off W, off b, off dq, off inv_sa
-enum Kind { kF32 = 0, kI8 = 1 };
-constexpr int kFrag = 16;    // wmma m = n = k
-constexpr int kFragElems = kFrag * kFrag;
-constexpr int kChunk = 8;    // k-steps whose fragments are loaded before their products
-constexpr int kWarps = kThreads / 32;
+// ---- the wgmma kernels' common shape ----
 
-__host__ __device__ constexpr int round8(int x) { return (x + 7) & ~7; }
+constexpr int kRows = 64;                     // rows (poses) a CTA: one wgmma M
+constexpr int kConsumers = 256;               // the bf16 chain's two consumer warpgroups
+constexpr int kSlabK = 128;                   // bytes of K a slab row (one swizzle line)
+constexpr int kAtomBytes = kRows * kSlabK;    // 64 rows x 128 bytes of A
+constexpr uint32_t kBarConsumers = 1;         // named barrier of the consumer warpgroups
+
+__host__ __device__ constexpr int round1024(int x) { return (x + 1023) & ~1023; }
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(p) + 1023) &
+                                          ~static_cast<uintptr_t>(1023));
+}
+
+// full[s] (one arrival + the slab's bytes) and empty[s] (one arrival of each
+// of the `wgs` consumer warpgroups) for every slot; then the CTA syncs, so no
+// thread waits on a barrier before it exists
+__device__ __forceinline__ void init_ring(uint64_t* bars, int stages, int wgs) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(smem_u32(bars + s), 1);
+      mbar_init(smem_u32(bars + stages + s), wgs);
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
+}
+
+// producer side of slab g: wait for its slot to be free, then copy `bytes`
+// from `src` into it
+__device__ __forceinline__ void produce(uint64_t* bars, int stages, unsigned char* ring,
+                                        int slot_bytes, int g, const unsigned char* src,
+                                        uint32_t bytes) {
+  const int s = g % stages;
+  const uint32_t full = smem_u32(bars + s);
+  mbar_wait(smem_u32(bars + stages + s), (static_cast<uint32_t>(g / stages) & 1) ^ 1);
+  mbar_arrive_expect_tx(full, bytes);
+  bulk_g2s(smem_u32(ring + s * slot_bytes), src, bytes, full);
+}
+
+// consumer side: wait until slab g has landed; returns its slot
+__device__ __forceinline__ int await_slab(uint64_t* bars, int stages, int g) {
+  const int s = g % stages;
+  mbar_wait(smem_u32(bars + s), static_cast<uint32_t>(g / stages) & 1);
+  return s;
+}
+
+// a consumer warpgroup frees slot s (its thread 0 arrives); call after the
+// slot's wgmma_wait
+__device__ __forceinline__ void release(uint64_t* bars, int stages, int s, int tw) {
+  if (tw == 0) mbar_arrive(smem_u32(bars + stages + s));
+}
+
+template <typename Kernel, typename... Args>
+int launch_wgmma(Kernel kernel, int ctas, int threads, size_t smem, void* stream, Args... args) {
+  const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<ctas, threads, smem, static_cast<cudaStream_t>(stream)>>>(args...);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---- posendf_forward_int8 ----
+
+constexpr int kMeta8 = 8;   // per layer: in, out, kind, off W / wq, off b, off dq, off inv_sa, NC
+enum Kind { kF32 = 0, kI8 = 1 };
+constexpr int kStages8 = 3;
+constexpr int kConsumers8 = 512;               // four consumer warpgroups
+constexpr int kThreads8 = kConsumers8 + 32;    // and one producer warp
+constexpr int kParts = kConsumers8 / kRows;    // encoder threads a pose
+constexpr int kPre = 8;                        // fp32 weight rows loaded ahead
+constexpr int kSlot8 = 256 * kSlabK;   // one slab: NC <= 256 rows x 128 bytes of K
 
 struct Int8Args {
   const float* pose;        // (B, J, 4)
@@ -82,135 +182,424 @@ struct Int8Args {
   const int* parents;       // (J,)
   int J, F;
   const float* fw;          // fp32 layers' W (in, out) and b; int8 layers' b, dq, inv_sa
-  const signed char* qw;    // int8 layers' wq as [N/16][K/16][16 x 16] tiles
+  const unsigned char* qw;  // int8 layers' wq^T in slabs (fused_int8.sw128_kmajor_offsets)
   const int* meta;          // (L, kMeta8)
-  int L, maxw, maxq;        // layers, widest activation, widest int8 layer input
+  int L;
+  int x0_bytes, x1_bytes;   // activation buffers: inputs of the even / odd layers
+  int maxn8;                // widest int8 layer output
   int act;
   float beta;
   float* d_out;             // (B,)
 };
 
-// Shared memory, in floats (regions 32-byte aligned for wmma): encoder weights
-// | meta (int) | parents (int) | activations A | activations B | s and n of the
-// normalization | d | then maxq x kTile bytes of requantized input.
-__host__ __device__ inline size_t int8_smem_bytes(int J, int F, int L, int maxw, int maxq) {
-  const size_t floats = static_cast<size_t>(round8(enc_floats(J, F))) + round8(kMeta8 * L) +
-                        round8(J) + 2 * static_cast<size_t>(maxw) * kTile + 8 * kTile +
-                        round8(kTile);
-  return floats * sizeof(float) + static_cast<size_t>(maxq) * kTile;
+// ring | x0 | x1 | an int8 layer's dq, b and next inv_sa (3, maxn8) fp32 |
+// encoder hidden units (kMaxE, 64) fp32 | barriers; 1024 to align
+__host__ __device__ inline size_t int8_smem_bytes(int x0_bytes, int x1_bytes, int maxn8) {
+  return 1024 + static_cast<size_t>(kStages8) * kSlot8 + round1024(x0_bytes) + round1024(x1_bytes) +
+         (3 * static_cast<size_t>(maxn8) + kMaxE * kRows) * sizeof(float) +
+         2 * kStages8 * sizeof(uint64_t);
 }
 
-__global__ void __launch_bounds__(kThreads) int8_forward_kernel(const Int8Args a) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  float* smem = reinterpret_cast<float*>(smem_raw);
-  const int J = a.J, F = a.F, L = a.L;
-  const int encn = enc_floats(J, F);
+// element (row, k) of a (64, K) int8 A buffer: K in 128-byte swizzled blocks
+__device__ __forceinline__ int a_offset(int row, int k) {
+  return (k >> 7) * kAtomBytes + sw128_offset(row, k & 127);
+}
 
-  float* encw = smem;
-  int* meta = reinterpret_cast<int*>(encw + round8(encn));
-  int* par = meta + round8(kMeta8 * L);
-  float* bufA = reinterpret_cast<float*>(par + round8(J));
-  float* bufB = bufA + a.maxw * kTile;
-  float* norm = bufB + a.maxw * kTile;          // s (4, kTile) then n (4, kTile)
-  float* dval = norm + 8 * kTile;               // (kTile,)
-  signed char* aq = reinterpret_cast<signed char*>(dval + round8(kTile));  // (K, kTile)
+// clip(rint(v * inv_sa), +-127) as int8
+__device__ __forceinline__ signed char requant(float v, float inv_sa) {
+  return static_cast<signed char>(fminf(fmaxf(rintf(__fmul_rn(v, inv_sa)), -127.f), 127.f));
+}
 
-  for (int i = threadIdx.x; i < encn; i += kThreads) encw[i] = a.enc[i];
-  for (int i = threadIdx.x; i < kMeta8 * L; i += kThreads) meta[i] = a.meta[i];
-  for (int i = threadIdx.x; i < J; i += kThreads) par[i] = a.parents[i];
-  __syncthreads();
-
-  const int t = threadIdx.x;
-  const int b = blockIdx.x * kTile + t;
-  const bool valid = t < kTile && b < a.B;
-  const float4* q4 = reinterpret_cast<const float4*>(a.pose) + static_cast<size_t>(b) * J;
-  if (t < kTile) encode_pose<false>(q4, valid, t, J, F, encw, par, a.act, a.beta, bufA, norm, nullptr);
-  __syncthreads();
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* cur = bufA;
-  float* nxt = bufB;
-  for (int l = 0; l < L; ++l) {
-    const int* m = meta + kMeta8 * l;
-    const int K = m[0], N = m[1];
-    const float* bias = a.fw + m[4];
-    if (m[2] == kF32) {
-      const float* W = a.fw + m[3];
-      if (l < L - 1) {
-        float* y = nxt;
-        tile_matmul(W, K, N, cur, [&](int col, const float(&acc)[kTile]) {
-          const float bn = __ldg(bias + col);
-          float v[kTile];
+// Encoder walk of the CTA's 64 poses into code (J * F, 64) fp32. The poses
+// ((64, J) float4, zeros past B) and the encoder's weights are first copied
+// to `stage` (the odd layers' buffer, free until layer 0 writes it) with
+// coalesced loads; then thread t owns pose t % 64 and the hidden units /
+// features r, r + 4, ... (r = t / 64), two named barriers a joint.
+__device__ __forceinline__ void encode_tile(const Int8Args& a, int row0, float* code, float* hid, float* stage) {
+  const int t = threadIdx.x, p = t % kRows, r = t / kRows;
+  const int J = a.J, F = a.F, E = 4 + F;
+  float4* qs = reinterpret_cast<float4*>(stage);
+  float* w1 = stage + 4 * kRows * J;
+  const int rows = min(kRows, a.B - row0);
+  const float4* qg = reinterpret_cast<const float4*>(a.pose) + static_cast<size_t>(row0) * J;
+  for (int v = t; v < kRows * J; v += kConsumers8)
+    qs[v] = v < rows * J ? __ldg(qg + v) : make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int i = t; i < enc_floats(J, F); i += kConsumers8) w1[i] = __ldg(a.enc + i);
+  named_bar_sync(kBarConsumers, kConsumers8);
+  const float* b1 = w1 + J * E * E;
+  const float* w2 = b1 + J * E;
+  const float* b2 = w2 + J * E * F;
+  const float4* q4 = qs + p * J;
+  float s[4] = {0.f, 0.f, 0.f, 0.f}, n[4];
+  for (int j = 0; j < J; ++j) {
+    const float4 q = q4[j];
+    s[0] = fmaf(q.x, q.x, s[0]);
+    s[1] = fmaf(q.y, q.y, s[1]);
+    s[2] = fmaf(q.z, q.z, s[2]);
+    s[3] = fmaf(q.w, q.w, s[3]);
+  }
 #pragma unroll
-          for (int tt = 0; tt < kTile; ++tt) v[tt] = act_fwd(a.act, a.beta, acc[tt] + bn);
-          store_tile_column(y + col * kTile, v);
-        });
-      } else {
-        tile_matmul(W, K, N, cur, [&](int col, const float(&acc)[kTile]) {
-          const float bn = __ldg(bias + col);
+  for (int c = 0; c < 4; ++c) n[c] = sqrtf(fmaxf(s[c], kEps2));
+  for (int j = 0; j < J; ++j) {
+    const float4 q = q4[j];
+    const int par = __ldg(a.parents + j);
+    float in[kMaxE];
+    in[0] = q.x / n[0];
+    in[1] = q.y / n[1];
+    in[2] = q.z / n[2];
+    in[3] = q.w / n[3];
 #pragma unroll
-          for (int tt = 0; tt < kTile; ++tt) dval[tt] = out_act_fwd(a.act, a.beta, acc[tt] + bn);
-        });
-      }
-    } else {
-      // requantize: x_q[k][t] = clip(rint(x[k][t] * inv_sa[k]), -127, 127)
-      const float* dq = a.fw + m[5];
-      const float* inv_sa = a.fw + m[6];
-      for (int i = threadIdx.x; i < K * kTile; i += kThreads) {
-        const float v = rintf(__fmul_rn(cur[i], __ldg(inv_sa + i / kTile)));
-        aq[i] = static_cast<signed char>(fminf(fmaxf(v, -127.f), 127.f));
-      }
-      __syncthreads();
-      const int KT = K / kFrag;
-      const signed char* Wq = a.qw + m[3];
-      for (int nt = warp; nt < N / kFrag; nt += kWarps) {
-        wmma::fragment<wmma::accumulator, kFrag, kFrag, kFrag, int> acc;
-        wmma::fill_fragment(acc, 0);
-        const signed char* wt = Wq + static_cast<size_t>(nt) * KT * kFragElems;
-        for (int k0 = 0; k0 < KT; k0 += kChunk) {
-          wmma::fragment<wmma::matrix_a, kFrag, kFrag, kFrag, signed char, wmma::col_major> fa[kChunk];
-          wmma::fragment<wmma::matrix_b, kFrag, kFrag, kFrag, signed char, wmma::row_major> fb[kChunk];
+    for (int k = 0; k < kMaxF; ++k) in[4 + k] = (k < F && par >= 0) ? code[(par * F + k) * kRows + p] : 0.f;
+    const float* w1j = w1 + j * E * E;
 #pragma unroll
-          for (int c = 0; c < kChunk; ++c) {
-            wmma::load_matrix_sync(fb[c], wt + (k0 + c) * kFragElems, kFrag);
-            wmma::load_matrix_sync(fa[c], aq + (k0 + c) * kFragElems, kFrag);
-          }
+    for (int oi = 0; oi < (kMaxE + kParts - 1) / kParts; ++oi) {   // independent sums
+      const int o = r + kParts * oi;
+      if (o < E) {
+        float z = 0.f;
 #pragma unroll
-          for (int c = 0; c < kChunk; ++c) wmma::mma_sync(acc, fa[c], fb[c], acc);
-        }
-        // column-major with ldm 16 is the (width, kTile) layout of the next buffer
-        int* tile = reinterpret_cast<int*>(nxt + nt * kFragElems);
-        wmma::store_matrix_sync(tile, acc, kFrag, wmma::mem_col_major);
-        __syncwarp();
-#pragma unroll
-        for (int r = 0; r < kFragElems / 32; ++r) {
-          const int i = lane + 32 * r;
-          const int col = nt * kFrag + i / kTile;
-          const float z = __fadd_rn(__fmul_rn(__int2float_rn(tile[i]), __ldg(dq + col)),
-                                    __ldg(bias + col));
-          nxt[nt * kFragElems + i] = act_fwd(a.act, a.beta, z);
-        }
-        __syncwarp();
+        for (int i = 0; i < kMaxE; ++i)
+          if (i < E) z = fmaf(in[i], w1j[i * E + o], z);
+        z += b1[j * E + o];
+        hid[o * kRows + p] = act_fwd(a.act, a.beta, z);
       }
     }
-    __syncthreads();
-    float* tmp = cur;
-    cur = nxt;
-    nxt = tmp;
+    named_bar_sync(kBarConsumers, kConsumers8);
+    const float* w2j = w2 + j * E * F;
+#pragma unroll
+    for (int ki = 0; ki < (kMaxF + kParts - 1) / kParts; ++ki) {
+      const int k = r + kParts * ki;
+      if (k < F) {
+        float z = 0.f;
+#pragma unroll
+        for (int o = 0; o < kMaxE; ++o)
+          if (o < E) z = fmaf(hid[o * kRows + p], w2j[o * F + k], z);
+        z += b2[j * F + k];
+        code[(j * F + k) * kRows + p] = act_fwd(a.act, a.beta, z);
+      }
+    }
+    named_bar_sync(kBarConsumers, kConsumers8);
   }
-  if (valid) a.d_out[b] = dval[t];
 }
 
-// ---- probe chains ----
+// acc[i] += w * x[i] over a task's P poses of input row xk
+template <int P>
+__device__ __forceinline__ void fma_row(float (&acc)[P], float w, const float* xk) {
+  if constexpr (P % 4 == 0) {
+#pragma unroll
+    for (int v = 0; v < P / 4; ++v) {
+      const float4 f = reinterpret_cast<const float4*>(xk)[v];
+      acc[4 * v] = fmaf(w, f.x, acc[4 * v]);
+      acc[4 * v + 1] = fmaf(w, f.y, acc[4 * v + 1]);
+      acc[4 * v + 2] = fmaf(w, f.z, acc[4 * v + 2]);
+      acc[4 * v + 3] = fmaf(w, f.w, acc[4 * v + 3]);
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < P; ++i) acc[i] = fmaf(w, xk[i], acc[i]);
+  }
+}
 
-constexpr int kPW = 512;   // the probe's width
+// An fp32 layer on the CUDA cores: x (K, 64) fp32 -> the next layer's input,
+// or d for the last layer. A task is one output column of P poses; its sums
+// run over k in order. Weights come from L2 kPre rows at a time, the next
+// block loaded while the current one multiplies.
+template <int P>
+__device__ __forceinline__ void fp32_layer(const Int8Args& a, const int* m, bool last, const float* inv_next,
+                           const float* x, unsigned char* out, int row0) {
+  const int K = m[0], N = m[1];
+  const float* W = a.fw + m[3];
+  const float* bias = a.fw + m[4];
+  const int Kb = K - K % kPre;   // rows in whole blocks
+  for (int task = threadIdx.x; task < N * (kRows / P); task += kConsumers8) {
+    const int col = task % N, p0 = (task / N) * P;
+    const float* Wc = W + col;
+    float acc[P];
+#pragma unroll
+    for (int i = 0; i < P; ++i) acc[i] = 0.f;
+    float wa[kPre], wb[kPre];
+    auto load = [&](int k0, float(&w)[kPre]) {
+#pragma unroll
+      for (int u = 0; u < kPre; ++u) w[u] = __ldg(Wc + static_cast<size_t>(k0 + u) * N);
+    };
+    auto block = [&](int k0, const float(&w)[kPre]) {
+#pragma unroll
+      for (int u = 0; u < kPre; ++u) fma_row<P>(acc, w[u], x + (k0 + u) * kRows + p0);
+    };
+    if (Kb > 0) load(0, wa);
+    for (int k0 = 0; k0 < Kb; k0 += 2 * kPre) {
+      if (k0 + kPre < Kb) load(k0 + kPre, wb);
+      block(k0, wa);
+      if (k0 + kPre >= Kb) break;
+      if (k0 + 2 * kPre < Kb) load(k0 + 2 * kPre, wa);
+      block(k0 + kPre, wb);
+    }
+    for (int k = Kb; k < K; ++k) fma_row<P>(acc, __ldg(Wc + static_cast<size_t>(k) * N), x + k * kRows + p0);
+    // the outputs as the next layer reads them: requantized int8 (64, N) or
+    // fp32 (N, 64); or d
+    const float bn = __ldg(bias + col);
+    const float sc = inv_next != nullptr ? __ldg(inv_next + col) : 0.f;
+#pragma unroll
+    for (int i = 0; i < P; ++i) {
+      const float z = acc[i] + bn;
+      if (last) {
+        if (row0 + p0 + i < a.B) a.d_out[row0 + p0 + i] = out_act_fwd(a.act, a.beta, z);
+      } else if (inv_next != nullptr) {
+        out[a_offset(p0 + i, col)] = static_cast<unsigned char>(requant(act_fwd(a.act, a.beta, z), sc));
+      } else {
+        reinterpret_cast<float*>(out)[col * kRows + p0 + i] = act_fwd(a.act, a.beta, z);
+      }
+    }
+  }
+}
+
+// An int8 layer on the tensor cores: A (64, K) int8 in `in`, B from the ring,
+// slab counter g shared with the producer. WN = NC / 4 columns a warpgroup.
+template <int WN>
+__device__ __forceinline__ void int8_layer(const Int8Args& a, const int* m, const float* inv_next,
+                           const unsigned char* in, unsigned char* out, unsigned char* ring,
+                           uint64_t* bars, float* par, int& g) {
+  const int K = m[0], N = m[1], NC = 4 * WN, KB = K / kSlabK;
+  const int t = threadIdx.x, wg = t / 128, tw = t % 128;
+  // the epilogue's per-column dq, b and inv_sa, staged in shared memory
+  float* dq = par;
+  float* bias = par + N;
+  float* inv = inv_next != nullptr ? par + 2 * N : nullptr;
+  for (int i = t; i < N; i += kConsumers8) {
+    dq[i] = __ldg(a.fw + m[5] + i);
+    bias[i] = __ldg(a.fw + m[4] + i);
+    if (inv != nullptr) inv[i] = __ldg(inv_next + i);
+  }
+  named_bar_sync(kBarConsumers, kConsumers8);
+  const uint32_t a_base = smem_u32(in);
+  int acc[WN / 2];
+#pragma unroll
+  for (int i = 0; i < WN / 2; ++i) acc[i] = 0;
+  for (int c = 0; c < N / NC; ++c) {
+    for (int kb = 0; kb < KB; ++kb, ++g) {
+      const int s = await_slab(bars, kStages8, g);
+      const uint32_t b_base = smem_u32(ring + s * kSlot8) + wg * WN * kSlabK;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t da = desc_sw128(a_base + kb * kAtomBytes + kk * 32);
+        const uint64_t db = desc_sw128(b_base + kk * 32);
+        if constexpr (WN == 64)
+          wgmma_m64n64k32_s8(acc, da, db, (kb | kk) != 0);
+        else
+          wgmma_m64n32k32_s8(acc, da, db, (kb | kk) != 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();   // free the slot at once: two of the three stay in flight
+      release(bars, kStages8, s, tw);
+    }
+    fence_regs(acc);
+    // register 4 g + 2 h + e: row + 8 h, column col0 + 8 g + e; the column
+    // pair's dq, b and the next layer's inv_sa are loaded once for its 4 sums
+    const int row = 16 * (tw / 32) + (tw % 32) / 4;
+    const int col0 = c * NC + wg * WN + 2 * (tw % 4);
+#pragma unroll
+    for (int g = 0; g < WN / 8; ++g) {
+      const int col = col0 + 8 * g;
+      const float2 d2 = *reinterpret_cast<const float2*>(dq + col);
+      const float2 b2 = *reinterpret_cast<const float2*>(bias + col);
+      const float2 s2 = inv != nullptr ? *reinterpret_cast<const float2*>(inv + col)
+                                       : make_float2(0.f, 0.f);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int i = 4 * g + 2 * h;
+        const float v0 = act_fwd(a.act, a.beta,
+                                 __fadd_rn(__fmul_rn(__int2float_rn(acc[i]), d2.x), b2.x));
+        const float v1 = act_fwd(a.act, a.beta,
+                                 __fadd_rn(__fmul_rn(__int2float_rn(acc[i + 1]), d2.y), b2.y));
+        if (inv != nullptr) {
+          const unsigned lo = static_cast<unsigned char>(requant(v0, s2.x));
+          const unsigned hi = static_cast<unsigned char>(requant(v1, s2.y));
+          *reinterpret_cast<unsigned short*>(out + a_offset(row + 8 * h, col)) =
+              static_cast<unsigned short>(lo | (hi << 8));
+        } else {
+          float* o = reinterpret_cast<float*>(out);
+          o[col * kRows + row + 8 * h] = v0;
+          o[(col + 1) * kRows + row + 8 * h] = v1;
+        }
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads8, 1) int8_forward_kernel(const __grid_constant__ Int8Args a) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = align1024(smem_raw);
+  unsigned char* x0 = ring + kStages8 * kSlot8;
+  unsigned char* x1 = x0 + round1024(a.x0_bytes);
+  float* par = reinterpret_cast<float*>(x1 + round1024(a.x1_bytes));
+  float* hid = par + 3 * a.maxn8;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(hid + kMaxE * kRows);
+  init_ring(bars, kStages8, kConsumers8 / 128);
+
+  if (threadIdx.x >= kConsumers8) {
+    // producer: every int8 layer's slabs, in the order the consumers take them
+    if (threadIdx.x == kConsumers8) {
+      int g = 0;
+      for (int l = 0; l < a.L; ++l) {
+        const int* m = a.meta + kMeta8 * l;
+        if (m[2] != kI8) continue;
+        const uint32_t bytes = static_cast<uint32_t>(m[7]) * kSlabK;
+        const int slabs = (m[1] / m[7]) * (m[0] / kSlabK);
+        for (int i = 0; i < slabs; ++i, ++g)
+          produce(bars, kStages8, ring, kSlot8, g, a.qw + m[3] + static_cast<size_t>(i) * bytes, bytes);
+      }
+    }
+    __syncwarp();
+  } else {
+    const int row0 = blockIdx.x * kRows;
+    encode_tile(a, row0, reinterpret_cast<float*>(x0), hid, reinterpret_cast<float*>(x1));
+    int g = 0;
+    for (int l = 0; l < a.L; ++l) {
+      const int* m = a.meta + kMeta8 * l;
+      // the previous layer's stores are done and visible to wgmma, and its reads too
+      fence_proxy_async();
+      named_bar_sync(kBarConsumers, kConsumers8);
+      const unsigned char* in = (l & 1) ? x1 : x0;
+      unsigned char* out = (l & 1) ? x0 : x1;
+      const bool last = l == a.L - 1;
+      const int* mn = a.meta + kMeta8 * (l + 1);
+      const float* inv_next = (!last && mn[2] == kI8) ? a.fw + mn[6] : nullptr;
+      if (m[2] == kF32) {
+        // as many poses a task as leave every consumer thread a task
+        const float* x = reinterpret_cast<const float*>(in);
+        if (m[1] * (kRows / 32) >= kConsumers8)
+          fp32_layer<32>(a, m, last, inv_next, x, out, row0);
+        else if (m[1] * (kRows / 8) >= kConsumers8)
+          fp32_layer<8>(a, m, last, inv_next, x, out, row0);
+        else
+          fp32_layer<1>(a, m, last, inv_next, x, out, row0);
+      } else if (m[7] == 256) {
+        int8_layer<64>(a, m, inv_next, in, out, ring, bars, par, g);
+      } else {
+        int8_layer<32>(a, m, inv_next, in, out, ring, bars, par, g);
+      }
+    }
+  }
+}
+
+// ---- probe_bf16_chain ----
+
+constexpr int kPW = 512;                      // the probe's width
+constexpr int kPRows = 128;                   // rows of x a CTA: 64 a consumer warpgroup
+constexpr int kPThreads = 384;                // two consumer warpgroups and a producer one
+constexpr int kPStages = 3;
+constexpr int kPSlot = 256 * kSlabK;          // 256 output channels x 64 bf16 of K: 32 KB
+constexpr int kPKBlocks = kPW * 2 / kSlabK;   // 128-byte K blocks of a row: 8
+constexpr int kPBlock = kPRows * kSlabK;      // one K block of the x tile: 16 KB
+
+__host__ __device__ constexpr size_t bf16_smem_bytes() {
+  return 1024 + static_cast<size_t>(kPStages) * kPSlot + static_cast<size_t>(kPRows) * kPW * 2 +
+         2 * kPStages * sizeof(uint64_t);
+}
+
+// the 128 sums of a thread's half-layer fragment as 64 bf16 pairs
+__device__ __forceinline__ uint32_t bf16_pair(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+__global__ void __launch_bounds__(kPThreads, 1)
+    probe_bf16_kernel(const __nv_bfloat16* __restrict__ x, const unsigned char* __restrict__ wp,
+                      int B, int layers, __nv_bfloat16* __restrict__ out) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = align1024(smem_raw);
+  unsigned char* xs = ring + kPStages * kPSlot;   // (128, 512) bf16: 8 swizzled K blocks
+  uint64_t* bars = reinterpret_cast<uint64_t*>(xs + kPRows * kPW * 2);
+  init_ring(bars, kPStages, kConsumers / 128);
+
+  if (threadIdx.x >= kConsumers) {
+    setmaxnreg_dec<24>();
+    // per layer: output channels 0-255, K block by K block, then 256-511
+    if (threadIdx.x == kConsumers)
+      for (int g = 0; g < layers * 2 * kPKBlocks; ++g)
+        produce(bars, kPStages, ring, kPSlot, g, wp + static_cast<size_t>(g) * kPSlot, kPSlot);
+    __syncwarp();
+  } else {
+    setmaxnreg_inc<240>();
+    const int t = threadIdx.x, wg = t / 128, tw = t % 128;
+    const int row0 = blockIdx.x * kPRows;
+    // x tile: row m's 16-byte chunk ch (8 bf16) to K block ch / 8, chunk ch % 8
+    for (int v = t; v < kPRows * kPW / 8; v += kConsumers) {
+      const int m = v / (kPW / 8), ch = v % (kPW / 8);
+      uint4 val = make_uint4(0u, 0u, 0u, 0u);
+      if (row0 + m < B) val = reinterpret_cast<const uint4*>(x + static_cast<size_t>(row0 + m) * kPW)[ch];
+      *reinterpret_cast<uint4*>(xs + (ch / 8) * kPBlock + sw128_offset(m, (ch % 8) * 16)) = val;
+    }
+    fence_proxy_async();
+    named_bar_sync(kBarConsumers, kConsumers);
+    // this warpgroup's 64 rows of each K block start 64 * 128 bytes in
+    const uint32_t a_base = smem_u32(xs) + wg * kAtomBytes;
+    const int row = 64 * wg + 16 * (tw / 32) + (tw % 32) / 4;
+    float acc[128];
+    uint32_t low[64];   // output channels 0-255, rounded to bf16, while 256-511 are summed
+#pragma unroll
+    for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+    int g = 0;
+    for (int l = 0; l < layers; ++l) {
+      for (int h = 0; h < 2; ++h) {
+        for (int kb = 0; kb < kPKBlocks; ++kb, ++g) {
+          const int s = await_slab(bars, kPStages, g);
+          const uint32_t b_base = smem_u32(ring + s * kPSlot);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            wgmma_m64n256k16_bf16(acc, desc_sw128(a_base + kb * kPBlock + kk * 32),
+                                  desc_sw128(b_base + kk * 32), (kb | kk) != 0);
+          wgmma_commit();
+          wgmma_wait<0>();
+          release(bars, kPStages, s, tw);
+        }
+        fence_regs(acc);
+        if (h == 0) {
+#pragma unroll
+          for (int j = 0; j < 64; ++j) low[j] = bf16_pair(acc[2 * j], acc[2 * j + 1]);
+        }
+      }
+      // column of register pair j: 8 (j / 2) + 2 (t % 4) (+ 256 for the high half), row + 8 (j % 2)
+      if (l < layers - 1) {
+        named_bar_sync(kBarConsumers, kConsumers);   // every product has read x
+#pragma unroll
+        for (int j = 0; j < 64; ++j) {
+          const int col = 8 * (j / 2) + 2 * (tw % 4);
+          const int r = row + 8 * (j % 2);
+          *reinterpret_cast<uint32_t*>(xs + (col / 64) * kPBlock + sw128_offset(r, (col % 64) * 2)) = low[j];
+          *reinterpret_cast<uint32_t*>(xs + (col / 64 + 4) * kPBlock + sw128_offset(r, (col % 64) * 2)) =
+              bf16_pair(acc[2 * j], acc[2 * j + 1]);
+        }
+        fence_proxy_async();
+        named_bar_sync(kBarConsumers, kConsumers);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 64; ++j) {
+          const int col = 8 * (j / 2) + 2 * (tw % 4);
+          const int r = row + 8 * (j % 2);
+          if (row0 + r < B) {
+            uint32_t* o = reinterpret_cast<uint32_t*>(out + static_cast<size_t>(row0 + r) * kPW + col);
+            o[0] = low[j];
+            o[256 / 2] = bf16_pair(acc[2 * j], acc[2 * j + 1]);
+          }
+        }
+      }
+    }
+  }
+}
+
+// ---- probe_int8_chain (wmma) ----
+
+constexpr int kFrag = 16;    // wmma m = n = k
+constexpr int kFragElems = kFrag * kFrag;
+constexpr int kWarps = kThreads / 32;
 constexpr int kPT = 64;    // rows of x per block
 constexpr int kPMT = kPT / kFrag;
 constexpr int kPNT = kPW / kFrag;
 static_assert(kPNT == 2 * kWarps, "each warp owns two output column tiles");
 
 template <typename T> struct ProbeKC;
-template <> struct ProbeKC<__nv_bfloat16> { static constexpr int value = 32; };
 template <> struct ProbeKC<signed char> { static constexpr int value = 64; };
 
 template <typename T, typename Acc>
@@ -225,14 +614,10 @@ __device__ __forceinline__ int x_tile_off(int m, int k) {
   return ((k >> 4) * kPMT + (m >> 4)) * kFragElems + (m & 15) * kFrag + (k & 15);
 }
 
-__device__ __forceinline__ __nv_bfloat16 probe_convert(float acc, float) {
-  return __float2bfloat16_rn(acc);
-}
 __device__ __forceinline__ signed char probe_convert(int acc, float s) {
   const float v = rintf(__fmul_rn(__int2float_rn(acc), s));
   return static_cast<signed char>(fminf(fmaxf(v, -127.f), 127.f));
 }
-__device__ __forceinline__ __nv_bfloat16 probe_out(__nv_bfloat16 v) { return v; }
 __device__ __forceinline__ float probe_out(signed char v) { return static_cast<float>(v); }
 
 template <typename T, typename Acc, typename Out>
@@ -329,32 +714,32 @@ int launch_probe(const T* x, const T* w, const float* s, int B, int layers, Out*
 extern "C" {
 
 int posendf_forward_int8(const float* pose, int B, const float* enc, const int* parents, int J,
-                         int F, const float* fw, const signed char* qw, const int* meta, int L,
-                         int maxw, int maxq, int act, float beta, float* d_out, void* stream) {
+                         int F, const float* fw, const void* qw, const int* meta, int L,
+                         int x0_bytes, int x1_bytes, int maxn8, int act, float beta,
+                         float* d_out, void* stream) {
   if (J < 1 || J > kMaxJ || F < 1 || F > kMaxF || L < 1 || L > kMaxL)
     return static_cast<int>(cudaErrorInvalidValue);
   if (B <= 0) return 0;
-  Int8Args a{pose, B, enc, parents, J, F, fw, qw, meta, L, maxw, maxq, act, beta, d_out};
-  const size_t smem = int8_smem_bytes(J, F, L, maxw, maxq);
-  cudaError_t err = cudaFuncSetAttribute(int8_forward_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int8_forward_kernel<<<(B + kTile - 1) / kTile, kThreads, smem,
-                        static_cast<cudaStream_t>(stream)>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  Int8Args a{pose, B, enc, parents, J, F, fw, static_cast<const unsigned char*>(qw), meta, L,
+             x0_bytes, x1_bytes, maxn8, act, beta, d_out};
+  return launch_wgmma(int8_forward_kernel, (B + kRows - 1) / kRows, kThreads8,
+                      int8_smem_bytes(x0_bytes, x1_bytes, maxn8), stream, a);
 }
 
-// Bytes of dynamic shared memory one block of posendf_forward_int8 needs.
-int posendf_int8_smem_bytes(int J, int F, int L, int maxw, int maxq) {
-  return static_cast<int>(int8_smem_bytes(J, F, L, maxw, maxq));
+// Bytes of dynamic shared memory one CTA of posendf_forward_int8 needs.
+int posendf_int8_smem_bytes(int x0_bytes, int x1_bytes, int maxn8) {
+  return static_cast<int>(int8_smem_bytes(x0_bytes, x1_bytes, maxn8));
 }
 
-// x (B, 512) bf16, w (>= layers, 512, 512) bf16 -> out (B, 512) bf16
-int probe_bf16_chain(const void* x, const void* w, int B, int layers, void* out, void* stream) {
-  return launch_probe<__nv_bfloat16, float, __nv_bfloat16>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w), nullptr, B,
-      layers, static_cast<__nv_bfloat16*>(out), stream);
+// x (B, 512) bf16, wp the packed weights (>= layers x 512 KB,
+// fused_int8.sw128_kmajor_offsets) -> out (B, 512) bf16
+int probe_bf16_chain(const void* x, const void* wp, int B, int layers, void* out, void* stream) {
+  if (layers < 1 || B < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0) return 0;
+  return launch_wgmma(probe_bf16_kernel, (B + kPRows - 1) / kPRows, kPThreads, bf16_smem_bytes(),
+                      stream, static_cast<const __nv_bfloat16*>(x),
+                      static_cast<const unsigned char*>(wp), B, layers,
+                      static_cast<__nv_bfloat16*>(out));
 }
 
 // x (B, 512) int8, w (>= layers, 512, 512) int8, s (>= layers,) fp32 -> out (B, 512) fp32

@@ -1,0 +1,125 @@
+"""Where the wgmma kernels' time goes: ``posendf_forward_int8`` and
+``probe_bf16_chain`` timed with parts of their work cut out of the source.
+
+``ncu`` does not run where the card is, so this measures by subtraction:
+each variant is ``csrc/int8_kernels.cu`` with some statements replaced (its
+results are wrong; only its time means something), built with the same
+nvcc flags into ``build/posendf_torch/breakdown/`` and timed through the
+same wrappers as the real kernel, in rounds:
+
+  ``base``     the kernel as it is
+  ``noenc``    without the encoder walk
+  ``nof32``    without the fp32 layers (0, 5, 6)
+  ``nomma``    without the wgmma products (the slabs still stream through
+               the ring and are released)
+  ``noepi``    without the int8 layers' epilogues
+  ``copies``   all four cut: the weight ring alone
+
+The bf16 chain runs ``base`` and ``nomma`` (its products cut: the ring alone).
+Run on the card::
+
+    python -m posendf_torch.ops.breakdown
+
+One line a kernel and variant: the median of CUDA-event means, at the main
+shapes (131,072 poses of the trained field; (131,072, 512) x 8 layers). A
+cut that no longer finds its statement in the source stops the run.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import subprocess
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, List, Tuple
+
+import numpy as np
+import torch
+
+from posendf_torch import _build
+
+__all__ = ["CUTS", "VARIANTS", "variant_source", "main"]
+
+CUTS: Dict[str, List[Tuple[str, str]]] = {
+    "noenc": [("    encode_tile(a, row0, reinterpret_cast<float*>(x0), hid, reinterpret_cast<float*>(x1));\n",
+               "")],
+    "nof32": [("  const int Kb = K - K % kPre;   // rows in whole blocks\n",
+               "  const int Kb = K - K % kPre;   // rows in whole blocks\n  if (W) return;\n")],
+    "nomma": [("wgmma_m64n64k32_s8(acc, da, db, (kb | kk) != 0);", "{ (void)da; (void)db; }"),
+              ("wgmma_m64n32k32_s8(acc, da, db, (kb | kk) != 0);", "{ (void)da; (void)db; }"),
+              ("            wgmma_m64n256k16_bf16(acc, desc_sw128(a_base + kb * kPBlock + kk * 32),\n"
+               "                                  desc_sw128(b_base + kk * 32), (kb | kk) != 0);",
+               "            (void)b_base;")],
+    "noepi": [("    for (int g = 0; g < WN / 8; ++g) {\n      const int col = col0 + 8 * g;",
+               "    for (int g = 0; g < WN / 8; ++g) {\n      if (a.B >= 0) continue;\n"
+               "      const int col = col0 + 8 * g;")],
+}
+VARIANTS = {"base": [], "noenc": ["noenc"], "nof32": ["nof32"], "nomma": ["nomma"],
+            "noepi": ["noepi"], "copies": ["noenc", "nof32", "nomma", "noepi"]}
+
+
+def variant_source(name: str) -> str:
+    """``csrc/int8_kernels.cu`` with variant ``name``'s cuts; raises if a cut
+    no longer matches the source."""
+    text = _build.SOURCES["int8"].read_text()
+    for cut in VARIANTS[name]:
+        for old, new in CUTS[cut]:
+            if old not in text:
+                raise RuntimeError(f"breakdown cut {cut!r} no longer matches int8_kernels.cu")
+            text = text.replace(old, new)
+    return text
+
+
+def _build_variant(name: str) -> ctypes.CDLL:
+    out = _build.BUILD_DIR / "breakdown"
+    out.mkdir(parents=True, exist_ok=True)
+    cu, so = out / f"{name}.cu", out / f"{name}.so"
+    cu.write_text(variant_source(name))
+    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so), str(cu)],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on breakdown variant {name}:\n{proc.stdout}")
+    lib = ctypes.CDLL(str(so))
+    for fn, (argtypes, restype) in _build._SIGNATURES["int8"].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = restype
+    return lib
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        raise SystemExit("breakdown: torch.cuda.is_available() is false; it needs a card")
+    import posendf_torch
+    from posendf_torch.ops import fused_int8
+    from posendf_torch.ops import int8_probe as P
+
+    with ThreadPoolExecutor(len(VARIANTS)) as pool:   # one nvcc a variant, all at once
+        libs = dict(zip(VARIANTS, pool.map(_build_variant, VARIANTS)))
+    root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    field = posendf_torch.load_field(os.path.join(root, "docs", "quality", "ckpt_l8_best.msgpack"),
+                                     device="cuda")
+    q = np.random.default_rng(3).normal(size=(131_072, 21, 4)).astype(np.float32)
+    q = torch.from_numpy(q / np.linalg.norm(q, axis=-1, keepdims=True)).cuda()
+    qf = field.quantize_int8(q[:4096])
+    m = qf.module
+    xb, wb, *_ = P.probe_inputs(seed=2)
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True).stdout.strip()
+    print(card, flush=True)
+    library = _build.library
+    try:
+        for name, lib in libs.items():
+            _build.library = lambda which="field", lib=lib: lib if which == "int8" else library(which)
+            t = P.cuda_ms(lambda: fused_int8.fused_posendf_forward_int8(
+                q, qf.qparams, parents=m.parents, activation=m.activation, beta=m.beta),
+                reps=5, rounds=5)
+            print(f"int8 forward {name}: {t[0]:.4f} ms [{t[1]:.4f}-{t[2]:.4f}]", flush=True)
+            if name in ("base", "nomma"):
+                t = P.cuda_ms(lambda: P.run_bf16(xb, wb), reps=5, rounds=5)
+                print(f"probe bf16 {name}: {t[0]:.4f} ms [{t[1]:.4f}-{t[2]:.4f}]", flush=True)
+    finally:
+        _build.library = library
+
+
+if __name__ == "__main__":
+    main()

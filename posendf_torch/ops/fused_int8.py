@@ -47,7 +47,8 @@ from posendf_torch.ops.fused_model import FieldWeights, field_forward_ref, int_t
 from posendf_torch.quat import joint_axis_normalize
 
 __all__ = [
-    "int8_window", "quant_sym", "quantize_posendf", "qparams_from_numpy", "qparams_to_numpy",
+    "int8_window", "quant_sym", "sw128_kmajor_offsets", "pack_sw128", "quantize_posendf",
+    "qparams_from_numpy", "qparams_to_numpy",
     "int8_layers_ref", "fused_posendf_forward_int8_ref", "fused_posendf_forward_int8",
     "boundary_flips", "hold_to_ref", "LAUNCHES",
 ]
@@ -56,7 +57,42 @@ __all__ = [
 LAUNCHES = 0
 
 MAX_INT8_K = 1040   # K * 127^2 < 2^24: fp32 sums of the int8 products stay exact
-_FRAG = 16          # the kernel's wmma fragment side
+_ROWS = 64          # poses a CTA of the kernel
+
+
+def sw128_kmajor_offsets(K: int, N: int, nc: int, elem_bytes: int) -> torch.Tensor:
+    """Where the kernels keep element (k, n) of a (K, N) weight matrix, in
+    elements from the start of the packed matrix: (K, N) int64.
+
+    The matrix is stored transposed (a row per output channel n, K
+    contiguous), as wgmma's K-major B, in slabs: N in chunks of ``nc``
+    channels, each chunk's K in blocks of 128 bytes (``e = 128 /
+    elem_bytes`` elements), slab (c, kb) at ``(c * (K / e) + kb) * nc * 128``
+    bytes, the chunks in order and the K blocks in order inside a chunk. A
+    slab is nc rows x 128 bytes in the 128-byte swizzle (``hopper.cuh``):
+    byte b of row r at ``(r // 8) * 1024 + (r % 8) * 128 + ((b // 16) ^ (r %
+    8)) * 16 + b % 16``, with r = n % nc and b = (k % e) * elem_bytes. One
+    slab is one ring slot, copied as one run of bytes."""
+    e = 128 // elem_bytes
+    if K % e or N % nc or nc % 8:
+        raise ValueError(f"{K} x {N} does not split into slabs of {nc} x {e}")
+    k = torch.arange(K, dtype=torch.int64)[:, None]
+    n = torch.arange(N, dtype=torch.int64)[None, :]
+    c, r = n // nc, n % nc
+    kb, b = k // e, (k % e) * elem_bytes
+    byte = ((c * (K // e) + kb) * nc * 128 + (r // 8) * 1024 + (r % 8) * 128
+            + (((b // 16) ^ (r % 8)) * 16) + b % 16)
+    return byte // elem_bytes
+
+
+def pack_sw128(w: torch.Tensor, nc: int) -> torch.Tensor:
+    """w (K, N) -> its K * N elements at :func:`sw128_kmajor_offsets`, flat,
+    on w's device."""
+    K, N = w.shape
+    idx = sw128_kmajor_offsets(K, N, nc, w.element_size()).to(w.device)
+    out = torch.empty(K * N, dtype=w.dtype, device=w.device)
+    out[idx.reshape(-1)] = w.reshape(-1)
+    return out
 
 
 def int8_window(dims_in: Sequence[int], dims_out: Sequence[int]) -> Tuple[int, int]:
@@ -239,11 +275,12 @@ class Int8Packed:
     enc: torch.Tensor        # w1 | b1 | w2 | b2, flat fp32
     parents: torch.Tensor    # (J,) int32
     fw: torch.Tensor         # fp32 layers: W (in, out) | b; int8 layers: b | dq | inv_sa
-    qw: torch.Tensor         # int8 layers' wq as [N/16][K/16][16 x 16] tiles
-    meta: torch.Tensor       # (L, 7) int32
+    qw: torch.Tensor         # int8 layers' wq in slabs (sw128_kmajor_offsets), 1024-aligned
+    meta: torch.Tensor       # (L, 8) int32: in, out, kind, off W / wq, off b, dq, inv_sa, slab channels
     num_layers: int
-    maxw: int                # widest activation, the encoder's code included
-    maxq: int                # widest int8 layer input (0 without one)
+    x_bytes: Tuple[int, int]  # activation buffers: the inputs of the even / odd layers (the
+                              # odd one first stages the encoder's poses and weights)
+    maxn: int                 # widest int8 layer output (0 without one)
 
 
 def _pack(qparams: Mapping[str, Any], parents: Tuple[int, ...]) -> Int8Packed:
@@ -254,6 +291,8 @@ def _pack(qparams: Mapping[str, Any], parents: Tuple[int, ...]) -> Int8Packed:
     last = layers[-1]
     if "wq" in last or last["w"].shape[1] != 1:
         raise ValueError("the last DFNet layer must be fp32 with one output")
+    if "wq" in layers[0]:
+        raise ValueError("the kernel takes an fp32 first layer (its input is the encoder's code)")
     with torch.no_grad():
         fchunks: List[torch.Tensor] = []
         qchunks: List[torch.Tensor] = []
@@ -269,30 +308,33 @@ def _pack(qparams: Mapping[str, Any], parents: Tuple[int, ...]) -> Int8Packed:
             start, foff = foff, foff + flat.numel() + pad
             return start
 
-        meta, widths, maxq = [], [J * F], 0
+        meta, x_bytes, maxn = [], [0, 0], 0
         for l, lyr in enumerate(layers):
             if "wq" in lyr:
                 wq = lyr["wq"]
                 K, N = wq.shape
-                if K % 128 or N % _FRAG or K > MAX_INT8_K:
-                    raise ValueError(f"int8 layer {l} is {K} x {N}: the kernel takes K a multiple "
-                                     f"of 128 up to {MAX_INT8_K}, N a multiple of {_FRAG}")
-                tiles = wq.reshape(K // _FRAG, _FRAG, N // _FRAG, _FRAG).permute(2, 0, 1, 3)
-                qchunks.append(tiles.contiguous().reshape(-1))
-                meta.append([K, N, 1, qoff, put(lyr["b"]), put(lyr["dq"]), put(lyr["inv_sa"])])
-                qoff += K * N
-                maxq = max(maxq, K)
+                if K % 128 or N % 128 or K > MAX_INT8_K:
+                    raise ValueError(f"int8 layer {l} is {K} x {N}: the kernel takes K and N "
+                                     f"multiples of 128, K up to {MAX_INT8_K}")
+                nc = 256 if N % 256 == 0 else 128    # output channels a slab: m64n64 a warpgroup
+                qchunks.append(pack_sw128(wq, nc))
+                meta.append([K, N, 1, qoff, put(lyr["b"]), put(lyr["dq"]), put(lyr["inv_sa"]), nc])
+                qoff += K * N                    # a multiple of 128 x 128: 1024-aligned
+                maxn = max(maxn, N)
+                x_bytes[l % 2] = max(x_bytes[l % 2], _ROWS * K)
             else:
                 K, N = lyr["w"].shape
-                meta.append([K, N, 0, put(lyr["w"]), put(lyr["b"]), 0, 0])
-            widths += [K, N]
-        qw = torch.cat(qchunks) if qchunks else torch.zeros(_FRAG, dtype=torch.int8, device=dev)
+                meta.append([K, N, 0, put(lyr["w"]), put(lyr["b"]), 0, 0, 0])
+                x_bytes[l % 2] = max(x_bytes[l % 2], 4 * _ROWS * K)
+        qw = torch.cat(qchunks) if qchunks else torch.zeros(16, dtype=torch.int8, device=dev)
         enc_flat = torch.cat([enc[k].reshape(-1).float() for k in ("w1", "b1", "w2", "b2")])
+        # the odd layers' buffer first holds the encoder's poses and weights
+        x_bytes[1] = max(x_bytes[1], 16 * _ROWS * J + 4 * enc_flat.numel())
         meta = tuple(map(tuple, meta))
         return Int8Packed(enc=enc_flat.contiguous(), parents=int_table(tuple(parents), str(dev)),
                           fw=torch.cat(fchunks).contiguous(), qw=qw.contiguous(),
                           meta=int_table(meta, str(dev)), num_layers=len(layers),
-                          maxw=max(widths), maxq=maxq)
+                          x_bytes=(x_bytes[0], x_bytes[1]), maxn=maxn)
 
 
 _PACKED: Dict[int, Tuple[Mapping[str, Any], tuple, Int8Packed]] = {}
@@ -348,13 +390,13 @@ def fused_posendf_forward_int8(quat: torch.Tensor, qparams: Mapping[str, Any], *
             return fused_posendf_forward_int8_ref(quat, qparams, parents=parents,
                                                   activation=activation, beta=beta)
     pk = packed(qparams, parents)
-    out = torch.empty((quat.shape[0], 1), dtype=torch.float32, device=quat.device)
     lib = _build.library("int8")
+    out = torch.empty((quat.shape[0], 1), dtype=torch.float32, device=quat.device)
     _build.check(lib.posendf_forward_int8(
         quat.data_ptr(), quat.shape[0], pk.enc.data_ptr(), pk.parents.data_ptr(), len(parents),
         qparams["enc"]["w2"].shape[-1], pk.fw.data_ptr(), pk.qw.data_ptr(), pk.meta.data_ptr(),
-        pk.num_layers, pk.maxw, pk.maxq, _build.ACT_CODES[activation], float(beta),
-        out.data_ptr(), stream_handle(quat)), "posendf_forward_int8", "int8")
+        pk.num_layers, pk.x_bytes[0], pk.x_bytes[1], pk.maxn, _build.ACT_CODES[activation],
+        float(beta), out.data_ptr(), stream_handle(quat)), "posendf_forward_int8", "int8")
     LAUNCHES += 1
     return out
 

@@ -3,7 +3,10 @@
 Counterpart of ``scripts/int8_probe.py``, whose two Pallas kernels become
 ``probe_bf16_chain`` and ``probe_int8_chain`` in ``csrc/int8_kernels.cu``.
 Both run ``layers`` products of a (rows, 512) activation tile with 512 x 512
-weights, at DFNet-like widths, the tile kept on chip across the layers:
+weights, at DFNet-like widths, the tile kept on chip across the layers, on
+two routes to the tensor cores: the bf16 chain on Hopper's ``wgmma`` (the
+full rate), the int8 chain on ``wmma`` (``mma.sync``, a part of it). Their
+speed ratio is a ratio of the two routes, not the card's int8 / bf16 answer.
 
   * bf16: x @ w_l with fp32 sums, rounded back to bf16 (the activation
     boundary);
@@ -21,10 +24,15 @@ Run on the card::
 
     python -m posendf_torch.ops.int8_probe
 
-prints one line for each chain at (131,072, 512) x 8 layers: the time (the
-median of CUDA-event means over several rounds, after warm-up), the rate
-and its share of the card's dense tensor-core peak, 989 TFLOP/s bf16 and
-1,979 TOP/s int8 (an H100 SXM's data sheet), and the int8/bf16 speed ratio.
+prints one line for each chain at (131,072, 512) x 8 layers: its route, the
+time (the median of CUDA-event means over several rounds, after warm-up),
+the rate and its share of the card's dense tensor-core peak, 989 TFLOP/s
+bf16 and 1,979 TOP/s int8 (an H100 SXM's data sheet), and the int8/bf16
+speed ratio of the two routes.
+
+The bf16 kernel reads its weights transposed in the wgmma layout
+(``fused_int8.pack_sw128``); :func:`run_bf16` packs them once per tensor
+and keeps the last few packings (rebuilt if the tensor changed in place).
 """
 
 from __future__ import annotations
@@ -35,9 +43,10 @@ from typing import Callable, Dict
 import torch
 
 from posendf_torch import _build
+from posendf_torch.ops.fused_int8 import pack_sw128
 
-__all__ = ["run_bf16", "run_int8", "run_bf16_ref", "run_int8_ref", "bf16_ulps",
-           "bf16_layer_excess", "LAUNCHES", "B", "W", "LAYERS", "PEAK_BF16", "PEAK_INT8"]
+__all__ = ["run_bf16", "run_int8", "run_bf16_ref", "run_int8_ref", "pack_bf16", "bf16_ulps",
+           "bf16_layer_excess", "LAUNCHES", "ROUTES", "B", "W", "LAYERS", "PEAK_BF16", "PEAK_INT8"]
 
 B = 131_072
 W = 512
@@ -47,6 +56,10 @@ PEAK_INT8 = 1979e12    # H100 SXM, dense int8 tensor-core OP/s
 
 # launches of each kernel since its count was last set to 0
 LAUNCHES: Dict[str, int] = {"bf16": 0, "int8": 0}
+ROUTES = {"bf16": "wgmma", "int8": "wmma"}
+
+_PACKED: Dict[tuple, tuple] = {}
+_PACKED_MAX = 4
 
 
 def run_bf16_ref(x: torch.Tensor, w: torch.Tensor, layers: int = LAYERS) -> torch.Tensor:
@@ -87,15 +100,36 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def pack_bf16(w: torch.Tensor) -> torch.Tensor:
+    """w (layers, 512, 512) -> each layer's w^T in the wgmma layout: slabs of
+    256 output channels x 64 of K, channels 0-255 K block by K block, then
+    256-511 (``sw128_kmajor_offsets`` with nc = 256), the layers in order."""
+    return torch.stack([pack_sw128(wl, 256) for wl in w])
+
+
+def _packed_bf16(w: torch.Tensor) -> torch.Tensor:
+    """:func:`pack_bf16` of w, cached; the entry holds w, so its address is
+    not reused while it is cached."""
+    key = (w.data_ptr(), tuple(w.shape), str(w.device))
+    hit = _PACKED.pop(key, None)
+    if hit is None or hit[1] != w._version:
+        hit = (w, w._version, pack_bf16(w))
+    _PACKED[key] = hit
+    while len(_PACKED) > _PACKED_MAX:
+        del _PACKED[next(iter(_PACKED))]
+    return hit[2]
+
+
 def run_bf16(x: torch.Tensor, w: torch.Tensor, layers: int = LAYERS) -> torch.Tensor:
     """The bf16 chain: x (rows, 512) bf16, w (>= layers, 512, 512) bf16 ->
     (rows, 512) bf16."""
     _check(x, w, torch.bfloat16, layers)
     if x.device.type == "cpu":
         return run_bf16_ref(x, w, layers)
+    wp = _packed_bf16(w)
     out = torch.empty_like(x)
     _build.check(_build.library("int8").probe_bf16_chain(
-        x.data_ptr(), w.data_ptr(), x.shape[0], layers, out.data_ptr(), _stream(x)),
+        x.data_ptr(), wp.data_ptr(), x.shape[0], layers, out.data_ptr(), _stream(x)),
         "probe_bf16_chain", "int8")
     LAUNCHES["bf16"] += 1
     return out
@@ -181,12 +215,15 @@ def main() -> None:
     xb, wb, xi, wi, si = probe_inputs()
     flops = 2.0 * B * W * W * LAYERS
     t, lo, hi = cuda_ms(lambda: run_bf16(xb, wb))
-    print(f"bf16: {t:.4f} ms/iter [{lo:.4f}-{hi:.4f}], {flops / t / 1e9:.1f} TFLOP/s "
-          f"({flops / t * 1e3 / PEAK_BF16 * 100:.1f}% of the bf16 dense peak)", flush=True)
+    print(f"bf16 ({ROUTES['bf16']}): {t:.4f} ms/iter [{lo:.4f}-{hi:.4f}], "
+          f"{flops / t / 1e9:.1f} TFLOP/s ({flops / t * 1e3 / PEAK_BF16 * 100:.1f}% of the bf16 "
+          f"dense peak)", flush=True)
     t8, lo, hi = cuda_ms(lambda: run_int8(xi, wi, si))
-    print(f"int8: {t8:.4f} ms/iter [{lo:.4f}-{hi:.4f}], {flops / t8 / 1e9:.1f} TOP/s "
-          f"({flops / t8 * 1e3 / PEAK_INT8 * 100:.1f}% of the int8 dense peak), "
-          f"speedup vs bf16 {t / t8:.2f}x  [{torch.cuda.get_device_name(0)}]", flush=True)
+    print(f"int8 ({ROUTES['int8']}): {t8:.4f} ms/iter [{lo:.4f}-{hi:.4f}], "
+          f"{flops / t8 / 1e9:.1f} TOP/s ({flops / t8 * 1e3 / PEAK_INT8 * 100:.1f}% of the int8 "
+          f"dense peak), speed vs bf16 {t / t8:.2f}x ({ROUTES['int8']} int8 against "
+          f"{ROUTES['bf16']} bf16: a ratio of routes, not of the card's int8 and bf16 rates)  "
+          f"[{torch.cuda.get_device_name(0)}]", flush=True)
 
 
 if __name__ == "__main__":
