@@ -15,7 +15,10 @@ tensor-core probe:
   4. kernel vs plain on the card, at B = 4096 and a ragged B = 1000:
      ``distance_fused`` vs ``distance``, ``distance_and_grad_fused`` vs
      ``distance_and_grad``, 5 steps of ``project(fused=True)`` vs
-     ``fused=False``, and each kernel vs its plain PyTorch version
+     ``fused=False``, and each kernel vs its plain PyTorch version; each of
+     the three entry points on a strided view (``poses[::2]``) and on a
+     permuted-then-viewed tensor against the contiguous result, to the bit
+     (``distance_fused``'s gradient through the copy too)
   5. against the JAX package: d, g and a 10-step projection of 256 probes
      vs ``tests/data/torch_port_l8_expected.npz``
   6. main path: ``distance_fused``, ``distance_and_grad_fused`` and a
@@ -23,8 +26,10 @@ tensor-core probe:
      kernels' launch counts set to 0 before and read after; then times
      (CUDA events, after warm-up) of each kernel and its plain version
   7. train kernels vs plain on the card, at B = M = 4096 and a ragged
-     B = 1000, M = 700: the tile kernel and the reduction each against its
-     plain version on the same inputs, ``fused_train_grads`` against
+     B = 1000, M = 700, with nvcc's ``-Xptxas -v`` lines of the reduction
+     (3xTF32 ``wgmma``): the tile kernel and the reduction each against its
+     plain version on the same inputs (the reduction's largest error logged
+     beside its bar), ``fused_train_grads`` against
      ``manual_train_grads`` (every loss term and gradient leaf), two calls
      bitwise equal; the encoder kernel against its plain version at
      B = 131,072 and 1000
@@ -43,7 +48,9 @@ tensor-core probe:
      reduction also vs ``torch.matmul``), and the encoder kernel vs its plain
      version at 131,072
  11. the kNN kernel vs its plain version ``knn_topk_ref`` on the card, every
-     engine (exact ``vpu``, ``mxu_bf16``, the ``mxu_fast`` bound), at
+     engine (exact ``vpu``, ``mxu_bf16``, the ``mxu_fast`` bound on bf16
+     ``wgmma``, with its ``-Xptxas -v`` lines and its corpus pack held to
+     ``pack_bound_ref`` to the byte), at
      Q in {1000, 4096} x N in {20,000 (ragged), 65,536} x k in {1, 5, 8, 16,
      32}, unweighted and joint-weighted, tie-aware; a corpus of duplicated
      rows (the same indices, lowest first); two calls and split counts
@@ -56,10 +63,10 @@ tensor-core probe:
  13. main path, labelling: a sampled directory of 64 x 16,384 synthetic
      poses (1,048,576, 352 MB of fp32 on the card); ``label_split`` labels
      one sequence (shard 0 of 64, 10,000 queries, k = 5) with
-     ``precision="auto"`` (on the card the exact engine), "highest", "fast"
-     and "default", the kNN launch counts set to 0 before and read after
-     and the plain version refused meanwhile; 'auto' equal to 'highest' to
-     the byte; ``probe_fast_safety`` on the whole corpus; the exact labels
+     ``precision="auto"``, "highest", "fast" and "default", the kNN launch
+     counts set to 0 before and read after and the plain version refused
+     meanwhile; 'auto' equal to the labels of the engine that
+     ``resolve_knn_precision`` picks, to the byte; ``probe_fast_safety`` on the whole corpus; the exact labels
      held to plain ``geodesic_topk``, the fast ones to the exact (every
      rank within 1e-6, top-5 overlap 1); then times at Q = 4,096,
      N = 1,048,576, k = 5, where every engine's kernel output is held to its
@@ -70,7 +77,7 @@ tensor-core probe:
      nvcc's ``-Xptxas -v`` lines of the two wgmma kernels (registers, spills,
      shared memory), ``QuantizedField.distance`` held to ``distance_ref`` at
      B = 1, 63, 65, 129, 1,000, 4,096 and 131,072 (cutting the kernel's
-     64-pose CTAs); the int8 field held to the fp32 field at
+     64-pose CTAs), and on a strided and a permuted view to the bit; the int8 field held to the fp32 field at
      131,072 poses with the bars of ``tests/test_fused_int8.py:190-201``
      (MAE < 0.03 std, Pearson > 0.998, Spearman > 0.995)
  15. against the JAX package (``tests/data/torch_port_int8_expected.npz``):
@@ -125,7 +132,17 @@ q c - (hi hi' + hi lo' + lo hi') is at most 3 x 2^-16 |q c| a product; the
 weights sit in the corpus rows, so the 84 terms sum to at most
 sum_j w_j |q_j| |c_j| = 1 for unit joints, and the bar is 3 x 2^-16 plus
 the sums' 1e-5. A sorted list of values each moved by at most e moves by at
-most e rank by rank, so the top-k values are held to it too.
+most e rank by rank, so the top-k values are held to it too. On the tensor
+cores (bf16 ``wgmma``) the products stay exact and only the accumulation
+differs (a few units in the last place); those sums only filter, and each
+value that enters a list is recomputed in FMA chains over K in order, as
+the earlier CUDA-core engine computed it, so BOUND_ATOL bounds the same
+arithmetic as before.
+
+The training reduction runs in 3xTF32 on the tensor cores: each product
+keeps ~21 significant bits (at most ~3 x 2^-22 of |x x'| lost;
+``tests/test_torch_tc_split.py`` derives it), and its accumulators are
+added to fp32 totals every 128 rows, so the leaf bar stays LEAF_TOL.
 
 int8 serving: every int8 layer's sums are exact integers in the kernel and
 in the plain version alike (|acc| <= K 127^2 < 2^24), so their d can differ
@@ -166,7 +183,9 @@ apart after 8 layers); a wrong layer puts most elements off.
 Bounds (``bound_ms``): the larger of the operations over the fp32 CUDA-core
 peak (67 TFLOP/s, an FMA counted as two) and the bytes (each input read
 once, each output written once) over the memory rate (3.35 TB/s) of an H100
-SXM, counted from this run's shapes. The kNN exact and bf16 engines, the
+SXM, counted from this run's shapes. The training reduction's products
+count at their route's peak: three TF32 passes (3xTF32) at the dense TF32
+tensor-core peak (494.7 TFLOP/s), its slot sums at the fp32 peak. The kNN exact and bf16 engines, the
 unweighted distance the main path times: per joint and pair 4 products and
 3 sums for <q_j, c_j> and one sum of |.| into the pair's total (abs is an
 operand modifier), 8; per pair 1 - total / 21, one FMA, 2; so 8 x 21 + 2 =
@@ -214,6 +233,7 @@ TRAIN_FILES, TRAIN_PTS = 4, 5000       # the reference batch: 4 files x 5000 pos
 SEED = 0
 PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12  # H100 SXM: fp32 CUDA cores, HBM3
 PEAK_BF16 = 989e12                       # H100 SXM: bf16 tensor cores, dense
+PEAK_TF32 = 494.7e12                     # H100 SXM: TF32 tensor cores, dense
 KNN_EXPECTED = "tests/data/torch_port_knn_expected.npz"
 KNN_ATOL = 1e-6       # distances: exact and bf16 engines (x W when weighted); reason in the docstring
 BOUND_ATOL = 1e-5     # the bound engine: fp32 sums of 84 products in another order
@@ -231,7 +251,10 @@ BF16_CHAIN_SHARE = 0.10  # probe bf16, 8 layers: elements more than one spacing 
 EXPORT_ATOL = 1e-6
 INT8_BATCHES = (1, 63, 65, 129, 1000, 4096, SERVE_BATCH)  # cut the 64-pose tile
 PROBE_ROWS = (1000, SERVE_BATCH)
-WGMMA_KERNELS = ("int8_forward_kernel", "probe_bf16_kernel")
+WGMMA_KERNELS = {"int8": ("int8_forward_kernel", "probe_bf16_kernel"),   # by library
+                 "train": ("train_reduce_kernel",),
+                 "knn": ("knn_bound_kernel", "knn_pack_kernel")}
+REDUCE_FP32_ERR = 7.4e-6  # x max|leaf|: the fp32 CUDA-core reduction it replaced, whole gradient (docstring)
 
 
 def log(*args) -> None:
@@ -402,6 +425,22 @@ def main() -> None:
                            assert_close("projection-step kernel q vs ref", s_k[1], s_p[1],
                                         rtol=PROJ_RTOL, atol=PROJ_ATOL))
 
+    # strided and permuted poses: copied for the kernels, as JAX takes any array
+    q = random_poses(gen, 4096, device="cuda")
+    with torch.no_grad():
+        hold_strided("distance_fused", field.distance_fused, q)
+    hold_strided("distance_and_grad_fused", field.distance_and_grad_fused, q)
+    hold_strided("project(fused=True), 5 steps", lambda p: project(field, p, steps=5, fused=True),
+                 q)
+    grads = []
+    for view in (lambda x: x.transpose(0, 1).contiguous().transpose(0, 1)[::2], lambda x: x[::2]):
+        x = q.clone().requires_grad_(True)
+        field.distance_fused(view(x)).sum().backward()
+        grads.append(x.grad)
+    if not torch.equal(grads[0], grads[1]):
+        raise AssertionError("distance_fused's gradient through a strided view differs")
+    log("  ok distance_fused's gradient through the copy of a strided view: the same bits")
+
     # a zero pose in the batch: finite d, and g = gx / 1e-12 as in JAX
     q = random_poses(gen, 1000, device="cuda")
     q[7] = 0.0
@@ -553,7 +592,7 @@ def train_phases(field, card: str) -> list:
     module = field.module
     w = field.weights()
     gen = torch.Generator().manual_seed(SEED + 1)
-    errs = {"tile": 0.0, "reduce": 0.0, "enc": 0.0}
+    errs = {"tile": 0.0, "reduce": 0.0, "reduce_rel": 0.0, "enc": 0.0}
 
     def batch_on_card(rows_n, rows_m, seed):
         pose, dist, man = golden_inputs(seed, max(rows_n, rows_m))
@@ -585,7 +624,10 @@ def train_phases(field, card: str) -> list:
         assert_close("tile kernel loss sums vs branch_ref", l_kp, l_pp, rtol=TERM_RTOL, atol=0.0)
         errs["tile"] = max(errs["tile"], max(float((g_kp[k] - g_pp[k]).abs().max()) for k in g_pp))
         # the reduction: the kernel's rows through both reductions
-        assert_leaves("reduce kernel vs reduce_ref (same rows)", g_kk, g_kp)
+        rel = assert_leaves("reduce kernel vs reduce_ref (same rows)", g_kk, g_kp)
+        errs["reduce_rel"] = max(errs["reduce_rel"], rel)
+        log(f"  reduction (3xTF32 wgmma): largest error {rel:.3e} x max|leaf|, bar {LEAF_TOL}; "
+            f"the fp32 CUDA-core reduction it replaced: up to {REDUCE_FP32_ERR} (whole gradient)")
         assert_close("reduce kernel loss sums vs reduce_ref", l_kk, l_kp, rtol=1e-6, atol=0.0)
         errs["reduce"] = max(errs["reduce"],
                              max(float((g_kk[k] - g_kp[k]).abs().max()) for k in g_kp))
@@ -615,6 +657,7 @@ def train_phases(field, card: str) -> list:
                                                     got, want, atol=ENC_ATOL))
 
     # ---- 7. train kernels vs plain on the card ----
+    log_ptxas("train")
     sd = dict(module.state_dict())
     for (B, M), loss_type in (((4096, 4096), "l1"), ((1000, 700), "l2")):
         log(f"train kernels vs plain, B = {B}, M = {M}, {loss_type}")
@@ -806,8 +849,15 @@ def train_phases(field, card: str) -> list:
     scratch = (B + M) * (ins + outs + 1)
     tile_bound = bound((3 * B + 2 * M) * flop,
                        4 * ((B + M) * 84 + B + nparam + scratch + slots))
-    reduce_bound = bound(2 * (B + M) * sum((wl.shape[0] + 1) * wl.shape[1] for wl, _ in w.layers)
-                         + 2 * slots, 4 * (scratch + slots + nparam + 3))
+    # three TF32 passes of the products on the tensor cores, the slot sums on the CUDA cores
+    reduce_flops = 2 * (B + M) * sum((wl.shape[0] + 1) * wl.shape[1] for wl, _ in w.layers)
+    t_ops = (3 * reduce_flops / PEAK_TF32 + 2 * slots / PEAK_FLOPS) * 1e3
+    t_bytes = 4 * (scratch + slots + nparam + 3) / PEAK_BYTES * 1e3
+    reduce_bound = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    log(f"bounds: reduction {reduce_bound[0]:.4f} ms ({reduce_bound[1]}: 3 x {reduce_flops:.4g} "
+        f"TF32 operations at {PEAK_TF32 / 1e12} TFLOP/s; {t_bytes:.4f} ms to read the "
+        f"{4 * scratch / 1e6:.1f} MB of scratch once); largest error of the reduction "
+        f"{errs['reduce_rel']:.3e} x max|leaf| (bar {LEAF_TOL})  [{card}]")
     E = 4 + w.feature_size
     enc_bound = bound(SERVE_BATCH * 2 * w.num_joints * (E * E + E * w.feature_size),
                       4 * (SERVE_BATCH * 21 * (4 + w.feature_size) + nenc))
@@ -905,6 +955,8 @@ def knn_phases(card: str) -> list:
     from posendf_torch.ops.knn import geodesic_rerank, geodesic_topk
     from posendf_torch.quat import JOINT_WEIGHTS
 
+    from posendf_torch import _build
+
     engines = list(fused_knn.ENGINES)
     w_np = JOINT_WEIGHTS.numpy()
     w_sum = float(w_np.sum())
@@ -923,6 +975,20 @@ def knn_phases(card: str) -> list:
         return BOUND_ATOL if engine == "mxu_fast" else KNN_ATOL * (1.0 if weights is None else w_sum)
 
     # ---- 11. the kNN kernel vs its plain version on the card ----
+    log_ptxas("knn")
+    lib = _build.library("knn")
+    for N in (20_000, 65_536):     # the bound engine's corpus pack, to the byte
+        _, cf, _, _ = fused_knn.kernel_operands(unit(8), unit(N), None, "mxu_fast")
+        packed = torch.empty(lib.posendf_knn_bound_bytes(N), dtype=torch.uint8, device="cuda")
+        cmax = torch.zeros(1, device="cuda")
+        _build.check(lib.posendf_knn_pack(cf.data_ptr(), N, packed.data_ptr(), cmax.data_ptr(),
+                                          torch.cuda.current_stream().cuda_stream),
+                     "posendf_knn_pack", "knn")
+        if not torch.equal(packed, fused_knn.pack_bound_ref(cf)):
+            raise AssertionError(f"posendf_knn_pack vs pack_bound_ref, N = {N}: other bytes")
+        assert_close(f"posendf_knn_pack's largest row norm, N = {N}", cmax,
+                     cf.norm(dim=1).max()[None], rtol=1e-6, atol=0.0)
+    log("  ok posendf_knn_pack vs pack_bound_ref at N = 20,000 and 65,536: the same bytes")
     for Q in (1000, KNN_Q):
         for N in (20_000, 65_536):
             q, c = unit(Q), unit(N)
@@ -937,6 +1003,7 @@ def knn_phases(card: str) -> list:
                             atol_of(engine, weights), d_p[:, k]))
             log(f"  ok kNN kernel vs knn_topk_ref, Q = {Q}, N = {N}, unweighted and weighted, "
                 f"k in 1, 5, 8, 16, 32: max |err| {errs}")
+    log(f"  the bound engine (bf16 wgmma): largest error {errs['mxu_fast']:.3e}, bar {BOUND_ATOL}")
     base = unit(10_000)
     c = torch.cat([base, base])              # row j + 10,000 duplicates row j
     q = torch.cat([base[:500], unit(500)])
@@ -1051,6 +1118,12 @@ def knn_phases(card: str) -> list:
                 out[prec] = {key: z[key] for key in z.files}
         fused_knn.knn_topk_ref = saved_ref
         launches = dict(fused_knn.LAUNCHES)
+        t0 = time.perf_counter()
+        corpus_np, _ = prepare.build_corpus(sampled, ["ACCAD"])
+        read_s = time.perf_counter() - t0
+        picked, _ = prepare.resolve_knn_precision(     # label_split's own call
+            "auto", corpus_np, k=KNN_K, rng=np.random.default_rng([0, 9999]), device="cuda",
+            verbose=False)
         n_q = len(out["auto"]["pose"])
         log(f"  label_split, {n_q} queries x {CORPUS_FILES * CORPUS_ROWS} poses: wall "
             + ", ".join(f"{p} {walls[p]:.3f} s ({n_q / walls[p]:.1f} queries/s)" for p in walls)
@@ -1059,8 +1132,9 @@ def knn_phases(card: str) -> list:
             if n <= 0:
                 raise AssertionError(f"the labelling path launched no {e} kNN kernel")
         exact, fast, bf16 = out["highest"], out["fast"], out["default"]
-        if any(out["auto"][key].tobytes() != exact[key].tobytes() for key in exact):
-            raise AssertionError("'auto' on the card gave other labels than exact 'highest'")
+        if any(out["auto"][key].tobytes() != out[picked][key].tobytes() for key in exact):
+            raise AssertionError(f"'auto' on the card gave other labels than {picked!r}, the "
+                                 "engine resolve_knn_precision picks")
         for o in (fast, bf16):
             if o["pose"].tobytes() != exact["pose"].tobytes():
                 raise AssertionError("the labelling runs drew other queries")
@@ -1068,11 +1142,8 @@ def knn_phases(card: str) -> list:
             if o["dist"].shape != (n_q, KNN_K) or not np.isfinite(o["dist"]).all() \
                     or o["nn_pose"].shape != (n_q, KNN_K, 21, 4):
                 raise AssertionError(f"{name} labels: bad shape or non-finite")
-        log("  ok 'auto' gave the exact engine's labels, to the byte (on the card the bound "
-            "engine is the slower one: prepare.FAST_ENGINE_BACKENDS)")
-        t0 = time.perf_counter()
-        corpus_np, _ = prepare.build_corpus(sampled, ["ACCAD"])
-        read_s = time.perf_counter() - t0
+        log(f"  ok 'auto' gave the labels of {picked!r}, the engine resolve_knn_precision picks "
+            f"(prepare.FAST_ENGINE_BACKENDS {sorted(prepare.FAST_ENGINE_BACKENDS)}), to the byte")
     t0 = time.perf_counter()
     corpus = torch.from_numpy(corpus_np).cuda()
     torch.cuda.synchronize()
@@ -1160,6 +1231,13 @@ def knn_phases(card: str) -> list:
         lib["d"] = v
 
     lib_ms = cuda_ms(library, 3)
+    packed = torch.empty(_build.library("knn").posendf_knn_bound_bytes(N), dtype=torch.uint8,
+                         device="cuda")
+    cmax = torch.zeros(1, device="cuda")
+    pack_ms = cuda_ms(lambda: _build.library("knn").posendf_knn_pack(
+        cf.data_ptr(), N, packed.data_ptr(), cmax.data_ptr(),
+        torch.cuda.current_stream().cuda_stream), 5)
+    del packed
     lib_err = float((lib["d"] - got["mxu_fast"][0]).abs().max())
     if lib_err > YARD_BAR:
         raise AssertionError(f"the bound engine's values vs one fp32 product's: {lib_err:.3e} "
@@ -1167,7 +1245,8 @@ def knn_phases(card: str) -> list:
     log(f"  fused_geodesic_topk_fast (prescreen + rerank) {fast_ms:.4f} ms; plain "
         f"geodesic_topk {geo_ms:.4f} ms; the bound's top-k by torch.matmul + torch.topk over "
         f"{chunk}-row chunks {lib_ms:.4f} ms (ok: its values within {lib_err:.3e} of the "
-        f"kernel's, bar {YARD_BAR:.3e})  [{card}]")
+        f"kernel's, bar {YARD_BAR:.3e}); of the bound engine's call, the corpus pack "
+        f"{pack_ms:.4f} ms  [{card}]")
 
     nbytes = 4 * (Q * 84 + N * 84 + 21) + Q * KNN_K * (4 + 8)
     exact_bound = bound(KNN_PAIR_OPS * Q * N, nbytes)
@@ -1180,7 +1259,9 @@ def knn_phases(card: str) -> list:
     rows_out = []
     for e in engines:
         b = bound_bound if e == "mxu_fast" else exact_bound
-        row = {"name": f"posendf_knn_partial + posendf_knn_merge ({e})", "route": "cuda",
+        launched = ("posendf_knn_pack + posendf_knn_bound" if e == "mxu_fast"
+                    else "posendf_knn_partial")
+        row = {"name": f"{launched} + posendf_knn_merge ({e})", "route": "cuda",
                "source": src, "replaces": "posendf_tpu/ops/fused_knn.py:68",
                "launches": launches[e], "max_abs_err": errs[e], "ms": times[e][0],
                "plain_ms": times[e][1], "bound_ms": b[0], "bound_by": b[1],
@@ -1209,6 +1290,31 @@ def ptxas_lines(log_text: str, kernels) -> list:
         if keep:
             out.append(line.strip())
     return out
+
+
+def log_ptxas(name: str) -> None:
+    """Log nvcc's ``-Xptxas -v`` lines of library ``name``'s wgmma kernels."""
+    from posendf_torch import _build
+
+    for line in ptxas_lines(_build.build_info(name)["log"], WGMMA_KERNELS[name]):
+        log("  nvcc -Xptxas -v: " + line)
+
+
+def hold_strided(name: str, fn, q: torch.Tensor) -> None:
+    """``fn`` on a strided view (every other pose) and on a permuted-then-
+    viewed copy of ``q`` gives, to the bit, what it gives on the contiguous
+    poses."""
+    views = {"poses[::2]": (q[::2], q[::2].contiguous()),
+             "permuted": (q.transpose(0, 1).contiguous().transpose(0, 1), q)}
+    for what, (view, dense) in views.items():
+        if view.is_contiguous():
+            raise AssertionError(f"{what} is contiguous: not a strided check")
+        got, want = fn(view), fn(dense)
+        for a, b in zip(got if isinstance(got, tuple) else (got,),
+                        want if isinstance(want, tuple) else (want,)):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{name} on {what}: not the contiguous result")
+    log(f"  ok {name} on poses[::2] and a permuted view: the contiguous result, to the bit")
 
 
 def hold_int8(name: str, qfield, pose: torch.Tensor, d: torch.Tensor, d_ref) -> float:
@@ -1285,13 +1391,13 @@ def serving_phases(field, card: str) -> list:
     log(f"int8 kernel vs plain: {CKPT} quantized on {INT8_CALIB} poses on the card, window "
         f"{qfield.qparams['window']}, floored channels {rep['floored_channels']}, {smem} bytes "
         f"of shared memory per CTA")
-    for line in ptxas_lines(_build.build_info("int8")["log"], WGMMA_KERNELS):
-        log("  nvcc -Xptxas -v: " + line)
+    log_ptxas("int8")
     int8_err = 0.0
     for B in INT8_BATCHES:
         p = serve[:B] if B == SERVE_BATCH else torch.from_numpy(unit_poses(SEED + 42 + B, B)).cuda()
         int8_err = max(int8_err, hold_int8(f"distance (kernel) vs distance_ref, B = {B}", qfield,
                                            p, qfield.distance(p), qfield.distance_ref(p)))
+    hold_strided("QuantizedField.distance", qfield.distance, serve[:4096])
     with torch.no_grad():
         d32 = field.distance(serve).double().cpu().numpy().ravel()
     d8 = qfield.distance(serve).double().cpu().numpy().ravel()

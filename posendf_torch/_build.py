@@ -5,11 +5,13 @@ header, so it compiles in seconds:
 
   ``field``  ``csrc/field_kernels.cu``  forward, value-and-grad, projection step
   ``train``  ``csrc/train_kernels.cu``  encoder, training gradient (tile + reduction)
-  ``knn``    ``csrc/knn_kernels.cu``    geodesic top-k (per corpus range + merge)
+  ``knn``    ``csrc/knn_kernels.cu``    geodesic top-k (per corpus range + merge; the
+                                        bound engine's corpus pack)
   ``int8``   ``csrc/int8_kernels.cu``   int8 serving forward, bf16 / int8 probe chains
 
-All include ``csrc/common.cuh``; ``int8`` also ``csrc/hopper.cuh`` (the
-PTX of wgmma, mbarriers and bulk copies). A library goes to
+All include ``csrc/common.cuh``; ``train``, ``knn`` and ``int8`` also
+``csrc/hopper.cuh`` (the PTX of wgmma, mbarriers and bulk copies, and the
+ring of slabs they share). A library goes to
 ``build/posendf_torch/<name>_<hash>.so`` under the repository root, keyed by
 a hash of its source, the headers and the compiler flags: an edited source is
 rebuilt, an unchanged one is loaded as it is. Different libraries may be
@@ -69,13 +71,19 @@ _SIGNATURES = {
         # loss_slot, nslots_n, nslots_m, J, F, partial, grads, loss, stream
         "posendf_train_reduce": ([_P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _I, _I,
                                   _I, _I, _P, _P, _P, _P], _I),
-        # (meta_host, L, rows) -> floats of the reduction's partial buffer
-        "posendf_train_reduce_partial_floats": ([_P, _I, _I], _I),
+        # (meta_host, L, rows_n, rows_m) -> floats of the reduction's partial buffer
+        "posendf_train_reduce_partial_floats": ([_P, _I, _I, _I], _I),
         "posendf_train_error_string": ([_I], ctypes.c_char_p),
     },
     "knn": {
-        # q, Q, c, N, w, w_total, engine, kpad, S, part_d, part_i, stream
-        "posendf_knn_partial": ([_P, _I, _P, _I, _P, _F, _I, _I, _I, _P, _P, _P], _I),
+        # q, Q, c, N, w, engine, kpad, S, part_d, part_i, stream
+        "posendf_knn_partial": ([_P, _I, _P, _I, _P, _I, _I, _I, _P, _P, _P], _I),
+        # c, N, packed, cmax, stream
+        "posendf_knn_pack": ([_P, _I, _P, _P, _P], _I),
+        # N -> bytes of the packed corpus
+        "posendf_knn_bound_bytes": ([_I], _I),
+        # q, Q, packed, cmax, N, w_total, kpad, S, part_d, part_i, stream
+        "posendf_knn_bound": ([_P, _I, _P, _P, _I, _F, _I, _I, _P, _P, _P], _I),
         # part_d, part_i, S, Q, kpad, k, d_out, i_out, stream
         "posendf_knn_merge": ([_P, _P, _I, _I, _I, _I, _P, _P, _P], _I),
         "posendf_knn_error_string": ([_I], ctypes.c_char_p),

@@ -283,7 +283,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--what", choices=["forward", "project"], default="forward")
     p.add_argument("--steps", type=int, default=10, help="projection steps (--what project)")
     p.add_argument("--batch", type=int, default=None,
-                   help="static batch size (default: symbolic, any batch of 2 or more)")
+                   help="static batch size (default: symbolic, any batch, one pose included)")
     p.add_argument("--no-renorm", action="store_true",
                    help="projection without per-step renormalization")
     p.add_argument("--int8", action="store_true",

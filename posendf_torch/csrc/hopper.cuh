@@ -1,7 +1,10 @@
-// PTX helpers of the Hopper (sm_90a) kernels in int8_kernels.cu: mbarriers,
-// bulk copies (cp.async.bulk), named barriers, wgmma descriptors of the
-// 128-byte-swizzled K-major layout, wgmma fences, commit and wait, and the
-// wgmma shapes the kernels issue.
+// PTX helpers of the Hopper (sm_90a) kernels in int8_kernels.cu,
+// train_kernels.cu (the batch reduction) and knn_kernels.cu (the bound
+// engine): mbarriers, bulk copies (cp.async.bulk), per-thread asynchronous
+// copies (cp.async), named barriers, wgmma
+// descriptors of the 128-byte-swizzled K-major layout, wgmma fences, commit
+// and wait, the TF32 rounding of the 3xTF32 split, and the wgmma shapes the
+// kernels issue.
 //
 // The K-major 128-byte-swizzle layout (what a wgmma descriptor of layout
 // type 1 reads): a tile of R rows (M or N) x 128 bytes of K is stored as
@@ -11,8 +14,11 @@
 //   (r / 8) * 1024 + (r % 8) * 128 + (((b / 16) ^ (r % 8)) * 16) + b % 16
 //
 // (sw128_offset). A tile starts on a 1024-byte boundary. One wgmma reads
-// 32 bytes of K (16 bf16 or 32 int8): its descriptor starts kk * 32 bytes into
-// the tile (kk = 0..3), stride between 8-row atoms (SBO) 1024 bytes.
+// 32 bytes of K (16 bf16, 32 int8 or 8 tf32): its descriptor starts kk * 32
+// bytes into the tile (kk = 0..3), stride between 8-row atoms (SBO) 1024
+// bytes. The layout is the same bytes for every element type, tf32 included
+// (a 128-byte line holds 32 tf32 values of K); tf32 has no transposed
+// (M- or N-major) form, so its shared-memory operand is stored K-major.
 
 #pragma once
 
@@ -82,6 +88,30 @@ __device__ __forceinline__ void bulk_g2s(uint32_t dst, const void* src, uint32_t
       : "memory");
 }
 
+// ---- cp.async: per-thread asynchronous copies global -> shared ----
+// src_bytes < the copy's size fills the rest with zeros (0: all zeros, src
+// not read); completion is per thread, in commit groups
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, uint32_t src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, uint32_t src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's committed groups are pending
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // ---- barriers and fences inside a CTA ----
 
 __device__ __forceinline__ void named_bar_sync(uint32_t id, uint32_t threads) {
@@ -93,7 +123,74 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
+// ---- a ring of slabs under full / empty mbarriers ----
+
+__host__ __device__ constexpr int round1024(int x) { return (x + 1023) & ~1023; }
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(p) + 1023) &
+                                          ~static_cast<uintptr_t>(1023));
+}
+
+// full[s] (`fills` arrivals, one with the slab's bytes where a bulk copy
+// fills it) and empty[s] (`frees` arrivals: one of each consumer warpgroup,
+// or warp, that reads the slot) for every slot; then the CTA syncs, so no
+// thread waits on a barrier before it exists
+__device__ __forceinline__ void init_ring(uint64_t* bars, int stages, int fills, int frees) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(smem_u32(bars + s), fills);
+      mbar_init(smem_u32(bars + stages + s), frees);
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
+}
+
+// producer side of slab g: wait for its slot to be free, then copy `bytes`
+// from `src` into it
+__device__ __forceinline__ void produce(uint64_t* bars, int stages, unsigned char* ring,
+                                        int slot_bytes, int g, const unsigned char* src,
+                                        uint32_t bytes) {
+  const int s = g % stages;
+  const uint32_t full = smem_u32(bars + s);
+  mbar_wait(smem_u32(bars + stages + s), (static_cast<uint32_t>(g / stages) & 1) ^ 1);
+  mbar_arrive_expect_tx(full, bytes);
+  bulk_g2s(smem_u32(ring + s * slot_bytes), src, bytes, full);
+}
+
+// consumer side: wait until slab g has landed; returns its slot
+__device__ __forceinline__ int await_slab(uint64_t* bars, int stages, int g) {
+  const int s = g % stages;
+  mbar_wait(smem_u32(bars + s), static_cast<uint32_t>(g / stages) & 1);
+  return s;
+}
+
+// a consumer warpgroup frees slot s (its thread 0 arrives); call after the
+// slot's wgmma_wait
+__device__ __forceinline__ void release(uint64_t* bars, int stages, int s, int tw) {
+  if (tw == 0) mbar_arrive(smem_u32(bars + stages + s));
+}
+
+template <typename Kernel, typename... Args>
+int launch_wgmma(Kernel kernel, dim3 ctas, int threads, size_t smem, void* stream, Args... args) {
+  const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<ctas, threads, smem, static_cast<cudaStream_t>(stream)>>>(args...);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // ---- wgmma ----
+
+// x rounded to TF32 (10 mantissa bits, to nearest, ties away from zero), as
+// the fp32 bit pattern whose low 13 bits are zero: what cvt.rna.tf32.f32
+// gives for every finite x, in two integer operations (half a unit of the
+// 10th bit added to the magnitude, then the low 13 bits cleared). x = hi + lo
+// with hi = tf32(x) and lo = tf32(x - hi) is the 3xTF32 split.
+__device__ __forceinline__ float tf32_round(float x) {
+  return __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xffffe000u);
+}
 
 // descriptor of a K-major 128-byte-swizzled tile at shared address `addr`
 // (LBO unused for this layout: 1; SBO 1024 bytes; layout type 1 = B128)
@@ -187,6 +284,104 @@ __device__ __forceinline__ void wgmma_m64n256k16_bf16(float (&d)[128], uint64_t 
         "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_m64n128k16_bf16(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63},"
+      " %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_m64n128k8_tf32_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t db,
+                                                               int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63},"
+      " {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_m64n64k8_tf32_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
+                                                              int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31},"
+      " {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_m64n8k8_tf32_rs(float (&d)[4], const uint32_t (&a)[4], uint64_t db,
+                                                             int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3},"
+      " {%4, %5, %6, %7}, %8, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// d (+)= A . B^T in tf32, N = NT (the accumulator's NT / 2 registers a thread),
+// A from registers (tf32 has no transposed shared-memory form): register j of
+// thread t holds row 16 (t / 32) + (t % 32) / 4 + 8 (j % 2) and column
+// t % 4 + 4 (j / 2) of the 64 x 8 tile
+template <int NT>
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[NT / 2], const uint32_t (&a)[4], uint64_t db,
+                                              int scale_d) {
+  if constexpr (NT == 128) {
+    wgmma_m64n128k8_tf32_rs(d, a, db, scale_d);
+  } else if constexpr (NT == 64) {
+    wgmma_m64n64k8_tf32_rs(d, a, db, scale_d);
+  } else {
+    static_assert(NT == 8, "tf32 wgmma widths: 8, 64, 128");
+    wgmma_m64n8k8_tf32_rs(d, a, db, scale_d);
+  }
 }
 
 __device__ __forceinline__ void wgmma_m64n64k32_s8(int (&d)[32], uint64_t da, uint64_t db, int scale_d) {

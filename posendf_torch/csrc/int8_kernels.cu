@@ -109,61 +109,6 @@ constexpr int kSlabK = 128;                   // bytes of K a slab row (one swiz
 constexpr int kAtomBytes = kRows * kSlabK;    // 64 rows x 128 bytes of A
 constexpr uint32_t kBarConsumers = 1;         // named barrier of the consumer warpgroups
 
-__host__ __device__ constexpr int round1024(int x) { return (x + 1023) & ~1023; }
-
-__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
-  return reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(p) + 1023) &
-                                          ~static_cast<uintptr_t>(1023));
-}
-
-// full[s] (one arrival + the slab's bytes) and empty[s] (one arrival of each
-// of the `wgs` consumer warpgroups) for every slot; then the CTA syncs, so no
-// thread waits on a barrier before it exists
-__device__ __forceinline__ void init_ring(uint64_t* bars, int stages, int wgs) {
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < stages; ++s) {
-      mbar_init(smem_u32(bars + s), 1);
-      mbar_init(smem_u32(bars + stages + s), wgs);
-    }
-    fence_mbar_init();
-  }
-  __syncthreads();
-}
-
-// producer side of slab g: wait for its slot to be free, then copy `bytes`
-// from `src` into it
-__device__ __forceinline__ void produce(uint64_t* bars, int stages, unsigned char* ring,
-                                        int slot_bytes, int g, const unsigned char* src,
-                                        uint32_t bytes) {
-  const int s = g % stages;
-  const uint32_t full = smem_u32(bars + s);
-  mbar_wait(smem_u32(bars + stages + s), (static_cast<uint32_t>(g / stages) & 1) ^ 1);
-  mbar_arrive_expect_tx(full, bytes);
-  bulk_g2s(smem_u32(ring + s * slot_bytes), src, bytes, full);
-}
-
-// consumer side: wait until slab g has landed; returns its slot
-__device__ __forceinline__ int await_slab(uint64_t* bars, int stages, int g) {
-  const int s = g % stages;
-  mbar_wait(smem_u32(bars + s), static_cast<uint32_t>(g / stages) & 1);
-  return s;
-}
-
-// a consumer warpgroup frees slot s (its thread 0 arrives); call after the
-// slot's wgmma_wait
-__device__ __forceinline__ void release(uint64_t* bars, int stages, int s, int tw) {
-  if (tw == 0) mbar_arrive(smem_u32(bars + stages + s));
-}
-
-template <typename Kernel, typename... Args>
-int launch_wgmma(Kernel kernel, int ctas, int threads, size_t smem, void* stream, Args... args) {
-  const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<ctas, threads, smem, static_cast<cudaStream_t>(stream)>>>(args...);
-  return static_cast<int>(cudaGetLastError());
-}
-
 // ---- posendf_forward_int8 ----
 
 constexpr int kMeta8 = 8;   // per layer: in, out, kind, off W / wq, off b, off dq, off inv_sa, NC
@@ -434,7 +379,7 @@ __global__ void __launch_bounds__(kThreads8, 1) int8_forward_kernel(const __grid
   float* par = reinterpret_cast<float*>(x1 + round1024(a.x1_bytes));
   float* hid = par + 3 * a.maxn8;
   uint64_t* bars = reinterpret_cast<uint64_t*>(hid + kMaxE * kRows);
-  init_ring(bars, kStages8, kConsumers8 / 128);
+  init_ring(bars, kStages8, 1, kConsumers8 / 128);
 
   if (threadIdx.x >= kConsumers8) {
     // producer: every int8 layer's slabs, in the order the consumers take them
@@ -510,7 +455,7 @@ __global__ void __launch_bounds__(kPThreads, 1)
   unsigned char* ring = align1024(smem_raw);
   unsigned char* xs = ring + kPStages * kPSlot;   // (128, 512) bf16: 8 swizzled K blocks
   uint64_t* bars = reinterpret_cast<uint64_t*>(xs + kPRows * kPW * 2);
-  init_ring(bars, kPStages, kConsumers / 128);
+  init_ring(bars, kPStages, 1, kConsumers / 128);
 
   if (threadIdx.x >= kConsumers) {
     setmaxnreg_dec<24>();

@@ -1,4 +1,5 @@
-// Hand-written Hopper kernels of the training path (sm_90a, fp32).
+// Hand-written Hopper kernels of the training path (sm_90a, fp32; the
+// reduction's products on the tensor cores in 3xTF32).
 //
 //   posendf_encoder       replaces posendf_tpu/ops/fused_encoder.py::_encoder_kernel
 //                         (the 21-joint structure encoder alone, forward only)
@@ -34,8 +35,9 @@
 //        ecx_l is folded into the scratch in place: a_l = ecx_l + dd x_l.
 //     The encoder's weight gradient of the tile and its loss sums go to a
 //     per-block slot, summed over the tile's poses in a fixed order.
-//   posendf_train_reduce, one block per 128 x 128 output tile of every layer
-//   and range of 2,048 batch rows, then one kernel that adds the ranges:
+//   posendf_train_reduce, one CTA per 128 x 128 output tile of every layer
+//   and range of 2,048 rows of one branch (wgmma, 3xTF32: see the section's
+//   note), then one kernel that adds the ranges:
 //     dW_l = a_l^T c_l over the noisy rows + (dd x_l)^T c_l over the manifold
 //     rows, and db_l = dd^T c_l; and the per-block encoder and loss slots,
 //     summed in block order.
@@ -49,18 +51,21 @@
 // list runs 4 + 2. Every sum runs in a fixed order and no float atomics are
 // used, so two runs give the same bits.
 //
-// What bounds it on an H100: the fp32 FMAs (7 traversals of 1.36M
-// multiply-adds per pose pair) on the CUDA cores; the scratch (21.5 KB per
-// pose) is written once and read once, ~0.3 ms at the reference batch.
+// What bounds it on an H100: the tile kernel's fp32 FMAs (6 traversals of
+// 1.36M multiply-adds per pose pair) on the CUDA cores; the reduction's one
+// traversal runs on the tensor cores; the scratch (21.5 KB per pose) is
+// written once and read once, ~0.3 ms at the reference batch.
 //
 // Each launcher returns cudaGetLastError(); no launcher synchronizes or
 // allocates (the wrapper allocates the scratch and slots with torch.empty).
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 using namespace posendf;
+using namespace hopper;
 
 // ---------------------------------------------------------------------------
 // encoder
@@ -660,25 +665,75 @@ __global__ void __launch_bounds__(kThreads) train_tile_kernel(const TrainArgs a)
 
 // The products dW_l = A_l^T C_l and db_l = dd^T C_l, with A_l the rows
 // [a_l (noisy); dd x_l (manifold)] and C_l the rows [c_l; c_l]: a product
-// whose depth is the batch (40,000 rows at the reference batch). One block
-// computes a kBM x kBN output tile of one layer over one range of
-// kSplitRows rows (8 x 8 outputs a thread, kBK rows a step, the next step's
-// operands loaded into registers while the current step multiplies); the
-// blocks of one row range run together, so its rows are read from L2 by all
-// the layer's tiles. The blocks of the first row tile of a layer also sum
-// the bias row. A thread's sums over kFold steps are added to its running
-// totals in shared memory, each range's totals go to its own slot of a
-// partial buffer, and a second kernel adds the ranges in order: no atomics,
-// and sums in three levels (kFold * kBK rows, a range, the ranges) whose
-// rounding does not grow with the batch.
-constexpr int kBM = 128;          // output rows (layer inputs) per block
-constexpr int kBN = 128;          // output columns (layer outputs) per block
-constexpr int kBK = 8;            // batch rows per step
-constexpr int kRThreads = 256;    // 16 x 16 threads, 8 x 8 outputs each
-constexpr int kSplitRows = 2048;  // batch rows per block
-constexpr int kFold = 32;         // steps summed in registers before they join the totals
-// dynamic shared memory of a product block: the running totals, (64, kRThreads)
-constexpr size_t kReduceSmem = 64 * kRThreads * sizeof(float);
+// whose depth K is the batch (40,000 rows at the reference batch).
+//
+// Bound on an H100 SXM: 2 x 40,000 x sum_l (in_l + 1) out_l = 1.09e11
+// operations, which at fp32-grade accuracy on the tensor cores are three
+// TF32 passes, 3.27e11 at 494.7 TFLOP/s: 0.66 ms; the 860 MB of scratch
+// read once at 3.35 TB/s: 0.26 ms. The design:
+//  * 3xTF32. Each operand x = hi + lo with hi = tf32(x) and lo = tf32(x - hi)
+//    (cvt.rna); the products lo.hi' + hi.lo' + hi.hi' go to wgmma
+//    m64nNk8.f32.tf32.tf32 with fp32 accumulators. A product keeps ~21
+//    significant bits (the dropped terms are at most ~3 x 2^-22 |x x'|).
+//  * The layout. TF32 wgmma has no transposed (M- or N-major) shared-memory
+//    operand, and the scratch is (rows, in) and (rows, out): M- and N-major,
+//    K = the row. So every step of kRK = 32 rows (one 128-byte line of tf32
+//    K) goes through the CTA twice. Its rows of the tile's A and B columns
+//    and of dd are copied into a raw fp32 ring with cp.async (16-byte copies
+//    where the rows allow, zero-filled past the edges), kRaw - 1 steps
+//    ahead, so that many steps' loads are in flight without registers.
+//    Then A goes to the products from registers (wgmma's RS form, which
+//    takes any layout): each thread loads its fragment's 16 values of the
+//    step from the raw ring (its rows padded so that the loads meet no bank
+//    conflict), scales them by dd on the manifold branch and splits them;
+//    and B is split by all 256 threads, column t % 128 and half the rows a
+//    thread, and stored transposed into the K-major 128-byte swizzle
+//    (16-byte stores, no bank conflicts), then fenced for the async proxy.
+//    A from registers also halves what the products read from shared
+//    memory, which, with the split's loads and stores, bounds a step.
+//  * A CTA owns a kRM x NT output tile of one layer (NT = 128, or 64 / 8
+//    where the layer is that narrow; in = 126 and out = 1 are zero-padded)
+//    over one range of kSplitRows rows of one branch. Its two warpgroups
+//    each own 64 rows of the tile, copy, split and issue 12 wgmmas a step
+//    (a producer warpgroup of its own, with both operands split into shared
+//    memory, was measured slower on an H100: PERF.md). Step g's products
+//    read one of two B slots and one of two register fragments, so step
+//    g + 1's copies and splits overlap them. The accumulators start anew
+//    every kFold steps and are then added to totals in registers with IEEE
+//    adds: the tensor cores' fp32 accumulation rounds otherwise than an IEEE
+//    add, so its error spans kFold steps only.
+//  * The bias row db = dd^T C: the threads that split B in a layer's first
+//    row tile sum dd[r] c[r][o] for their column and half of each step's
+//    rows on the CUDA cores (fp32 FMAs), the two halves added in order at
+//    the end.
+//  * Split-K without atomics: each range's totals go to its own slot of a
+//    partial buffer, and a second kernel adds the ranges in order (the noisy
+//    rows' first) and sums the tile kernel's encoder and loss slots; two calls
+//    give the same bits. The CTAs of one range are consecutive, so the tiles
+//    of one layer read its rows from L2 at about the same time.
+constexpr int kRM = 128;                       // output rows (layer inputs) a CTA
+constexpr int kRK = 32;                        // batch rows a step: 128 bytes of tf32
+constexpr int kROp = kRM * 128;                // B hi or lo: 128 columns x 128 bytes of K
+constexpr int kRSlot = 2 * kROp;               // B hi | B lo: 32 KB
+constexpr int kRStages = 2;                    // B slots
+constexpr int kRaw = 4;                        // raw steps: copies kRaw - 1 steps ahead
+constexpr int kRawA = kRM + 8;                 // a raw A row: 136 floats, so that the
+                                               // fragment loads hit 32 banks
+constexpr int kRawFloats = kRK * kRawA + kRK * kRM + kRK;  // A (32, 136) | B (32, 128) | dd (32)
+constexpr int kRThreads = 256;                 // two warpgroups
+constexpr int kSplitRows = 2048;               // batch rows a CTA (a multiple of kRK)
+constexpr int kFold = 4;                       // steps a fresh accumulator sums
+constexpr int kSumThreads = 256;               // threads a block of the range sums
+// B slots | raw ring | bias halves; 1024 to align the B slots
+constexpr size_t kReduceSmem = 1024 + static_cast<size_t>(kRStages) * kRSlot +
+                               (static_cast<size_t>(kRaw) * kRawFloats + kRM) * sizeof(float);
+
+// N of a layer's output tiles: 128, or 64 / 8 for a layer that narrow
+__host__ __device__ inline int tile_n(int out) { return out > 64 ? 128 : (out > 8 ? 64 : 8); }
+
+__host__ __device__ inline int layer_tiles(int in, int out) {
+  return ((in + kRM - 1) / kRM) * ((out + tile_n(out) - 1) / tile_n(out));
+}
 
 struct ReduceArgs {
   const int* meta;     // (L, kMeta)
@@ -688,198 +743,252 @@ struct ReduceArgs {
   const float* c_scr[2];
   const float* dd[2];
   int rows[2];
-  int scale_a[2];      // multiply the a rows by dd (the manifold branch keeps plain x_l)
-  const float* enc_slot;   // (nslots, nenc), the noisy blocks first
-  const float* loss_slot;  // (nslots, 2)
-  int nslots, nslots_noisy, nenc;
-  int slot_blocks;     // blocks [0, slot_blocks) sum the slots; the rest are product tiles
-  int tiles;           // product tiles of one row range, over all layers
+  int ranges0;         // row ranges of the noisy rows; the manifold rows' follow
+  int tiles;           // output tiles of one row range, over all layers
   int ndf;             // DFNet gradient floats: per layer W (in, out) | b (out)
   float* partial;      // (ranges, ndf)
-  float* grads;        // enc (nenc) | the DFNet gradient (ndf)
-  float* loss;         // (3,): noisy distance sum, noisy eikonal sum, manifold distance sum
 };
 
-__global__ void __launch_bounds__(kRThreads, 2) train_reduce_kernel(const ReduceArgs a) {
-  const int tid = threadIdx.x;
-  if (static_cast<int>(blockIdx.x) < a.slot_blocks) {
-    const int e = blockIdx.x * kRThreads + tid;
-    if (e < a.nenc) {
-      float s = 0.f;
-      for (int k = 0; k < a.nslots; ++k) s += a.enc_slot[static_cast<size_t>(k) * a.nenc + e];
-      a.grads[e] = s;
-    } else if (e < a.nenc + 3) {
-      const int which = e - a.nenc;
-      const int k0 = which == 2 ? a.nslots_noisy : 0;
-      const int k1 = which == 2 ? a.nslots : a.nslots_noisy;
-      const int col = which == 1 ? 1 : 0;
-      float s = 0.f;
-      for (int k = k0; k < k1; ++k) s += a.loss_slot[2 * k + col];
-      a.loss[which] = s;
+// Copies of the step's kRK rows x `cols` columns (row stride `ld` floats)
+// from `src` into a raw (kRK, ldr) fp32 tile, zeros where a row is past
+// nrows or a column past cols; 16-byte copies where `vec` (cols and ld
+// multiples of 4, src 16-byte aligned), else 4-byte copies. Thread t of the
+// CTA's kRThreads.
+__device__ __forceinline__ void copy_raw(uint32_t dst, int ldr, const float* src, int ld, int cols,
+                                         int k0, int nrows, bool vec, int t) {
+  if (vec) {
+#pragma unroll
+    for (int j = 0; j < kRK * kRM / 4 / kRThreads; ++j) {
+      const int e = t + kRThreads * j, row = e / (kRM / 4), c = 4 * (e % (kRM / 4));
+      const bool ok = k0 + row < nrows && c < cols;
+      cp_async16(dst + (row * ldr + c) * 4,
+                 ok ? src + static_cast<size_t>(k0 + row) * ld + c : src, ok ? 16 : 0);
     }
-    return;
+  } else {
+    const int col = t % kRM;
+#pragma unroll 4
+    for (int row = t / kRM; row < kRK; row += kRThreads / kRM) {
+      const bool ok = k0 + row < nrows && col < cols;
+      cp_async4(dst + (row * ldr + col) * 4,
+                ok ? src + static_cast<size_t>(k0 + row) * ld + col : src, ok ? 4 : 0);
+    }
   }
+}
 
-  // this block's row range, layer and output tile
-  const int t = blockIdx.x - a.slot_blocks;
-  const int range = t / a.tiles;
-  int tile = t - range * a.tiles;
+// The CTA's tile: A and C point at the range's first row, at the tile's
+// first column (acols / ccols of them are in the layer); dd at the range's
+// first row; `scale`: A's rows times dd (the manifold branch); `bias`: the
+// tile's column block of db into bias_dst.
+template <int NT>
+__device__ __forceinline__ void reduce_tile(unsigned char* ring, float* raw, float* bsum,
+                                            int steps, int nrows, const float* A, int in,
+                                            int acols, const float* C, int out, int ccols,
+                                            const float* dd, bool scale, bool bias, float* dst,
+                                            float* bias_dst, int i0, int o0) {
+  const int t = threadIdx.x, wg = t / 128, tw = t % 128, half = t / 128;
+  const bool vec_a = in % 4 == 0 && reinterpret_cast<uintptr_t>(A) % 16 == 0;
+  const bool vec_c = out % 4 == 0 && reinterpret_cast<uintptr_t>(C) % 16 == 0;
+  const bool vec_d = reinterpret_cast<uintptr_t>(dd) % 16 == 0;
+  const uint32_t raw_u = smem_u32(raw);
+  auto issue = [&](int g) {
+    if (g < steps) {
+      const uint32_t dst_u = raw_u + (g % kRaw) * kRawFloats * 4;
+      const int k0 = g * kRK;
+      copy_raw(dst_u, kRawA, A, in, acols, k0, nrows, vec_a, t);
+      copy_raw(dst_u + kRK * kRawA * 4, kRM, C, out, ccols, k0, nrows, vec_c, t);
+      if (t < kRK / 4) {
+        const int k = k0 + 4 * t;
+        const int n = max(0, min(4, nrows - k));
+        const uint32_t d_u = dst_u + (kRK * kRawA + kRK * kRM + 4 * t) * 4;
+        if (vec_d) {
+          cp_async16(d_u, n > 0 ? dd + k : dd, 4 * n);
+        } else {
+          for (int u = 0; u < 4; ++u) cp_async4(d_u + 4 * u, u < n ? dd + k + u : dd, u < n ? 4 : 0);
+        }
+      }
+    }
+    cp_async_commit();   // one group a step, empty past the last
+  };
+
+  float acc[NT / 2], tot[NT / 2];
+#pragma unroll
+  for (int i = 0; i < NT / 2; ++i) acc[i] = tot[i] = 0.f;
+  float btot = 0.f;
+  const bool sums_bias = bias && tw < ccols;
+  // the thread's A fragment rows (of the tile) and K offsets within a k8 step
+  const int fm = 64 * wg + 16 * ((t % 128) / 32) + (t % 32) / 4, fk = t % 4;
+
+  // step g: A fragments into af (hi and lo of 4 k8 steps), B into its slot,
+  // then the 12 products
+  auto step = [&](int g, uint32_t(&af)[4][2][4]) {
+    cp_async_wait<kRaw - 2>();
+    // step g's rows have landed (every thread's copies); step g - 1's raw
+    // rows are read, and the products of step g - 2 (B slot g % 2, these
+    // registers) are done
+    __syncthreads();
+    issue(g + kRaw - 1);
+    const float* ra = raw + (g % kRaw) * kRawFloats;
+    const float* rc = ra + kRK * kRawA;
+    const float* rd = rc + kRK * kRM;
+    unsigned char* hi = ring + (g % kRStages) * kRSlot;
+    float b = 0.f;
+#pragma unroll
+    for (int q = 4 * half; q < 4 * half + 4; ++q) {   // B: column tw, rows 4 q .. 4 q + 3
+      const float4 d4 = reinterpret_cast<const float4*>(rd)[q];
+      const float dq[4] = {d4.x, d4.y, d4.z, d4.w};
+      float v[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        v[u] = rc[(4 * q + u) * kRM + tw];
+        if (sums_bias) b = fmaf(dq[u], v[u], b);
+      }
+      const int off = sw128_offset(tw, 16 * q);
+      const float h0 = tf32_round(v[0]), h1 = tf32_round(v[1]), h2 = tf32_round(v[2]),
+                  h3 = tf32_round(v[3]);
+      *reinterpret_cast<float4*>(hi + off) = make_float4(h0, h1, h2, h3);
+      *reinterpret_cast<float4*>(hi + kROp + off) =
+          make_float4(tf32_round(v[0] - h0), tf32_round(v[1] - h1), tf32_round(v[2] - h2),
+                      tf32_round(v[3] - h3));
+    }
+    btot += b;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {   // A: register j is (fm + 8 (j % 2), 8 kk + fk + 4 (j / 2))
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int k = 8 * kk + fk + 4 * (j / 2);
+        float v = ra[k * kRawA + fm + 8 * (j % 2)];
+        if (scale) v *= rd[k];
+        const float h = tf32_round(v);
+        af[kk][0][j] = __float_as_uint(h);
+        af[kk][1][j] = __float_as_uint(tf32_round(v - h));
+      }
+    }
+    fence_proxy_async();
+    __syncthreads();   // B slot g % 2 holds step g's B
+    const uint32_t b_hi = smem_u32(hi), b_lo = b_hi + kROp;
+    const bool fresh = g % kFold == 0;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      // the small terms first
+      wgmma_tf32_rs<NT>(acc, af[kk][1], desc_sw128(b_hi + kk * 32), !(fresh && kk == 0));
+      wgmma_tf32_rs<NT>(acc, af[kk][0], desc_sw128(b_lo + kk * 32), 1);
+      wgmma_tf32_rs<NT>(acc, af[kk][0], desc_sw128(b_hi + kk * 32), 1);
+    }
+    wgmma_commit();
+    if (g % kFold == kFold - 1 || g == steps - 1) {
+      wgmma_wait<0>();
+      fence_regs(acc);
+#pragma unroll
+      for (int i = 0; i < NT / 2; ++i) tot[i] += acc[i];
+    } else {
+      wgmma_wait<1>();   // step g's products run on while step g + 1 is staged
+    }
+  };
+  uint32_t af0[4][2][4], af1[4][2][4];   // the register fragments of even and odd steps
+  for (int g = 0; g < kRaw - 1; ++g) issue(g);
+  for (int g = 0; g < steps; g += 2) {
+    step(g, af0);
+    if (g + 1 < steps) step(g + 1, af1);
+  }
+  // db: the second half's sums to shared memory, then the first half adds them
+  if (half == 1) bsum[tw] = btot;
+  __syncthreads();
+  if (half == 0 && sums_bias) *bias_dst = btot + bsum[tw];
+  // register i: row 16 (tw / 32) + (tw % 32) / 4 + 8 ((i / 2) % 2), column
+  // 8 (i / 4) + 2 (tw % 4) + i % 2 of the warpgroup's 64 x NT block
+  const int row = i0 + 64 * wg + 16 * (tw / 32) + (tw % 32) / 4;
+  const int col = o0 + 2 * (tw % 4);
+#pragma unroll
+  for (int i = 0; i < NT / 2; ++i) {
+    const int m = row + 8 * ((i / 2) % 2), o = col + 8 * (i / 4) + i % 2;
+    if (m < in && o < out) dst[static_cast<size_t>(m) * out + o] = tot[i];
+  }
+}
+
+__global__ void __launch_bounds__(kRThreads, 1) train_reduce_kernel(const ReduceArgs a) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = align1024(smem_raw);
+  float* raw = reinterpret_cast<float*>(ring + kRStages * kRSlot);
+  float* bsum = raw + kRaw * kRawFloats;
+
+  // this CTA's row range (branch and rows) and output tile (layer, i0, o0)
+  const int range = blockIdx.x / a.tiles;
+  int tile = blockIdx.x - range * a.tiles;
   int l = 0, in = 0, out = 0;
   size_t woff = 0, aoff = 0, coff = 0;
   for (; l < a.L; ++l) {
     in = a.meta[kMeta * l];
     out = a.meta[kMeta * l + 1];
-    const int tiles = ((in + kBM - 1) / kBM) * ((out + kBN - 1) / kBN);
+    const int tiles = layer_tiles(in, out);
     if (tile < tiles) break;
     tile -= tiles;
     woff += static_cast<size_t>(in) * out + out;
     aoff += in;
     coff += out;
   }
-  if (l >= a.L) return;
-  const int tiles_o = (out + kBN - 1) / kBN;
-  const int i0 = (tile / tiles_o) * kBM;
-  const int o0 = (tile % tiles_o) * kBN;
-  const bool bias = i0 == 0;
-  const int total = a.rows[0] + a.rows[1];
-  const int r_begin = range * kSplitRows;
-  const int r_end = min(total, r_begin + kSplitRows);
-
-  __shared__ __align__(16) float As[2][kBK][kBM];
-  __shared__ __align__(16) float Cs[2][kBK][kBN];
-  __shared__ float Ds[2][kBK];
-  __shared__ float bias_tot[8][16];
-  extern __shared__ float tot[];  // (64, kRThreads): thread tid's totals at [m][tid]
-  const int ty = tid / 16, tx = tid % 16;
-
-  // each thread loads 4 consecutive values of one row of each operand a step
-  const int lk = tid / 32, lc = (tid % 32) * 4;
-  float ra[4], rc[4], rd = 0.f;
-  auto load = [&](int r0) {
-    const int r = r0 + lk;
-#pragma unroll
-    for (int m = 0; m < 4; ++m) ra[m] = rc[m] = 0.f;
-    if (r < r_end) {
-      const int s = r < a.rows[0] ? 0 : 1;
-      const int rr = s == 0 ? r : r - a.rows[0];
-      const size_t rows = a.rows[s];
-      const float ddr = a.dd[s][rr];
-      const float scale = a.scale_a[s] ? ddr : 1.f;
-      const float* arow = a.a_scr[s] + aoff * rows + static_cast<size_t>(rr) * in;
-      const float* crow = a.c_scr[s] + coff * rows + static_cast<size_t>(rr) * out;
-#pragma unroll
-      for (int m = 0; m < 4; ++m) {
-        if (i0 + lc + m < in) ra[m] = arow[i0 + lc + m] * scale;
-        if (o0 + lc + m < out) rc[m] = crow[o0 + lc + m];
-      }
-      if (lc == 0) rd = ddr;
-    } else if (lc == 0) {
-      rd = 0.f;
-    }
-  };
-  auto store = [&](int buf) {
-    *reinterpret_cast<float4*>(&As[buf][lk][lc]) = make_float4(ra[0], ra[1], ra[2], ra[3]);
-    *reinterpret_cast<float4*>(&Cs[buf][lk][lc]) = make_float4(rc[0], rc[1], rc[2], rc[3]);
-    if (lc == 0) Ds[buf][lk] = rd;
-  };
-
-  float acc[8][8], bacc[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    bacc[i] = 0.f;
-    if (tid < 16) bias_tot[i][tid] = 0.f;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      acc[i][j] = 0.f;
-      tot[(i * 8 + j) * kRThreads + tid] = 0.f;
-    }
-  }
-  auto fold = [&]() {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      if (bias && ty == 0) {
-        bias_tot[i][tx] += bacc[i];
-        bacc[i] = 0.f;
-      }
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        tot[(i * 8 + j) * kRThreads + tid] += acc[i][j];
-        acc[i][j] = 0.f;
-      }
-    }
-  };
-  int steps = 0;
-  load(r_begin);
-  store(0);
-  __syncthreads();
-  int buf = 0;
-  for (int r0 = r_begin; r0 < r_end; r0 += kBK) {
-    const bool more = r0 + kBK < r_end;
-    if (more) load(r0 + kBK);
-#pragma unroll
-    for (int kk = 0; kk < kBK; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[buf][kk][ty * 4]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&As[buf][kk][64 + ty * 4]);
-      const float4 c0 = *reinterpret_cast<const float4*>(&Cs[buf][kk][tx * 4]);
-      const float4 c1 = *reinterpret_cast<const float4*>(&Cs[buf][kk][64 + tx * 4]);
-      const float ar[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float cr[8] = {c0.x, c0.y, c0.z, c0.w, c1.x, c1.y, c1.z, c1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(ar[i], cr[j], acc[i][j]);
-      if (bias && ty == 0) {
-        const float d = Ds[buf][kk];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) bacc[j] = fmaf(d, cr[j], bacc[j]);
-      }
-    }
-    if (more) store(buf ^ 1);
-    __syncthreads();
-    buf ^= 1;
-    if (++steps == kFold) {
-      steps = 0;
-      fold();
-    }
-  }
-  fold();
-
+  const int nt = tile_n(out);
+  const int tiles_o = (out + nt - 1) / nt;
+  const int i0 = (tile / tiles_o) * kRM;
+  const int o0 = (tile % tiles_o) * nt;
+  const int seg = range < a.ranges0 ? 0 : 1;
+  const int r_begin = (range - (seg ? a.ranges0 : 0)) * kSplitRows;
+  const int nrows = min(kSplitRows, a.rows[seg] - r_begin);
+  const int steps = (nrows + kRK - 1) / kRK;
+  const size_t rows = a.rows[seg];
+  const float* A = a.a_scr[seg] + aoff * rows + static_cast<size_t>(r_begin) * in + i0;
+  const float* C = a.c_scr[seg] + coff * rows + static_cast<size_t>(r_begin) * out + o0;
   float* dst = a.partial + static_cast<size_t>(range) * a.ndf + woff;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int row = i0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
-    if (row >= in) continue;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int o = o0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + j - 4);
-      if (o < out) dst[static_cast<size_t>(row) * out + o] = tot[(i * 8 + j) * kRThreads + tid];
-    }
-  }
-  if (bias && ty == 0) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int o = o0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + j - 4);
-      if (o < out) dst[static_cast<size_t>(in) * out + o] = bias_tot[j][tx];
-    }
-  }
+  float* bias_dst = dst + static_cast<size_t>(in) * out + o0 + threadIdx.x % 128;
+  // B columns past out are zeros; past nt they are not read
+  const int acols = min(kRM, in - i0), ccols = min(nt, out - o0);
+  if (nt == 128)
+    reduce_tile<128>(ring, raw, bsum, steps, nrows, A, in, acols, C, out, ccols,
+                     a.dd[seg] + r_begin, seg == 1, i0 == 0, dst, bias_dst, i0, o0);
+  else if (nt == 64)
+    reduce_tile<64>(ring, raw, bsum, steps, nrows, A, in, acols, C, out, ccols,
+                    a.dd[seg] + r_begin, seg == 1, i0 == 0, dst, bias_dst, i0, o0);
+  else
+    reduce_tile<8>(ring, raw, bsum, steps, nrows, A, in, acols, C, out, ccols,
+                   a.dd[seg] + r_begin, seg == 1, i0 == 0, dst, bias_dst, i0, o0);
 }
 
-// grads[nenc + e] = the sum of the row ranges' partials, in range order
-__global__ void __launch_bounds__(kRThreads) train_reduce_ranges_kernel(
-    const float* __restrict__ partial, int ranges, int ndf, float* __restrict__ out) {
-  const int e = blockIdx.x * kRThreads + threadIdx.x;
-  if (e >= ndf) return;
+struct SumArgs {
+  const float* enc_slot;   // (nslots, nenc), the noisy blocks first
+  const float* loss_slot;  // (nslots, 2)
+  int nslots, nslots_noisy, nenc;
+  const float* partial;    // (ranges, ndf)
+  int ranges, ndf;
+  float* grads;            // enc (nenc) | the DFNet gradient (ndf)
+  float* loss;             // (3,): noisy distance sum, noisy eikonal sum, manifold distance sum
+};
+
+// One thread per output, each summing in a fixed order: the encoder slots
+// (block order), the three loss sums, the DFNet gradient's row ranges
+// (range order).
+__global__ void __launch_bounds__(kSumThreads) train_reduce_sum_kernel(const SumArgs a) {
+  const int e = blockIdx.x * kSumThreads + threadIdx.x;
   float s = 0.f;
-  for (int k = 0; k < ranges; ++k) s += partial[static_cast<size_t>(k) * ndf + e];
-  out[e] = s;
+  if (e < a.nenc) {
+    for (int k = 0; k < a.nslots; ++k) s += a.enc_slot[static_cast<size_t>(k) * a.nenc + e];
+    a.grads[e] = s;
+  } else if (e < a.nenc + 3) {
+    const int which = e - a.nenc;
+    const int k0 = which == 2 ? a.nslots_noisy : 0;
+    const int k1 = which == 2 ? a.nslots : a.nslots_noisy;
+    const int col = which == 1 ? 1 : 0;
+    for (int k = k0; k < k1; ++k) s += a.loss_slot[2 * k + col];
+    a.loss[which] = s;
+  } else if (e < a.nenc + 3 + a.ndf) {
+    const int d = e - a.nenc - 3;
+    for (int k = 0; k < a.ranges; ++k) s += a.partial[static_cast<size_t>(k) * a.ndf + d];
+    a.grads[a.nenc + d] = s;
+  }
 }
 
 int reduce_tiles(const int* meta_host, int L) {
   int n = 0;
-  for (int l = 0; l < L; ++l) {
-    const int in = meta_host[kMeta * l], out = meta_host[kMeta * l + 1];
-    n += ((in + kBM - 1) / kBM) * ((out + kBN - 1) / kBN);
-  }
+  for (int l = 0; l < L; ++l) n += layer_tiles(meta_host[kMeta * l], meta_host[kMeta * l + 1]);
   return n;
 }
 
@@ -976,36 +1085,26 @@ int posendf_train_reduce(const int* meta, const int* meta_host, int L, const flo
   a.dd[1] = dd_m;
   a.rows[0] = rows_n;
   a.rows[1] = rows_m;
-  a.scale_a[0] = 0;
-  a.scale_a[1] = 1;
-  a.enc_slot = enc_slot;
-  a.loss_slot = loss_slot;
-  a.nslots = nslots_n + nslots_m;
-  a.nslots_noisy = nslots_n;
-  a.nenc = enc_floats(J, F);
-  a.slot_blocks = (a.nenc + 3 + kRThreads - 1) / kRThreads;
+  a.ranges0 = row_ranges(rows_n);
   a.tiles = reduce_tiles(meta_host, L);
   a.ndf = dfnet_floats(meta_host, L);
   a.partial = partial;
-  a.grads = grads;
-  a.loss = loss;
-  const int ranges = row_ranges(rows_n + rows_m);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaFuncSetAttribute(train_reduce_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(kReduceSmem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  train_reduce_kernel<<<a.slot_blocks + a.tiles * ranges, kRThreads, kReduceSmem, s>>>(a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  train_reduce_ranges_kernel<<<(a.ndf + kRThreads - 1) / kRThreads, kRThreads, 0, s>>>(
-      partial, ranges, a.ndf, grads + a.nenc);
+  const int ranges = a.ranges0 + row_ranges(rows_m);
+  const int err = launch_wgmma(train_reduce_kernel, a.tiles * ranges, kRThreads, kReduceSmem,
+                               stream, a);
+  if (err != 0) return err;
+  SumArgs b{enc_slot, loss_slot, nslots_n + nslots_m, nslots_n, enc_floats(J, F),
+            partial, ranges, a.ndf, grads, loss};
+  const int n = b.nenc + 3 + b.ndf;
+  train_reduce_sum_kernel<<<(n + kSumThreads - 1) / kSumThreads, kSumThreads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(b);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Floats of the reduction's partial buffer for `rows` batch rows in all.
-int posendf_train_reduce_partial_floats(const int* meta_host, int L, int rows) {
-  return row_ranges(rows) * dfnet_floats(meta_host, L);
+// Floats of the reduction's partial buffer for rows_n noisy and rows_m
+// manifold rows.
+int posendf_train_reduce_partial_floats(const int* meta_host, int L, int rows_n, int rows_m) {
+  return (row_ranges(rows_n) + row_ranges(rows_m)) * dfnet_floats(meta_host, L);
 }
 
 const char* posendf_train_error_string(int err) {

@@ -14,11 +14,11 @@ same seed gives the same bytes; the search runs on the device:
 
 The default search is the exact single-stage geodesic top-k. On the card it
 is the kNN kernel (``ops/fused_knn.py``). ``precision="auto"`` picks the
-bound-prescreen engine only where it is the faster one and
-:func:`probe_fast_safety` finds it exact on this corpus; on the card it is
-the slower one for now, so 'auto' is exact 'highest' there
-(:data:`FAST_ENGINE_BACKENDS`). The corpus goes to the device once per split,
-and each sequence's results stay there until every batch is dispatched.
+bound-prescreen engine only where it is the faster one (on the card:
+:data:`FAST_ENGINE_BACKENDS`) and :func:`probe_fast_safety` finds it exact
+on this corpus; elsewhere 'auto' is exact 'highest'. The corpus goes to the
+device once per split, and each sequence's results stay there until every
+batch is dispatched.
 Multi-host fan-out is ``label_split(shard=(i, n))``: host i of n takes every
 n-th sequence, restart-safe through the per-sequence skip guard.
 
@@ -287,13 +287,13 @@ def _joint_weights_np() -> np.ndarray:
 
 
 # Device types on which the bound engine is the faster of the two engines
-# that give exact labels, so that 'auto' may pick it. Not CUDA yet: on an
-# H100 (700 W) the bound engine's K = 84 product runs on the CUDA cores and
-# takes 91.5 ms per 4,096 x 1,048,576 batch against the exact kernel's
-# 47.3 ms, for the same labels (chip_smoke.py phase 13, PERF.md). CUDA joins
-# when that product runs on the tensor cores (ROADMAP, the kNN kernel's
-# follow-ups).
-FAST_ENGINE_BACKENDS: frozenset = frozenset()
+# that give exact labels, so that 'auto' may pick it (where the corpus-safety
+# probe passes). CUDA: with its K = 84 product on the tensor cores (bf16
+# wgmma), the bound engine's prescreen + exact rerank
+# (fused_geodesic_topk_fast) is the faster one on an H100 per 4,096 x
+# 1,048,576 batch, for the same labels (chip_smoke.py phase 13 times both;
+# PERF.md).
+FAST_ENGINE_BACKENDS: frozenset = frozenset({"cuda"})
 
 
 def probe_fast_safety(
@@ -391,9 +391,9 @@ def resolve_knn_precision(
     applies to this search (single-stage geodesic, k <= 8, fused not
     disabled, the corpus on a device type of :data:`FAST_ENGINE_BACKENDS`,
     where the bound engine is the faster one) AND :func:`probe_fast_safety`
-    passes on this corpus; **highest** (exact) otherwise, which on the card
-    is every search for now. ``device`` is where the corpus is searched (and
-    the probe runs): the card unless the caller asks for the CPU;
+    passes on this corpus; **highest** (exact) otherwise. ``device`` is
+    where the corpus is searched (and the probe runs): the card unless the
+    caller asks for the CPU;
     ``backend`` ("cuda" or "cpu") overrides its type in the eligibility
     test (tests).
     """

@@ -5,8 +5,9 @@ standing in for ``jax.export``: the forward (fp32 or int8), or a whole
 N-step projection, is traced with the weights baked in and written to one
 file that loads with torch alone (no posendf_torch) and runs on the device
 it was traced on. The batch is symbolic (``torch.export.Dim``) unless
-``batch=`` is given, so one artifact serves any batch of 2 or more poses
-(torch.export specializes the sizes 0 and 1).
+``batch=`` is given, so one artifact serves any batch, a single pose
+included; it is traced with 2 example poses, because torch.export would
+specialize an example of size 0 or 1 into the program.
 
 As in JAX (``export.py:12-15``, ``_portable``), the artifact is staged
 through the plain paths, never the ctypes kernels, which a trace cannot see

@@ -32,7 +32,7 @@ import torch
 from posendf_torch import _build
 from posendf_torch.models.activations import act_grad, out_act_grad_from_value
 from posendf_torch.ops.fused_model import (
-    FieldWeights, check_poses, common_args, field_forward_ref, stream_handle,
+    FieldWeights, aligned_contiguous, check_poses, common_args, field_forward_ref, stream_handle,
 )
 from posendf_torch.quat import quat_normalize
 
@@ -117,6 +117,7 @@ def fused_distance_and_grad(quat: torch.Tensor,
     if quat.device.type == "cpu":
         with torch.no_grad():
             return fused_distance_and_grad_ref(quat, weights)
+    quat = aligned_contiguous(quat)
     d = torch.empty((quat.shape[0], 1), dtype=torch.float32, device=quat.device)
     g = torch.empty_like(quat)
     scratch = _zscratch(quat, weights)
@@ -149,6 +150,7 @@ def project_step(q: torch.Tensor, weights: FieldWeights, *, step_scale: float = 
         with torch.no_grad():
             return project_step_ref(q, weights, step_scale=step_scale, tangent=tangent,
                                     renormalize=renormalize)
+    q = aligned_contiguous(q)
     d = torch.empty((q.shape[0], 1), dtype=torch.float32, device=q.device)
     q_next = torch.empty_like(q)
     _launch_project_step(q, weights, d, q_next, _zscratch(q, weights), step_scale,
@@ -173,7 +175,8 @@ def fused_project(poses: torch.Tensor, weights: FieldWeights, *, steps: int,
                                         renormalize=renormalize)
                 history[i] = d[:, 0]
         return q.clone() if steps == 0 else q, history
-    bufs = [poses.clone(), torch.empty_like(poses)]
+    bufs = [poses.clone(memory_format=torch.contiguous_format)]   # a fresh, aligned copy
+    bufs.append(torch.empty_like(bufs[0]))
     scratch = _zscratch(poses, weights)
     for i in range(steps):
         _launch_project_step(bufs[i % 2], weights, history[i], bufs[(i + 1) % 2], scratch,

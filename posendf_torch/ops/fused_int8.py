@@ -43,7 +43,8 @@ import torch
 from posendf_torch import _build
 from posendf_torch.models.activations import make_activation, resolve
 from posendf_torch.models.encoder import structure_encoder_apply
-from posendf_torch.ops.fused_model import FieldWeights, field_forward_ref, int_table, stream_handle
+from posendf_torch.ops.fused_model import (FieldWeights, aligned_contiguous, field_forward_ref,
+                                          int_table, stream_handle)
 from posendf_torch.quat import joint_axis_normalize
 
 __all__ = [
@@ -370,8 +371,6 @@ def _check(quat: torch.Tensor, qparams: Mapping[str, Any], parents) -> None:
     dev = qparams["enc"]["w1"].device
     if quat.device != dev:
         raise ValueError(f"poses on {quat.device} but the quantized weights on {dev}")
-    if quat.device.type == "cuda" and not quat.is_contiguous():
-        raise ValueError("the CUDA kernel takes contiguous poses")
     if quat.requires_grad:
         raise RuntimeError("the int8 forward is value-only: its gradient would be that of a "
                            "staircase; take gradients on the fp32 paths")
@@ -389,6 +388,7 @@ def fused_posendf_forward_int8(quat: torch.Tensor, qparams: Mapping[str, Any], *
         with torch.no_grad():
             return fused_posendf_forward_int8_ref(quat, qparams, parents=parents,
                                                   activation=activation, beta=beta)
+    quat = aligned_contiguous(quat)
     pk = packed(qparams, parents)
     lib = _build.library("int8")
     out = torch.empty((quat.shape[0], 1), dtype=torch.float32, device=quat.device)

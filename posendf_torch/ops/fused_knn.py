@@ -1,12 +1,11 @@
-"""Geodesic top-k in one hand-written CUDA kernel (two launches).
+"""Geodesic top-k in hand-written CUDA kernels.
 
 Port of ``posendf_tpu/ops/fused_knn.py::_knn_kernel`` (``fused_geodesic_topk``).
-The kernel is ``csrc/knn_kernels.cu``: a block holds 128 queries, one thread
-each, and one of S ranges of the corpus; it streams its range through shared
-memory and keeps a sorted best-k list in registers (``posendf_knn_partial``);
-a second launch merges the S lists of each query (``posendf_knn_merge``).
+The kernels are in ``csrc/knn_kernels.cu``. Each engine writes best-k lists
+of parts of the corpus, and ``posendf_knn_merge`` merges each query's lists.
 Every comparison orders by (distance, index), so the result does not depend
-on S and exact ties come lowest index first, as in ``ops/knn.py``.
+on how the corpus was split and exact ties come lowest index first, as in
+``ops/knn.py``.
 
 ``dot_impl`` keeps the JAX package's names; on the card they mean:
 
@@ -22,11 +21,21 @@ on S and exact ties come lowest index first, as in ``ops/knn.py``.
   ``"mxu"``       not ported: the TPU kept it only for the record (slower than
                   ``"vpu"`` at the same exactness); it raises.
 
-A CUDA tensor goes through the kernel (or the call raises); a CPU tensor goes
-through :func:`knn_topk_ref`, the kernel's plain version, which computes the
-exact and bf16 engines in the kernel's order of operations (so with the same
-bits) and the bound engine with three fp32 matrix products. Indices are
-int64.
+The exact and bf16 engines are one launch over S corpus ranges (a block of
+128 queries, one thread each, a best-k list in registers) and the merge.
+The bound engine is three: ``posendf_knn_pack`` splits the corpus into bf16
+hi and lo parts in the wgmma layout (:func:`pack_bound_ref` is its plain
+version) and takes its largest row norm, ``posendf_knn_bound`` runs the
+three passes on the tensor cores (wgmma, 128 queries a CTA) as a filter,
+recomputes each value that could enter a list in the plain version's
+arithmetic, and keeps a best-k list per thread over its own columns (4
+lists a query and range: :func:`bound_parts`); then the merge. So all three
+engines return the plain version's bits.
+
+A CUDA tensor goes through the kernels (or the call raises); a CPU tensor
+goes through :func:`knn_topk_ref`, the kernels' plain version, which computes
+the exact and bf16 engines in the kernel's order of operations and the bound
+engine with three fp32 matrix products. Indices are int64.
 """
 
 from __future__ import annotations
@@ -38,21 +47,27 @@ import numpy as np
 import torch
 
 from posendf_torch import _build
-from posendf_torch.ops.fused_model import stream_handle
+from posendf_torch.ops.fused_model import aligned_contiguous, stream_handle
 from posendf_torch.ops.knn import bf16_round, geodesic_rerank, stream_topk
 
 __all__ = ["fused_geodesic_topk", "fused_geodesic_topk_fast", "geodesic_bound_scores",
-           "knn_topk_ref", "kernel_operands", "LAUNCHES", "ENGINES", "KMAX"]
+           "knn_topk_ref", "kernel_operands", "pack_bound_ref", "bound_parts", "LAUNCHES",
+           "ENGINES", "KMAX", "BOUND_SLAB_ROWS", "BOUND_SLAB_BYTES"]
 
 KMAX = 32                                              # the kernel's list holds <= 32
 ENGINES = {"vpu": 0, "mxu_bf16": 1, "mxu_fast": 2}     # dot_impl -> the kernel's engine
 
-# launches of the kNN kernels by engine (the top-k launch and the merge, one
-# each a call) since the counts were last set to 0
+# launches of the kNN kernels by engine (a call: the top-k launch and the
+# merge; the bound engine's also the corpus pack) since the counts were last
+# set to 0
 LAUNCHES = dict.fromkeys(ENGINES, 0)
 _KPAD = 8
-_QTILE = 128              # queries per block (csrc/knn_kernels.cu kQTile)
-_SLAB = 64                # corpus rows per slab (kSlab)
+_QTILE = 128              # queries per block (csrc/knn_kernels.cu kQTile, kBQ)
+_SLAB = 64                # corpus rows per slab of the exact and bf16 engines (kSlab)
+BOUND_SLAB_ROWS = 128     # corpus rows per slab of the bound engine (kBN)
+BOUND_K = 96              # K = 84 padded to six bf16 k16 steps
+BOUND_SLAB_BYTES = BOUND_SLAB_ROWS * 2 * BOUND_K * 2   # [hi | lo] bf16 rows: 48 KB
+_LANE_PARTS = 4           # lists a query per range of the bound engine: one per lane % 4
 _KERNEL_JOINTS = 21
 _WAVES = 4                # blocks to aim for, in multiples of the SM count
 _REF_TILE = 4096          # corpus rows a step of the plain version
@@ -160,6 +175,45 @@ def knn_topk_ref(qf: torch.Tensor, cf: torch.Tensor, k: int, *, weights,
     return stream_topk(qf, cf, k, _REF_TILE, dist)
 
 
+def pack_bound_ref(cf: torch.Tensor) -> torch.Tensor:
+    """Plain version of the pack kernel (``posendf_knn_pack``): (N, 84) fp32
+    corpus rows -> the bytes of ceil(N / 128) slabs (uint8). Each row is
+    ``[hi | lo]``, hi = bf16(x) and lo = bf16(x - hi) each padded with zeros
+    from K = 84 to 96 (192 bf16, three 128-byte lines); a slab is three
+    128-row tiles, one a line, in the K-major 128-byte swizzle
+    (``csrc/hopper.cuh``): 16-byte chunk c of row r at chunk c ^ (r % 8) of
+    its line. Rows past N are zeros."""
+    N, D = cf.shape
+    slabs = -(-N // BOUND_SLAB_ROWS)
+    hi = cf.to(torch.bfloat16)
+    lo = (cf - hi.to(torch.float32)).to(torch.bfloat16)
+    rows = torch.zeros((slabs * BOUND_SLAB_ROWS, 2, BOUND_K), dtype=torch.bfloat16,
+                       device=cf.device)
+    rows[:N, 0, :D] = hi
+    rows[:N, 1, :D] = lo
+    # (slab, row, line, chunk, 8 values); chunk c' of a row's stored line is chunk c' ^ (row % 8)
+    rows = rows.view(slabs, BOUND_SLAB_ROWS, 3, 8, 8)
+    r8 = torch.arange(BOUND_SLAB_ROWS, device=cf.device) % 8
+    src = torch.arange(8, device=cf.device)[None, :] ^ r8[:, None]
+    out = rows.gather(3, src[None, :, None, :, None].expand(rows.shape))
+    return out.permute(0, 2, 1, 3, 4).contiguous().view(torch.uint8).reshape(-1)
+
+
+def bound_parts(N: int, S: int):
+    """The parts of the corpus whose best-k lists the bound engine writes, in
+    the partial buffer's order: for range s (ceil(N / S) rows rounded up to
+    whole slabs, the last one the rest) and lane part p (a thread's lane %
+    4), the rows of range s whose index % 8 is 2 p or 2 p + 1 (a thread's
+    accumulator columns). A list of index arrays, 4 S of them."""
+    rng = -(-(-(-N // S)) // BOUND_SLAB_ROWS) * BOUND_SLAB_ROWS
+    idx = torch.arange(N)
+    parts = []
+    for s in range(S):
+        r = idx[s * rng:min(N, (s + 1) * rng)]
+        parts += [r[(r % 8) // 2 == p] for p in range(_LANE_PARTS)]
+    return parts
+
+
 def _default_splits(Q: int, N: int, device: torch.device) -> int:
     """Corpus ranges S so that ceil(Q / 128) x S blocks fill the card's SMs
     about four times over."""
@@ -168,37 +222,57 @@ def _default_splits(Q: int, N: int, device: torch.device) -> int:
     return max(1, min(-(-_WAVES * sms // qtiles), -(-N // _SLAB)))
 
 
-def _aligned(t: torch.Tensor) -> torch.Tensor:
-    t = t.contiguous()
-    return t if t.data_ptr() % 16 == 0 else t.clone()
+def _bound_splits(Q: int, N: int, device: torch.device) -> int:
+    """Corpus ranges S of the bound engine: as few as fill the SMs once,
+    ceil(Q / 128) x S CTAs of one an SM. Every range costs each thread's
+    lists a filling (about KPAD ln(rows / KPAD) entries, each recomputed in
+    the plain arithmetic), so more ranges than the card needs cost time."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    qtiles = -(-Q // _QTILE)
+    return max(1, min(sms // qtiles, -(-N // BOUND_SLAB_ROWS)))
 
 
 def _launch(qf, cf, k, w_joint, w_total, dot_impl, splits=None):
-    """Both launches on :func:`kernel_operands`' output. ``splits``: the
+    """The launches on :func:`kernel_operands`' output. ``splits``: the
     number of corpus ranges S (default: enough blocks to fill the card); the
     result does not depend on it."""
     Q, D = qf.shape
     N = cf.shape[0]
     if D != 4 * _KERNEL_JOINTS:
         raise ValueError(f"the kNN kernel takes {_KERNEL_JOINTS} joints, got {D // 4}")
-    qf, cf = _aligned(qf), _aligned(cf)
-    S = _default_splits(Q, N, qf.device) if splits is None else int(splits)
+    qf, cf = aligned_contiguous(qf), aligned_contiguous(cf)
+    bound = dot_impl == "mxu_fast"
+    if splits is None:
+        S = (_bound_splits if bound else _default_splits)(Q, N, qf.device)
+    else:
+        S = int(splits)
     if S < 1:
         raise ValueError(f"splits must be >= 1, got {S}")
     kpad = _kpad(k)
-    w_dev = _device_weights(tuple(w_joint.tolist()), str(qf.device))
-    part_d = torch.empty((S, Q, kpad), dtype=torch.float32, device=qf.device)
-    part_i = torch.empty((S, Q, kpad), dtype=torch.int32, device=qf.device)
+    parts = _LANE_PARTS * S if bound else S
+    part_d = torch.empty((parts, Q, kpad), dtype=torch.float32, device=qf.device)
+    part_i = torch.empty((parts, Q, kpad), dtype=torch.int32, device=qf.device)
     dists = torch.empty((Q, k), dtype=torch.float32, device=qf.device)
     idx = torch.empty((Q, k), dtype=torch.int64, device=qf.device)
     lib = _build.library("knn")
     stream = stream_handle(qf)
-    _build.check(lib.posendf_knn_partial(qf.data_ptr(), Q, cf.data_ptr(), N, w_dev.data_ptr(),
-                                         float(w_total), ENGINES[dot_impl], kpad, S,
-                                         part_d.data_ptr(), part_i.data_ptr(), stream),
-                 "posendf_knn_partial", "knn")
+    if bound:
+        packed = torch.empty(lib.posendf_knn_bound_bytes(N), dtype=torch.uint8, device=qf.device)
+        cmax = torch.zeros(1, dtype=torch.float32, device=qf.device)   # the largest row norm
+        _build.check(lib.posendf_knn_pack(cf.data_ptr(), N, packed.data_ptr(), cmax.data_ptr(),
+                                          stream), "posendf_knn_pack", "knn")
+        LAUNCHES[dot_impl] += 1
+        _build.check(lib.posendf_knn_bound(qf.data_ptr(), Q, packed.data_ptr(), cmax.data_ptr(),
+                                           N, float(w_total), kpad, S, part_d.data_ptr(),
+                                           part_i.data_ptr(), stream), "posendf_knn_bound", "knn")
+    else:
+        w_dev = _device_weights(tuple(w_joint.tolist()), str(qf.device))
+        _build.check(lib.posendf_knn_partial(qf.data_ptr(), Q, cf.data_ptr(), N, w_dev.data_ptr(),
+                                             ENGINES[dot_impl], kpad, S, part_d.data_ptr(),
+                                             part_i.data_ptr(), stream),
+                     "posendf_knn_partial", "knn")
     LAUNCHES[dot_impl] += 1
-    _build.check(lib.posendf_knn_merge(part_d.data_ptr(), part_i.data_ptr(), S, Q, kpad, k,
+    _build.check(lib.posendf_knn_merge(part_d.data_ptr(), part_i.data_ptr(), parts, Q, kpad, k,
                                        dists.data_ptr(), idx.data_ptr(), stream),
                  "posendf_knn_merge", "knn")
     LAUNCHES[dot_impl] += 1

@@ -27,7 +27,7 @@ from posendf_torch.models.activations import resolve
 from posendf_torch.quat import joint_axis_normalize
 
 __all__ = ["FieldWeights", "fused_posendf_forward", "fused_posendf_forward_ref", "replay_backward",
-           "int_table", "LAUNCHES"]
+           "int_table", "aligned_contiguous", "LAUNCHES"]
 
 # launches of the forward kernel since the count was last set to 0
 LAUNCHES = 0
@@ -151,8 +151,14 @@ def check_poses(quat: torch.Tensor, weights: FieldWeights) -> None:
         raise ValueError(f"poses must be on the CPU or a CUDA device, got {quat.device}")
     if quat.device != weights.device:
         raise ValueError(f"poses on {quat.device} but the field's weights on {weights.device}")
-    if quat.device.type == "cuda" and not quat.is_contiguous():
-        raise ValueError("the CUDA kernels take contiguous poses")
+
+
+def aligned_contiguous(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as the kernels read their inputs: contiguous and 16-byte
+    aligned. A strided or permuted view (or a view at an odd offset) is
+    copied, as JAX takes any array; the copy is differentiable."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def common_args(quat: torch.Tensor, weights: FieldWeights) -> list:
@@ -260,4 +266,6 @@ def fused_posendf_forward(quat: torch.Tensor, weights: FieldWeights) -> torch.Te
     version's, see :func:`replay_backward`).
     """
     check_poses(quat, weights)
+    if quat.device.type == "cuda":
+        quat = aligned_contiguous(quat)
     return _FusedForward.apply(quat, weights, *weights.tensors())

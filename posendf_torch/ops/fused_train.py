@@ -8,7 +8,9 @@ branch: noisy, then manifold) and ``posendf_train_reduce`` in
 ``csrc/train_kernels.cu``; the source's header explains the split and why
 one batch product per branch suffices for lrelu/relu.
 
-``fused_train_grads`` launches them for CUDA tensors. For CPU tensors it
+The reduction's products run on the tensor cores in 3xTF32 (each operand
+split as :func:`tf32_split` models it; ``reduce_ref`` stays its plain
+version). ``fused_train_grads`` launches them for CUDA tensors. For CPU tensors it
 runs their plain version, ``ops/train_grad.manual_train_grads``, which the
 tests hold to the JAX kernel. Each kernel also has a plain version of its
 own part, which ``chip_smoke.py`` holds it to on the card: ``branch_ref``
@@ -32,7 +34,7 @@ from posendf_torch.ops.fused_model import FieldWeights, stream_handle
 from posendf_torch.ops.train_grad import manual_train_grads
 
 __all__ = ["fused_train_grads", "BranchRows", "branch_args",
-           "branch_ref", "reduce_ref", "TileOut", "launch_tile", "launch_reduce",
+           "branch_ref", "reduce_ref", "tf32_split", "TileOut", "launch_tile", "launch_reduce",
            "TILE_LAUNCHES", "REDUCE_LAUNCHES"]
 
 # launches of each kernel since its count was last set to 0
@@ -189,6 +191,20 @@ def reduce_ref(w: FieldWeights, noisy: BranchRows, man: BranchRows):
     return grads, torch.stack([noisy.loss[0], noisy.loss[1], man.loss[0]])
 
 
+def tf32_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reduction kernel's 3xTF32 split of fp32 values: hi = tf32(x) and
+    lo = tf32(x - hi), where tf32 rounds to 10 mantissa bits, to nearest
+    with ties away from zero (``cvt.rna.tf32.f32``; ``csrc/hopper.cuh``
+    ``tf32_round``), kept as fp32 with the low 13 bits zero. The kernel sums
+    lo.hi' + hi.lo' + hi.hi' for each product of x and x'."""
+    def rna(v):
+        bits = v.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+    hi = rna(x)
+    return hi, rna(x - hi)
+
+
 def branch_args(w: FieldWeights, pose, dist_gt, man_poses, loss_type, weight_dist, weight_man,
               weight_eikonal):
     """The two branches' keyword arguments: the loss's per-row scales."""
@@ -283,7 +299,7 @@ def launch_reduce(w: FieldWeights, noisy: TileOut, man: TileOut):
     flat = torch.empty(n, dtype=torch.float32, device=dev)
     loss = torch.empty(3, dtype=torch.float32, device=dev)
     partial = torch.empty(lib.posendf_train_reduce_partial_floats(
-        pk.meta_host.data_ptr(), pk.num_layers, noisy.rows + man.rows),
+        pk.meta_host.data_ptr(), pk.num_layers, noisy.rows, man.rows),
         dtype=torch.float32, device=dev)
     # the reduction sums the noisy blocks' slots, then the manifold's
     enc_slot = torch.cat([noisy.enc_slot, man.enc_slot])

@@ -4,7 +4,8 @@ round-trips through disk and reproduces the live plain paths it was traced
 from (within 1e-6, the JAX tests' bar; the traced program runs the same
 operations), with a symbolic or a static batch.
 
-torch.export specializes the sizes 0 and 1, so every batch here is >= 2.
+The traces take 2 example poses (torch.export would specialize an example
+of size 0 or 1); a symbolic artifact then serves any batch, one pose too.
 The artifacts are traced on the CPU (``--device cpu``); on the card they
 are traced and served there (``chip_smoke.py`` phase 16).
 """
@@ -49,7 +50,7 @@ def _roundtrip(exp, tmp_path, name):
 
 @pytest.mark.parametrize("batch", [None, 12])
 def test_forward_artifact_roundtrip(batch, tmp_path):
-    """Symbolic batch (the same artifact serves 12 and 5 poses) and a
+    """Symbolic batch (the same artifact serves 12, 5 and 1 poses) and a
     static batch of 12."""
     m = _model()
     q = _poses(0, 12)
@@ -58,6 +59,7 @@ def test_forward_artifact_roundtrip(batch, tmp_path):
         torch.testing.assert_close(served(q), m(q), rtol=0, atol=ATOL)
         if batch is None:
             torch.testing.assert_close(served(q[:5]), m(q[:5]), rtol=0, atol=ATOL)
+            torch.testing.assert_close(served(q[:1]), m(q[:1]), rtol=0, atol=ATOL)
 
 
 def test_project_artifact_matches_live_solver(tmp_path):
@@ -72,8 +74,8 @@ def test_project_artifact_matches_live_solver(tmp_path):
 
 
 def test_int8_artifact_roundtrip_symbolic_batch(tmp_path):
-    """The int8 forward's artifact reproduces ``distance_ref`` at two batch
-    sizes and stays near the fp32 field (absolute bar of
+    """The int8 forward's artifact reproduces ``distance_ref`` at three batch
+    sizes (one pose among them) and stays near the fp32 field (absolute bar of
     ``tests/test_export.py``: a fresh live-head field is near-constant)."""
     cfg = PoseNDFConfig()
     cfg.dfnet.live_head = True
@@ -83,6 +85,7 @@ def test_int8_artifact_roundtrip_symbolic_batch(tmp_path):
     q = _poses(2, 24)
     torch.testing.assert_close(served(q), qfield.distance_ref(q), rtol=0, atol=ATOL)
     torch.testing.assert_close(served(q[:7]), qfield.distance_ref(q[:7]), rtol=0, atol=ATOL)
+    torch.testing.assert_close(served(q[:1]), qfield.distance_ref(q[:1]), rtol=0, atol=ATOL)
     with torch.no_grad():
         assert float((served(q) - field.distance(q)).abs().mean()) < 1e-4
 
