@@ -9,9 +9,8 @@ header, so it compiles in seconds:
                                         bound engine's corpus pack)
   ``int8``   ``csrc/int8_kernels.cu``   int8 serving forward, bf16 / int8 probe chains
 
-All include ``csrc/common.cuh``; ``train``, ``knn`` and ``int8`` also
-``csrc/hopper.cuh`` (the PTX of wgmma, mbarriers and bulk copies, and the
-ring of slabs they share). A library goes to
+All include ``csrc/common.cuh`` and ``csrc/hopper.cuh`` (the PTX of wgmma,
+mbarriers and bulk copies, and the ring of slabs they share). A library goes to
 ``build/posendf_torch/<name>_<hash>.so`` under the repository root, keyed by
 a hash of its source, the headers and the compiler flags: an edited source is
 rebuilt, an unchanged one is loaded as it is. Different libraries may be
@@ -46,8 +45,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 ACT_CODES = {"lrelu": 0, "relu": 1, "softplus": 2}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# (pose, B, enc, parents, J, F, dfw, meta, L, maxw, zsum, act, beta, ...)
-_COMMON = [_P, _I, _P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _F]
+# (pose, B, enc, parents, J, F, slabs, vec, prog, nfwd, nbwd, act, beta, ...)
+_COMMON = [_P, _I, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _F]
 _SIGNATURES = {
     "field": {
         # ..., d_out, stream
@@ -56,8 +55,10 @@ _SIGNATURES = {
         "posendf_value_and_grad": (_COMMON + [_P, _P, _P, _P], _I),
         # ..., d_out, q_out, zscratch, step_scale, tangent, renormalize, stream
         "posendf_project_step": (_COMMON + [_P, _P, _P, _F, _I, _I, _P], _I),
-        # (J, F, L, maxw) -> dynamic shared memory bytes of one block
-        "posendf_smem_bytes": ([_I, _I, _I, _I], _I),
+        # (B, J, F, zsum) -> floats of the pre-activation scratch a launch needs
+        "posendf_field_scratch_floats": ([_I, _I, _I, _I], ctypes.c_longlong),
+        # () -> dynamic shared memory bytes of one CTA
+        "posendf_smem_bytes": ([], _I),
         "posendf_error_string": ([_I], ctypes.c_char_p),
     },
     "train": {

@@ -1,6 +1,9 @@
-// Hand-written Hopper kernels for the PoseNDF distance field (sm_90a, fp32).
+// Hand-written Hopper kernels for the PoseNDF distance field (sm_90a).
 //
-// Three kernels share one body, `field_kernel<Mode>`:
+// Three entry points share one kernel, `field_kernel<Act>` (the mode is a
+// launch argument; one instance an activation, so that an epilogue is a few
+// instructions, which made the kernels faster on an H100 than one body
+// choosing the activation at run time):
 //
 //   posendf_forward         replaces posendf_tpu/ops/fused_model.py::_model_kernel
 //                           (whole forward: encoder walk + DFNet + output act)
@@ -12,305 +15,732 @@
 // Every kernel reads the caller's (B, 21, 4) fp32 poses directly (one pose is
 // 84 consecutive floats; the TPU kernels' (J, 4, B) layout was a lane trick)
 // and folds the reference's joint-axis input normalization in, so all three
-// take raw poses. In the value-and-grad kernel this also folds in the
+// take raw poses. The value-and-grad kernel also folds in the
 // normalization's VJP, which the TPU kernel left to XLA outside the call.
-// The ragged last tile is masked, not padded.
 //
-// What bounds them on an H100: the DFNet's ~1.37M multiply-adds per pose
-// (twice that with the input-only backward) on the fp32 CUDA cores, and the
-// weight reads. A block owns a tile of kTile = 16 poses, and the 5.5 MB of
-// fp32 DFNet weights (11 MB with the transposes the backward reads) do not
-// fit in a block's 227 KB of shared memory as they fit in a TPU core's VMEM,
-// so every tile streams the whole set from the 50 MB L2. Each weight read is
-// used for 16 poses, i.e. 8 FLOP per byte of L2 traffic, which is why the
-// tile is as large as the activations allow: the inter-layer activations of
-// a tile ping-pong in shared memory (2 x 1024 x 16 floats), and only the
-// poses come in and d (and g or the next pose) go out through device memory.
-// Everything is fp32 on the CUDA cores with no tensor cores, TMA or wgmma:
-// simple and right first.
-//
-// Work split inside a block (512 threads):
-//   * encoder (forward and backward): one thread per pose walks the 21
-//     joints in index order (every parent index is smaller than its child's),
-//     with the encoder's 3.7k weights in shared memory (the forward walk is
-//     common.cuh's encode_pose, shared with int8_kernels.cu). Roots read a zero
-//     parent feature. The backward walks in reverse and adds W1b^T gh into
-//     the parent's feature gradient.
-//   * DFNet layers: each thread owns 1 or 2 output columns (2 only for the
-//     1024-wide layer) and keeps kTile accumulators per column; the tile's
-//     input row is a broadcast read from shared memory and the weight row is
-//     read coalesced from L2. A thread loads the weights of its next rows
-//     while it multiplies the current ones, so 16 L2 reads stay in flight:
-//     with one block per SM, L2 latency and not bandwidth is what the 16
-//     warps have to hide (more warps with fewer columns each beat fewer
-//     warps with more columns and more registers, measured on the card).
-//     The backward g_in = (g_out W^T) * act'(z) runs the same routine on W^T,
-//     packed once per field beside W.
-//   * The forward's pre-activations (needed for act' in the backward) go to
-//     a global scratch buffer the caller allocates; the output activation's
-//     derivative is recovered from d, as on the TPU.
-//
-// The activations and the tile product live in common.cuh, shared with
-// train_kernels.cu.
+// What bounds them on an H100 SXM: the DFNet's 1.36M multiply-adds a pose a
+// pass. At fp32 accuracy on the tensor cores each product is three TF32
+// passes (3xTF32): 8.2 MFLOP a pose a pass at 494.7 TFLOP/s, 2.16 ms for
+// the forward of 131,072 poses and 0.33 ms for a value-and-grad or
+// projection step of 10,000. The design:
+//  * A CTA owns 64 poses (one wgmma M) and two warpgroups. The weights
+//    stream through a ring of two 32 KB slabs in shared memory, copied by
+//    cp.async.bulk under mbarriers; thread 0 refills a slot once both
+//    warpgroups have passed a named barrier after its products, with no
+//    divergent branch near the wgmma (ptxas serializes them otherwise).
+//    Every CTA reads the whole network from L2 (11 MB a pass, pre-split,
+//    see below). 256 threads leave 255 registers a thread (a separate
+//    producer warp would leave 168: registers go to warps in fours).
+//  * Products: D = A . B with A the activations (64, K) and B the weights.
+//    A comes from registers (TF32 has no transposed shared-memory operand,
+//    and the split of A would double its shared memory): each thread loads
+//    its fragment from the fp32 activations in shared memory and splits it,
+//    a = hi + lo, hi = tf32(a), lo = tf32(a - hi) (cvt.rna, hopper.cuh's
+//    tf32_round). B is split once per field by the wrapper
+//    (fused_model.pack_tc): a slab is 128 output columns x 32 of K, its
+//    hi half and its lo half in the K-major 128-byte swizzle; warpgroup w
+//    takes columns 64w..64w+63. Each k8 step issues lo.hi' + hi.lo' +
+//    hi.hi' (m64n64k8 tf32, fp32 accumulators): ~21 significant bits a
+//    product. A K-block's A fragments serve every slab of that K-block.
+//  * The sums. The tensor cores' fp32 accumulation does not round to
+//    nearest (it behaves as rounding toward zero: tests/test_torch_field_tc.py
+//    models it), so a sum that runs over all of K in one accumulator, up to
+//    384 accumulations, put g past its bar of 1e-5. So each slab's 12
+//    products go to a fresh accumulator that is then added in fp32 (IEEE)
+//    to the layer's sums, which stay in registers (at most 4 x 32 a thread,
+//    and 16 more in a chain, below).
+//  * The fragment layouts meet without a shuffle: within each 8-group of K
+//    the packed weights hold, at K position p, feature 2p (p < 4) or
+//    2(p - 4) + 1, so a thread's A registers (positions t%4, t%4 + 4) are
+//    the adjacent features 2(t%4), 2(t%4) + 1 that its accumulator
+//    fragment holds: one 8-byte load per row and k8 step, one 8-byte
+//    store per row and 8 columns in the epilogue.
+//  * Activations live in shared memory in fp32 (64 x 512 at most, 128 KB,
+//    each row's 8-column groups XOR-swizzled by row % 4 so that the 8-byte
+//    fragment loads and stores meet no bank conflict). A layer's output
+//    stays in the accumulators (at most 4 x 32 registers a thread, 512
+//    columns) until both warpgroups have read the input, then overwrites
+//    it. A wider layer (the 1024-wide one) is chained with the next: its
+//    output is made 64 columns at a time (m64n32k8, slabs of 64 columns x
+//    64 of K) into a 16 KB chunk buffer and at once taken as 64 of the next
+//    layer's K, so it never exists whole.
+//  * Epilogues in the accumulators' registers: bias, activation, and for
+//    the backward the pre-activations, kept in a global scratch buffer in
+//    the fragments' own order (one 16-byte store / load a thread and 8
+//    columns). The backward runs the transposed products with act'(z)
+//    from that scratch; the encoder's pre-activations go there too.
+//  * On the CUDA cores: the input normalization, the encoder walk (four
+//    threads a pose, one per hidden unit / feature of a joint in turn, two
+//    named barriers a joint), the 64 -> 1 output layer (four threads a pose
+//    and a sum), the encoder's reverse walk, the normalization VJP and the
+//    projection step (four threads a pose).
+//  * The wrapper turns the layer list into a program (fused_model.
+//    tc_schedule): per pass a list of steps, a layer or a chain of two,
+//    and the slabs in the order the steps read them, so the ring's filler
+//    only counts slabs. Widths are zero-padded to 128, 256, 512 (or a
+//    multiple of 128 above, chained): a padded column's weights and bias
+//    are zero, so it adds nothing downstream. The ragged last tile
+//    computes zero poses and writes nothing for them.
 //
 // Each launcher returns cudaGetLastError(); the Python wrapper raises on a
 // nonzero value. No launcher synchronizes or allocates.
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 using namespace posendf;
+using namespace hopper;
 
 enum Mode { kForward = 0, kValueAndGrad = 1, kProjectStep = 2 };
 
+constexpr int kRows = 64;                        // poses a CTA: one wgmma M
+constexpr int kConsumers = 256;                  // two consumer warpgroups
+constexpr int kFieldThreads = kConsumers;        // thread 0 also fills the ring
+constexpr int kSlabN = 128;                      // output columns a slab: 64 a warpgroup
+constexpr int kSlabK = 32;                       // K a slab: a 128-byte line of tf32
+constexpr int kHalfBytes = kSlabN * kSlabK * 4;  // the hi (or lo) half: 16 KB
+constexpr int kSlabBytes = 2 * kHalfBytes;
+constexpr int kStages = 2;
+constexpr int kXMax = 512;                       // widest activation kept whole
+constexpr int kChunk = 64;                       // a chained layer's output, a chunk at a time
+constexpr int kHead = 8, kStep = 8;              // ints of the program's header and of a step
+constexpr uint32_t kBar = 1;                     // named barrier of the consumers
+// ring | activations (64, 512) | chunk (64, 64) | barriers; 1024 to align the ring
+constexpr size_t kFieldSmem = 1024 + static_cast<size_t>(kStages) * kSlabBytes +
+                              static_cast<size_t>(kRows) * (kXMax + kChunk) * sizeof(float) +
+                              2 * kStages * sizeof(uint64_t);
+
 struct Args {
-  const float* pose;   // (B, J, 4)
+  const float* pose;           // (B, J, 4)
   int B;
-  const float* enc;    // w1 (J,E,E) | b1 (J,E) | w2 (J,E,F) | b2 (J,F), E = 4 + F
-  const int* parents;  // (J,), -1 = root
+  const float* enc;            // w1 (J,E,E) | b1 (J,E) | w2 (J,E,F) | b2 (J,F), E = 4 + F
+  const int* parents;          // (J,), -1 = root
   int J, F;
-  const float* dfw;    // packed DFNet: per layer W (in,out), b (out), W^T (out,in)
-  const int* meta;     // (L, kMeta)
-  int L, maxw, zsum;   // layers, widest activation, sum of hidden widths
+  const unsigned char* slabs;  // the forward's slabs, then the backward's (kSlabBytes each)
+  const float* vec;            // padded biases | output layer's w (padded) | its b
+  const int* prog;             // header (kHead), the forward's steps, the backward's (kStep each)
+  int nfwd, nbwd;              // slabs of each pass
+  int mode;                    // kForward, kValueAndGrad or kProjectStep
   int act;
   float beta;
-  float* d_out;        // (B,)
-  float* g_out;        // (B, J, 4) value-and-grad
-  float* q_out;        // (B, J, 4) projection step
-  float* zscratch;     // (tiles, zsum, kTile) hidden pre-activations
+  float* d_out;                // (B,)
+  float* g_out;                // (B, J, 4) value-and-grad
+  float* q_out;                // (B, J, 4) projection step
+  float* zscratch;             // per CTA: (zsum + J (E + F)) x 64 pre-activations
   float step_scale;
   int tangent, renormalize;
 };
 
-// Shared memory layout, in floats (every region a multiple of 4):
-//   encoder weights | meta (int) | parents (int) | activations A | activations B |
-//   encoder pre-activations | gx | s and n of the normalization | d
-__host__ __device__ inline size_t smem_floats(int J, int F, int L, int maxw) {
-  const int E = 4 + F;
-  return static_cast<size_t>(round4(J * (E * E + E + E * F + F))) + round4(kMeta * L) +
-         round4(J) + 2 * static_cast<size_t>(maxw) * kTile + J * (E + F) * kTile +
-         J * 4 * kTile + 8 * kTile + kTile;
+// A (64, ld) fp32 activation tile in shared memory; column c of row r sits
+// at c ^ (8 (r % 4)), which spreads a warp's 8-byte fragment accesses over
+// all 32 banks.
+struct Buf {
+  float* p;
+  int ld;
+};
+
+__device__ __forceinline__ float* at(const Buf& b, int r, int c) {
+  return b.p + r * b.ld + (c ^ ((r & 3) << 3));
 }
 
-template <int kMode>
-__global__ void __launch_bounds__(kThreads) field_kernel(const Args a) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int J = a.J, F = a.F, E = 4 + F, L = a.L;
-  const int enc_floats = J * (E * E + E + E * F + F);
+// An epilogue: forward (bias set) z = acc + b, kept at z where set, then
+// act(z); backward (bias null) acc times act'(z) read from z where set.
+// The result goes to dst, column c - col0.
+struct Epi {
+  const float* bias;
+  float* z;
+  Buf dst;
+  int col0;
+};
 
-  float* encw = smem;
-  int* meta = reinterpret_cast<int*>(encw + round4(enc_floats));
-  int* par = meta + round4(kMeta * L);
-  float* bufA = reinterpret_cast<float*>(par + round4(J));
-  float* bufB = bufA + a.maxw * kTile;
-  float* encz = bufB + a.maxw * kTile;         // (J, E + F, kTile)
-  float* gx = encz + J * (E + F) * kTile;      // (J, 4, kTile)
-  float* norm = gx + J * 4 * kTile;            // s (4, kTile) then n (4, kTile)
-  float* dval = norm + 8 * kTile;              // (kTile,)
+// What a thread carries through the products.
+struct Ctx {
+  uint64_t* bars;
+  unsigned char* ring;
+  const unsigned char* src;   // the slabs in global memory
+  int n;                      // slabs of the launch
+  int g;                      // the next slab
+  int w, tw;                  // warpgroup, thread in it
+  float beta;
+};
 
-  for (int i = threadIdx.x; i < enc_floats; i += kThreads) encw[i] = a.enc[i];
-  for (int i = threadIdx.x; i < kMeta * L; i += kThreads) meta[i] = a.meta[i];
-  for (int i = threadIdx.x; i < J; i += kThreads) par[i] = a.parents[i];
-  __syncthreads();
+// The ring, with no branch near the wgmma that the compiler could take for
+// a divergent path (ptxas then serializes the wgmma): a slab's waiters spin
+// inside one asm block, and once both warpgroups have passed a named
+// barrier after a slab's products, thread 0 refills the slot through a
+// predicated asm block (full barriers count that one arrival and the
+// slab's bytes; no empty barriers).
 
-  const float* w1 = encw;                      // (J, E, E), then b1 (J, E)
-  const float* w2 = w1 + J * E * E + J * E;    // (J, E, F), then b2 (J, F)
+// wait until the phase of `parity` of barrier `bar` has completed; a wait
+// of more than 2^35 clocks (about 20 s) is a lost arrival and traps
+__device__ __forceinline__ void spin_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .u64 t0, t1;\n"
+      "mov.u64 t0, %%clock64;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra.uni DONE;\n"
+      "mov.u64 t1, %%clock64;\n"
+      "sub.u64 t1, t1, t0;\n"
+      "setp.gt.u64 p, t1, 34359738368;\n"
+      "@p trap;\n"
+      "bra.uni WAIT;\n"
+      "DONE:\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
 
-  const int t = threadIdx.x;              // pose slot in the per-pose phases
-  const int b = blockIdx.x * kTile + t;
-  const bool valid = t < kTile && b < a.B;
-  const float4* q4 = reinterpret_cast<const float4*>(a.pose) + static_cast<size_t>(b) * J;
+// slab g has landed; returns its slot
+__device__ __forceinline__ int wait_slab(const Ctx& cx, int g) {
+  const int s = g % kStages;
+  spin_wait(smem_u32(cx.bars + s), static_cast<uint32_t>(g / kStages) & 1);
+  return s;
+}
 
-  // ---- input normalization and encoder forward: one thread per pose ----
-  if (t < kTile)
-    encode_pose<kMode != kForward>(q4, valid, t, J, F, encw, par, a.act, a.beta, bufA, norm, encz);
-  __syncthreads();
+// thread 0 copies slab g into its slot (every thread runs the asm; its
+// predicate holds on thread 0 alone, and only while g < n)
+__device__ __forceinline__ void fill(const Ctx& cx, int g) {
+  const int s = g % kStages;
+  const uint32_t go = threadIdx.x == 0 && g < cx.n;
+  const uint32_t full = smem_u32(cx.bars + s);
+  const unsigned char* src = cx.src + static_cast<size_t>(g < cx.n ? g : 0) * kSlabBytes;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.u32 p, %0, 0;\n"
+      "@p mbarrier.arrive.expect_tx.shared::cta.b64 _, [%1], %2;\n"
+      "@p cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%3], [%4], %2, [%1];\n"
+      "}\n" ::"r"(go),
+      "r"(full), "r"(kSlabBytes), "r"(smem_u32(cx.ring + s * kSlabBytes)), "l"(src)
+      : "memory");
+}
 
-  // ---- DFNet forward: activations ping-pong between A and B ----
-  float* cur = bufA;
-  float* nxt = bufB;
-  float* zbase = kMode != kForward
-                     ? a.zscratch + static_cast<size_t>(blockIdx.x) * a.zsum * kTile
-                     : nullptr;
-  for (int l = 0; l < L; ++l) {
-    const int* m = meta + kMeta * l;
-    const float* W = a.dfw + m[2];
-    const float* bias = a.dfw + m[3];
-    if (l < L - 1) {
-      float* zs = zbase ? zbase + static_cast<size_t>(m[5]) * kTile : nullptr;
-      float* y = nxt;
-      tile_matmul(W, m[0], m[1], cur, [&](int col, const float(&acc)[kTile]) {
-        const float bn = __ldg(bias + col);
-        float z[kTile], v[kTile];
+// both warpgroups are done with slab g's slot: refill it with slab g + kStages
+__device__ __forceinline__ void release_slab(const Ctx& cx, int g) {
+  named_bar_sync(kBar, kConsumers);
+  fill(cx, g + kStages);
+}
+
+template <int N>
+__device__ __forceinline__ void keep_regs(uint32_t (&r)[N]) {
 #pragma unroll
-        for (int tt = 0; tt < kTile; ++tt) {
-          z[tt] = acc[tt] + bn;
-          v[tt] = act_fwd(a.act, a.beta, z[tt]);
-        }
-        if (zs) store_tile_column(zs + col * kTile, z);
-        store_tile_column(y + col * kTile, v);
-      });
-    } else {
-      tile_matmul(W, m[0], m[1], cur, [&](int col, const float(&acc)[kTile]) {
-        const float bn = __ldg(bias + col);
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// The A fragment of one k8 step, split: register j holds row r + 8 (j % 2)
+// at K position t%4 + 4 (j / 2), i.e. feature c (j < 2) or c + 1, c = the
+// 8-group's 2 (t % 4).
+__device__ __forceinline__ void load_a(const Buf& b, int r, int c, uint32_t (&hi)[4],
+                                       uint32_t (&lo)[4]) {
+  const float2 u = *reinterpret_cast<const float2*>(at(b, r, c));
+  const float2 v = *reinterpret_cast<const float2*>(at(b, r + 8, c));
+  const float x[4] = {u.x, v.x, u.y, v.y};
 #pragma unroll
-        for (int tt = 0; tt < kTile; ++tt) dval[tt] = out_act_fwd(a.act, a.beta, acc[tt] + bn);
-      });
-    }
-    __syncthreads();
-    float* tmp = cur;
-    cur = nxt;
-    nxt = tmp;
+  for (int j = 0; j < 4; ++j) {
+    const float h = tf32_round(x[j]);
+    hi[j] = __float_as_uint(h);
+    lo[j] = __float_as_uint(tf32_round(x[j] - h));
   }
+}
 
-  if (kMode == kForward) {
-    if (valid) a.d_out[b] = dval[t];
-    return;
-  }
-
-  // ---- DFNet backward (unit cotangent, input gradient only) ----
-  if (t < kTile) cur[t] = out_act_grad_from_value(a.act, a.beta, dval[t]);
-  __syncthreads();
-  for (int l = L - 1; l >= 0; --l) {
-    const int* m = meta + kMeta * l;
-    const float* Wt = a.dfw + m[4];  // (out, in)
-    const float* zprev = l > 0 ? zbase + static_cast<size_t>(meta[kMeta * (l - 1) + 5]) * kTile
-                               : nullptr;
-    float* y = nxt;
-    tile_matmul(Wt, m[1], m[0], cur, [&](int col, const float(&acc)[kTile]) {
-      float g[kTile];
-      if (zprev) {
-        float z[kTile];
-        load_tile_column(zprev + col * kTile, z);
+// tot[cg] += A . B for nkb K-blocks of A (from `a`) and, per K-block, the
+// NG slabs of column groups 0..NG-1, in the ring's order. Each slab's 12
+// products sum into a fresh accumulator that is then added to tot in fp32
+// (IEEE adds): the tensor cores' own fp32 accumulation does not round to
+// nearest, so its error then spans 32 of K and not all of it.
+template <int NG>
+__device__ __forceinline__ void product(float (&tot)[NG][32], const Buf& a, int nkb, Ctx& cx) {
+  const int r = 16 * (cx.tw / 32) + (cx.tw % 32) / 4, c = 2 * (cx.tw % 4);
+  float acc[32];
 #pragma unroll
-        for (int tt = 0; tt < kTile; ++tt) g[tt] = acc[tt] * act_grad(a.act, a.beta, z[tt]);
-      } else {
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  for (int kb = 0; kb < nkb; ++kb) {
+    uint32_t ah[4][4], al[4][4];
 #pragma unroll
-        for (int tt = 0; tt < kTile; ++tt) g[tt] = acc[tt];
+    for (int kk = 0; kk < 4; ++kk) load_a(a, r, 32 * kb + 8 * kk + c, ah[kk], al[kk]);
+#pragma unroll
+    for (int cg = 0; cg < NG; ++cg) {
+      const int g = cx.g++;
+      const int s = wait_slab(cx, g);
+      const uint32_t hi = smem_u32(cx.ring + s * kSlabBytes) + cx.w * (kHalfBytes / 2);
+      const uint32_t lo = hi + kHalfBytes;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {   // the small terms first
+        wgmma_tf32_rs<64>(acc, al[kk], desc_sw128(hi + kk * 32), kk > 0);
+        wgmma_tf32_rs<64>(acc, ah[kk], desc_sw128(lo + kk * 32), 1);
+        wgmma_tf32_rs<64>(acc, ah[kk], desc_sw128(hi + kk * 32), 1);
       }
-      store_tile_column(y + col * kTile, g);
-    });
-    __syncthreads();
-    float* tmp = cur;
-    cur = nxt;
-    nxt = tmp;
+      wgmma_commit();
+      wgmma_wait<0>();
+      release_slab(cx, g);
+      fence_regs(acc);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) tot[cg][i] += acc[i];
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      keep_regs(ah[kk]);
+      keep_regs(al[kk]);
+    }
   }
-  // cur now holds the code gradient (J * F, kTile)
+}
 
-  if (t >= kTile) return;
+// h += A . B for the first product of a chain: a slab is 64 columns x 64 of
+// K, the hi | lo halves of its first 32 of K, then of its second (16 KB
+// each); warpgroup w takes columns 32w..32w+31 (m64n32k8). Each 32 of K
+// folds into h as in product. A chunk of 64 columns keeps the chain's
+// sums a thread at 4 x 32 + 16 registers.
+__device__ __forceinline__ void product_chunk(float (&tot)[1][16], const Buf& a, int nkp, Ctx& cx) {
+  const int r = 16 * (cx.tw / 32) + (cx.tw % 32) / 4, c = 2 * (cx.tw % 4);
+  float acc[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) acc[i] = 0.f;
+  for (int kp = 0; kp < nkp; ++kp) {
+    const int g = cx.g++;
+    const int s = wait_slab(cx, g);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      uint32_t ah[4][4], al[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        load_a(a, r, 2 * kSlabK * kp + kSlabK * h + 8 * kk + c, ah[kk], al[kk]);
+      const uint32_t hi =
+          smem_u32(cx.ring + s * kSlabBytes) + h * kHalfBytes + cx.w * (kHalfBytes / 4);
+      const uint32_t lo = hi + kHalfBytes / 2;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        wgmma_tf32_rs<32>(acc, al[kk], desc_sw128(hi + kk * 32), kk > 0);
+        wgmma_tf32_rs<32>(acc, ah[kk], desc_sw128(lo + kk * 32), 1);
+        wgmma_tf32_rs<32>(acc, ah[kk], desc_sw128(hi + kk * 32), 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+#pragma unroll
+      for (int i = 0; i < 16; ++i) tot[0][i] += acc[i];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        keep_regs(ah[kk]);
+        keep_regs(al[kk]);
+      }
+    }
+    release_slab(cx, g);
+  }
+}
 
-  // ---- encoder backward: reverse joint walk, one thread per pose ----
-  for (int j = J - 1; j >= 0; --j) {
-    const int p = par[j];
+// The epilogue of column groups cg0..cg0+NG-1, each 16 NJ columns wide (8
+// NJ a warpgroup: NJ = 8 after m64n64 products, 4 after m64n32). Register
+// 4j + i of group cg is row r + 8 (i / 2), column 16 NJ cg + 8 NJ w + 8 j +
+// 2 (t % 4) + i % 2; its pre-activations are float4 (((cg * 2 + w) NJ + j)
+// 128 + t) of z. A group's loads (bias or z) are issued before its stores,
+// which the compiler could not move them past.
+template <int kAct, int NG, int NJ>
+__device__ __forceinline__ void epilogue(const float (&acc)[NG][4 * NJ], int cg0, const Epi& e,
+                                         const Ctx& cx) {
+  const int r = 16 * (cx.tw / 32) + (cx.tw % 32) / 4;
+#pragma unroll
+  for (int cg = 0; cg < NG; ++cg) {
+    const int c0 = (cg0 + cg) * 16 * NJ + 8 * NJ * cx.w + 2 * (cx.tw % 4);
+    float4* zp = e.z != nullptr
+                     ? reinterpret_cast<float4*>(e.z) + ((cg0 + cg) * 2 + cx.w) * NJ * 128 + cx.tw
+                     : nullptr;
+    float4 in[NJ];   // the bias pair (forward) or z (backward) of each j
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      if (e.bias != nullptr) {
+        const float2 b = __ldg(reinterpret_cast<const float2*>(e.bias + c0 + 8 * j));
+        in[j] = make_float4(b.x, b.y, b.x, b.y);
+      } else if (zp != nullptr) {
+        in[j] = zp[j * 128];
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      float v[4] = {acc[cg][4 * j], acc[cg][4 * j + 1], acc[cg][4 * j + 2], acc[cg][4 * j + 3]};
+      if (e.bias != nullptr) {
+        v[0] += in[j].x;
+        v[1] += in[j].y;
+        v[2] += in[j].z;
+        v[3] += in[j].w;
+        if (zp != nullptr) zp[j * 128] = make_float4(v[0], v[1], v[2], v[3]);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) v[i] = act_fwd(kAct, cx.beta, v[i]);
+      } else if (zp != nullptr) {
+        v[0] *= act_grad(kAct, cx.beta, in[j].x);
+        v[1] *= act_grad(kAct, cx.beta, in[j].y);
+        v[2] *= act_grad(kAct, cx.beta, in[j].z);
+        v[3] *= act_grad(kAct, cx.beta, in[j].w);
+      }
+      const int c = c0 + 8 * j - e.col0;
+      *reinterpret_cast<float2*>(at(e.dst, r, c)) = make_float2(v[0], v[1]);
+      *reinterpret_cast<float2*>(at(e.dst, r + 8, c)) = make_float2(v[2], v[3]);
+    }
+  }
+}
+
+// One layer, K -> N = 128 NG, in place in x.
+template <int kAct, int NG>
+__device__ __forceinline__ void layer(const Buf& x, int K, const Epi& e, Ctx& cx) {
+  float tot[NG][32];
+#pragma unroll
+  for (int cg = 0; cg < NG; ++cg)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) tot[cg][i] = 0.f;
+  product<NG>(tot, x, K / kSlabK, cx);
+  named_bar_sync(kBar, kConsumers);   // both warpgroups have read x
+  epilogue<kAct, NG, 8>(tot, 0, e, cx);
+  named_bar_sync(kBar, kConsumers);   // x holds the output
+}
+
+// Two layers, K -> N -> 512, in place in x: the N columns a chunk of 64 at a
+// time through cb, each chunk at once 64 of the second product's K. The
+// second product's 4 x 32 sums a thread stay in registers through the
+// chunks.
+template <int kAct>
+__device__ __forceinline__ void chain(const Buf& x, const Buf& cb, int K, int N, Epi e1,
+                                      const Epi& e2, Ctx& cx) {
+  constexpr int NG2 = kXMax / kSlabN;
+  float y[NG2][32];
+#pragma unroll
+  for (int cg = 0; cg < NG2; ++cg)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) y[cg][i] = 0.f;
+  for (int c = 0; c < N / kChunk; ++c) {
+    float h[1][16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) h[0][i] = 0.f;
+    product_chunk(h, x, K / kChunk, cx);
+    named_bar_sync(kBar, kConsumers);   // both warpgroups have read the last chunk
+    e1.col0 = c * kChunk;
+    epilogue<kAct, 1, 4>(h, c, e1, cx);
+    named_bar_sync(kBar, kConsumers);   // cb holds chunk c
+    product<NG2>(y, cb, kChunk / kSlabK, cx);
+  }
+  named_bar_sync(kBar, kConsumers);     // both warpgroups have read x
+  epilogue<kAct, NG2, 8>(y, 0, e2, cx);
+  named_bar_sync(kBar, kConsumers);
+}
+
+// One step of the program (fused_model.tc_schedule): [chain, K, N, N2,
+// bias1, z1, bias2, z2].
+template <int kAct>
+__device__ __forceinline__ void run_step(const int* st, const Buf& x, const Buf& cb,
+                                         const float* vec, float* zb, Ctx& cx) {
+  int s[kStep];
+#pragma unroll
+  for (int i = 0; i < kStep; ++i) s[i] = __ldg(st + i);
+  const Epi e1{s[4] >= 0 ? vec + s[4] : nullptr,
+               zb != nullptr && s[5] >= 0 ? zb + static_cast<size_t>(kRows) * s[5] : nullptr,
+               s[0] ? cb : x, 0};
+  if (s[0]) {
+    const Epi e2{s[6] >= 0 ? vec + s[6] : nullptr,
+                 zb != nullptr && s[7] >= 0 ? zb + static_cast<size_t>(kRows) * s[7] : nullptr, x,
+                 0};
+    chain<kAct>(x, cb, s[1], s[2], e1, e2, cx);
+  } else {
+    switch (s[2] / kSlabN) {
+      case 1: layer<kAct, 1>(x, s[1], e1, cx); break;
+      case 2: layer<kAct, 2>(x, s[1], e1, cx); break;
+      default: layer<kAct, 4>(x, s[1], e1, cx); break;
+    }
+  }
+}
+
+// Input normalization and encoder walk of the CTA's 64 poses into the code
+// x (64, D0): thread t owns pose t % 64 and the hidden units / features
+// t / 64, t / 64 + 4, ... of each joint, two named barriers a joint. With
+// ez, the pre-activations go to ez[(j (E + F) + o) 64 + pose]. hid holds a
+// joint's hidden units (kMaxE, 64), nrm the column norms (4, 64).
+template <int kAct>
+__device__ __forceinline__ void encode(const Args& a, int row0, const Buf& x, int D0, float* hid,
+                                       float* nrm, float* ez) {
+  const int t = threadIdx.x, p = t % kRows, r = t / kRows;
+  const int J = a.J, F = a.F, E = 4 + F;
+  const bool valid = row0 + p < a.B;
+  const float4* q4 =
+      reinterpret_cast<const float4*>(a.pose) + static_cast<size_t>(valid ? row0 + p : 0) * J;
+  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
+  const float* w1 = a.enc;
+  const float* b1 = w1 + J * E * E;
+  const float* w2 = b1 + J * E;
+  const float* b2 = w2 + J * E * F;
+  {
+    float s = 0.f;   // component r: the normalization's sum over the joints
+    for (int j = 0; j < J; ++j) {
+      const float4 q = valid ? __ldg(q4 + j) : zero4;
+      const float v = r == 0 ? q.x : r == 1 ? q.y : r == 2 ? q.z : q.w;
+      s = fmaf(v, v, s);
+    }
+    nrm[r * kRows + p] = sqrtf(fmaxf(s, kEps2));
+  }
+  const int JF = J * F, pad = D0 - JF;   // the code's padding columns are zeros
+  if (pad > 0)
+    for (int i = t; i < kRows * pad; i += kConsumers) *at(x, i / pad, JF + i % pad) = 0.f;
+  named_bar_sync(kBar, kConsumers);
+  const float n0 = nrm[p], n1 = nrm[kRows + p], n2 = nrm[2 * kRows + p], n3 = nrm[3 * kRows + p];
+  for (int j = 0; j < J; ++j) {
+    const float4 q = valid ? __ldg(q4 + j) : zero4;
+    const int par = __ldg(a.parents + j);
+    float in[kMaxE];
+    in[0] = q.x / n0;
+    in[1] = q.y / n1;
+    in[2] = q.z / n2;
+    in[3] = q.w / n3;
+#pragma unroll
+    for (int k = 0; k < kMaxF; ++k) in[4 + k] = (k < F && par >= 0) ? *at(x, p, par * F + k) : 0.f;
     const float* w1j = w1 + j * E * E;
+#pragma unroll
+    for (int oi = 0; oi < (kMaxE + 3) / 4; ++oi) {
+      const int o = r + 4 * oi;
+      if (o < E) {
+        float z = 0.f;
+#pragma unroll
+        for (int i = 0; i < kMaxE; ++i)
+          if (i < E) z = fmaf(in[i], __ldg(w1j + i * E + o), z);
+        z += __ldg(b1 + j * E + o);
+        if (ez != nullptr) ez[(j * (E + F) + o) * kRows + p] = z;
+        hid[o * kRows + p] = act_fwd(kAct, a.beta, z);
+      }
+    }
+    named_bar_sync(kBar, kConsumers);
     const float* w2j = w2 + j * E * F;
-    const float* zj = encz + j * (E + F) * kTile;
+#pragma unroll
+    for (int ki = 0; ki < (kMaxF + 3) / 4; ++ki) {
+      const int k = r + 4 * ki;
+      if (k < F) {
+        float z = 0.f;
+#pragma unroll
+        for (int o = 0; o < kMaxE; ++o)
+          if (o < E) z = fmaf(hid[o * kRows + p], __ldg(w2j + o * F + k), z);
+        z += __ldg(b2 + j * F + k);
+        if (ez != nullptr) ez[(j * (E + F) + E + k) * kRows + p] = z;
+        *at(x, p, j * F + k) = act_fwd(kAct, a.beta, z);
+      }
+    }
+    named_bar_sync(kBar, kConsumers);
+  }
+}
+
+// The output layer (K -> 1) on the CUDA cores: four threads a pose each sum
+// a quarter of K into part (4, 64); then d = out_act(sum + b) to dval (64)
+// and to d_out.
+template <int kAct>
+__device__ __forceinline__ void output_layer(const Args& a, int row0, const Buf& x, int K,
+                                             const float* wl, float bl, float* part, float* dval) {
+  const int t = threadIdx.x, p = t % kRows, r = t / kRows, n = K / 4;
+  float s = 0.f;
+  for (int c = r * n; c < (r + 1) * n; ++c) s = fmaf(*at(x, p, c), __ldg(wl + c), s);
+  part[r * kRows + p] = s;
+  named_bar_sync(kBar, kConsumers);
+  if (t < kRows) {
+    const float sum = (part[p] + part[kRows + p]) + (part[2 * kRows + p] + part[3 * kRows + p]);
+    const float d = out_act_fwd(kAct, a.beta, sum + bl);
+    dval[p] = d;
+    if (row0 + p < a.B) a.d_out[row0 + p] = d;
+  }
+  named_bar_sync(kBar, kConsumers);
+}
+
+// The backward's start: the gradient at the last hidden layer's output,
+// out_act'(d) w act'(z), written to x (64, K) in the fragments' layout.
+template <int kAct>
+__device__ __forceinline__ void backward_start(const Buf& x, int K, const float* wl, const float* z,
+                                               const float* dval, const Ctx& cx) {
+  const int r = 16 * (cx.tw / 32) + (cx.tw % 32) / 4;
+  const float go0 = out_act_grad_from_value(kAct, cx.beta, dval[r]);
+  const float go1 = out_act_grad_from_value(kAct, cx.beta, dval[r + 8]);
+  for (int cg = 0; cg < K / kSlabN; ++cg) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int c = cg * kSlabN + 64 * cx.w + 8 * j + 2 * (cx.tw % 4);
+      const float4 zz = reinterpret_cast<const float4*>(z)[((cg * 2 + cx.w) * 8 + j) * 128 + cx.tw];
+      const float2 wv = __ldg(reinterpret_cast<const float2*>(wl + c));
+      *reinterpret_cast<float2*>(at(x, r, c)) =
+          make_float2(go0 * wv.x * act_grad(kAct, cx.beta, zz.x),
+                      go0 * wv.y * act_grad(kAct, cx.beta, zz.y));
+      *reinterpret_cast<float2*>(at(x, r + 8, c)) =
+          make_float2(go1 * wv.x * act_grad(kAct, cx.beta, zz.z),
+                      go1 * wv.y * act_grad(kAct, cx.beta, zz.w));
+    }
+  }
+  named_bar_sync(kBar, kConsumers);
+}
+
+// The encoder's reverse walk, j = J-1 .. 0, from the code gradient in x:
+// gf = gx_code[j] act'(f_pre); gh = (W2[j] gf) act'(h_pre) (thread t: the
+// units t / 64 + 4i, to gh (kMaxE, 64)); then W1[j] gh: its first 4 rows to
+// gx (J, 4, 64), the rest added into the parent's code gradient.
+template <int kAct>
+__device__ __forceinline__ void encode_backward(const Args& a, const Buf& x, const float* ez,
+                                                float* gx, float* gh) {
+  const int t = threadIdx.x, p = t % kRows, r = t / kRows;
+  const int J = a.J, F = a.F, E = 4 + F;
+  const float* w1 = a.enc;
+  const float* w2 = w1 + J * E * E + J * E;
+  for (int j = J - 1; j >= 0; --j) {
+    const int par = __ldg(a.parents + j);
+    const float* zj = ez + j * (E + F) * kRows;
     float gf[kMaxF];
 #pragma unroll
     for (int k = 0; k < kMaxF; ++k)
-      gf[k] = k < F ? cur[(j * F + k) * kTile + t] *
-                          act_grad(a.act, a.beta, zj[(E + k) * kTile + t])
-                    : 0.f;
-    float gh[kMaxE];
+      gf[k] = k < F ? *at(x, p, j * F + k) * act_grad(kAct, a.beta, zj[(E + k) * kRows + p]) : 0.f;
+    const float* w2j = w2 + j * E * F;
 #pragma unroll
-    for (int o = 0; o < kMaxE; ++o) {
-      float s = 0.f;
+    for (int oi = 0; oi < (kMaxE + 3) / 4; ++oi) {
+      const int o = r + 4 * oi;
       if (o < E) {
+        float s = 0.f;
 #pragma unroll
         for (int k = 0; k < kMaxF; ++k)
-          if (k < F) s = fmaf(w2j[o * F + k], gf[k], s);
-        s *= act_grad(a.act, a.beta, zj[o * kTile + t]);
+          if (k < F) s = fmaf(__ldg(w2j + o * F + k), gf[k], s);
+        gh[o * kRows + p] = s * act_grad(kAct, a.beta, zj[o * kRows + p]);
       }
-      gh[o] = s;
     }
+    named_bar_sync(kBar, kConsumers);
+    const float* w1j = w1 + j * E * E;
 #pragma unroll
-    for (int i = 0; i < kMaxE; ++i) {
-      if (i < E && (i < 4 || p >= 0)) {
+    for (int ii = 0; ii < (kMaxE + 3) / 4; ++ii) {
+      const int i = r + 4 * ii;
+      if (i < E && (i < 4 || par >= 0)) {
         float s = 0.f;
 #pragma unroll
         for (int o = 0; o < kMaxE; ++o)
-          if (o < E) s = fmaf(w1j[i * E + o], gh[o], s);
+          if (o < E) s = fmaf(__ldg(w1j + i * E + o), gh[o * kRows + p], s);
         if (i < 4)
-          gx[(j * 4 + i) * kTile + t] = s;
+          gx[(j * 4 + i) * kRows + p] = s;
         else
-          cur[(p * F + i - 4) * kTile + t] += s;
+          *at(x, p, par * F + i - 4) += s;
       }
     }
+    named_bar_sync(kBar, kConsumers);
   }
+}
 
+// The normalization's VJP (x = q / n  =>  g = gx / n - q [s >= eps^2]
+// <gx, q>_J / n^3), then g out, or the projection step. Thread t: first
+// component t / 64 of pose t % 64 (norm and scale to nrm, scl), then the
+// joints t / 64, t / 64 + 4, ...
+__device__ __forceinline__ void finish(const Args& a, int row0, const float* gx, float* nrm,
+                                       float* scl) {
+  const int t = threadIdx.x, p = t % kRows, r = t / kRows;
+  const int J = a.J;
+  const bool valid = row0 + p < a.B;
+  const int b = valid ? row0 + p : 0;
+  const float4* q4 = reinterpret_cast<const float4*>(a.pose) + static_cast<size_t>(b) * J;
+  {
+    float s = 0.f, dot = 0.f;
+    for (int j = 0; j < J; ++j) {
+      const float4 q = valid ? __ldg(q4 + j) : make_float4(0.f, 0.f, 0.f, 0.f);
+      const float v = r == 0 ? q.x : r == 1 ? q.y : r == 2 ? q.z : q.w;
+      s = fmaf(v, v, s);
+      dot = fmaf(gx[(j * 4 + r) * kRows + p], v, dot);
+    }
+    const float n = sqrtf(fmaxf(s, kEps2));
+    nrm[r * kRows + p] = n;
+    scl[r * kRows + p] = s >= kEps2 ? dot / (n * n * n) : 0.f;
+  }
+  named_bar_sync(kBar, kConsumers);
   if (!valid) return;
-
-  // ---- normalization VJP, then write g or take the projection step ----
-  // x = q / n  =>  g_q = gx / n - q * [s >= eps^2] <gx, q>_J / n^3
-  float s[4], n[4], scale[4], dot[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int j = 0; j < J; ++j) {
-    const float4 q = q4[j];
-    dot[0] = fmaf(gx[(j * 4 + 0) * kTile + t], q.x, dot[0]);
-    dot[1] = fmaf(gx[(j * 4 + 1) * kTile + t], q.y, dot[1]);
-    dot[2] = fmaf(gx[(j * 4 + 2) * kTile + t], q.z, dot[2]);
-    dot[3] = fmaf(gx[(j * 4 + 3) * kTile + t], q.w, dot[3]);
-  }
+  float n[4], scale[4];
 #pragma unroll
   for (int c = 0; c < 4; ++c) {
-    s[c] = norm[c * kTile + t];
-    n[c] = norm[(4 + c) * kTile + t];
-    scale[c] = s[c] >= kEps2 ? dot[c] / (n[c] * n[c] * n[c]) : 0.f;
+    n[c] = nrm[c * kRows + p];
+    scale[c] = scl[c * kRows + p];
   }
-  const float d = dval[t];
-  a.d_out[b] = d;
-  const float sd = a.step_scale * d;
-  for (int j = 0; j < J; ++j) {
-    const float4 q4j = q4[j];
+  const float sd = a.step_scale * a.d_out[b];   // written by this CTA, before a barrier
+  for (int j = r; j < J; j += 4) {
+    const float4 q4j = __ldg(q4 + j);
     const float q[4] = {q4j.x, q4j.y, q4j.z, q4j.w};
     float g[4];
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const float gxc = gx[(j * 4 + c) * kTile + t];
-      g[c] = gxc / n[c] - q[c] * scale[c];
-    }
-    if (kMode == kValueAndGrad) {
+    for (int c = 0; c < 4; ++c) g[c] = gx[(j * 4 + c) * kRows + p] / n[c] - q[c] * scale[c];
+    if (a.mode == kValueAndGrad) {
       reinterpret_cast<float4*>(a.g_out)[static_cast<size_t>(b) * J + j] =
           make_float4(g[0], g[1], g[2], g[3]);
-      continue;
-    }
-    if (a.tangent) {
-      const float r = g[0] * q[0] + g[1] * q[1] + g[2] * q[2] + g[3] * q[3];
+    } else {
+      if (a.tangent) {
+        const float rr = g[0] * q[0] + g[1] * q[1] + g[2] * q[2] + g[3] * q[3];
 #pragma unroll
-      for (int c = 0; c < 4; ++c) g[c] -= r * q[c];
-    }
-    float qn[4];
+        for (int c = 0; c < 4; ++c) g[c] -= rr * q[c];
+      }
+      float qn[4];
 #pragma unroll
-    for (int c = 0; c < 4; ++c) qn[c] = q[c] - sd * g[c];
-    if (a.renormalize) {
-      const float nn = sqrtf(fmaxf(qn[0] * qn[0] + qn[1] * qn[1] + qn[2] * qn[2] + qn[3] * qn[3],
-                                   kEps2));
+      for (int c = 0; c < 4; ++c) qn[c] = q[c] - sd * g[c];
+      if (a.renormalize) {
+        const float nn = sqrtf(fmaxf(qn[0] * qn[0] + qn[1] * qn[1] + qn[2] * qn[2] + qn[3] * qn[3],
+                                     kEps2));
 #pragma unroll
-      for (int c = 0; c < 4; ++c) qn[c] /= nn;
+        for (int c = 0; c < 4; ++c) qn[c] /= nn;
+      }
+      reinterpret_cast<float4*>(a.q_out)[static_cast<size_t>(b) * J + j] =
+          make_float4(qn[0], qn[1], qn[2], qn[3]);
     }
-    reinterpret_cast<float4*>(a.q_out)[static_cast<size_t>(b) * J + j] =
-        make_float4(qn[0], qn[1], qn[2], qn[3]);
   }
 }
 
-template <int kMode>
-int launch(const Args& a, void* stream) {
-  if (a.J < 1 || a.J > kMaxJ || a.F < 1 || a.F > kMaxF || a.L < 1 || a.L > kMaxL)
+template <int kAct>
+__global__ void __launch_bounds__(kFieldThreads, 1) field_kernel(const __grid_constant__ Args a) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = align1024(smem_raw);
+  float* xs = reinterpret_cast<float*>(ring + kStages * kSlabBytes);
+  float* cs = xs + kRows * kXMax;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(cs + kRows * kChunk);
+  init_ring(bars, kStages, 1, 1);   // full barriers; the empty ones go unused
+
+  const bool grad = a.mode != kForward;
+  Ctx cx{bars, ring, a.slabs, grad ? a.nfwd + a.nbwd : a.nfwd, 0,
+         static_cast<int>(threadIdx.x) / 128, static_cast<int>(threadIdx.x) % 128, a.beta};
+  for (int g = 0; g < kStages; ++g) fill(cx, g);
+
+  const int row0 = blockIdx.x * kRows;
+  const int E = 4 + a.F;
+  const int* head = a.prog;
+  const int nfwd_steps = __ldg(head), nbwd_steps = __ldg(head + 1);
+  const int zsum = __ldg(head + 7);
+  const Buf x{xs, kXMax}, cb{cs, kChunk};
+  float* zb = grad ? a.zscratch + static_cast<size_t>(blockIdx.x) * kRows * (zsum + a.J * (E + a.F))
+                   : nullptr;
+  float* ez = zb != nullptr ? zb + static_cast<size_t>(kRows) * zsum : nullptr;
+
+  encode<kAct>(a, row0, x, __ldg(head + 2), cs, cs + kMaxE * kRows, ez);
+  const int* step = head + kHead;
+  for (int i = 0; i < nfwd_steps; ++i, step += kStep) run_step<kAct>(step, x, cb, a.vec, zb, cx);
+  // the output layer: d
+  const int K = __ldg(head + 3);
+  const float* wl = a.vec + __ldg(head + 4);
+  output_layer<kAct>(a, row0, x, K, wl, __ldg(a.vec + __ldg(head + 5)), cs, cs + 4 * kRows);
+  if (!grad) return;
+  backward_start<kAct>(x, K, wl, zb + static_cast<size_t>(kRows) * __ldg(head + 6), cs + 4 * kRows,
+                       cx);
+  for (int i = 0; i < nbwd_steps; ++i, step += kStep) run_step<kAct>(step, x, cb, a.vec, zb, cx);
+  // every slab is read: the ring's space holds gx
+  float* gx = reinterpret_cast<float*>(ring);
+  encode_backward<kAct>(a, x, ez, gx, cs);
+  finish(a, row0, gx, cs + kMaxE * kRows, cs + (kMaxE + 4) * kRows);
+}
+
+int launch(Args a, int mode, void* stream) {
+  if (a.J < 1 || a.J > kMaxJ || a.F < 1 || a.F > kMaxF)
     return static_cast<int>(cudaErrorInvalidValue);
   if (a.B <= 0) return 0;
-  const size_t smem = smem_floats(a.J, a.F, a.L, a.maxw) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(field_kernel<kMode>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = (a.B + kTile - 1) / kTile;
-  field_kernel<kMode><<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  a.mode = mode;
+  const dim3 ctas((a.B + kRows - 1) / kRows);
+  switch (a.act) {   // one kernel an activation, so each epilogue is a few instructions
+    case kLRelu:
+      return launch_wgmma(field_kernel<kLRelu>, ctas, kFieldThreads, kFieldSmem, stream, a);
+    case kRelu:
+      return launch_wgmma(field_kernel<kRelu>, ctas, kFieldThreads, kFieldSmem, stream, a);
+    case kSoftplus:
+      return launch_wgmma(field_kernel<kSoftplus>, ctas, kFieldThreads, kFieldSmem, stream, a);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 Args common_args(const float* pose, int B, const float* enc, const int* parents, int J, int F,
-                 const float* dfw, const int* meta, int L, int maxw, int zsum, int act,
+                 const void* slabs, const float* vec, const int* prog, int nfwd, int nbwd, int act,
                  float beta) {
   Args a{};
   a.pose = pose;
@@ -319,11 +749,11 @@ Args common_args(const float* pose, int B, const float* enc, const int* parents,
   a.parents = parents;
   a.J = J;
   a.F = F;
-  a.dfw = dfw;
-  a.meta = meta;
-  a.L = L;
-  a.maxw = maxw;
-  a.zsum = zsum;
+  a.slabs = static_cast<const unsigned char*>(slabs);
+  a.vec = vec;
+  a.prog = prog;
+  a.nfwd = nfwd;
+  a.nbwd = nbwd;
   a.act = act;
   a.beta = beta;
   a.step_scale = 1.f;
@@ -335,43 +765,49 @@ Args common_args(const float* pose, int B, const float* enc, const int* parents,
 extern "C" {
 
 int posendf_forward(const float* pose, int B, const float* enc, const int* parents, int J, int F,
-                    const float* dfw, const int* meta, int L, int maxw, int zsum, int act,
-                    float beta, float* d_out, void* stream) {
-  Args a = common_args(pose, B, enc, parents, J, F, dfw, meta, L, maxw, zsum, act, beta);
+                    const void* slabs, const float* vec, const int* prog, int nfwd, int nbwd,
+                    int act, float beta, float* d_out, void* stream) {
+  Args a = common_args(pose, B, enc, parents, J, F, slabs, vec, prog, nfwd, nbwd, act, beta);
   a.d_out = d_out;
-  return launch<kForward>(a, stream);
+  return launch(a, kForward, stream);
 }
 
 int posendf_value_and_grad(const float* pose, int B, const float* enc, const int* parents, int J,
-                           int F, const float* dfw, const int* meta, int L, int maxw, int zsum,
-                           int act, float beta, float* d_out, float* g_out,
+                           int F, const void* slabs, const float* vec, const int* prog, int nfwd,
+                           int nbwd, int act, float beta, float* d_out, float* g_out,
                            float* zscratch, void* stream) {
-  Args a = common_args(pose, B, enc, parents, J, F, dfw, meta, L, maxw, zsum, act, beta);
+  Args a = common_args(pose, B, enc, parents, J, F, slabs, vec, prog, nfwd, nbwd, act, beta);
   a.d_out = d_out;
   a.g_out = g_out;
   a.zscratch = zscratch;
-  return launch<kValueAndGrad>(a, stream);
+  return launch(a, kValueAndGrad, stream);
 }
 
 int posendf_project_step(const float* pose, int B, const float* enc, const int* parents, int J,
-                         int F, const float* dfw, const int* meta, int L, int maxw, int zsum,
-                         int act, float beta, float* d_out, float* q_out,
+                         int F, const void* slabs, const float* vec, const int* prog, int nfwd,
+                         int nbwd, int act, float beta, float* d_out, float* q_out,
                          float* zscratch, float step_scale, int tangent, int renormalize,
                          void* stream) {
-  Args a = common_args(pose, B, enc, parents, J, F, dfw, meta, L, maxw, zsum, act, beta);
+  Args a = common_args(pose, B, enc, parents, J, F, slabs, vec, prog, nfwd, nbwd, act, beta);
   a.d_out = d_out;
   a.q_out = q_out;
   a.zscratch = zscratch;
   a.step_scale = step_scale;
   a.tangent = tangent;
   a.renormalize = renormalize;
-  return launch<kProjectStep>(a, stream);
+  return launch(a, kProjectStep, stream);
 }
 
-// Bytes of dynamic shared memory one block needs, for the wrapper's check.
-int posendf_smem_bytes(int J, int F, int L, int maxw) {
-  return static_cast<int>(smem_floats(J, F, L, maxw) * sizeof(float));
+// Floats of the pre-activation scratch of a value-and-grad or projection
+// launch over B poses: per 64-pose CTA, the DFNet's zsum and the encoder's
+// J (E + F) a pose.
+long long posendf_field_scratch_floats(int B, int J, int F, int zsum) {
+  const long long ctas = (B + kRows - 1) / kRows;
+  return ctas * kRows * (zsum + J * (2 * F + 4));
 }
+
+// Bytes of dynamic shared memory one CTA takes.
+int posendf_smem_bytes() { return static_cast<int>(kFieldSmem); }
 
 const char* posendf_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -1,6 +1,6 @@
-// PTX helpers of the Hopper (sm_90a) kernels in int8_kernels.cu,
-// train_kernels.cu (the batch reduction) and knn_kernels.cu (the bound
-// engine): mbarriers, bulk copies (cp.async.bulk), per-thread asynchronous
+// PTX helpers of the Hopper (sm_90a) kernels in field_kernels.cu,
+// int8_kernels.cu, train_kernels.cu (the batch reduction) and
+// knn_kernels.cu (the bound engine): mbarriers, bulk copies (cp.async.bulk), per-thread asynchronous
 // copies (cp.async), named barriers, wgmma
 // descriptors of the 128-byte-swizzled K-major layout, wgmma fences, commit
 // and wait, the TF32 rounding of the 3xTF32 split, and the wgmma shapes the
@@ -355,6 +355,20 @@ __device__ __forceinline__ void wgmma_m64n64k8_tf32_rs(float (&d)[32], const uin
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
+__device__ __forceinline__ void wgmma_m64n32k8_tf32_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t db,
+                                                       int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15},"
+      " {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
 __device__ __forceinline__ void wgmma_m64n8k8_tf32_rs(float (&d)[4], const uint32_t (&a)[4], uint64_t db,
                                                              int scale_d) {
   asm volatile(
@@ -378,8 +392,10 @@ __device__ __forceinline__ void wgmma_tf32_rs(float (&d)[NT / 2], const uint32_t
     wgmma_m64n128k8_tf32_rs(d, a, db, scale_d);
   } else if constexpr (NT == 64) {
     wgmma_m64n64k8_tf32_rs(d, a, db, scale_d);
+  } else if constexpr (NT == 32) {
+    wgmma_m64n32k8_tf32_rs(d, a, db, scale_d);
   } else {
-    static_assert(NT == 8, "tf32 wgmma widths: 8, 64, 128");
+    static_assert(NT == 8, "tf32 wgmma widths: 8, 32, 64, 128");
     wgmma_m64n8k8_tf32_rs(d, a, db, scale_d);
   }
 }

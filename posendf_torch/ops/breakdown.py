@@ -1,11 +1,15 @@
-"""Where the wgmma kernels' time goes: ``posendf_forward_int8`` and
-``probe_bf16_chain`` timed with parts of their work cut out of the source.
+"""Where the wgmma kernels' time goes: ``posendf_forward_int8``,
+``probe_bf16_chain``, ``posendf_project_step`` and ``posendf_forward`` timed
+with parts of their work cut out of the source.
 
 ``ncu`` does not run where the card is, so this measures by subtraction:
-each variant is ``csrc/int8_kernels.cu`` with some statements replaced (its
-results are wrong; only its time means something), built with the same
-nvcc flags into ``build/posendf_torch/breakdown/`` and timed through the
-same wrappers as the real kernel, in rounds:
+each variant is ``csrc/int8_kernels.cu`` or ``csrc/field_kernels.cu`` with
+some statements replaced (its results are wrong; only its time means
+something), built with the same nvcc flags into
+``build/posendf_torch/breakdown/`` and timed through the same wrappers as
+the real kernel, in rounds.
+
+``int8_kernels.cu``:
 
   ``base``     the kernel as it is
   ``noenc``    without the encoder walk
@@ -16,13 +20,26 @@ same wrappers as the real kernel, in rounds:
   ``copies``   all four cut: the weight ring alone
 
 The bf16 chain runs ``base`` and ``nomma`` (its products cut: the ring alone).
+
+``field_kernels.cu`` (the projection step at 10,000 poses and the forward
+at 131,072):
+
+  ``base``     the kernels as they are
+  ``noenc``    without the encoder walk and its reverse walk
+  ``nomma``    without the wgmma products (the A fragments are still loaded
+               and split, the slabs still stream and are released)
+  ``noepi``    without the DFNet layers' epilogues
+  ``copies``   those three cut and the A fragments' loads too: the weight
+               ring alone (with the output layer and the CUDA-core ends)
+
 Run on the card::
 
     python -m posendf_torch.ops.breakdown
 
 One line a kernel and variant: the median of CUDA-event means, at the main
-shapes (131,072 poses of the trained field; (131,072, 512) x 8 layers). A
-cut that no longer finds its statement in the source stops the run.
+shapes (131,072 poses of the trained field; (131,072, 512) x 8 layers;
+10,000 poses a projection step). A cut that no longer finds its statement in
+the source stops the run.
 """
 
 from __future__ import annotations
@@ -40,47 +57,76 @@ from posendf_torch import _build
 
 __all__ = ["CUTS", "VARIANTS", "variant_source", "main"]
 
-CUTS: Dict[str, List[Tuple[str, str]]] = {
-    "noenc": [("    encode_tile(a, row0, reinterpret_cast<float*>(x0), hid, reinterpret_cast<float*>(x1));\n",
-               "")],
-    "nof32": [("  const int Kb = K - K % kPre;   // rows in whole blocks\n",
-               "  const int Kb = K - K % kPre;   // rows in whole blocks\n  if (W) return;\n")],
-    "nomma": [("wgmma_m64n64k32_s8(acc, da, db, (kb | kk) != 0);", "{ (void)da; (void)db; }"),
-              ("wgmma_m64n32k32_s8(acc, da, db, (kb | kk) != 0);", "{ (void)da; (void)db; }"),
-              ("            wgmma_m64n256k16_bf16(acc, desc_sw128(a_base + kb * kPBlock + kk * 32),\n"
-               "                                  desc_sw128(b_base + kk * 32), (kb | kk) != 0);",
-               "            (void)b_base;")],
-    "noepi": [("    for (int g = 0; g < WN / 8; ++g) {\n      const int col = col0 + 8 * g;",
-               "    for (int g = 0; g < WN / 8; ++g) {\n      if (a.B >= 0) continue;\n"
-               "      const int col = col0 + 8 * g;")],
+CUTS: Dict[str, Dict[str, List[Tuple[str, str]]]] = {
+    "int8": {
+        "noenc": [("    encode_tile(a, row0, reinterpret_cast<float*>(x0), hid, reinterpret_cast<float*>(x1));\n",
+                   "")],
+        "nof32": [("  const int Kb = K - K % kPre;   // rows in whole blocks\n",
+                   "  const int Kb = K - K % kPre;   // rows in whole blocks\n  if (W) return;\n")],
+        "nomma": [("wgmma_m64n64k32_s8(acc, da, db, (kb | kk) != 0);", "{ (void)da; (void)db; }"),
+                  ("wgmma_m64n32k32_s8(acc, da, db, (kb | kk) != 0);", "{ (void)da; (void)db; }"),
+                  ("            wgmma_m64n256k16_bf16(acc, desc_sw128(a_base + kb * kPBlock + kk * 32),\n"
+                   "                                  desc_sw128(b_base + kk * 32), (kb | kk) != 0);",
+                   "            (void)b_base;")],
+        "noepi": [("    for (int g = 0; g < WN / 8; ++g) {\n      const int col = col0 + 8 * g;",
+                   "    for (int g = 0; g < WN / 8; ++g) {\n      if (a.B >= 0) continue;\n"
+                   "      const int col = col0 + 8 * g;")],
+    },
+    "field": {
+        "noenc": [("  encode<kAct>(a, row0, x, __ldg(head + 2), cs, cs + kMaxE * kRows, ez);\n", ""),
+                  ("  encode_backward<kAct>(a, x, ez, gx, cs);\n", "")],
+        "nomma": [("        wgmma_tf32_rs<64>(acc, al[kk], desc_sw128(hi + kk * 32), kk > 0);\n"
+                   "        wgmma_tf32_rs<64>(acc, ah[kk], desc_sw128(lo + kk * 32), 1);\n"
+                   "        wgmma_tf32_rs<64>(acc, ah[kk], desc_sw128(hi + kk * 32), 1);\n",
+                   "        (void)hi;\n        (void)lo;\n"),
+                  ("        wgmma_tf32_rs<32>(acc, al[kk], desc_sw128(hi + kk * 32), kk > 0);\n"
+                   "        wgmma_tf32_rs<32>(acc, ah[kk], desc_sw128(lo + kk * 32), 1);\n"
+                   "        wgmma_tf32_rs<32>(acc, ah[kk], desc_sw128(hi + kk * 32), 1);\n",
+                   "        (void)hi;\n        (void)lo;\n")],
+        "noepi": [("__device__ __forceinline__ void epilogue(const float (&acc)[NG][4 * NJ], int cg0, const Epi& e,\n"
+                   "                                         const Ctx& cx) {\n",
+                   "__device__ __forceinline__ void epilogue(const float (&acc)[NG][4 * NJ], int cg0, const Epi& e,\n"
+                   "                                         const Ctx& cx) {\n  if (e.col0 >= 0) return;\n")],
+        "noload": [("    for (int kk = 0; kk < 4; ++kk) load_a(a, r, 32 * kb + 8 * kk + c, ah[kk], al[kk]);\n",
+                    "    for (int kk = 0; kk < 4; ++kk)\n      for (int j = 0; j < 4; ++j) ah[kk][j] = al[kk][j] = 0u;\n"),
+                   ("      for (int kk = 0; kk < 4; ++kk)\n"
+                    "        load_a(a, r, 2 * kSlabK * kp + kSlabK * h + 8 * kk + c, ah[kk], al[kk]);\n",
+                    "      for (int kk = 0; kk < 4; ++kk)\n        for (int j = 0; j < 4; ++j) ah[kk][j] = al[kk][j] = 0u;\n")],
+    },
 }
-VARIANTS = {"base": [], "noenc": ["noenc"], "nof32": ["nof32"], "nomma": ["nomma"],
-            "noepi": ["noepi"], "copies": ["noenc", "nof32", "nomma", "noepi"]}
+VARIANTS = {
+    "int8": {"base": [], "noenc": ["noenc"], "nof32": ["nof32"], "nomma": ["nomma"],
+             "noepi": ["noepi"], "copies": ["noenc", "nof32", "nomma", "noepi"]},
+    "field": {"base": [], "noenc": ["noenc"], "nomma": ["nomma"], "noepi": ["noepi"],
+              "copies": ["noenc", "nomma", "noepi", "noload"]},
+}
 
 
-def variant_source(name: str) -> str:
-    """``csrc/int8_kernels.cu`` with variant ``name``'s cuts; raises if a cut
+def variant_source(lib: str, name: str) -> str:
+    """Library ``lib``'s source with variant ``name``'s cuts; raises if a cut
     no longer matches the source."""
-    text = _build.SOURCES["int8"].read_text()
-    for cut in VARIANTS[name]:
-        for old, new in CUTS[cut]:
+    text = _build.SOURCES[lib].read_text()
+    for cut in VARIANTS[lib][name]:
+        for old, new in CUTS[lib][cut]:
             if old not in text:
-                raise RuntimeError(f"breakdown cut {cut!r} no longer matches int8_kernels.cu")
+                raise RuntimeError(f"breakdown cut {cut!r} no longer matches "
+                                   f"{_build.SOURCES[lib].name}")
             text = text.replace(old, new)
     return text
 
 
-def _build_variant(name: str) -> ctypes.CDLL:
+def _build_variant(job: Tuple[str, str]) -> ctypes.CDLL:
+    lib_name, name = job
     out = _build.BUILD_DIR / "breakdown"
     out.mkdir(parents=True, exist_ok=True)
-    cu, so = out / f"{name}.cu", out / f"{name}.so"
-    cu.write_text(variant_source(name))
+    cu, so = out / f"{lib_name}_{name}.cu", out / f"{lib_name}_{name}.so"
+    cu.write_text(variant_source(lib_name, name))
     proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so), str(cu)],
                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on breakdown variant {name}:\n{proc.stdout}")
+        raise RuntimeError(f"nvcc failed on breakdown variant {lib_name} {name}:\n{proc.stdout}")
     lib = ctypes.CDLL(str(so))
-    for fn, (argtypes, restype) in _build._SIGNATURES["int8"].items():
+    for fn, (argtypes, restype) in _build._SIGNATURES[lib_name].items():
         getattr(lib, fn).argtypes = argtypes
         getattr(lib, fn).restype = restype
     return lib
@@ -90,16 +136,19 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("breakdown: torch.cuda.is_available() is false; it needs a card")
     import posendf_torch
-    from posendf_torch.ops import fused_int8
+    from posendf_torch.ops import fused_grad, fused_int8
     from posendf_torch.ops import int8_probe as P
 
-    with ThreadPoolExecutor(len(VARIANTS)) as pool:   # one nvcc a variant, all at once
-        libs = dict(zip(VARIANTS, pool.map(_build_variant, VARIANTS)))
+    jobs = [(lib, name) for lib in VARIANTS for name in VARIANTS[lib]]
+    with ThreadPoolExecutor(len(jobs)) as pool:   # one nvcc a variant, all at once
+        libs = dict(zip(jobs, pool.map(_build_variant, jobs)))
     root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     field = posendf_torch.load_field(os.path.join(root, "docs", "quality", "ckpt_l8_best.msgpack"),
                                      device="cuda")
+    w = field.weights()
     q = np.random.default_rng(3).normal(size=(131_072, 21, 4)).astype(np.float32)
     q = torch.from_numpy(q / np.linalg.norm(q, axis=-1, keepdims=True)).cuda()
+    q10 = q[:10_000].clone()
     qf = field.quantize_int8(q[:4096])
     m = qf.module
     xb, wb, *_ = P.probe_inputs(seed=2)
@@ -108,15 +157,25 @@ def main() -> None:
     print(card, flush=True)
     library = _build.library
     try:
-        for name, lib in libs.items():
-            _build.library = lambda which="field", lib=lib: lib if which == "int8" else library(which)
-            t = P.cuda_ms(lambda: fused_int8.fused_posendf_forward_int8(
-                q, qf.qparams, parents=m.parents, activation=m.activation, beta=m.beta),
-                reps=5, rounds=5)
-            print(f"int8 forward {name}: {t[0]:.4f} ms [{t[1]:.4f}-{t[2]:.4f}]", flush=True)
-            if name in ("base", "nomma"):
-                t = P.cuda_ms(lambda: P.run_bf16(xb, wb), reps=5, rounds=5)
-                print(f"probe bf16 {name}: {t[0]:.4f} ms [{t[1]:.4f}-{t[2]:.4f}]", flush=True)
+        for (lib_name, name), lib in libs.items():
+            _build.library = (lambda which="field", lib=lib, lib_name=lib_name:
+                              lib if which == lib_name else library(which))
+            if lib_name == "int8":
+                t = P.cuda_ms(lambda: fused_int8.fused_posendf_forward_int8(
+                    q, qf.qparams, parents=m.parents, activation=m.activation, beta=m.beta),
+                    reps=5, rounds=5)
+                print(f"int8 forward {name}: {t[0]:.4f} ms [{t[1]:.4f}-{t[2]:.4f}]", flush=True)
+                if name in ("base", "nomma"):
+                    t = P.cuda_ms(lambda: P.run_bf16(xb, wb), reps=5, rounds=5)
+                    print(f"probe bf16 {name}: {t[0]:.4f} ms [{t[1]:.4f}-{t[2]:.4f}]", flush=True)
+                continue
+            with torch.no_grad():
+                t = P.cuda_ms(lambda: fused_grad.project_step(q10, w), reps=10, rounds=5)
+                print(f"projection step B=10000 {name}: {t[0]:.4f} ms [{t[1]:.4f}-{t[2]:.4f}]",
+                      flush=True)
+                t = P.cuda_ms(lambda: field.distance_fused(q), reps=5, rounds=5)
+                print(f"forward B=131072 {name}: {t[0]:.4f} ms [{t[1]:.4f}-{t[2]:.4f}]",
+                      flush=True)
     finally:
         _build.library = library
 

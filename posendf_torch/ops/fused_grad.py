@@ -47,7 +47,6 @@ VAG_LAUNCHES = 0
 PROJ_LAUNCHES = 0
 
 _EPS2 = 1e-24   # eps**2 of the normalizations (eps = 1e-12)
-_TILE = 16      # poses per block of the kernels (kTile)
 
 
 def _field_fwd_bwd_ref(x: torch.Tensor, weights: FieldWeights) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -103,9 +102,11 @@ def project_step_ref(q: torch.Tensor, weights: FieldWeights, *, step_scale: floa
 
 
 def _zscratch(quat: torch.Tensor, weights: FieldWeights) -> torch.Tensor:
-    tiles = -(-quat.shape[0] // _TILE)
-    return torch.empty(tiles * _TILE * weights.packed().zsum, dtype=torch.float32,
-                       device=quat.device)
+    """The pre-activations the kernels keep for their backward: as many
+    floats as the library says a launch over these poses needs."""
+    n = _build.library().posendf_field_scratch_floats(
+        quat.shape[0], weights.num_joints, weights.feature_size, weights.tc_packed().zsum)
+    return torch.empty(n, dtype=torch.float32, device=quat.device)
 
 
 def fused_distance_and_grad(quat: torch.Tensor,

@@ -2,8 +2,9 @@
 
 Port of ``posendf_tpu/ops/fused_model.py::_model_kernel``. The kernel is
 ``posendf_forward`` in ``csrc/field_kernels.cu``: joint-axis normalization,
-the 21-joint encoder walk and every DFNet layer for a tile of 16 poses in
-one program; only the poses come in and d goes out through device memory.
+the 21-joint encoder walk and every DFNet layer for a tile of 64 poses in
+one program, the DFNet's products as 3xTF32 ``wgmma`` on the tensor cores;
+only the poses come in and d goes out through device memory.
 
 ``fused_posendf_forward`` launches it for a CUDA tensor and runs its plain
 PyTorch version, ``fused_posendf_forward_ref``, for a CPU tensor. Under
@@ -11,7 +12,8 @@ autograd it is a ``torch.autograd.Function`` whose backward differentiates
 the plain version, as the JAX kernel's ``custom_vjp`` differentiates the
 XLA formula; that backward is itself differentiable. This module also holds
 :class:`FieldWeights`, the view of a model that the kernels read, and its
-packing into device buffers.
+packing into device buffers: :class:`Packed` for the train kernels and
+:class:`TcPacked` (:func:`pack_tc`) for the three field kernels.
 """
 
 from __future__ import annotations
@@ -27,7 +29,8 @@ from posendf_torch.models.activations import resolve
 from posendf_torch.quat import joint_axis_normalize
 
 __all__ = ["FieldWeights", "fused_posendf_forward", "fused_posendf_forward_ref", "replay_backward",
-           "int_table", "aligned_contiguous", "LAUNCHES"]
+           "int_table", "aligned_contiguous", "TcPacked", "pack_tc", "tc_width", "tc_widths",
+           "tc_schedule", "tc_slab_offsets", "TC_CHUNK", "LAUNCHES"]
 
 # launches of the forward kernel since the count was last set to 0
 LAUNCHES = 0
@@ -61,6 +64,7 @@ class FieldWeights:
     enc: Dict[str, torch.Tensor]
     layers: List[Tuple[torch.Tensor, torch.Tensor]]
     _packed: Optional[Packed] = field(default=None, repr=False)
+    _tc: Optional["TcPacked"] = field(default=None, repr=False)
 
     @classmethod
     def from_module(cls, module) -> "FieldWeights":
@@ -94,6 +98,12 @@ class FieldWeights:
         if self._packed is None:
             self._packed = _pack(self)
         return self._packed
+
+    def tc_packed(self) -> "TcPacked":
+        """The field kernels' weights (:func:`pack_tc`), built once and reused."""
+        if self._tc is None:
+            self._tc = pack_tc(self)
+        return self._tc
 
 
 @functools.lru_cache(maxsize=None)
@@ -140,6 +150,201 @@ def _pack(w: FieldWeights) -> Packed:
             num_layers=L, maxw=max(widths), zsum=zsum)
 
 
+# ---- the field kernels' weights (csrc/field_kernels.cu) ----
+#
+# The kernels run each DFNet product as 3xTF32 wgmma, the weights as the B
+# operand from a ring of slabs in shared memory. A slab is 128 output
+# columns (64 for each of the two consumer warpgroups) x 32 of K (one
+# 128-byte line of tf32): the TF32 hi part, then the lo part, each 128 rows
+# x 128 bytes in the K-major 128-byte swizzle of csrc/hopper.cuh, 32 KB in
+# all; for the first product of a chain, 64 columns x 64 of K, two such
+# pairs of 64 rows. Within each 8-group of K, position p holds feature TC_KPERM[p], so
+# that a thread's A fragment (K positions t%4 and t%4 + 4) is the adjacent
+# pair of features 2(t%4), 2(t%4) + 1 that an accumulator fragment holds.
+
+TC_SLAB_N, TC_SLAB_K = 128, 32               # output columns x K of one slab
+TC_SLAB_FLOATS = 2 * TC_SLAB_N * TC_SLAB_K   # hi | lo: 32 KB
+TC_XMAX = 512                                # widest activation a CTA keeps whole
+TC_CHUNK = 64                                # a chained layer's output, columns at a time
+TC_HEAD, TC_STEP = 8, 8                      # ints of the program's header and of a step
+TC_KPERM = (0, 2, 4, 6, 1, 3, 5, 7)          # the feature at K position p of an 8-group
+
+
+def tc_width(n: int) -> int:
+    """A width as the field kernels pad it: 128, 256 or 512, or a multiple of
+    128 above 512 (the output of a layer that wide is made and used 128
+    columns at a time, chained with the next layer)."""
+    for w in (128, 256, 512):
+        if n <= w:
+            return w
+    return -(-n // 128) * 128
+
+
+def tc_widths(dims) -> Tuple[int, ...]:
+    """The padded widths of a code width and hidden widths: each to
+    :func:`tc_width`, and the width after a chained one (above 512) to 512,
+    the one output width of a chain."""
+    D = [tc_width(n) for n in dims]
+    for l in range(1, len(D) - 1):
+        if D[l] > TC_XMAX and D[l + 1] <= TC_XMAX:
+            D[l + 1] = TC_XMAX
+    return tuple(D)
+
+
+def tc_schedule(widths: Tuple[int, ...]):
+    """The field kernels' program and slab order for padded widths
+    D[0..L-1] (D[0] the code, D[l + 1] layer l's output; layer L-1, the
+    output layer, runs on the CUDA cores).
+
+    Returns (header, forward steps, backward steps, forward slabs, backward
+    slabs). A step is [chain, K, N, N2, bias1, z1, bias2, z2]: a layer
+    (chain 0: K -> N, every N column from one pass over K) or a chain of
+    two (chain 1: K -> N -> N2, N made TC_CHUNK columns at a time and at
+    once taken as K of the second product). bias: offset in ``vec`` of a
+    forward epilogue's bias, -1 in the backward; z: offset, in floats a
+    pose, of the pre-activations the forward keeps or the backward reads
+    for act', -1 for none. A slab is (matrix, layer, K block, column group,
+    columns): matrix "wt" = W^T (out, in) for the forward, "w" = W (in,
+    out) for the backward, both (N, K); 128 columns x 32 of K, or, for the
+    first product of a chain, TC_CHUNK = 64 columns x 64 of K (blocks and
+    groups counted in those units). The header is [forward steps, backward
+    steps, D[0], D[L-1], offset of the output layer's w, of its b, z offset
+    of layer L-2, zsum]."""
+    D, n = list(widths), len(widths) - 1
+    chain = [D[l + 1] > TC_XMAX for l in range(n)]
+    if D[0] > TC_XMAX:
+        raise ValueError(f"the field kernels take a code of at most {TC_XMAX} features")
+    for l in range(n):
+        if chain[l] and not (l + 1 < n and D[l] <= TC_XMAX and D[l + 2] == TC_XMAX):
+            raise ValueError(f"the field kernels take a layer wider than {TC_XMAX} only "
+                             f"between a hidden layer of at most {TC_XMAX} and one of "
+                             f"{TC_XMAX} (padded): widths {D}")
+    zoff = [sum(D[1:l + 1]) for l in range(n)]
+    zsum = sum(D[1:])
+    kbs = lambda k: range(k // TC_SLAB_K)          # noqa: E731
+    cgs = lambda k: range(k // TC_SLAB_N)          # noqa: E731
+    ck = TC_CHUNK // TC_SLAB_K                     # K blocks of a chunk
+
+    def chain_slabs(m, first, second, K, N, N2):
+        out = []
+        for c in range(N // TC_CHUNK):
+            out += [(m, first, k, c, TC_CHUNK) for k in range(K // TC_CHUNK)]
+            out += [(m, second, ck * c + k, g, TC_SLAB_N) for k in range(ck) for g in cgs(N2)]
+        return out
+
+    fwd, bwd, fslabs, bslabs = [], [], [], []
+    l = 0
+    while l < n:
+        if chain[l]:
+            fwd.append([1, D[l], D[l + 1], D[l + 2], zoff[l], zoff[l], zoff[l + 1], zoff[l + 1]])
+            fslabs += chain_slabs("wt", l, l + 1, D[l], D[l + 1], D[l + 2])
+            l += 2
+        else:
+            fwd.append([0, D[l], D[l + 1], 0, zoff[l], zoff[l], -1, -1])
+            fslabs += [("wt", l, k, g, TC_SLAB_N) for k in kbs(D[l]) for g in cgs(D[l + 1])]
+            l += 1
+    zprev = lambda m: zoff[m] if m >= 0 else -1    # noqa: E731
+    l = n - 1
+    while l >= 0:
+        if l >= 1 and chain[l - 1]:
+            bwd.append([1, D[l + 1], D[l], D[l - 1], -1, zoff[l - 1], -1, zprev(l - 2)])
+            bslabs += chain_slabs("w", l, l - 1, D[l + 1], D[l], D[l - 1])
+            l -= 2
+        else:
+            bwd.append([0, D[l + 1], D[l], 0, -1, zprev(l - 1), -1, -1])
+            bslabs += [("w", l, k, g, TC_SLAB_N) for k in kbs(D[l + 1]) for g in cgs(D[l])]
+            l -= 1
+    header = [len(fwd), len(bwd), D[0], D[n], zsum, zsum + D[n], zoff[n - 1], zsum]
+    return header, fwd, bwd, fslabs, bslabs
+
+
+def tc_slab_offsets(rows: int = TC_SLAB_N) -> torch.Tensor:
+    """Where a slab half of ``rows`` rows keeps element (row r, K position
+    k): (rows, 32) float offsets, byte 4k of row r at csrc/hopper.cuh's
+    sw128_offset."""
+    r = torch.arange(rows)[:, None]
+    k = torch.arange(TC_SLAB_K)[None, :]
+    return (r // 8) * 256 + (r % 8) * 32 + (((k // 4) ^ (r % 8)) * 4) + k % 4
+
+
+def _split_swizzled(b: torch.Tensor) -> torch.Tensor:
+    """Blocks (..., R, 32) of B^T, K permuted within 8-groups (TC_KPERM),
+    split to TF32 hi / lo, each half in the 128-byte swizzle: (..., 2, 32 R)."""
+    from posendf_torch.ops.fused_train import tf32_split
+
+    R = b.shape[-2]
+    b = b.reshape(*b.shape[:-1], TC_SLAB_K // 8, 8)[..., list(TC_KPERM)]
+    hi, lo = tf32_split(b.reshape(*b.shape[:-3], R * TC_SLAB_K))
+    off = tc_slab_offsets(R).reshape(-1).to(b.device)
+    out = b.new_zeros(*hi.shape[:-1], 2, R * TC_SLAB_K)
+    out[..., 0, off] = hi
+    out[..., 1, off] = lo
+    return out
+
+
+def _tc_slabs(m: torch.Tensor, cols: int) -> torch.Tensor:
+    """Every slab of an (N, K) matrix: (K / kl, N / cols, TC_SLAB_FLOATS),
+    kl = the slab's K. A 128-column slab is hi | lo of one 128 x 32 block;
+    a 64-column slab (the first product of a chain) is hi | lo of its first
+    32 of K, then hi | lo of its second."""
+    N, K = m.shape
+    kl = TC_SLAB_FLOATS // 2 // cols          # 32 or 64
+    b = m.reshape(N // cols, cols, K // kl, kl // TC_SLAB_K, TC_SLAB_K)
+    b = b.permute(2, 0, 3, 1, 4)              # (K / kl, N / cols, halves, cols, 32)
+    return _split_swizzled(b).reshape(K // kl, N // cols, TC_SLAB_FLOATS)
+
+
+@dataclass
+class TcPacked:
+    """A field's weights as the field kernels read them, on one device."""
+
+    slabs: torch.Tensor           # (nfwd + nbwd, TC_SLAB_FLOATS) fp32, in the order they are read
+    vec: torch.Tensor             # padded biases of layers 0..L-2 | output layer's w (padded) | b
+    prog: torch.Tensor            # int32: the header, the forward's steps, the backward's
+    widths: Tuple[int, ...]       # padded widths D[0..L-1]
+    nfwd: int                     # slabs of the forward
+    nbwd: int                     # slabs of the backward
+    zsum: int                     # pre-activation floats a pose (padded hidden widths)
+    order: List[Tuple[str, int, int, int, int]]   # (matrix, layer, K block, column group, columns)
+
+
+def pack_tc(w: FieldWeights) -> TcPacked:
+    """The field kernels' weights: every DFNet product layer's W^T (the
+    forward's B) and W (the backward's B), zero-padded to :func:`tc_width`,
+    split to TF32 hi / lo and cut into slabs in the order the kernels read
+    them (:func:`tc_schedule`); the biases and the output layer in fp32."""
+    J, F, L = w.num_joints, w.feature_size, len(w.layers)
+    if J > _MAX_JOINTS or F > _MAX_FEATURE or L > _MAX_LAYERS or L < 2:
+        raise ValueError(f"the field kernels take at most {_MAX_JOINTS} joints, feature size "
+                         f"{_MAX_FEATURE} and 2 to {_MAX_LAYERS} layers; got {J}, {F}, {L}")
+    if w.layers[-1][0].shape[1] != 1:
+        raise ValueError("the last DFNet layer must have one output")
+    widths = tc_widths([w.layers[0][0].shape[0]] + [wl.shape[1] for wl, _ in w.layers[:-1]])
+    header, fwd, bwd, fslabs, bslabs = tc_schedule(widths)
+    with torch.no_grad():
+        mats = {}
+        for l, (wl, _) in enumerate(w.layers[:-1]):
+            m = wl.new_zeros(widths[l], widths[l + 1])
+            m[:wl.shape[0], :wl.shape[1]] = wl.detach().float()
+            mats["w", l] = m
+            mats["wt", l] = m.t()
+        order = fslabs + bslabs
+        cut = {key: _tc_slabs(mats[key[:2]], key[2])
+               for key in {(kind, l, cols) for kind, l, _, _, cols in order}}
+        slabs = torch.stack([cut[kind, l, cols][kb, cg] for kind, l, kb, cg, cols in order])
+
+        def pad(t: torch.Tensor, n: int) -> torch.Tensor:
+            flat = t.detach().reshape(-1).float()
+            return torch.cat([flat, flat.new_zeros(n - flat.numel())])
+
+        w_out, b_out = w.layers[-1]
+        vec = torch.cat([pad(b, widths[l + 1]) for l, (_, b) in enumerate(w.layers[:-1])] +
+                        [pad(w_out, widths[-1]), pad(b_out, 4)]).contiguous()
+    prog = tuple(header + [v for step in fwd + bwd for v in step])
+    return TcPacked(slabs=slabs, vec=vec, prog=int_table(prog, str(vec.device)), widths=widths,
+                    nfwd=len(fslabs), nbwd=len(bslabs), zsum=header[-1], order=order)
+
+
 def check_poses(quat: torch.Tensor, weights: FieldWeights) -> None:
     """Raise on any pose tensor the kernels (or their plain versions) do not take."""
     J = weights.num_joints
@@ -163,10 +368,10 @@ def aligned_contiguous(t: torch.Tensor) -> torch.Tensor:
 
 def common_args(quat: torch.Tensor, weights: FieldWeights) -> list:
     """The launchers' leading arguments, shared by the three kernels."""
-    pk = weights.packed()
+    pk, tc = weights.packed(), weights.tc_packed()
     return [quat.data_ptr(), quat.shape[0], pk.enc.data_ptr(), pk.parents.data_ptr(),
-            weights.num_joints, weights.feature_size, pk.dfw.data_ptr(), pk.meta.data_ptr(),
-            pk.num_layers, pk.maxw, pk.zsum, _build.ACT_CODES[weights.activation],
+            weights.num_joints, weights.feature_size, tc.slabs.data_ptr(), tc.vec.data_ptr(),
+            tc.prog.data_ptr(), tc.nfwd, tc.nbwd, _build.ACT_CODES[weights.activation],
             weights.beta]
 
 
