@@ -35,13 +35,14 @@ tensor-core probe:
      same rounds; the forward at 10,000 and at 131,072 poses (the latter in
      the ``kernels`` line)
   7. train kernels vs plain on the card, at B = M = 4096 and a ragged
-     B = 1000, M = 700, with nvcc's ``-Xptxas -v`` lines of the reduction
-     (3xTF32 ``wgmma``): the tile kernel and the reduction each against its
-     plain version on the same inputs (the reduction's largest error logged
-     beside its bar), ``fused_train_grads`` against
-     ``manual_train_grads`` (every loss term and gradient leaf), two calls
-     bitwise equal; the encoder kernel against its plain version at
-     B = 131,072 and 1000
+     B = 1000, M = 700, with nvcc's ``-Xptxas -v`` lines of the tile kernel
+     and the reduction (both 3xTF32 ``wgmma``): the tile kernel and the
+     reduction each against its plain version on the same inputs (the
+     reduction's largest error logged beside its bar), ``fused_train_grads``
+     against ``manual_train_grads`` (every loss term and gradient leaf), two
+     calls bitwise equal; the tile kernel alone against ``branch_ref`` at
+     B = M in {1, 63, 65, 129} (cutting its 64-pose CTAs); the encoder kernel
+     against its plain version at B = 131,072 and 1000
   8. against the JAX package: the gradient at 2,048 + 2,048 poses and three
      fused Adam steps vs ``tests/data/torch_port_train_expected.npz``
   9. main path, training: a synthetic dataset, ``Trainer(device="cuda")`` at
@@ -53,9 +54,11 @@ tensor-core probe:
  10. at the main path's batch of 20,000 + 20,000 poses: the checks of phase 7
      on it, and the encoder kernel vs its plain version on both its halves;
      then times: the fused step vs the autodiff step, ``fused_train_grads`` vs
-     ``manual_train_grads``, each train kernel vs its plain version (the
-     reduction also vs ``torch.matmul``), and the encoder kernel vs its plain
-     version at 131,072
+     ``manual_train_grads``, the weights' pack (``fused_model.pack_tc``, part
+     of every fused step) alone, each train kernel vs its plain version and
+     its library yardstick (the tile: the DFNet's products of its five
+     traversals as ``torch.matmul``; the reduction: ``torch.matmul`` per
+     layer), and the encoder kernel vs its plain version at 131,072
  11. the kNN kernel vs its plain version ``knn_topk_ref`` on the card, every
      engine (exact ``vpu``, ``mxu_bf16``, the ``mxu_fast`` bound on bf16
      ``wgmma``, with its ``-Xptxas -v`` lines and its corpus pack held to
@@ -152,6 +155,10 @@ The training reduction runs in 3xTF32 on the tensor cores: each product
 keeps ~21 significant bits (at most ~3 x 2^-22 of |x x'| lost;
 ``tests/test_torch_tc_split.py`` derives it), and its accumulators are
 added to fp32 totals every 128 rows, so the leaf bar stays LEAF_TOL. The
+tile kernel runs the DFNet's products as the field kernels do (below), and
+its rows and leaves keep the bars of the CUDA-core kernel it replaced
+(``tests/test_torch_train_tc.py`` holds a model of that arithmetic to them
+on the CPU). The
 field kernels run every DFNet product the same way (A split in registers, B
 split once per field, each 32 of K summed in a fresh accumulator and added
 in fp32), and keep the bars of d, g and the projection as they were
@@ -265,6 +272,7 @@ LEAF_TOL = 1e-4      # x max|leaf|; the reason is in the module docstring
 MAIN_BATCH, MAIN_STEPS = 10_000, 200
 SERVE_BATCH = 131_072
 TRAIN_FILES, TRAIN_PTS = 4, 5000       # the reference batch: 4 files x 5000 poses
+TILE_BATCHES = (1, 63, 65, 129)        # cut the tile kernel's 64-pose CTAs
 SEED = 0
 PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12  # H100 SXM: fp32 CUDA cores, HBM3
 PEAK_BF16 = 989e12                       # H100 SXM: bf16 tensor cores, dense
@@ -288,7 +296,7 @@ INT8_BATCHES = (1, 63, 65, 129, 1000, 4096, SERVE_BATCH)  # cut the 64-pose tile
 PROBE_ROWS = (1000, SERVE_BATCH)
 WGMMA_KERNELS = {"field": ("field_kernel",),                             # by library
                  "int8": ("int8_forward_kernel", "probe_bf16_kernel"),
-                 "train": ("train_reduce_kernel",),
+                 "train": ("train_tile_kernel", "train_reduce_kernel"),
                  "knn": ("knn_bound_kernel", "knn_pack_kernel")}
 REDUCE_FP32_ERR = 7.4e-6  # x max|leaf|: the fp32 CUDA-core reduction it replaced, whole gradient (docstring)
 
@@ -419,12 +427,12 @@ def assert_leaves(name: str, got: dict, want: dict, tol: float = LEAF_TOL) -> fl
 
 
 def interleaved_ms(name: str, kernel, plain, reps: int, rounds: int = 5, plain_reps=None,
-                   library=None):
+                   library=None, card: str = ""):
     """(kernel ms, plain ms): the medians of ``rounds`` rounds that each time
     ``reps`` calls (``plain_reps`` of the plain version) of plain, kernel,
     kernel, plain, after one warm-up call of each. With ``library``, a third
     call timed after each kernel run of the round, and (kernel, plain,
-    library) ms. Logs the medians with their ranges."""
+    library) ms. Logs the medians with their ranges (and ``card``)."""
     plain_reps = reps if plain_reps is None else plain_reps
     kernel()
     plain()
@@ -443,7 +451,7 @@ def interleaved_ms(name: str, kernel, plain, reps: int, rounds: int = 5, plain_r
     lib = f", library {statistics.median(ls):.4f} ms ({min(ls):.4f}-{max(ls):.4f})" if ls else ""
     log(f"  time {name}: kernel {k:.4f} ms ({min(ks):.4f}-{max(ks):.4f}), plain {p:.4f} ms "
         f"({min(ps):.4f}-{max(ps):.4f}){lib}; medians (ranges) of {2 * rounds} x {reps} and "
-        f"{2 * rounds} x {plain_reps} calls")
+        f"{2 * rounds} x {plain_reps} calls" + (f"  [{card}]" if card else ""))
     return (k, p, statistics.median(ls)) if ls else (k, p)
 
 
@@ -753,7 +761,7 @@ def train_phases(field, card: str) -> list:
     from posendf_torch.data.synthetic import write_synthetic_dataset
     from posendf_torch.models.encoder import structure_encoder_apply
     from posendf_torch.ops import fused_encoder, fused_train
-    from posendf_torch.ops.fused_model import FieldWeights
+    from posendf_torch.ops.fused_model import FieldWeights, pack_tc
     from posendf_torch.ops.train_grad import manual_train_grads
     from posendf_torch.projection import random_poses
     from posendf_torch.training.trainer import Trainer, make_optimizer, make_train_step
@@ -768,13 +776,13 @@ def train_phases(field, card: str) -> list:
         return (torch.from_numpy(pose[:rows_n]).cuda(), torch.from_numpy(dist[:rows_n]).cuda(),
                 torch.from_numpy(man[:rows_m]).cuda())
 
-    def check_train_kernels(pose, dist, man, kw) -> None:
-        """The tile kernel and the reduction each against its plain version on
-        the same inputs, ``fused_train_grads`` against ``manual_train_grads``
-        (every loss term and gradient leaf), and two calls bitwise equal."""
+    def check_tile(pose, dist, man, kw):
+        """The tile kernel against ``branch_ref`` on the same inputs: both
+        branches' rows (and encoder and loss slots) and the plain rows through
+        the same (plain) reduction, every leaf and the loss sums. Returns the
+        kernel's outputs and their plain reduction."""
         kw_n, kw_m = fused_train.branch_args(w, pose, dist, man, **kw)
-        tiles = (fused_train.launch_tile(w, pose, dist, **kw_n),
-                 fused_train.launch_tile(w, man, None, **kw_m))
+        tiles = fused_train.launch_tiles(w, pose, dist, man, kw_n, kw_m)
         rows_k = [t.branch_rows(w) for t in tiles]
         with torch.no_grad():
             plain = (fused_train.branch_ref(w, pose, dist, **kw_n),
@@ -782,16 +790,25 @@ def train_phases(field, card: str) -> list:
             g_pp, l_pp = fused_train.reduce_ref(w, *plain)
             del plain
             g_kp, l_kp = fused_train.reduce_ref(w, *rows_k)
-        flat, l_kk = fused_train.launch_reduce(w, *tiles)
-        del tiles, rows_k
-        g_kk, off = {}, 0
-        for k, v in g_pp.items():            # the flat layout: encoder, then per layer W, b
-            g_kk[k] = flat[off:off + v.numel()].view(v.shape)
-            off += v.numel()
-        # the tile kernel: its rows and the plain rows through the same (plain) reduction
-        assert_leaves("tile kernel vs branch_ref (plain reduction of both)", g_kp, g_pp)
+        del rows_k
+        ctas = [t.enc_slot.shape[0] for t in tiles]
+        assert_leaves(f"tile kernel vs branch_ref, {ctas[0]} + {ctas[1]} CTAs (plain reduction "
+                      "of both)", g_kp, g_pp)
         assert_close("tile kernel loss sums vs branch_ref", l_kp, l_pp, rtol=TERM_RTOL, atol=0.0)
         errs["tile"] = max(errs["tile"], max(float((g_kp[k] - g_pp[k]).abs().max()) for k in g_pp))
+        return tiles, g_kp, l_kp
+
+    def check_train_kernels(pose, dist, man, kw) -> None:
+        """The tile kernel and the reduction each against its plain version on
+        the same inputs, ``fused_train_grads`` against ``manual_train_grads``
+        (every loss term and gradient leaf), and two calls bitwise equal."""
+        tiles, g_kp, l_kp = check_tile(pose, dist, man, kw)
+        flat, l_kk = fused_train.launch_reduce(w, *tiles)
+        del tiles
+        g_kk, off = {}, 0
+        for k, v in g_kp.items():            # the flat layout: encoder, then per layer W, b
+            g_kk[k] = flat[off:off + v.numel()].view(v.shape)
+            off += v.numel()
         # the reduction: the kernel's rows through both reductions
         rel = assert_leaves("reduce kernel vs reduce_ref (same rows)", g_kk, g_kp)
         errs["reduce_rel"] = max(errs["reduce_rel"], rel)
@@ -833,6 +850,10 @@ def train_phases(field, card: str) -> list:
         pose, dist, man = batch_on_card(B, M, SEED + 7 + B)
         check_train_kernels(pose, dist, man, dict(loss_type=loss_type, weight_dist=0.7,
                                                   weight_man=1.3, weight_eikonal=0.9))
+    for B in TILE_BATCHES:
+        log(f"tile kernel vs branch_ref, B = M = {B}")
+        check_tile(*batch_on_card(B, B, SEED + 7 + B),
+                   dict(loss_type="l1", weight_dist=0.7, weight_man=1.3, weight_eikonal=0.9))
     for B in (SERVE_BATCH, 1000):
         check_encoder(random_poses(gen, B, device="cuda"))
 
@@ -915,7 +936,7 @@ def train_phases(field, card: str) -> list:
         for name, n in launches.items():
             if n <= 0:
                 raise AssertionError(f"the training path launched no {name} kernel")
-        if launches["reduce"] != len(batcher) or launches["tile"] != 2 * len(batcher):
+        if launches["reduce"] != len(batcher) or launches["tile"] != len(batcher):
             raise AssertionError(f"expected {len(batcher)} fused steps, launches {launches}")
         for k in ("train/total", "train/dist", "train/man_loss", "train/eikonal"):
             if not np.isfinite(rec[k]):
@@ -958,7 +979,10 @@ def train_phases(field, card: str) -> list:
     step_a = make_train_step(timed, opt, loss_type="l1", weights=weights, fused=False)
     b = {"pose": pose, "dist": dist, "man_poses": man}
     fused_step_ms, auto_step_ms = interleaved_ms("train step: fused vs autodiff",
-                                                 lambda: step_f(b), lambda: step_a(b), 3)
+                                                 lambda: step_f(b), lambda: step_a(b), 3,
+                                                 card=card)
+    with torch.no_grad():   # the weights' slabs: packed anew inside every fused step
+        pack_ms = cuda_ms(lambda: pack_tc(FieldWeights.from_module(timed)), 20)
     grads_ms, manual_ms = interleaved_ms(
         "gradient: fused_train_grads vs manual_train_grads",
         lambda: fused_train.fused_train_grads(w, pose, dist, man, **kw),
@@ -969,16 +993,25 @@ def train_phases(field, card: str) -> list:
     tiles = []
 
     def tile_kernel():
-        tiles[:] = [fused_train.launch_tile(w, pose, dist, **kw_n),
-                    fused_train.launch_tile(w, man, None, **kw_m)]
+        tiles[:] = fused_train.launch_tiles(w, pose, dist, man, kw_n, kw_m)
 
     def tile_plain():
         with torch.no_grad():
             fused_train.branch_ref(w, pose, dist, **kw_n)
             fused_train.branch_ref(w, man, zeros, **kw_m)
 
-    tile_ms, tile_plain_ms = interleaved_ms("tile kernel, both branches", tile_kernel,
-                                            tile_plain, 3)
+    # library yardstick: the DFNet's products of the tile's traversals as torch.matmul
+    # (forward, pullback, forward on the noisy rows; forward, pullback on the manifold rows)
+    tile_products = [dfnet_products(w, B, backward=True), dfnet_products(w, B, backward=False),
+                     dfnet_products(w, M, backward=True)]
+
+    def tile_library():
+        for run in tile_products:
+            run()
+
+    tile_ms, tile_plain_ms, tile_lib_ms = interleaved_ms(
+        "tile kernel, both branches", tile_kernel, tile_plain, 3, library=tile_library,
+        card=card)
     rows = [t.branch_rows(w) for t in tiles]
     stacked = [(torch.cat([torch.cat([rows[0].a[l], rows[1].a[l]]),
                            torch.cat([rows[0].dd, rows[1].dd])[:, None]], dim=1),
@@ -1001,12 +1034,12 @@ def train_phases(field, card: str) -> list:
                                                           parents=module.parents),
             lambda: structure_encoder_apply(serve, e.w1, e.b1, e.w2, e.b2,
                                             parents=module.parents), 20)
-    log(f"train step, {B} + {M} poses: fused {fused_step_ms:.4f} ms, autodiff "
-        f"{auto_step_ms:.4f} ms; gradient alone: fused_train_grads {grads_ms:.4f} ms, "
-        f"manual_train_grads {manual_ms:.4f} ms  [{card}]")
-    log(f"  tile kernel (both branches) {tile_ms:.4f} ms, plain {tile_plain_ms:.4f} ms; "
-        f"reduction {reduce_ms:.4f} ms, plain {reduce_plain_ms:.4f} ms, torch.matmul per layer "
-        f"{library_ms:.4f} ms  [{card}]")
+    log(f"train step, {B} + {M} poses: fused {fused_step_ms:.4f} ms (of it the weights' pack "
+        f"{pack_ms:.4f} ms), autodiff {auto_step_ms:.4f} ms; gradient alone: fused_train_grads "
+        f"{grads_ms:.4f} ms, manual_train_grads {manual_ms:.4f} ms  [{card}]")
+    log(f"  tile kernel (both branches) {tile_ms:.4f} ms, plain {tile_plain_ms:.4f} ms, its "
+        f"products as torch.matmul {tile_lib_ms:.4f} ms; reduction {reduce_ms:.4f} ms, plain "
+        f"{reduce_plain_ms:.4f} ms, torch.matmul per layer {library_ms:.4f} ms  [{card}]")
     log(f"encoder B={SERVE_BATCH}: kernel {enc_ms:.4f} ms, plain {enc_plain_ms:.4f} ms  [{card}]")
 
     flop = traversal_flops(w)
@@ -1014,10 +1047,23 @@ def train_phases(field, card: str) -> list:
     outs = sum(wl.shape[1] for wl, _ in w.layers)
     nenc = sum(v.numel() for v in w.enc.values())
     nparam = sum(p.numel() for p in module.parameters())
-    slots = (-(-B // 16) + -(-M // 16)) * (nenc + 2)
+    slots = (tiles[0].enc_slot.shape[0] + tiles[1].enc_slot.shape[0]) * (nenc + 2)
     scratch = (B + M) * (ins + outs + 1)
-    tile_bound = bound((3 * B + 2 * M) * flop,
-                       4 * ((B + M) * 84 + B + nparam + scratch + slots))
+    # the tile kernel: 3 traversals a noisy pose, 2 a manifold one; the DFNet's hidden
+    # products as three TF32 passes at the TF32 peak, the rest (encoder, output layer)
+    # at the fp32 peak; the poses, labels and parameters in, the scratch and slots out
+    trav = 3 * B + 2 * M
+    tc_flop = 2 * sum(wl.numel() for wl, _ in w.layers[:-1])
+    tile_bytes = 4 * ((B + M) * 84 + B + nparam + scratch + slots)
+    t_ops = (3 * tc_flop * trav / PEAK_TF32 + (flop - tc_flop) * trav / PEAK_FLOPS) * 1e3
+    t_bytes = tile_bytes / PEAK_BYTES * 1e3
+    tile_bound = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    tile_fp32 = bound(trav * flop, tile_bytes)   # every operation at the fp32 CUDA-core peak
+    log(f"bounds: tile kernel {tile_bound[0]:.4f} ms ({tile_bound[1]}: 3 x {tc_flop * trav:.4g} "
+        f"TF32 operations at {PEAK_TF32 / 1e12} TFLOP/s and {(flop - tc_flop) * trav:.4g} fp32 "
+        f"ones; {t_bytes:.4f} ms for the bytes); the same work at the fp32 CUDA-core peak "
+        f"{tile_fp32[0]:.4f} ms; the kernel {tile_ms:.4f} ms, {tile_ms / tile_bound[0]:.2f}x its "
+        f"bound, {tile_ms / tile_lib_ms:.3f}x its products as torch.matmul  [{card}]")
     # three TF32 passes of the products on the tensor cores, the slot sums on the CUDA cores
     reduce_flops = 2 * (B + M) * sum((wl.shape[0] + 1) * wl.shape[1] for wl, _ in w.layers)
     t_ops = (3 * reduce_flops / PEAK_TF32 + 2 * slots / PEAK_FLOPS) * 1e3
@@ -1039,7 +1085,7 @@ def train_phases(field, card: str) -> list:
         {"name": "posendf_train_tile", "route": "cuda", "source": src,
          "replaces": "posendf_tpu/ops/fused_train.py:78", "launches": launches["tile"],
          "max_abs_err": errs["tile"], "ms": tile_ms, "plain_ms": tile_plain_ms,
-         "bound_ms": tile_bound[0], "bound_by": tile_bound[1], "library_ms": None},
+         "bound_ms": tile_bound[0], "bound_by": tile_bound[1], "library_ms": tile_lib_ms},
         {"name": "posendf_train_reduce", "route": "cuda", "source": src,
          "replaces": "posendf_tpu/ops/fused_train.py:78", "launches": launches["reduce"],
          "max_abs_err": errs["reduce"], "ms": reduce_ms, "plain_ms": reduce_plain_ms,

@@ -64,10 +64,15 @@ _SIGNATURES = {
     "train": {
         # quat, B, enc, parents, J, F, act, beta, out, stream
         "posendf_encoder": ([_P, _I, _P, _P, _I, _I, _I, _F, _P, _P], _I),
-        # pose, B, gt, enc, parents, J, F, dfw, meta, L, maxw, zsum, act, eikonal, l2,
-        # dd_coef, eik_coef, a_scr, c_scr, dd_out, enc_slot, loss_slot, stream
-        "posendf_train_tile": ([_P, _I, _P, _P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I,
-                                _F, _F, _P, _P, _P, _P, _P, _P], _I),
+        # enc, parents, J, F, slabs, vec, prog, nfwd, nbwd, meta, L, act, l2, eik_coef, then
+        # each branch (noisy, manifold): pose, B, gt, dd_coef, a_scr, c_scr, dd_out,
+        # enc_slot, loss_slot, scratch; stream
+        "posendf_train_tile": ([_P, _P, _I, _I, _P, _P, _P, _I, _I, _P, _I, _I, _I, _F]
+                               + 2 * [_P, _I, _P, _F, _P, _P, _P, _P, _P, _P] + [_P], _I),
+        # B -> CTAs (encoder and loss slots) of a branch of the tile kernel
+        "posendf_train_tile_ctas": ([_I], _I),
+        # (B, J, F, zsum) -> floats of a branch's scratch of the tile kernel
+        "posendf_train_tile_scratch_floats": ([_I, _I, _I, _I], ctypes.c_longlong),
         # meta, meta_host, L, a_n, c_n, dd_n, rows_n, a_m, c_m, dd_m, rows_m, enc_slot,
         # loss_slot, nslots_n, nslots_m, J, F, partial, grads, loss, stream
         "posendf_train_reduce": ([_P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _I, _I,

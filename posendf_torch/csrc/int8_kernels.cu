@@ -34,7 +34,7 @@
 // * Encoder: the CTA's poses and the encoder's weights copied to shared
 //   memory with coalesced loads, then one thread per pose and eighth of the
 //   hidden units (512 threads, 64 poses), two named barriers per joint; the
-//   joint-axis normalization as common.cuh's encode_pose computes it. The
+//   joint-axis normalization as field_kernels.cu's encode computes it. The
 //   code is (J * F, 64) fp32.
 // * fp32 layers (0 and the tail) on the CUDA cores in fp32 (not TF32: it
 //   would move layer-1 levels): a thread owns one output column of 32

@@ -1,5 +1,5 @@
-// Hand-written Hopper kernels of the training path (sm_90a, fp32; the
-// reduction's products on the tensor cores in 3xTF32).
+// Hand-written Hopper kernels of the training path (sm_90a, fp32; the tile
+// kernel's and the reduction's products on the tensor cores in 3xTF32).
 //
 //   posendf_encoder       replaces posendf_tpu/ops/fused_encoder.py::_encoder_kernel
 //                         (the 21-joint structure encoder alone, forward only)
@@ -18,13 +18,14 @@
 // What it computes is manual_train_grads (ops/train_grad.py) for lrelu/relu,
 // where act'' = 0. On the TPU one kernel per branch kept the 1.37M gradient
 // accumulators in VMEM across a sequential grid. Blocks here run in parallel,
-// and a private copy of the gradient per 16-pose block would be 6.8 GB at the
+// and a private copy of the gradient per CTA would be gigabytes at the
 // reference batch, so the work is split in two launches:
 //
-//   posendf_train_tile, one block per 16-pose tile, for one branch:
+//   posendf_train_tile, one CTA per 64 poses of either branch, both branches
+//   in one launch (the noisy CTAs first: they take longer):
 //     A. normalize (noisy branch), encoder and DFNet forward; the layer
-//        inputs x_l go to global scratch, act'(z_l) stays in shared memory
-//        as one bit per pose and unit; the distance loss and its d-cotangent
+//        inputs x_l go to global scratch, act'(z_l) to the CTA's scratch as
+//        one bit per pose and unit; the distance loss and its d-cotangent
 //        dd (weight / B times sign(r) or 2r, 0 on the ragged tail);
 //        inner pullback with a unit cotangent: c_l to global scratch, then
 //        the encoder's reverse walk (gh_j, gf_j, gx_j).
@@ -33,14 +34,14 @@
 //     C. (noisy) the e-chain: the encoder half walks parents before
 //        children, the DFNet half goes upward; each layer's e-cotangent
 //        ecx_l is folded into the scratch in place: a_l = ecx_l + dd x_l.
-//     The encoder's weight gradient of the tile and its loss sums go to a
-//     per-block slot, summed over the tile's poses in a fixed order.
+//     The encoder's weight gradient of the CTA and its loss sums go to a
+//     per-CTA slot, summed over the CTA's poses in a fixed order.
 //   posendf_train_reduce, one CTA per 128 x 128 output tile of every layer
 //   and range of 2,048 rows of one branch (wgmma, 3xTF32: see the section's
 //   note), then one kernel that adds the ranges:
 //     dW_l = a_l^T c_l over the noisy rows + (dd x_l)^T c_l over the manifold
-//     rows, and db_l = dd^T c_l; and the per-block encoder and loss slots,
-//     summed in block order.
+//     rows, and db_l = dd^T c_l; and the per-CTA encoder and loss slots,
+//     summed in CTA order.
 //
 // Why one product per branch suffices: with act'' = 0 the downward backward
 // of phase D is linear in its start dd * c_{L-1}, so its cotangents are
@@ -51,10 +52,41 @@
 // list runs 4 + 2. Every sum runs in a fixed order and no float atomics are
 // used, so two runs give the same bits.
 //
-// What bounds it on an H100: the tile kernel's fp32 FMAs (6 traversals of
-// 1.36M multiply-adds per pose pair) on the CUDA cores; the reduction's one
-// traversal runs on the tensor cores; the scratch (21.5 KB per pose) is
-// written once and read once, ~0.3 ms at the reference batch.
+// What bounds the tile kernel on an H100 SXM: the DFNet's products, 1.36M
+// multiply-adds a pose a traversal, 5 traversals a noisy + manifold pair;
+// at fp32 accuracy on the tensor cores each is three TF32 passes (3xTF32),
+// 1.65 ms at 20,000 + 20,000 poses and 494.7 TFLOP/s. The scratch (21.5 KB a
+// pose) is written once and read once by the reduction, ~0.26 ms. The tile
+// kernel's design is the field kernels' (field_kernels.cu), a copy of its
+// product machinery kept apart so that neither kernel's registers move with
+// the other's:
+//  * A CTA owns 64 poses (one wgmma M) and two warpgroups. The weights are
+//    the field kernels' (fused_model.pack_tc, packed once a step): 32 KB
+//    slabs of TF32 hi | lo halves in the K-major 128-byte swizzle, streamed
+//    through a ring of two by cp.async.bulk under mbarriers, thread 0
+//    refilling a slot once both warpgroups have passed a named barrier
+//    after its products. The forward reads the forward's slabs (W^T), the
+//    pullback the backward's (W), the e-chain the forward's again: 3 x 336
+//    slabs (11 MB a traversal) for a noisy CTA, 2 x 336 for a manifold one.
+//  * Products in 3xTF32 wgmma (m64nNk8, A split in registers: lo.hi' +
+//    hi.lo' + hi.hi'), each slab's sums in a fresh accumulator folded into
+//    IEEE fp32 totals; the 1024-wide layer chained with the next 64 columns
+//    at a time (fused_model.tc_schedule's program).
+//  * Epilogues from the accumulator fragments: forward bias and act into
+//    the fp32 activation tile in shared memory (XOR-swizzled), act'(z) as
+//    one bit a pose and unit (a 32-bit word a thread and column group, the
+//    same thread reading it back in the pullback and the e-chain, so a kink
+//    is taken on the side the forward took it: z >= 0 for lrelu, z > 0 for
+//    relu); pullback acc act'(z); e-chain acc act'(z). Each output then goes
+//    from the tile to its scratch rows, all threads on neighbouring
+//    addresses: x_{l+1} stored, c_{l-1} stored, a_{l+1} = dd x_{l+1} + e
+//    read and written in place.
+//  * On the CUDA cores: the encoder's walks (forward, reverse, the e-chain's
+//    encoder half, four threads a pose), the output layer and the loss, the
+//    normalization VJP and the eikonal term; the encoder's pre-activations
+//    and the reverse walk's gh | gf go to the CTA's global scratch, and the
+//    encoder's weight gradient is summed joint by joint over the CTA's 64
+//    poses into its slot.
 //
 // Each launcher returns cudaGetLastError(); no launcher synchronizes or
 // allocates (the wrapper allocates the scratch and slots with torch.empty).
@@ -151,513 +183,943 @@ __global__ void __launch_bounds__(kEncThreads) encoder_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// training gradient, per-tile kernel
+// training gradient, per-CTA tile kernel (3xTF32 wgmma)
 // ---------------------------------------------------------------------------
 
-struct TrainArgs {
-  const float* pose;   // (B, J, 4) rows of this branch
+namespace tile {
+
+constexpr int kRows = 64;                        // poses a CTA: one wgmma M
+constexpr int kTileThreads = 256;                // two warpgroups; thread 0 also fills the ring
+constexpr int kSlabN = 128;                      // output columns a slab: 64 a warpgroup
+constexpr int kSlabK = 32;                       // K a slab: a 128-byte line of tf32
+constexpr int kHalfBytes = kSlabN * kSlabK * 4;  // the hi (or lo) half: 16 KB
+constexpr int kSlabBytes = 2 * kHalfBytes;
+constexpr int kStages = 2;
+constexpr int kXMax = 512;                       // widest activation kept whole
+constexpr int kChunk = 64;                       // a chained layer's output, a chunk at a time
+constexpr int kHead = 8, kStep = 8;              // ints of the program's header and of a step
+constexpr uint32_t kBar = 1;                     // named barrier of the CTA
+constexpr int kLd = kRows + 1;                   // a per-joint vector's row (no bank conflicts)
+// per-pose scalars (rows of kRows): norms (4), squared sums (4), d, dd, distance term, eikonal term
+enum { kPN = 0, kPS = 4, kPD = 8, kPDD = 9, kPL = 10, kPE = 11, kScalars = 12 };
+// ring | activations (64, 512) | chunk (64, 64) | scalars | layer table (4 x kMaxL) | barriers
+constexpr size_t kTileSmem = 1024 + static_cast<size_t>(kStages) * kSlabBytes +
+                             static_cast<size_t>(kRows) * (kXMax + kChunk) * sizeof(float) +
+                             kScalars * kRows * sizeof(float) + 4 * kMaxL * sizeof(int) +
+                             2 * kStages * sizeof(uint64_t);
+
+// One branch's arguments (the shared ones repeated in each).
+struct Args {
+  const float* pose;           // (B, J, 4) rows of this branch
   int B;
-  const float* gt;     // (B,) distance labels; nullptr on the manifold branch (0)
-  const float* enc;    // packed encoder weights (common.cuh enc_floats)
-  const int* parents;  // (J,)
+  const float* gt;             // (B,) distance labels; nullptr on the manifold branch (0)
+  const float* enc;            // w1 (J,E,E) | b1 (J,E) | w2 (J,E,F) | b2 (J,F), E = 4 + F
+  const int* parents;          // (J,), -1 = root
   int J, F;
-  const float* dfw;    // packed DFNet: per layer W (in,out), b (out), W^T (out,in)
-  const int* meta;     // (L, kMeta)
-  int L, maxw, zsum;
-  int act;             // kLRelu or kRelu (act'' = 0)
-  int eikonal;         // 1: noisy branch (normalized input, eikonal term); 0: manifold
-  int l2;              // distance loss: 0 = L1, 1 = L2
-  float dd_coef;       // weight of the distance term / B
-  float eik_coef;      // 2 * weight of the eikonal term / (B * J)
-  float* a_scr;        // per layer l a (B, in_l) block: x_l, then dd x_l + ecx_l (noisy)
-  float* c_scr;        // per layer l a (B, out_l) block: c_l
-  float* dd_out;       // (B,)
-  float* enc_slot;     // (blocks, enc_floats)
-  float* loss_slot;    // (blocks, 2): sum of the distance term, of the eikonal term
+  const unsigned char* slabs;  // fused_model.pack_tc: the forward's slabs, then the backward's
+  const float* vec;            // padded biases | output layer's w (padded) | its b
+  const int* prog;             // header (kHead), the forward's steps, the backward's (kStep each)
+  int nfwd, nbwd;              // slabs of each pass
+  const int* meta;             // (L, kMeta): each layer's (in, out)
+  int L;
+  int eikonal;                 // 1: noisy branch (normalized input, eikonal term); 0: manifold
+  int l2;                      // distance loss: 0 = L1, 1 = L2
+  float dd_coef;               // weight of the distance term / B
+  float eik_coef;              // 2 * weight of the eikonal term / (B * J)
+  float* a_scr;                // per layer l a (B, in_l) block: x_l, then dd x_l + ecx_l (noisy)
+  float* c_scr;                // per layer l a (B, out_l) block: c_l
+  float* dd_out;               // (B,)
+  float* enc_slot;             // (CTAs, enc_floats)
+  float* loss_slot;            // (CTAs, 2): sum of the distance term, of the eikonal term
+  float* scratch;              // per CTA: act' bits (4 zsum words) | encoder z | gh, gf
 };
 
-// the ping-pong buffers must also hold the encoder's per-joint vectors of phase C
-__host__ __device__ inline int train_buf_width(int J, int F, int maxw) {
-  const int need = J * (3 * (4 + F) + F);
-  return need > maxw ? need : maxw;
+// One launch runs both branches: CTAs 0 .. ctas0 - 1 the noisy rows (the
+// longer ones, three traversals a pose, first), the rest the manifold rows,
+// which fill the last waves.
+struct Launch {
+  Args br[2];
+  int ctas0;
+};
+
+// floats of one CTA's scratch: the act' bits (4 words a padded unit: 16 or
+// 32 bits a 64-pose column, see epilogue), the encoder's pre-activations
+// and its reverse walk's gh | gf, each J (E + F) x 64
+__host__ __device__ inline size_t scratch_floats(int J, int F, int zsum) {
+  return 4 * static_cast<size_t>(zsum) + 2 * static_cast<size_t>(J) * (4 + 2 * F) * kRows;
 }
 
-// Shared memory, in floats: encoder weights | meta | parents | buffer A |
-// buffer B | encoder pre-activations (J, E+F, kTile) | act' bits (zsum) |
-// gx (J, 4, kTile) | per-pose scalars (12, kTile)
-__host__ __device__ inline size_t train_smem_floats(int J, int F, int L, int maxw, int zsum) {
-  const int E = 4 + F;
-  return static_cast<size_t>(round4(enc_floats(J, F))) + round4(kMeta * L) + round4(J) +
-         2 * static_cast<size_t>(train_buf_width(J, F, maxw)) * kTile + J * (E + F) * kTile +
-         round4(zsum) + J * 4 * kTile + 12 * kTile;
+// A (64, ld) fp32 activation tile in shared memory; column c of row r sits
+// at c ^ (8 (r % 4)), which spreads a warp's 8-byte fragment accesses over
+// all 32 banks.
+struct Buf {
+  float* p;
+  int ld;
+};
+
+__device__ __forceinline__ float* at(const Buf& b, int r, int c) {
+  return b.p + r * b.ld + (c ^ ((r & 3) << 3));
 }
 
-// per-pose scalars
-enum { kS = 0, kN = 4, kD = 8, kDD = 9, kLSum = 10, kESum = 11 };
+// An epilogue: forward (bias set) z = acc + b, act'(z) kept as bits where
+// `bits` is set, then act(z); else acc times act'(z) read from the bits
+// where set. The result goes to dst, column c - col0.
+struct Epi {
+  const float* bias;
+  uint32_t* bits;
+  Buf dst;
+  int col0;
+};
 
-__device__ __forceinline__ float act_grad_bit(int act, uint32_t bits, int t) {
-  const bool on = (bits >> t) & 1u;
-  return on ? 1.f : (act == kLRelu ? 0.01f : 0.f);
+// Where an output goes after its epilogue: rows of a scratch block (the
+// CTA's first row, row stride ld = the layer's real width), stored or
+// (fold) folded as dst = dd dst + value; dst null: nowhere.
+struct Sink {
+  float* dst;
+  int ld;
+  bool fold;
+};
+
+// What a thread carries through the products.
+struct Ctx {
+  uint64_t* bars;
+  unsigned char* ring;
+  const unsigned char* src;   // the slabs in global memory
+  int nsrc;                   // slabs in src: slab g >= nsrc is slab g - nsrc (the e-chain)
+  int lim;                    // slabs that may be filled so far
+  int g;                      // the next slab
+  int w, tw;                  // warpgroup, thread in it
+};
+
+// The ring, with no branch near the wgmma that the compiler could take for
+// a divergent path (ptxas then serializes the wgmma): a slab's waiters spin
+// inside one asm block, and once both warpgroups have passed a named
+// barrier after a slab's products, thread 0 refills the slot through a
+// predicated asm block (full barriers count that one arrival and the
+// slab's bytes; no empty barriers).
+
+// wait until the phase of `parity` of barrier `bar` has completed; a wait
+// of more than 2^35 clocks (about 20 s) is a lost arrival and traps
+__device__ __forceinline__ void spin_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .u64 t0, t1;\n"
+      "mov.u64 t0, %%clock64;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra.uni DONE;\n"
+      "mov.u64 t1, %%clock64;\n"
+      "sub.u64 t1, t1, t0;\n"
+      "setp.gt.u64 p, t1, 34359738368;\n"
+      "@p trap;\n"
+      "bra.uni WAIT;\n"
+      "DONE:\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
 }
 
-__global__ void __launch_bounds__(kThreads) train_tile_kernel(const TrainArgs a) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int J = a.J, F = a.F, E = 4 + F, L = a.L;
-  const int nenc = enc_floats(J, F);
-  const int bw = train_buf_width(J, F, a.maxw);
+// slab g has landed; returns its slot
+__device__ __forceinline__ int wait_slab(const Ctx& cx, int g) {
+  const int s = g % kStages;
+  spin_wait(smem_u32(cx.bars + s), static_cast<uint32_t>(g / kStages) & 1);
+  return s;
+}
 
-  float* encw = smem;
-  int* meta = reinterpret_cast<int*>(encw + round4(nenc));
-  int* par = meta + round4(kMeta * L);
-  float* bufA = reinterpret_cast<float*>(par + round4(J));
-  float* bufB = bufA + static_cast<size_t>(bw) * kTile;
-  float* encz = bufB + static_cast<size_t>(bw) * kTile;  // (J, E + F, kTile): zh then zf
-  uint32_t* mask = reinterpret_cast<uint32_t*>(encz + J * (E + F) * kTile);  // (zsum,)
-  float* gx = reinterpret_cast<float*>(mask + round4(a.zsum));                // (J, 4, kTile)
-  float* ps = gx + J * 4 * kTile;                                             // (12, kTile)
+// thread 0 copies slab g into its slot (every thread runs the asm; its
+// predicate holds on thread 0 alone, and only while g < lim)
+__device__ __forceinline__ void fill(const Ctx& cx, int g) {
+  const int s = g % kStages;
+  const uint32_t go = threadIdx.x == 0 && g < cx.lim;
+  const uint32_t full = smem_u32(cx.bars + s);
+  const int k = g < cx.lim ? (g < cx.nsrc ? g : g - cx.nsrc) : 0;
+  const unsigned char* src = cx.src + static_cast<size_t>(k) * kSlabBytes;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.u32 p, %0, 0;\n"
+      "@p mbarrier.arrive.expect_tx.shared::cta.b64 _, [%1], %2;\n"
+      "@p cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%3], [%4], %2, [%1];\n"
+      "}\n" ::"r"(go),
+      "r"(full), "r"(kSlabBytes), "r"(smem_u32(cx.ring + s * kSlabBytes)), "l"(src)
+      : "memory");
+}
 
-  for (int i = threadIdx.x; i < nenc; i += kThreads) encw[i] = a.enc[i];
-  for (int i = threadIdx.x; i < kMeta * L; i += kThreads) meta[i] = a.meta[i];
-  for (int i = threadIdx.x; i < J; i += kThreads) par[i] = a.parents[i];
-  __syncthreads();
+// both warpgroups are done with slab g's slot: refill it with slab g + kStages
+__device__ __forceinline__ void release_slab(const Ctx& cx, int g) {
+  named_bar_sync(kBar, kTileThreads);
+  fill(cx, g + kStages);
+}
 
-  const float* w1 = encw;                 // (J, E, E)
-  const float* b1 = w1 + J * E * E;       // (J, E)
-  const float* w2 = b1 + J * E;           // (J, E, F)
-  const float* b2 = w2 + J * E * F;       // (J, F)
-
-  const int tid = threadIdx.x;
-  const int t = tid;                      // pose slot in the per-pose phases
-  const int b0 = blockIdx.x * kTile;
-  const int b = b0 + t;
-  const bool valid = t < kTile && b < a.B;
-  const int nvalid = min(kTile, a.B - b0);
-  const float4* q4 = reinterpret_cast<const float4*>(a.pose) + static_cast<size_t>(b) * J;
-  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
-  const int in0 = meta[0];
-
-  // scratch offsets of layer l: a block at B * sum_{m<l} in_m, c block at B * sum_{m<l} out_m
-  auto a_layer = [&](int l) {
-    size_t off = 0;
-    for (int m = 0; m < l; ++m) off += meta[kMeta * m];
-    return a.a_scr + off * a.B;
-  };
-  auto c_layer = [&](int l) {
-    size_t off = 0;
-    for (int m = 0; m < l; ++m) off += meta[kMeta * m + 1];
-    return a.c_scr + off * a.B;
-  };
-
-  // ---- A. normalization and encoder forward: one thread per pose ----
-  if (t < kTile) {
-    float n[4] = {1.f, 1.f, 1.f, 1.f}, s[4] = {1.f, 1.f, 1.f, 1.f};
-    if (a.eikonal) {
-      s[0] = s[1] = s[2] = s[3] = 0.f;
-      for (int j = 0; j < J; ++j) {
-        const float4 q = valid ? q4[j] : zero4;
-        s[0] = fmaf(q.x, q.x, s[0]);
-        s[1] = fmaf(q.y, q.y, s[1]);
-        s[2] = fmaf(q.z, q.z, s[2]);
-        s[3] = fmaf(q.w, q.w, s[3]);
-      }
+template <int N>
+__device__ __forceinline__ void keep_regs(uint32_t (&r)[N]) {
 #pragma unroll
-      for (int c = 0; c < 4; ++c) n[c] = sqrtf(fmaxf(s[c], kEps2));
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// The A fragment of one k8 step, split: register j holds row r + 8 (j % 2)
+// at K position t%4 + 4 (j / 2), i.e. feature c (j < 2) or c + 1, c = the
+// 8-group's 2 (t % 4).
+__device__ __forceinline__ void load_a(const Buf& b, int r, int c, uint32_t (&hi)[4],
+                                       uint32_t (&lo)[4]) {
+  const float2 u = *reinterpret_cast<const float2*>(at(b, r, c));
+  const float2 v = *reinterpret_cast<const float2*>(at(b, r + 8, c));
+  const float x[4] = {u.x, v.x, u.y, v.y};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float h = tf32_round(x[j]);
+    hi[j] = __float_as_uint(h);
+    lo[j] = __float_as_uint(tf32_round(x[j] - h));
+  }
+}
+
+// tot[cg] += A . B for nkb K-blocks of A (from `a`) and, per K-block, the
+// NG slabs of column groups 0..NG-1, in the ring's order. Each slab's 12
+// products sum into a fresh accumulator that is then added to tot in fp32
+// (IEEE adds): the tensor cores' own fp32 accumulation does not round to
+// nearest, so its error then spans 32 of K and not all of it.
+template <int NG>
+__device__ __forceinline__ void product(float (&tot)[NG][32], const Buf& a, int nkb, Ctx& cx) {
+  const int r = 16 * (cx.tw / 32) + (cx.tw % 32) / 4, c = 2 * (cx.tw % 4);
+  float acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  for (int kb = 0; kb < nkb; ++kb) {
+    uint32_t ah[4][4], al[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) load_a(a, r, 32 * kb + 8 * kk + c, ah[kk], al[kk]);
+#pragma unroll
+    for (int cg = 0; cg < NG; ++cg) {
+      const int g = cx.g++;
+      const int s = wait_slab(cx, g);
+      const uint32_t hi = smem_u32(cx.ring + s * kSlabBytes) + cx.w * (kHalfBytes / 2);
+      const uint32_t lo = hi + kHalfBytes;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {   // the small terms first
+        wgmma_tf32_rs<64>(acc, al[kk], desc_sw128(hi + kk * 32), kk > 0);
+        wgmma_tf32_rs<64>(acc, ah[kk], desc_sw128(lo + kk * 32), 1);
+        wgmma_tf32_rs<64>(acc, ah[kk], desc_sw128(hi + kk * 32), 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      release_slab(cx, g);
+      fence_regs(acc);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) tot[cg][i] += acc[i];
     }
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      ps[(kS + c) * kTile + t] = s[c];
-      ps[(kN + c) * kTile + t] = n[c];
-    }
-    for (int j = 0; j < J; ++j) {
-      const float4 q = valid ? q4[j] : zero4;
-      const int p = par[j];
-      float in[kMaxE];
-      in[0] = q.x / n[0];
-      in[1] = q.y / n[1];
-      in[2] = q.z / n[2];
-      in[3] = q.w / n[3];
-#pragma unroll
-      for (int k = 0; k < kMaxF; ++k)
-        in[4 + k] = (k < F && p >= 0) ? bufA[(p * F + k) * kTile + t] : 0.f;
-      const float* w1j = w1 + j * E * E;
-      const float* w2j = w2 + j * E * F;
-      float* zj = encz + j * (E + F) * kTile;
-      float h[kMaxE];
-#pragma unroll
-      for (int u = 0; u < kMaxE; ++u) {
-        h[u] = 0.f;
-        if (u < E) {
-          float z = 0.f;
-#pragma unroll
-          for (int i = 0; i < kMaxE; ++i)
-            if (i < E) z = fmaf(in[i], w1j[i * E + u], z);
-          z += b1[j * E + u];
-          zj[u * kTile + t] = z;
-          h[u] = act_fwd(a.act, 0.f, z);
-        }
-      }
-#pragma unroll
-      for (int k = 0; k < kMaxF; ++k) {
-        if (k < F) {
-          float z = 0.f;
-#pragma unroll
-          for (int u = 0; u < kMaxE; ++u)
-            if (u < E) z = fmaf(h[u], w2j[u * F + k], z);
-          z += b2[j * F + k];
-          zj[(E + k) * kTile + t] = z;
-          bufA[(j * F + k) * kTile + t] = act_fwd(a.act, 0.f, z);
-        }
-      }
+    for (int kk = 0; kk < 4; ++kk) {
+      keep_regs(ah[kk]);
+      keep_regs(al[kk]);
     }
   }
-  __syncthreads();
+}
 
-  // ---- A. DFNet forward; x_0 (the code) and every hidden x_l to the scratch ----
-  {
-    float* x0 = a.a_scr;
-    for (int e = tid; e < nvalid * in0; e += kThreads) {
-      const int tt = e / in0, k = e - tt * in0;
-      x0[static_cast<size_t>(b0 + tt) * in0 + k] = bufA[k * kTile + tt];
-    }
-  }
-  float* cur = bufA;
-  float* nxt = bufB;
-  for (int l = 0; l < L; ++l) {
-    const int* m = meta + kMeta * l;
-    const float* W = a.dfw + m[2];
-    const float* bias = a.dfw + m[3];
-    const int out = m[1];
-    if (l < L - 1) {
-      uint32_t* ml = mask + m[5];
-      float* xg = a_layer(l + 1);
-      tile_matmul(W, m[0], out, cur, [&](int col, const float(&acc)[kTile]) {
-        const float bn = __ldg(bias + col);
-        float v[kTile];
-        uint32_t bits = 0;
+// h += A . B for the first product of a chain: a slab is 64 columns x 64 of
+// K, the hi | lo halves of its first 32 of K, then of its second (16 KB
+// each); warpgroup w takes columns 32w..32w+31 (m64n32k8). Each 32 of K
+// folds into h as in product.
+__device__ __forceinline__ void product_chunk(float (&tot)[1][16], const Buf& a, int nkp, Ctx& cx) {
+  const int r = 16 * (cx.tw / 32) + (cx.tw % 32) / 4, c = 2 * (cx.tw % 4);
+  float acc[16];
 #pragma unroll
-        for (int tt = 0; tt < kTile; ++tt) {
-          const float z = acc[tt] + bn;
-          v[tt] = act_fwd(a.act, 0.f, z);
-          const bool on = a.act == kLRelu ? z >= 0.f : z > 0.f;
-          bits |= static_cast<uint32_t>(on) << tt;
+  for (int i = 0; i < 16; ++i) acc[i] = 0.f;
+  for (int kp = 0; kp < nkp; ++kp) {
+    const int g = cx.g++;
+    const int s = wait_slab(cx, g);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      uint32_t ah[4][4], al[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        load_a(a, r, 2 * kSlabK * kp + kSlabK * h + 8 * kk + c, ah[kk], al[kk]);
+      const uint32_t hi =
+          smem_u32(cx.ring + s * kSlabBytes) + h * kHalfBytes + cx.w * (kHalfBytes / 4);
+      const uint32_t lo = hi + kHalfBytes / 2;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        wgmma_tf32_rs<32>(acc, al[kk], desc_sw128(hi + kk * 32), kk > 0);
+        wgmma_tf32_rs<32>(acc, ah[kk], desc_sw128(lo + kk * 32), 1);
+        wgmma_tf32_rs<32>(acc, ah[kk], desc_sw128(hi + kk * 32), 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+#pragma unroll
+      for (int i = 0; i < 16; ++i) tot[0][i] += acc[i];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        keep_regs(ah[kk]);
+        keep_regs(al[kk]);
+      }
+    }
+    release_slab(cx, g);
+  }
+}
+
+// act'(z) of the activation from its bit (1: z >= 0 for lrelu, z > 0 for relu)
+template <int kAct>
+__device__ __forceinline__ float act_slope(uint32_t word, int bit) {
+  return (word >> bit) & 1u ? 1.f : (kAct == kLRelu ? 0.01f : 0.f);
+}
+
+// The epilogue of column groups cg0..cg0+NG-1, each 16 NJ columns wide (8
+// NJ a warpgroup: NJ = 8 after m64n64 products, 4 after m64n32). Register
+// 4j + i of group cg is row r + 8 (i / 2), column 16 NJ cg + 8 NJ w + 8 j +
+// 2 (t % 4) + i % 2; its act' is bit 4j + i of word ((cg * 2 + w) 128 + t)
+// of the layer's bits: the same thread writes it in the forward and reads
+// it in the pullback and the e-chain.
+template <int kAct, int NG, int NJ>
+__device__ __forceinline__ void epilogue(const float (&acc)[NG][4 * NJ], int cg0, const Epi& e,
+                                         const Ctx& cx) {
+  const int r = 16 * (cx.tw / 32) + (cx.tw % 32) / 4;
+#pragma unroll
+  for (int cg = 0; cg < NG; ++cg) {
+    const int c0 = (cg0 + cg) * 16 * NJ + 8 * NJ * cx.w + 2 * (cx.tw % 4);
+    uint32_t* bp = e.bits != nullptr ? e.bits + ((cg0 + cg) * 2 + cx.w) * 128 + cx.tw : nullptr;
+    uint32_t word = 0;
+    float2 bias[NJ];
+    if (e.bias != nullptr) {
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+        bias[j] = __ldg(reinterpret_cast<const float2*>(e.bias + c0 + 8 * j));
+    } else if (bp != nullptr) {
+      word = *bp;
+    }
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      float v[4] = {acc[cg][4 * j], acc[cg][4 * j + 1], acc[cg][4 * j + 2], acc[cg][4 * j + 3]};
+      if (e.bias != nullptr) {
+        v[0] += bias[j].x;
+        v[1] += bias[j].y;
+        v[2] += bias[j].x;
+        v[3] += bias[j].y;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const bool on = kAct == kLRelu ? v[i] >= 0.f : v[i] > 0.f;
+          word |= static_cast<uint32_t>(on) << (4 * j + i);
+          v[i] = act_fwd(kAct, 0.f, v[i]);
         }
-        ml[col] = bits;
-        store_tile_column(nxt + col * kTile, v);
+      } else if (bp != nullptr) {
 #pragma unroll
-        for (int tt = 0; tt < kTile; ++tt)
-          if (tt < nvalid) xg[static_cast<size_t>(b0 + tt) * out + col] = v[tt];
-      });
-    } else {
-      tile_matmul(W, m[0], out, cur, [&](int col, const float(&acc)[kTile]) {
-        const float bn = __ldg(bias + col);
-#pragma unroll
-        for (int tt = 0; tt < kTile; ++tt)
-          ps[kD * kTile + tt] = out_act_fwd(a.act, 0.f, acc[tt] + bn);
-      });
+        for (int i = 0; i < 4; ++i) v[i] *= act_slope<kAct>(word, 4 * j + i);
+      }
+      const int c = c0 + 8 * j - e.col0;
+      *reinterpret_cast<float2*>(at(e.dst, r, c)) = make_float2(v[0], v[1]);
+      *reinterpret_cast<float2*>(at(e.dst, r + 8, c)) = make_float2(v[2], v[3]);
     }
-    __syncthreads();
-    float* tmp = cur;
-    cur = nxt;
-    nxt = tmp;
+    if (e.bias != nullptr && bp != nullptr) *bp = word;
   }
+}
 
-  // ---- A/B. distance loss, its cotangent dd, and c_{L-1} = out_act'(z) ----
-  if (t < kTile) {
-    const float d = ps[kD * kTile + t];
-    float lsum = 0.f, dd = 0.f;
-    if (valid) {
-      const float r = d - (a.gt ? a.gt[b] : 0.f);
-      if (a.l2) {
-        lsum = r * r;
-        dd = a.dd_coef * 2.f * r;
+// Columns col0 .. col0 + n - 1 of the tile's first nv rows to a sink (n cut
+// to the layer's real width), all threads, neighbours on neighbouring
+// addresses: 16-byte accesses where the rows allow, else 4-byte ones.
+__device__ __forceinline__ void to_sink(const Sink& s, int col0, const Buf& src, int n, int nv,
+                                        const float* dd) {
+  if (s.dst == nullptr) return;
+  n = min(n, s.ld - col0);
+  const int t = threadIdx.x;
+  float* base = s.dst + col0;
+  if (n % 4 == 0 && s.ld % 4 == 0 && reinterpret_cast<uintptr_t>(base) % 16 == 0) {
+    const int q = n / 4;
+    for (int e = t; e < nv * q; e += kTileThreads) {
+      const int r = e / q, c = 4 * (e - r * q);
+      const float4 v = *reinterpret_cast<const float4*>(at(src, r, c));
+      float4* d = reinterpret_cast<float4*>(base + static_cast<size_t>(r) * s.ld + c);
+      if (s.fold) {
+        const float4 x = *d;
+        const float m = dd[r];
+        *d = make_float4(fmaf(m, x.x, v.x), fmaf(m, x.y, v.y), fmaf(m, x.z, v.z),
+                         fmaf(m, x.w, v.w));
       } else {
-        lsum = fabsf(r);
-        dd = a.dd_coef * static_cast<float>((r > 0.f) - (r < 0.f));
+        *d = v;
+      }
+    }
+  } else {
+    for (int e = t; e < nv * n; e += kTileThreads) {
+      const int r = e / n, c = e - r * n;
+      float* d = base + static_cast<size_t>(r) * s.ld + c;
+      *d = s.fold ? fmaf(dd[r], *d, *at(src, r, c)) : *at(src, r, c);
+    }
+  }
+}
+
+// One layer, K -> N = 128 NG, in place in x, then to its sink.
+template <int kAct, int NG>
+__device__ __forceinline__ void layer(const Buf& x, int K, const Epi& e, const Sink& sk, int nv,
+                                      const float* dd, Ctx& cx) {
+  float tot[NG][32];
+#pragma unroll
+  for (int cg = 0; cg < NG; ++cg)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) tot[cg][i] = 0.f;
+  product<NG>(tot, x, K / kSlabK, cx);
+  named_bar_sync(kBar, kTileThreads);   // both warpgroups have read x
+  epilogue<kAct, NG, 8>(tot, 0, e, cx);
+  named_bar_sync(kBar, kTileThreads);   // x holds the output
+  to_sink(sk, 0, x, NG * kSlabN, nv, dd);
+}
+
+// Two layers, K -> N -> 512, in place in x: the N columns a chunk of 64 at a
+// time through cb (each chunk to sink s1), each chunk at once 64 of the
+// second product's K; the second product's output to s2.
+template <int kAct>
+__device__ __forceinline__ void chain(const Buf& x, const Buf& cb, int K, int N, Epi e1,
+                                      const Epi& e2, const Sink& s1, const Sink& s2, int nv,
+                                      const float* dd, Ctx& cx) {
+  constexpr int NG2 = kXMax / kSlabN;
+  float y[NG2][32];
+#pragma unroll
+  for (int cg = 0; cg < NG2; ++cg)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) y[cg][i] = 0.f;
+  for (int c = 0; c < N / kChunk; ++c) {
+    float h[1][16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) h[0][i] = 0.f;
+    product_chunk(h, x, K / kChunk, cx);
+    named_bar_sync(kBar, kTileThreads);   // both warpgroups have read the last chunk
+    e1.col0 = c * kChunk;
+    epilogue<kAct, 1, 4>(h, c, e1, cx);
+    named_bar_sync(kBar, kTileThreads);   // cb holds chunk c
+    to_sink(s1, c * kChunk, cb, kChunk, nv, dd);
+    product<NG2>(y, cb, kChunk / kSlabK, cx);
+  }
+  named_bar_sync(kBar, kTileThreads);     // both warpgroups have read x
+  epilogue<kAct, NG2, 8>(y, 0, e2, cx);
+  named_bar_sync(kBar, kTileThreads);
+  to_sink(s2, 0, x, kXMax, nv, dd);
+}
+
+enum Pass { kForward = 0, kPullback = 1, kEChain = 2 };
+
+// The CTA's scratch rows: layer l's a block and c block from its first row.
+struct Rows {
+  const Args* a;
+  const int* in;    // real widths, (kMaxL,) each
+  const int* out;
+  const int* aoff;  // sum of the earlier layers' widths
+  const int* coff;
+  int row0;
+  __device__ float* a_rows(int l) const {
+    return a->a_scr + static_cast<size_t>(a->B) * aoff[l] + static_cast<size_t>(row0) * in[l];
+  }
+  __device__ float* c_rows(int l) const {
+    return a->c_scr + static_cast<size_t>(a->B) * coff[l] + static_cast<size_t>(row0) * out[l];
+  }
+  // the sink of the output of DFNet layer l: in the forward and the e-chain
+  // x_{l+1} (a block l + 1), in the pullback c_{l-1} (c block l - 1; none
+  // for l = 0, the code's gradient)
+  __device__ Sink of(int pass, int l) const {
+    if (pass == kPullback)
+      return l >= 1 ? Sink{c_rows(l - 1), out[l - 1], false} : Sink{nullptr, 0, false};
+    return Sink{a_rows(l + 1), in[l + 1], pass == kEChain};
+  }
+};
+
+// One step of the program (fused_model.tc_schedule): [chain, K, N, N2,
+// bias1, z1, bias2, z2], its first layer l (a chain: l and l + 1 forward,
+// l and l - 1 in the pullback). The forward sets the biases and writes the
+// act' bits; the pullback and the e-chain read them.
+template <int kAct>
+__device__ __forceinline__ void run_step(const int* st, int pass, int l, const Rows& rows,
+                                         const Buf& x, const Buf& cb, const float* vec,
+                                         uint32_t* bits, int nv, const float* dd, Ctx& cx) {
+  int s[kStep];
+#pragma unroll
+  for (int i = 0; i < kStep; ++i) s[i] = __ldg(st + i);
+  const bool fwd = pass == kForward;
+  const Epi e1{fwd ? vec + s[4] : nullptr, s[5] >= 0 ? bits + 4 * s[5] : nullptr, s[0] ? cb : x, 0};
+  if (s[0]) {
+    const int l2 = pass == kPullback ? l - 1 : l + 1;
+    const Epi e2{fwd ? vec + s[6] : nullptr, s[7] >= 0 ? bits + 4 * s[7] : nullptr, x, 0};
+    chain<kAct>(x, cb, s[1], s[2], e1, e2, rows.of(pass, l), rows.of(pass, l2), nv, dd, cx);
+  } else {
+    const Sink sk = rows.of(pass, l);
+    switch (s[2] / kSlabN) {
+      case 1: layer<kAct, 1>(x, s[1], e1, sk, nv, dd, cx); break;
+      case 2: layer<kAct, 2>(x, s[1], e1, sk, nv, dd, cx); break;
+      default: layer<kAct, 4>(x, s[1], e1, sk, nv, dd, cx); break;
+    }
+  }
+}
+
+// Input normalization (noisy branch; the manifold rows go in as they are)
+// and encoder walk of the CTA's 64 poses into the code x (64, D0): thread t
+// owns pose t % 64 and the hidden units / features t / 64, t / 64 + 4, ...
+// of each joint, two named barriers a joint. The pre-activations go to
+// ez[(j (E + F) + o) 64 + pose], the norms and squared sums to the scalars.
+// hid holds a joint's hidden units (kMaxE, 64).
+template <int kAct>
+__device__ __forceinline__ void encode(const Args& a, int row0, const Buf& x, int D0, float* hid,
+                                       float* scal, float* ez) {
+  const int t = threadIdx.x, p = t % kRows, r = t / kRows;
+  const int J = a.J, F = a.F, E = 4 + F;
+  const bool valid = row0 + p < a.B;
+  const float4* q4 =
+      reinterpret_cast<const float4*>(a.pose) + static_cast<size_t>(valid ? row0 + p : 0) * J;
+  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
+  const float* w1 = a.enc;
+  const float* b1 = w1 + J * E * E;
+  const float* w2 = b1 + J * E;
+  const float* b2 = w2 + J * E * F;
+  {
+    float s = 1.f, n = 1.f;   // component r: the normalization's sum over the joints
+    if (a.eikonal) {
+      s = 0.f;
+      for (int j = 0; j < J; ++j) {
+        const float4 q = valid ? __ldg(q4 + j) : zero4;
+        const float v = r == 0 ? q.x : r == 1 ? q.y : r == 2 ? q.z : q.w;
+        s = fmaf(v, v, s);
+      }
+      n = sqrtf(fmaxf(s, kEps2));
+    }
+    scal[(kPS + r) * kRows + p] = s;
+    scal[(kPN + r) * kRows + p] = n;
+  }
+  const int JF = J * F, pad = D0 - JF;   // the code's padding columns are zeros
+  if (pad > 0)
+    for (int i = t; i < kRows * pad; i += kTileThreads) *at(x, i / pad, JF + i % pad) = 0.f;
+  named_bar_sync(kBar, kTileThreads);
+  const float n0 = scal[kPN * kRows + p], n1 = scal[(kPN + 1) * kRows + p],
+              n2 = scal[(kPN + 2) * kRows + p], n3 = scal[(kPN + 3) * kRows + p];
+  for (int j = 0; j < J; ++j) {
+    const float4 q = valid ? __ldg(q4 + j) : zero4;
+    const int par = __ldg(a.parents + j);
+    float in[kMaxE];
+    in[0] = q.x / n0;
+    in[1] = q.y / n1;
+    in[2] = q.z / n2;
+    in[3] = q.w / n3;
+#pragma unroll
+    for (int k = 0; k < kMaxF; ++k) in[4 + k] = (k < F && par >= 0) ? *at(x, p, par * F + k) : 0.f;
+    const float* w1j = w1 + j * E * E;
+#pragma unroll
+    for (int oi = 0; oi < (kMaxE + 3) / 4; ++oi) {
+      const int o = r + 4 * oi;
+      if (o < E) {
+        float z = 0.f;
+#pragma unroll
+        for (int i = 0; i < kMaxE; ++i)
+          if (i < E) z = fmaf(in[i], __ldg(w1j + i * E + o), z);
+        z += __ldg(b1 + j * E + o);
+        ez[(j * (E + F) + o) * kRows + p] = z;
+        hid[o * kRows + p] = act_fwd(kAct, 0.f, z);
+      }
+    }
+    named_bar_sync(kBar, kTileThreads);
+    const float* w2j = w2 + j * E * F;
+#pragma unroll
+    for (int ki = 0; ki < (kMaxF + 3) / 4; ++ki) {
+      const int k = r + 4 * ki;
+      if (k < F) {
+        float z = 0.f;
+#pragma unroll
+        for (int o = 0; o < kMaxE; ++o)
+          if (o < E) z = fmaf(hid[o * kRows + p], __ldg(w2j + o * F + k), z);
+        z += __ldg(b2 + j * F + k);
+        ez[(j * (E + F) + E + k) * kRows + p] = z;
+        *at(x, p, j * F + k) = act_fwd(kAct, 0.f, z);
+      }
+    }
+    named_bar_sync(kBar, kTileThreads);
+  }
+}
+
+// The output layer (K -> 1) on the CUDA cores, four threads a pose each
+// summing a quarter of K into part (4, 64); then d = relu(sum + b), the
+// distance loss and its cotangent dd (dd_coef times sign(r) or 2r; 0 on the
+// ragged tail) and c_{L-1} = [d > 0] to its scratch row.
+__device__ __forceinline__ void output_layer(const Args& a, int row0, const Buf& x, int K,
+                                             const float* wl, float bl, float* part, float* scal,
+                                             float* c_last) {
+  const int t = threadIdx.x, p = t % kRows, r = t / kRows, n = K / 4;
+  float s = 0.f;
+  for (int c = r * n; c < (r + 1) * n; ++c) s = fmaf(*at(x, p, c), __ldg(wl + c), s);
+  part[r * kRows + p] = s;
+  named_bar_sync(kBar, kTileThreads);
+  if (t < kRows) {
+    const float z = (part[p] + part[kRows + p]) + (part[2 * kRows + p] + part[3 * kRows + p]) + bl;
+    const float d = z > 0.f ? z : 0.f;
+    const int b = row0 + p;
+    float lsum = 0.f, dd = 0.f;
+    if (b < a.B) {
+      const float res = d - (a.gt != nullptr ? __ldg(a.gt + b) : 0.f);
+      if (a.l2) {
+        lsum = res * res;
+        dd = a.dd_coef * 2.f * res;
+      } else {
+        lsum = fabsf(res);
+        dd = a.dd_coef * static_cast<float>((res > 0.f) - (res < 0.f));
       }
       a.dd_out[b] = dd;
+      c_last[p] = d > 0.f ? 1.f : 0.f;
     }
-    ps[kLSum * kTile + t] = lsum;
-    ps[kDD * kTile + t] = dd;
-    ps[kESum * kTile + t] = 0.f;
-    const float c = d > 0.f ? 1.f : 0.f;
-    cur[t] = c;
-    if (valid) c_layer(L - 1)[b] = c;
+    scal[kPD * kRows + p] = d;
+    scal[kPDD * kRows + p] = dd;
+    scal[kPL * kRows + p] = lsum;
+    scal[kPE * kRows + p] = 0.f;
   }
-  __syncthreads();
+  named_bar_sync(kBar, kTileThreads);
+}
 
-  // ---- A. inner pullback: c_{l-1} = (c_l W_l^T) act'(z_{l-1}); the code gradient last ----
-  for (int l = L - 1; l >= 0; --l) {
-    const int* m = meta + kMeta * l;
-    const float* Wt = a.dfw + m[4];  // (out, in)
-    const int in = m[0];
-    if (l > 0) {
-      const uint32_t* ml = mask + meta[kMeta * (l - 1) + 5];
-      float* cg = c_layer(l - 1);
-      tile_matmul(Wt, m[1], in, cur, [&](int col, const float(&acc)[kTile]) {
-        const uint32_t bits = ml[col];
-        float g[kTile];
+// The pullback's start: c_{L-2} = [d > 0] w act'(z_{L-2}), written to x
+// (64, K) in the fragments' layout.
+template <int kAct>
+__device__ __forceinline__ void pullback_start(const Buf& x, int K, const float* wl,
+                                               const uint32_t* bits, const float* scal,
+                                               const Ctx& cx) {
+  const int r = 16 * (cx.tw / 32) + (cx.tw % 32) / 4;
+  const float go0 = scal[kPD * kRows + r] > 0.f ? 1.f : 0.f;
+  const float go1 = scal[kPD * kRows + r + 8] > 0.f ? 1.f : 0.f;
+  for (int cg = 0; cg < K / kSlabN; ++cg) {
+    const uint32_t word = bits[(cg * 2 + cx.w) * 128 + cx.tw];
 #pragma unroll
-        for (int tt = 0; tt < kTile; ++tt) g[tt] = acc[tt] * act_grad_bit(a.act, bits, tt);
-        store_tile_column(nxt + col * kTile, g);
-#pragma unroll
-        for (int tt = 0; tt < kTile; ++tt)
-          if (tt < nvalid) cg[static_cast<size_t>(b0 + tt) * in + col] = g[tt];
-      });
-    } else {
-      tile_matmul(Wt, m[1], in, cur, [&](int col, const float(&acc)[kTile]) {
-        store_tile_column(nxt + col * kTile, acc);
-      });
+    for (int j = 0; j < 8; ++j) {
+      const int c = cg * kSlabN + 64 * cx.w + 8 * j + 2 * (cx.tw % 4);
+      const float2 wv = __ldg(reinterpret_cast<const float2*>(wl + c));
+      *reinterpret_cast<float2*>(at(x, r, c)) =
+          make_float2(go0 * wv.x * act_slope<kAct>(word, 4 * j),
+                      go0 * wv.y * act_slope<kAct>(word, 4 * j + 1));
+      *reinterpret_cast<float2*>(at(x, r + 8, c)) =
+          make_float2(go1 * wv.x * act_slope<kAct>(word, 4 * j + 2),
+                      go1 * wv.y * act_slope<kAct>(word, 4 * j + 3));
     }
-    __syncthreads();
-    float* tmp = cur;
-    cur = nxt;
-    nxt = tmp;
   }
-  float* gw = cur;    // (J*F, kTile): the code gradient, then the e-chain's efeat
-  float* ebuf = nxt;  // per joint: L1 (E) | R1 = gh (E) | L2 (E) | R2 = gf (F), each x kTile
-  const int jstride = (3 * E + F) * kTile;
+  named_bar_sync(kBar, kTileThreads);
+}
 
-  if (t < kTile) {
-    // ---- A. encoder pullback: reverse joint walk ----
-    for (int j = J - 1; j >= 0; --j) {
-      const int p = par[j];
-      const float* w1j = w1 + j * E * E;
-      const float* w2j = w2 + j * E * F;
-      const float* zj = encz + j * (E + F) * kTile;
-      float* ej = ebuf + j * jstride;
-      float gf[kMaxF];
+// The encoder's reverse walk, j = J-1 .. 0, from the code gradient in x:
+// gf = gx_code[j] act'(f_pre); gh = (W2[j] gf) act'(h_pre) (thread t: the
+// units t / 64 + 4i, to gh (kMaxE, 64)); then W1[j] gh: its first 4 rows to
+// gx (J, 4, 64), the rest added into the parent's code gradient. Each
+// joint's gh | gf go to gg (as ez; zeros on the ragged tail) for the
+// encoder's weight gradient.
+template <int kAct>
+__device__ __forceinline__ void encode_backward(const Args& a, bool valid, const Buf& x,
+                                                const float* ez, float* gg, float* gx, float* gh) {
+  const int t = threadIdx.x, p = t % kRows, r = t / kRows;
+  const int J = a.J, F = a.F, E = 4 + F;
+  const float* w1 = a.enc;
+  const float* w2 = w1 + J * E * E + J * E;
+  for (int j = J - 1; j >= 0; --j) {
+    const int par = __ldg(a.parents + j);
+    const float* zj = ez + j * (E + F) * kRows;
+    float* gj = gg + j * (E + F) * kRows;
+    float gf[kMaxF];
 #pragma unroll
-      for (int k = 0; k < kMaxF; ++k) {
-        gf[k] = 0.f;
-        if (k < F) {
-          gf[k] = gw[(j * F + k) * kTile + t] * act_grad(a.act, 0.f, zj[(E + k) * kTile + t]);
-          ej[(3 * E + k) * kTile + t] = valid ? gf[k] : 0.f;
-        }
-      }
-      float gh[kMaxE];
+    for (int k = 0; k < kMaxF; ++k)
+      gf[k] = k < F ? *at(x, p, j * F + k) * act_grad(kAct, 0.f, zj[(E + k) * kRows + p]) : 0.f;
 #pragma unroll
-      for (int u = 0; u < kMaxE; ++u) {
+    for (int ki = 0; ki < (kMaxF + 3) / 4; ++ki) {
+      const int k = r + 4 * ki;
+      if (k < F) gj[(E + k) * kRows + p] = valid ? gf[k] : 0.f;
+    }
+    const float* w2j = w2 + j * E * F;
+#pragma unroll
+    for (int oi = 0; oi < (kMaxE + 3) / 4; ++oi) {
+      const int o = r + 4 * oi;
+      if (o < E) {
         float s = 0.f;
-        if (u < E) {
 #pragma unroll
-          for (int k = 0; k < kMaxF; ++k)
-            if (k < F) s = fmaf(w2j[u * F + k], gf[k], s);
-          s *= act_grad(a.act, 0.f, zj[u * kTile + t]);
-          ej[(E + u) * kTile + t] = valid ? s : 0.f;
-        }
-        gh[u] = s;
+        for (int k = 0; k < kMaxF; ++k)
+          if (k < F) s = fmaf(__ldg(w2j + o * F + k), gf[k], s);
+        s *= act_grad(kAct, 0.f, zj[o * kRows + p]);
+        gh[o * kRows + p] = s;
+        gj[o * kRows + p] = valid ? s : 0.f;
       }
+    }
+    named_bar_sync(kBar, kTileThreads);
+    const float* w1j = w1 + j * E * E;
 #pragma unroll
-      for (int i = 0; i < kMaxE; ++i) {
-        if (i < E && (i < 4 || p >= 0)) {
+    for (int ii = 0; ii < (kMaxE + 3) / 4; ++ii) {
+      const int i = r + 4 * ii;
+      if (i < E && (i < 4 || par >= 0)) {
+        float s = 0.f;
+#pragma unroll
+        for (int o = 0; o < kMaxE; ++o)
+          if (o < E) s = fmaf(__ldg(w1j + i * E + o), gh[o * kRows + p], s);
+        if (i < 4)
+          gx[(j * 4 + i) * kRows + p] = s;
+        else
+          *at(x, p, par * F + i - 4) += s;
+      }
+    }
+    named_bar_sync(kBar, kTileThreads);
+  }
+}
+
+// The noisy branch's normalization VJP, eikonal term and its cotangent:
+// gq = gx / n - q <gx, q>_J [s >= eps^2] / n^3; the term sums (|gq_j| - 1)^2
+// over the joints; its cotangent Ggq = eik_coef (|gq_j| - 1) / |gq_j| gq_j
+// goes back through the same (symmetric) operator to Ggx, over gx. Thread
+// t: component t / 64 of pose t % 64; gn (J, 64) holds |gq_j|.
+__device__ __forceinline__ void eikonal(const Args& a, int row0, float* gx, float* gn,
+                                        float* scal) {
+  const int t = threadIdx.x, p = t % kRows, c = t / kRows, J = a.J;
+  const bool valid = row0 + p < a.B;
+  const float* qc = a.pose + static_cast<size_t>(valid ? row0 + p : 0) * J * 4 + c;
+  const float n = scal[(kPN + c) * kRows + p], s = scal[(kPS + c) * kRows + p];
+  const float coef = s >= kEps2 ? 1.f / (n * n * n) : 0.f;
+  float dot = 0.f;
+  for (int j = 0; j < J; ++j)
+    dot = fmaf(gx[(j * 4 + c) * kRows + p], valid ? __ldg(qc + 4 * j) : 0.f, dot);
+  for (int j = 0; j < J; ++j) {
+    float* g = gx + (j * 4 + c) * kRows + p;
+    *g = *g / n - (valid ? __ldg(qc + 4 * j) : 0.f) * (dot * coef);
+  }
+  named_bar_sync(kBar, kTileThreads);
+  for (int j = c; j < J; j += 4) {
+    float sq = 0.f;
+#pragma unroll
+    for (int cc = 0; cc < 4; ++cc) {
+      const float g = gx[(j * 4 + cc) * kRows + p];
+      sq = fmaf(g, g, sq);
+    }
+    gn[j * kRows + p] = sqrtf(sq + 1e-12f);
+  }
+  named_bar_sync(kBar, kTileThreads);
+  float dotg = 0.f, esum = 0.f;
+  for (int j = 0; j < J; ++j) {
+    const float norm = gn[j * kRows + p], dif = norm - 1.f;
+    esum = fmaf(dif, dif, esum);
+    const float q = valid ? __ldg(qc + 4 * j) : 0.f;
+    float* g = gx + (j * 4 + c) * kRows + p;
+    const float v = valid ? a.eik_coef * (dif / norm) * *g : 0.f;   // a padded row's gq may be huge
+    *g = v;
+    dotg = fmaf(v, q, dotg);
+  }
+  for (int j = 0; j < J; ++j) {
+    float* g = gx + (j * 4 + c) * kRows + p;
+    *g = *g / n - (valid ? __ldg(qc + 4 * j) : 0.f) * (dotg * coef);
+  }
+  if (c == 0) scal[kPE * kRows + p] = valid ? esum : 0.f;
+  named_bar_sync(kBar, kTileThreads);
+}
+
+// The e-chain's encoder half (parents before children; the manifold branch
+// has no e-cotangent) and the encoder's weight gradient, joint by joint:
+// L1 = dd inp + egin, L2 = dd h + ea, and the CTA's sums over its 64 poses
+// in order, w1[j] = L1^T gh, b1[j] = dd^T gh, w2[j] = L2^T gf, b2[j] = dd^T
+// gf, to its slot. The code's e-cotangent efeat goes over the code gradient
+// in x (a joint's columns once its children's are read). v holds a joint's
+// vectors: L1, gh, L2 (kMaxE, kLd), gf (kMaxF, kLd), ea (kMaxE, 64).
+template <int kAct>
+__device__ __forceinline__ void encoder_grad(const Args& a, int cta, const Buf& x,
+                                             const float* ez, const float* gg, const float* gx,
+                                             float* v, const float* scal) {
+  const int row0 = cta * kRows;
+  const int t = threadIdx.x, p = t % kRows, r = t / kRows;
+  const int J = a.J, F = a.F, E = 4 + F;
+  const bool valid = row0 + p < a.B;
+  const float4* q4 =
+      reinterpret_cast<const float4*>(a.pose) + static_cast<size_t>(valid ? row0 + p : 0) * J;
+  const float* w1 = a.enc;
+  const float* w2 = w1 + J * E * E + J * E;
+  float* L1 = v;
+  float* GH = L1 + kMaxE * kLd;
+  float* L2 = GH + kMaxE * kLd;
+  float* GF = L2 + kMaxE * kLd;
+  float* EA = GF + kMaxF * kLd;
+  const float* ddv = scal + kPDD * kRows;
+  const float dd = ddv[p];
+  const float n[4] = {scal[kPN * kRows + p], scal[(kPN + 1) * kRows + p],
+                      scal[(kPN + 2) * kRows + p], scal[(kPN + 3) * kRows + p]};
+  float* slot = a.enc_slot + static_cast<size_t>(cta) * enc_floats(J, F);
+  const int nw1 = E * E, nb1 = E, nw2 = E * F, nall = nw1 + nb1 + nw2 + F;
+  for (int j = 0; j < J; ++j) {
+    const int par = __ldg(a.parents + j);
+    const float* zj = ez + j * (E + F) * kRows;
+    const float* zp = ez + (par >= 0 ? par : 0) * (E + F) * kRows;
+    const float* gj = gg + j * (E + F) * kRows;
+    const float4 q = valid ? __ldg(q4 + j) : make_float4(0.f, 0.f, 0.f, 0.f);
+    float inp[kMaxE], egin[kMaxE];
+    inp[0] = q.x / n[0];
+    inp[1] = q.y / n[1];
+    inp[2] = q.z / n[2];
+    inp[3] = q.w / n[3];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) egin[i] = a.eikonal ? gx[(j * 4 + i) * kRows + p] : 0.f;
+#pragma unroll
+    for (int k = 0; k < kMaxF; ++k) {
+      const bool live = k < F && par >= 0;
+      inp[4 + k] = live ? act_fwd(kAct, 0.f, zp[(E + k) * kRows + p]) : 0.f;
+      egin[4 + k] = live && a.eikonal ? *at(x, p, par * F + k) : 0.f;
+    }
+#pragma unroll
+    for (int ii = 0; ii < (kMaxE + 3) / 4; ++ii) {
+      const int i = r + 4 * ii;
+      if (i < E) L1[i * kLd + p] = valid ? fmaf(dd, inp[i], egin[i]) : 0.f;
+    }
+    const float* w1j = w1 + j * E * E;
+#pragma unroll
+    for (int ui = 0; ui < (kMaxE + 3) / 4; ++ui) {
+      const int u = r + 4 * ui;
+      if (u < E) {
+        const float zh = zj[u * kRows + p];
+        float ea = 0.f;
+        if (a.eikonal) {
+          float s = 0.f;
+#pragma unroll
+          for (int i = 0; i < kMaxE; ++i)
+            if (i < E) s = fmaf(egin[i], __ldg(w1j + i * E + u), s);
+          ea = s * act_grad(kAct, 0.f, zh);
+        }
+        EA[u * kRows + p] = ea;
+        L2[u * kLd + p] = valid ? fmaf(dd, act_fwd(kAct, 0.f, zh), ea) : 0.f;
+        GH[u * kLd + p] = gj[u * kRows + p];
+      }
+    }
+#pragma unroll
+    for (int ki = 0; ki < (kMaxF + 3) / 4; ++ki) {
+      const int k = r + 4 * ki;
+      if (k < F) GF[k * kLd + p] = gj[(E + k) * kRows + p];
+    }
+    named_bar_sync(kBar, kTileThreads);
+    if (a.eikonal) {
+      const float* w2j = w2 + j * E * F;
+#pragma unroll
+      for (int ki = 0; ki < (kMaxF + 3) / 4; ++ki) {
+        const int k = r + 4 * ki;
+        if (k < F) {
           float s = 0.f;
 #pragma unroll
           for (int u = 0; u < kMaxE; ++u)
-            if (u < E) s = fmaf(w1j[i * E + u], gh[u], s);
-          if (i < 4)
-            gx[(j * 4 + i) * kTile + t] = s;
-          else
-            gw[(p * F + i - 4) * kTile + t] += s;
+            if (u < E) s = fmaf(EA[u * kRows + p], __ldg(w2j + u * F + k), s);
+          *at(x, p, j * F + k) = s * act_grad(kAct, 0.f, zj[(E + k) * kRows + p]);
         }
       }
     }
-
-    float n[4], coef[4];
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      n[c] = ps[(kN + c) * kTile + t];
-      const float s = ps[(kS + c) * kTile + t];
-      coef[c] = s >= kEps2 ? 1.f / (n[c] * n[c] * n[c]) : 0.f;
-    }
-    const float dd = ps[kDD * kTile + t];
-
-    // ---- B. normalization VJP, eikonal term and its cotangent (noisy branch) ----
-    // gq = gx / n - q <gx, q>_J [s >= eps^2] / n^3; the cotangent Ggq goes back
-    // through the same (symmetric) operator to Ggx, stored over gx.
-    if (a.eikonal) {
-      float dot[4] = {0.f, 0.f, 0.f, 0.f};
-      for (int j = 0; j < J; ++j) {
-        const float4 q = valid ? q4[j] : zero4;
-        dot[0] = fmaf(gx[(j * 4 + 0) * kTile + t], q.x, dot[0]);
-        dot[1] = fmaf(gx[(j * 4 + 1) * kTile + t], q.y, dot[1]);
-        dot[2] = fmaf(gx[(j * 4 + 2) * kTile + t], q.z, dot[2]);
-        dot[3] = fmaf(gx[(j * 4 + 3) * kTile + t], q.w, dot[3]);
-      }
-      float dotg[4] = {0.f, 0.f, 0.f, 0.f}, esum = 0.f;
-      for (int j = 0; j < J; ++j) {
-        const float4 q4j = valid ? q4[j] : zero4;
-        const float q[4] = {q4j.x, q4j.y, q4j.z, q4j.w};
-        float gq[4], sq = 0.f;
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          gq[c] = gx[(j * 4 + c) * kTile + t] / n[c] - q[c] * (dot[c] * coef[c]);
-          sq = fmaf(gq[c], gq[c], sq);
-        }
-        const float gn = sqrtf(sq + 1e-12f);
-        const float dif = gn - 1.f;
-        esum = fmaf(dif, dif, esum);
-        const float sc = valid ? a.eik_coef * (dif / gn) : 0.f;
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const float g = valid ? sc * gq[c] : 0.f;  // a padded row's gq may be inf
-          gx[(j * 4 + c) * kTile + t] = g;
-          dotg[c] = fmaf(g, q[c], dotg[c]);
-        }
-      }
-      ps[kESum * kTile + t] = valid ? esum : 0.f;
-      for (int j = 0; j < J; ++j) {
-        const float4 q4j = valid ? q4[j] : zero4;
-        const float q[4] = {q4j.x, q4j.y, q4j.z, q4j.w};
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          float* g = gx + (j * 4 + c) * kTile + t;
-          *g = *g / n[c] - q[c] * (dotg[c] * coef[c]);
-        }
-      }
-    }
-
-    // ---- C. e-chain, encoder half (parents before children), and the
-    //      encoder's weight-gradient vectors L1 = egin + dd inp, L2 = ea + dd h ----
-    for (int j = 0; j < J; ++j) {
-      const int p = par[j];
-      const float4 q = valid ? q4[j] : zero4;
-      const float* w1j = w1 + j * E * E;
-      const float* w2j = w2 + j * E * F;
-      const float* zj = encz + j * (E + F) * kTile;
-      const float* zp = encz + (p >= 0 ? p : 0) * (E + F) * kTile;
-      float* ej = ebuf + j * jstride;
-      float inp[kMaxE], egin[kMaxE];
-      inp[0] = q.x / n[0];
-      inp[1] = q.y / n[1];
-      inp[2] = q.z / n[2];
-      inp[3] = q.w / n[3];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) egin[i] = a.eikonal ? gx[(j * 4 + i) * kTile + t] : 0.f;
-#pragma unroll
-      for (int k = 0; k < kMaxF; ++k) {
-        const bool live = k < F && p >= 0;
-        inp[4 + k] = live ? act_fwd(a.act, 0.f, zp[(E + k) * kTile + t]) : 0.f;
-        egin[4 + k] = live && a.eikonal ? gw[(p * F + k) * kTile + t] : 0.f;
-      }
-#pragma unroll
-      for (int i = 0; i < kMaxE; ++i)
-        if (i < E) ej[i * kTile + t] = valid ? fmaf(dd, inp[i], egin[i]) : 0.f;
-      float ea[kMaxE];
-#pragma unroll
-      for (int u = 0; u < kMaxE; ++u) {
-        ea[u] = 0.f;
-        if (u < E) {
-          const float zh = zj[u * kTile + t];
-          if (a.eikonal) {
-            float s = 0.f;
-#pragma unroll
-            for (int i = 0; i < kMaxE; ++i)
-              if (i < E) s = fmaf(egin[i], w1j[i * E + u], s);
-            ea[u] = s * act_grad(a.act, 0.f, zh);
-          }
-          ej[(2 * E + u) * kTile + t] = valid ? fmaf(dd, act_fwd(a.act, 0.f, zh), ea[u]) : 0.f;
-        }
-      }
-      if (a.eikonal) {
-#pragma unroll
-        for (int k = 0; k < kMaxF; ++k) {
-          if (k < F) {
-            float s = 0.f;
-#pragma unroll
-            for (int u = 0; u < kMaxE; ++u)
-              if (u < E) s = fmaf(ea[u], w2j[u * F + k], s);
-            gw[(j * F + k) * kTile + t] = s * act_grad(a.act, 0.f, zj[(E + k) * kTile + t]);
-          }
-        }
-      }
-    }
-  }
-  __syncthreads();
-
-  // ---- the tile's encoder gradient and loss sums, over its poses in order ----
-  {
-    float* slot = a.enc_slot + static_cast<size_t>(blockIdx.x) * nenc;
-    const float* ddv = ps + kDD * kTile;
-    const int n_w1 = J * E * E, n_b1 = J * E, n_w2 = J * E * F;
-    for (int e = tid; e < nenc; e += kThreads) {
+    for (int e = t; e < nall; e += kTileThreads) {
       const float* lv;
       const float* rv;
-      if (e < n_w1) {                                  // w1[j][i][u] += L1_i gh_u
-        const int j = e / (E * E), r = e - j * E * E, i = r / E, u = r - i * E;
-        lv = ebuf + j * jstride + i * kTile;
-        rv = ebuf + j * jstride + (E + u) * kTile;
-      } else if (e < n_w1 + n_b1) {                    // b1[j][u] += dd gh_u
-        const int r = e - n_w1, j = r / E, u = r - j * E;
+      int off;
+      if (e < nw1) {                       // w1[j][i][u] += L1_i gh_u
+        lv = L1 + (e / E) * kLd;
+        rv = GH + (e % E) * kLd;
+        off = j * nw1 + e;
+      } else if (e < nw1 + nb1) {          // b1[j][u] += dd gh_u
+        const int u = e - nw1;
         lv = ddv;
-        rv = ebuf + j * jstride + (E + u) * kTile;
-      } else if (e < n_w1 + n_b1 + n_w2) {             // w2[j][u][k] += L2_u gf_k
-        const int r = e - n_w1 - n_b1, j = r / (E * F), r2 = r - j * E * F, u = r2 / F,
-                  k = r2 - u * F;
-        lv = ebuf + j * jstride + (2 * E + u) * kTile;
-        rv = ebuf + j * jstride + (3 * E + k) * kTile;
-      } else {                                         // b2[j][k] += dd gf_k
-        const int r = e - n_w1 - n_b1 - n_w2, j = r / F, k = r - j * F;
+        rv = GH + u * kLd;
+        off = J * nw1 + j * E + u;
+      } else if (e < nw1 + nb1 + nw2) {    // w2[j][u][k] += L2_u gf_k
+        const int e2 = e - nw1 - nb1;
+        lv = L2 + (e2 / F) * kLd;
+        rv = GF + (e2 % F) * kLd;
+        off = J * (nw1 + nb1) + j * nw2 + e2;
+      } else {                             // b2[j][k] += dd gf_k
+        const int k = e - nw1 - nb1 - nw2;
         lv = ddv;
-        rv = ebuf + j * jstride + (3 * E + k) * kTile;
+        rv = GF + k * kLd;
+        off = J * (nw1 + nb1 + nw2) + j * F + k;
       }
       float s = 0.f;
-#pragma unroll
-      for (int tt = 0; tt < kTile; ++tt) s = fmaf(lv[tt], rv[tt], s);
-      slot[e] = s;
+#pragma unroll 8
+      for (int pp = 0; pp < kRows; ++pp) s = fmaf(lv[pp], rv[pp], s);
+      slot[off] = s;
     }
-    if (tid == 0) {
-      float ls = 0.f, es = 0.f;
-      for (int tt = 0; tt < kTile; ++tt) {
-        ls += ps[kLSum * kTile + tt];
-        es += ps[kESum * kTile + tt];
-      }
-      a.loss_slot[2 * blockIdx.x] = ls;
-      a.loss_slot[2 * blockIdx.x + 1] = es;
-    }
+    named_bar_sync(kBar, kTileThreads);
   }
-  if (!a.eikonal) return;
-  __syncthreads();
-
-  // ---- C. e-chain, DFNet half (upward): a_l = dd x_l + ecx_l in place ----
-  cur = gw;   // ecx_0 = the code's e-cotangent
-  nxt = ebuf;
-  {
-    const float* ddv = ps + kDD * kTile;
-    float* a0 = a.a_scr;
-    for (int e = tid; e < nvalid * in0; e += kThreads) {
-      const int tt = e / in0, k = e - tt * in0;
-      float* x = a0 + static_cast<size_t>(b0 + tt) * in0 + k;
-      *x = fmaf(ddv[tt], *x, cur[k * kTile + tt]);
+  if (t == 0) {
+    float ls = 0.f, es = 0.f;
+    for (int pp = 0; pp < kRows; ++pp) {
+      ls += scal[kPL * kRows + pp];
+      es += scal[kPE * kRows + pp];
     }
-  }
-  for (int l = 0; l < L - 1; ++l) {
-    const int* m = meta + kMeta * l;
-    const float* W = a.dfw + m[2];
-    const int out = m[1];
-    const uint32_t* ml = mask + m[5];
-    float* ag = a_layer(l + 1);
-    const float* ddv = ps + kDD * kTile;
-    tile_matmul(W, m[0], out, cur, [&](int col, const float(&acc)[kTile]) {
-      const uint32_t bits = ml[col];
-      float e[kTile];
-#pragma unroll
-      for (int tt = 0; tt < kTile; ++tt) e[tt] = acc[tt] * act_grad_bit(a.act, bits, tt);
-      store_tile_column(nxt + col * kTile, e);
-#pragma unroll
-      for (int tt = 0; tt < kTile; ++tt) {
-        if (tt < nvalid) {
-          float* x = ag + static_cast<size_t>(b0 + tt) * out + col;
-          *x = fmaf(ddv[tt], *x, e[tt]);
-        }
-      }
-    });
-    __syncthreads();
-    float* tmp = cur;
-    cur = nxt;
-    nxt = tmp;
+    a.loss_slot[2 * cta] = ls;
+    a.loss_slot[2 * cta + 1] = es;
   }
 }
+
+template <int kAct>
+__global__ void __launch_bounds__(kTileThreads, 1)
+    train_tile_kernel(const __grid_constant__ Launch la) {
+  const int branch = static_cast<int>(blockIdx.x) < la.ctas0 ? 0 : 1;
+  const Args& a = la.br[branch];
+  const int cta = static_cast<int>(blockIdx.x) - branch * la.ctas0;   // within the branch
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = align1024(smem_raw);
+  float* xs = reinterpret_cast<float*>(ring + kStages * kSlabBytes);
+  float* cs = xs + kRows * kXMax;
+  float* scal = cs + kRows * kChunk;
+  int* lay = reinterpret_cast<int*>(scal + kScalars * kRows);   // in | out | aoff | coff
+  uint64_t* bars = reinterpret_cast<uint64_t*>(lay + 4 * kMaxL);
+  if (threadIdx.x == 0) {
+    int sa = 0, sc = 0;
+    for (int l = 0; l < a.L; ++l) {
+      lay[l] = __ldg(a.meta + kMeta * l);
+      lay[kMaxL + l] = __ldg(a.meta + kMeta * l + 1);
+      lay[2 * kMaxL + l] = sa;
+      lay[3 * kMaxL + l] = sc;
+      sa += lay[l];
+      sc += lay[kMaxL + l];
+    }
+  }
+  init_ring(bars, kStages, 1, 1);   // full barriers; the empty ones go unused (syncs the CTA)
+
+  // the forward and the pullback stream every slab once; the e-chain's pass
+  // (the forward's slabs again) is filled once the ring's space is free
+  const int nfb = a.nfwd + a.nbwd;
+  Ctx cx{bars, ring, a.slabs, nfb, nfb, 0, static_cast<int>(threadIdx.x) / 128,
+         static_cast<int>(threadIdx.x) % 128};
+  for (int g = 0; g < kStages; ++g) fill(cx, g);
+
+  const int row0 = cta * kRows;
+  const int nv = min(kRows, a.B - row0);
+  const int J = a.J, F = a.F, E = 4 + F;
+  const int* head = a.prog;
+  const int nfwd_steps = __ldg(head), nbwd_steps = __ldg(head + 1);
+  const int zsum = __ldg(head + 7);
+  const int n = a.L - 1;   // DFNet products on the tensor cores: layers 0 .. n - 1
+  const Buf x{xs, kXMax}, cb{cs, kChunk};
+  const Rows rows{&a, lay, lay + kMaxL, lay + 2 * kMaxL, lay + 3 * kMaxL, row0};
+  uint32_t* bits = reinterpret_cast<uint32_t*>(a.scratch + cta * scratch_floats(J, F, zsum));
+  float* ez = reinterpret_cast<float*>(bits + 4 * zsum);
+  float* gg = ez + J * (E + F) * kRows;
+  const float* dd = scal + kPDD * kRows;
+
+  // ---- forward: x_0 (the code) and every hidden x_l to the scratch ----
+  encode<kAct>(a, row0, x, __ldg(head + 2), cs, scal, ez);
+  to_sink(Sink{rows.a_rows(0), rows.in[0], false}, 0, x, rows.in[0], nv, dd);
+  const int* step = head + kHead;
+  for (int i = 0, l = 0; i < nfwd_steps; ++i, step += kStep) {
+    run_step<kAct>(step, kForward, l, rows, x, cb, a.vec, bits, nv, dd, cx);
+    l += __ldg(step) ? 2 : 1;
+  }
+  const int K = __ldg(head + 3);
+  const float* wl = a.vec + __ldg(head + 4);
+  output_layer(a, row0, x, K, wl, __ldg(a.vec + __ldg(head + 5)), cs, scal,
+               rows.c_rows(a.L - 1));
+  // ---- inner pullback with a unit cotangent: every c_l to the scratch ----
+  pullback_start<kAct>(x, K, wl, bits + 4 * __ldg(head + 6), scal, cx);
+  to_sink(Sink{rows.c_rows(n - 1), rows.out[n - 1], false}, 0, x, K, nv, dd);
+  for (int i = 0, l = n - 1; i < nbwd_steps; ++i, step += kStep) {
+    run_step<kAct>(step, kPullback, l, rows, x, cb, a.vec, bits, nv, dd, cx);
+    l -= __ldg(step) ? 2 : 1;
+  }
+  // ---- the encoder's reverse walk, the eikonal term, the encoder's
+  //      gradient; every slab so far is read: the ring's space holds gx ----
+  float* gx = reinterpret_cast<float*>(ring);
+  encode_backward<kAct>(a, row0 + static_cast<int>(threadIdx.x) % kRows < a.B, x, ez, gg, gx, cs);
+  if (a.eikonal) eikonal(a, row0, gx, gx + J * 4 * kRows, scal);
+  encoder_grad<kAct>(a, cta, x, ez, gg, gx, cs, scal);
+  if (!a.eikonal) return;
+
+  // ---- the e-chain, DFNet half (upward): a_l = dd x_l + ecx_l in place ----
+  to_sink(Sink{rows.a_rows(0), rows.in[0], true}, 0, x, rows.in[0], nv, dd);
+  fence_proxy_async();                   // the ring's space was written as gx
+  named_bar_sync(kBar, kTileThreads);
+  cx.lim = nfb + a.nfwd;
+  for (int g = 0; g < kStages; ++g) fill(cx, cx.g + g);
+  step = head + kHead;
+  for (int i = 0, l = 0; i < nfwd_steps; ++i, step += kStep) {
+    run_step<kAct>(step, kEChain, l, rows, x, cb, a.vec, bits, nv, dd, cx);
+    l += __ldg(step) ? 2 : 1;
+  }
+}
+
+}  // namespace tile
 
 // ---------------------------------------------------------------------------
 // training gradient, batch reduction
@@ -1022,47 +1484,77 @@ int posendf_encoder(const float* quat, int B, const float* enc, const int* paren
   return static_cast<int>(cudaGetLastError());
 }
 
-// One branch of the training gradient: grid ceil(B / 16) blocks.
-int posendf_train_tile(const float* pose, int B, const float* gt, const float* enc,
-                       const int* parents, int J, int F, const float* dfw, const int* meta, int L,
-                       int maxw, int zsum, int act, int eikonal, int l2, float dd_coef,
-                       float eik_coef, float* a_scr, float* c_scr, float* dd_out, float* enc_slot,
-                       float* loss_slot, void* stream) {
-  if (J < 1 || J > kMaxJ || F < 1 || F > kMaxF || L < 1 || L > kMaxL ||
-      (act != kLRelu && act != kRelu))
+// Both branches of the training gradient in one launch: ceil(B / 64) CTAs a
+// branch (posendf_train_tile_ctas), the noisy ones first. slabs, vec, prog,
+// nfwd, nbwd: fused_model.pack_tc; meta (L, kMeta): each layer's (in, out).
+// A branch's arguments: pose, B, gt (null on the manifold branch), dd_coef,
+// a_scr, c_scr, dd_out, enc_slot, loss_slot and scratch
+// (posendf_train_tile_scratch_floats floats).
+int posendf_train_tile(const float* enc, const int* parents, int J, int F, const void* slabs,
+                       const float* vec, const int* prog, int nfwd, int nbwd, const int* meta,
+                       int L, int act, int l2, float eik_coef,
+                       const float* pose_n, int B_n, const float* gt_n, float dd_coef_n,
+                       float* a_n, float* c_n, float* dd_n, float* enc_slot_n,
+                       float* loss_slot_n, float* scratch_n,
+                       const float* pose_m, int B_m, const float* gt_m, float dd_coef_m,
+                       float* a_m, float* c_m, float* dd_m, float* enc_slot_m,
+                       float* loss_slot_m, float* scratch_m, void* stream) {
+  if (J < 1 || J > kMaxJ || F < 1 || F > kMaxF || L < 2 || L > kMaxL || B_n < 0 || B_m < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (B <= 0) return 0;
-  TrainArgs a{};
-  a.pose = pose;
-  a.B = B;
-  a.gt = gt;
-  a.enc = enc;
-  a.parents = parents;
-  a.J = J;
-  a.F = F;
-  a.dfw = dfw;
-  a.meta = meta;
-  a.L = L;
-  a.maxw = maxw;
-  a.zsum = zsum;
-  a.act = act;
-  a.eikonal = eikonal;
-  a.l2 = l2;
-  a.dd_coef = dd_coef;
-  a.eik_coef = eik_coef;
-  a.a_scr = a_scr;
-  a.c_scr = c_scr;
-  a.dd_out = dd_out;
-  a.enc_slot = enc_slot;
-  a.loss_slot = loss_slot;
-  const size_t smem = train_smem_floats(J, F, L, maxw, zsum) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(train_tile_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = (B + kTile - 1) / kTile;
-  train_tile_kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  if (B_n + B_m == 0) return 0;
+  const float* pose[2] = {pose_n, pose_m};
+  const float* gt[2] = {gt_n, gt_m};
+  const int B[2] = {B_n, B_m};
+  const float dd_coef[2] = {dd_coef_n, dd_coef_m};
+  float* out[2][6] = {{a_n, c_n, dd_n, enc_slot_n, loss_slot_n, scratch_n},
+                      {a_m, c_m, dd_m, enc_slot_m, loss_slot_m, scratch_m}};
+  tile::Launch la{};
+  for (int b = 0; b < 2; ++b) {
+    tile::Args& a = la.br[b];
+    a.pose = pose[b];
+    a.B = B[b];
+    a.gt = gt[b];
+    a.enc = enc;
+    a.parents = parents;
+    a.J = J;
+    a.F = F;
+    a.slabs = static_cast<const unsigned char*>(slabs);
+    a.vec = vec;
+    a.prog = prog;
+    a.nfwd = nfwd;
+    a.nbwd = nbwd;
+    a.meta = meta;
+    a.L = L;
+    a.eikonal = b == 0;
+    a.l2 = b == 0 ? l2 : 0;
+    a.dd_coef = dd_coef[b];
+    a.eik_coef = b == 0 ? eik_coef : 0.f;
+    a.a_scr = out[b][0];
+    a.c_scr = out[b][1];
+    a.dd_out = out[b][2];
+    a.enc_slot = out[b][3];
+    a.loss_slot = out[b][4];
+    a.scratch = out[b][5];
+  }
+  la.ctas0 = (B_n + tile::kRows - 1) / tile::kRows;
+  const dim3 ctas(la.ctas0 + (B_m + tile::kRows - 1) / tile::kRows);
+  switch (act) {   // one kernel an activation (act'' = 0 for both)
+    case kLRelu:
+      return launch_wgmma(tile::train_tile_kernel<kLRelu>, ctas, tile::kTileThreads,
+                          tile::kTileSmem, stream, la);
+    case kRelu:
+      return launch_wgmma(tile::train_tile_kernel<kRelu>, ctas, tile::kTileThreads,
+                          tile::kTileSmem, stream, la);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// CTAs (and encoder / loss slots) of a branch of B rows.
+int posendf_train_tile_ctas(int B) { return (B + tile::kRows - 1) / tile::kRows; }
+
+// Floats of the tile kernel's scratch for a branch of B rows (zsum: fused_model.pack_tc's).
+long long posendf_train_tile_scratch_floats(int B, int J, int F, int zsum) {
+  return static_cast<long long>(posendf_train_tile_ctas(B)) * tile::scratch_floats(J, F, zsum);
 }
 
 // The reduction over both branches, two launches. meta_host is the host copy

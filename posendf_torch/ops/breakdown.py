@@ -1,11 +1,12 @@
 """Where the wgmma kernels' time goes: ``posendf_forward_int8``,
-``probe_bf16_chain``, ``posendf_project_step`` and ``posendf_forward`` timed
-with parts of their work cut out of the source.
+``probe_bf16_chain``, ``posendf_project_step``, ``posendf_forward`` and
+``posendf_train_tile`` timed with parts of their work cut out of the
+source.
 
 ``ncu`` does not run where the card is, so this measures by subtraction:
-each variant is ``csrc/int8_kernels.cu`` or ``csrc/field_kernels.cu`` with
-some statements replaced (its results are wrong; only its time means
-something), built with the same nvcc flags into
+each variant is ``csrc/int8_kernels.cu``, ``csrc/field_kernels.cu`` or
+``csrc/train_kernels.cu`` with some statements replaced (its results are
+wrong; only its time means something), built with the same nvcc flags into
 ``build/posendf_torch/breakdown/`` and timed through the same wrappers as
 the real kernel, in rounds.
 
@@ -32,13 +33,28 @@ at 131,072):
   ``copies``   those three cut and the A fragments' loads too: the weight
                ring alone (with the output layer and the CUDA-core ends)
 
+``train_kernels.cu``'s tile kernel (both branches at 20,000 + 20,000 poses
+of the trained field, the main path's training batch):
+
+  ``base``     the kernel as it is
+  ``noenc``    without the encoder's walks (forward, reverse, the e-chain's
+               encoder half with the encoder's weight gradient) and the
+               eikonal term
+  ``nograd``   without the e-chain's encoder half and the encoder's weight
+               gradient alone
+  ``nomma``    without the wgmma products (as the field kernels' cut)
+  ``nostore``  without the scratch stores (x_l, c_l, the e-chain's folds)
+  ``ring``     those three cut, the epilogues and the A fragments' loads
+               too: the weight ring alone (three passes a noisy CTA, two a
+               manifold one, with the output layer and the loss)
+
 Run on the card::
 
     python -m posendf_torch.ops.breakdown
 
 One line a kernel and variant: the median of CUDA-event means, at the main
 shapes (131,072 poses of the trained field; (131,072, 512) x 8 layers;
-10,000 poses a projection step). A cut that no longer finds its statement in
+10,000 poses a projection step; 20,000 + 20,000 poses a training step). A cut that no longer finds its statement in
 the source stops the run.
 """
 
@@ -94,11 +110,26 @@ CUTS: Dict[str, Dict[str, List[Tuple[str, str]]]] = {
                     "      for (int kk = 0; kk < 4; ++kk)\n        for (int j = 0; j < 4; ++j) ah[kk][j] = al[kk][j] = 0u;\n")],
     },
 }
+_FIELD = CUTS["field"]
+CUTS["train"] = {
+    "noenc": [("  encode<kAct>(a, row0, x, __ldg(head + 2), cs, scal, ez);\n", ""),
+              ("  encode_backward<kAct>(a, row0 + static_cast<int>(threadIdx.x) % kRows < a.B, x, ez, gg, gx, cs);\n", ""),
+              ("  if (a.eikonal) eikonal(a, row0, gx, gx + J * 4 * kRows, scal);\n", ""),
+              ("  encoder_grad<kAct>(a, cta, x, ez, gg, gx, cs, scal);\n", "")],
+    "nograd": [("  encoder_grad<kAct>(a, cta, x, ez, gg, gx, cs, scal);\n", "")],
+    "nomma": _FIELD["nomma"],
+    "nostore": [("  if (s.dst == nullptr) return;\n", "  if (s.ld >= 0) return;\n")],
+    "noepi": _FIELD["noepi"],
+    "noload": _FIELD["noload"],
+}
 VARIANTS = {
     "int8": {"base": [], "noenc": ["noenc"], "nof32": ["nof32"], "nomma": ["nomma"],
              "noepi": ["noepi"], "copies": ["noenc", "nof32", "nomma", "noepi"]},
     "field": {"base": [], "noenc": ["noenc"], "nomma": ["nomma"], "noepi": ["noepi"],
               "copies": ["noenc", "nomma", "noepi", "noload"]},
+    "train": {"base": [], "noenc": ["noenc"], "nograd": ["nograd"], "nomma": ["nomma"],
+              "nostore": ["nostore"],
+              "ring": ["noenc", "nomma", "nostore", "noepi", "noload"]},
 }
 
 
@@ -136,7 +167,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("breakdown: torch.cuda.is_available() is false; it needs a card")
     import posendf_torch
-    from posendf_torch.ops import fused_grad, fused_int8
+    from posendf_torch.ops import fused_grad, fused_int8, fused_train
     from posendf_torch.ops import int8_probe as P
 
     jobs = [(lib, name) for lib in VARIANTS for name in VARIANTS[lib]]
@@ -152,6 +183,12 @@ def main() -> None:
     qf = field.quantize_int8(q[:4096])
     m = qf.module
     xb, wb, *_ = P.probe_inputs(seed=2)
+    rows = 20_000   # the main path's training batch, each branch
+    qt = torch.from_numpy(np.random.default_rng(4).normal(size=(2, rows, 21, 4)).astype(np.float32))
+    qt = (qt / qt.norm(dim=-1, keepdim=True)).cuda()
+    gt = torch.from_numpy(np.abs(np.random.default_rng(5).normal(size=rows)).astype(np.float32)
+                          * 0.1).cuda()
+    kw_n, kw_m = fused_train.branch_args(w, qt[0], gt, qt[1], "l1", 1.0, 1.0, 1.0)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
     print(card, flush=True)
@@ -168,6 +205,12 @@ def main() -> None:
                 if name in ("base", "nomma"):
                     t = P.cuda_ms(lambda: P.run_bf16(xb, wb), reps=5, rounds=5)
                     print(f"probe bf16 {name}: {t[0]:.4f} ms [{t[1]:.4f}-{t[2]:.4f}]", flush=True)
+                continue
+            if lib_name == "train":
+                t = P.cuda_ms(lambda: fused_train.launch_tiles(w, qt[0], gt, qt[1], kw_n, kw_m),
+                              reps=3, rounds=5)
+                print(f"train tile B=M={rows} {name}: {t[0]:.4f} ms [{t[1]:.4f}-{t[2]:.4f}]",
+                      flush=True)
                 continue
             with torch.no_grad():
                 t = P.cuda_ms(lambda: fused_grad.project_step(q10, w), reps=10, rounds=5)

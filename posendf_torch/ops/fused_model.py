@@ -40,16 +40,13 @@ _MAX_JOINTS, _MAX_FEATURE, _MAX_LAYERS = 32, 8, 16
 
 @dataclass
 class Packed:
-    """A field's weights as the kernels read them, on one device."""
+    """A field's encoder and layer table as the kernels read them, on one device."""
 
     enc: torch.Tensor        # w1 | b1 | w2 | b2, flat fp32
     parents: torch.Tensor    # (J,) int32
-    dfw: torch.Tensor        # per layer: W (in, out) | b | W^T (out, in), flat fp32
-    meta: torch.Tensor       # (L, 6) int32: in, out, off W, off b, off W^T, off z
+    meta: torch.Tensor       # (L, 2) int32: each layer's in, out
     meta_host: torch.Tensor  # the same table on the CPU
     num_layers: int
-    maxw: int                # widest activation, input code included
-    zsum: int                # sum of hidden widths (pre-activations kept per pose)
 
 
 @dataclass
@@ -123,31 +120,10 @@ def _pack(w: FieldWeights) -> Packed:
     with torch.no_grad():
         enc = torch.cat([w.enc[k].detach().reshape(-1).float()
                          for k in ("w1", "b1", "w2", "b2")]).contiguous()
-        chunks, meta, off, zoff = [], [], 0, 0
-
-        def put(t: torch.Tensor) -> int:
-            nonlocal off
-            start = off
-            flat = t.detach().reshape(-1).float()
-            pad = (-flat.numel()) % 4                     # 16-byte aligned regions
-            chunks.append(flat)
-            if pad:
-                chunks.append(flat.new_zeros(pad))
-            off += flat.numel() + pad
-            return start
-
-        for wl, bl in w.layers:
-            fan_in, fan_out = wl.shape
-            meta.append([fan_in, fan_out, put(wl), put(bl), put(wl.t().contiguous()), zoff])
-            zoff += fan_out
-        zsum = zoff - w.layers[-1][0].shape[1]            # the output's z is not kept
-        dfw = torch.cat(chunks).contiguous()
-        widths = [w.layers[0][0].shape[0]] + [wl.shape[1] for wl, _ in w.layers]
-        meta = tuple(map(tuple, meta))
-        return Packed(
-            enc=enc, parents=int_table(tuple(w.parents), str(enc.device)), dfw=dfw,
-            meta=int_table(meta, str(enc.device)), meta_host=int_table(meta, "cpu"),
-            num_layers=L, maxw=max(widths), zsum=zsum)
+    meta = tuple(tuple(wl.shape) for wl, _ in w.layers)
+    return Packed(enc=enc, parents=int_table(tuple(w.parents), str(enc.device)),
+                  meta=int_table(meta, str(enc.device)), meta_host=int_table(meta, "cpu"),
+                  num_layers=L)
 
 
 # ---- the field kernels' weights (csrc/field_kernels.cu) ----
@@ -267,31 +243,66 @@ def tc_slab_offsets(rows: int = TC_SLAB_N) -> torch.Tensor:
     return (r // 8) * 256 + (r % 8) * 32 + (((k // 4) ^ (r % 8)) * 4) + k % 4
 
 
-def _split_swizzled(b: torch.Tensor) -> torch.Tensor:
-    """Blocks (..., R, 32) of B^T, K permuted within 8-groups (TC_KPERM),
-    split to TF32 hi / lo, each half in the 128-byte swizzle: (..., 2, 32 R)."""
-    from posendf_torch.ops.fused_train import tf32_split
-
-    R = b.shape[-2]
-    b = b.reshape(*b.shape[:-1], TC_SLAB_K // 8, 8)[..., list(TC_KPERM)]
-    hi, lo = tf32_split(b.reshape(*b.shape[:-3], R * TC_SLAB_K))
-    off = tc_slab_offsets(R).reshape(-1).to(b.device)
-    out = b.new_zeros(*hi.shape[:-1], 2, R * TC_SLAB_K)
-    out[..., 0, off] = hi
-    out[..., 1, off] = lo
-    return out
-
-
-def _tc_slabs(m: torch.Tensor, cols: int) -> torch.Tensor:
-    """Every slab of an (N, K) matrix: (K / kl, N / cols, TC_SLAB_FLOATS),
-    kl = the slab's K. A 128-column slab is hi | lo of one 128 x 32 block;
-    a 64-column slab (the first product of a chain) is hi | lo of its first
-    32 of K, then hi | lo of its second."""
+def _slab_ids(m: torch.Tensor, cols: int, lo_shift: int, zero: int) -> torch.Tensor:
+    """Every slab of an (N, K) matrix of element ids as the kernels read it:
+    (K / kl, N / cols, TC_SLAB_FLOATS) ids, kl = the slab's K; a weight's hi
+    half keeps its id, its lo half the id + ``lo_shift``, padding ``zero``.
+    A 128-column slab is hi | lo of one 128 x 32 block; a 64-column slab (the
+    first product of a chain) is hi | lo of its first 32 of K, then of its
+    second; within each 8-group of K, position p holds feature TC_KPERM[p],
+    and each half is in the 128-byte swizzle (:func:`tc_slab_offsets`)."""
     N, K = m.shape
     kl = TC_SLAB_FLOATS // 2 // cols          # 32 or 64
     b = m.reshape(N // cols, cols, K // kl, kl // TC_SLAB_K, TC_SLAB_K)
     b = b.permute(2, 0, 3, 1, 4)              # (K / kl, N / cols, halves, cols, 32)
-    return _split_swizzled(b).reshape(K // kl, N // cols, TC_SLAB_FLOATS)
+    b = b.reshape(*b.shape[:-1], TC_SLAB_K // 8, 8)[..., list(TC_KPERM)]
+    hi = b.reshape(*b.shape[:-3], cols * TC_SLAB_K)
+    lo = torch.where(hi == zero, hi, hi + lo_shift)
+    off = tc_slab_offsets(cols).reshape(-1)
+    out = torch.empty(*hi.shape[:-1], 2, cols * TC_SLAB_K, dtype=hi.dtype)
+    out[..., 0, off] = hi
+    out[..., 1, off] = lo
+    return out.reshape(K // kl, N // cols, TC_SLAB_FLOATS)
+
+
+@dataclass(frozen=True)
+class _TcPlan:
+    """What :func:`pack_tc` needs of a structure, made once: the program and
+    where each float of the slabs comes from."""
+
+    index: torch.Tensor   # (slabs x TC_SLAB_FLOATS,) int32: into hi | lo | 0 of the flat weights
+    widths: Tuple[int, ...]
+    prog: torch.Tensor
+    nfwd: int
+    nbwd: int
+    zsum: int
+    order: List[Tuple[str, int, int, int, int]]
+
+
+@functools.lru_cache(maxsize=None)
+def _tc_plan(shapes: Tuple[Tuple[int, int], ...], device: str) -> _TcPlan:
+    """The plan of hidden layers of ``shapes`` (in, out) on ``device``: the
+    weights W_l flattened one after another (``total`` floats) are split to
+    hi | lo and followed by one zero; slab float f is element index[f] of
+    that."""
+    widths = tc_widths([shapes[0][0]] + [o for _, o in shapes])
+    header, fwd, bwd, fslabs, bslabs = tc_schedule(widths)
+    total = sum(i * o for i, o in shapes)
+    zero = 2 * total
+    mats, base = {}, 0
+    for l, (i, o) in enumerate(shapes):
+        m = torch.full((widths[l], widths[l + 1]), zero, dtype=torch.int64)
+        m[:i, :o] = torch.arange(base, base + i * o).view(i, o)
+        mats["w", l], mats["wt", l] = m, m.t()
+        base += i * o
+    order = fslabs + bslabs
+    cut = {key: _slab_ids(mats[key[:2]], key[2], total, zero)
+           for key in {(kind, l, cols) for kind, l, _, _, cols in order}}
+    index = torch.stack([cut[kind, l, cols][kb, cg] for kind, l, kb, cg, cols in order])
+    prog = tuple(header + [v for step in fwd + bwd for v in step])
+    return _TcPlan(index=index.reshape(-1).to(device=device, dtype=torch.int32), widths=widths,
+                   prog=int_table(prog, device), nfwd=len(fslabs), nbwd=len(bslabs),
+                   zsum=header[-1], order=order)
 
 
 @dataclass
@@ -312,26 +323,25 @@ def pack_tc(w: FieldWeights) -> TcPacked:
     """The field kernels' weights: every DFNet product layer's W^T (the
     forward's B) and W (the backward's B), zero-padded to :func:`tc_width`,
     split to TF32 hi / lo and cut into slabs in the order the kernels read
-    them (:func:`tc_schedule`); the biases and the output layer in fp32."""
+    them (:func:`tc_schedule`); the biases and the output layer in fp32.
+    The slabs are one gather from the split weights by an index made once
+    per structure (:func:`_tc_plan`), so packing each training step costs a
+    few launches."""
+    from posendf_torch.ops.fused_train import tf32_split
+
     J, F, L = w.num_joints, w.feature_size, len(w.layers)
     if J > _MAX_JOINTS or F > _MAX_FEATURE or L > _MAX_LAYERS or L < 2:
         raise ValueError(f"the field kernels take at most {_MAX_JOINTS} joints, feature size "
                          f"{_MAX_FEATURE} and 2 to {_MAX_LAYERS} layers; got {J}, {F}, {L}")
     if w.layers[-1][0].shape[1] != 1:
         raise ValueError("the last DFNet layer must have one output")
-    widths = tc_widths([w.layers[0][0].shape[0]] + [wl.shape[1] for wl, _ in w.layers[:-1]])
-    header, fwd, bwd, fslabs, bslabs = tc_schedule(widths)
+    plan = _tc_plan(tuple(tuple(wl.shape) for wl, _ in w.layers[:-1]), str(w.device))
+    widths = plan.widths
     with torch.no_grad():
-        mats = {}
-        for l, (wl, _) in enumerate(w.layers[:-1]):
-            m = wl.new_zeros(widths[l], widths[l + 1])
-            m[:wl.shape[0], :wl.shape[1]] = wl.detach().float()
-            mats["w", l] = m
-            mats["wt", l] = m.t()
-        order = fslabs + bslabs
-        cut = {key: _tc_slabs(mats[key[:2]], key[2])
-               for key in {(kind, l, cols) for kind, l, _, _, cols in order}}
-        slabs = torch.stack([cut[kind, l, cols][kb, cg] for kind, l, kb, cg, cols in order])
+        hi, lo = tf32_split(torch.cat([wl.detach().reshape(-1).float()
+                                       for wl, _ in w.layers[:-1]]))
+        src = torch.cat([hi, lo, hi.new_zeros(1)])
+        slabs = torch.index_select(src, 0, plan.index).view(-1, TC_SLAB_FLOATS)
 
         def pad(t: torch.Tensor, n: int) -> torch.Tensor:
             flat = t.detach().reshape(-1).float()
@@ -340,9 +350,8 @@ def pack_tc(w: FieldWeights) -> TcPacked:
         w_out, b_out = w.layers[-1]
         vec = torch.cat([pad(b, widths[l + 1]) for l, (_, b) in enumerate(w.layers[:-1])] +
                         [pad(w_out, widths[-1]), pad(b_out, 4)]).contiguous()
-    prog = tuple(header + [v for step in fwd + bwd for v in step])
-    return TcPacked(slabs=slabs, vec=vec, prog=int_table(prog, str(vec.device)), widths=widths,
-                    nfwd=len(fslabs), nbwd=len(bslabs), zsum=header[-1], order=order)
+    return TcPacked(slabs=slabs, vec=vec, prog=plan.prog, widths=widths, nfwd=plan.nfwd,
+                    nbwd=plan.nbwd, zsum=plan.zsum, order=plan.order)
 
 
 def check_poses(quat: torch.Tensor, weights: FieldWeights) -> None:

@@ -1,16 +1,18 @@
-"""The full training gradient in two CUDA launches per step.
+"""The full training gradient in two CUDA kernels per step.
 
 Port of ``posendf_tpu/ops/fused_train.py::_train_kernel`` (its
 ``fused_train_grads``): ``(total, terms, grads)`` of
 ``losses.training_loss``, with the gradient keyed like the port's
-``PoseNDF.state_dict()``. The kernels are ``posendf_train_tile`` (once per
-branch: noisy, then manifold) and ``posendf_train_reduce`` in
+``PoseNDF.state_dict()``. The kernels are ``posendf_train_tile`` (both
+branches in one launch, the noisy CTAs first) and ``posendf_train_reduce`` in
 ``csrc/train_kernels.cu``; the source's header explains the split and why
 one batch product per branch suffices for lrelu/relu.
 
-The reduction's products run on the tensor cores in 3xTF32 (each operand
-split as :func:`tf32_split` models it; ``reduce_ref`` stays its plain
-version). ``fused_train_grads`` launches them for CUDA tensors. For CPU tensors it
+Both kernels run the DFNet's products on the tensor cores in 3xTF32 (each
+operand split as :func:`tf32_split` models it): the tile kernel in 64-pose
+CTAs from the field kernels' weight slabs (``fused_model.pack_tc``, packed
+anew for every step's weights), the reduction from the scratch rows.
+``fused_train_grads`` launches them for CUDA tensors. For CPU tensors it
 runs their plain version, ``ops/train_grad.manual_train_grads``, which the
 tests hold to the JAX kernel. Each kernel also has a plain version of its
 own part, which ``chip_smoke.py`` holds it to on the card: ``branch_ref``
@@ -25,16 +27,16 @@ gradient, ``terms`` are unweighted; the outputs carry no autograd graph.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Tuple
 
 import torch
 
 from posendf_torch import _build
-from posendf_torch.ops.fused_model import FieldWeights, stream_handle
+from posendf_torch.ops.fused_model import FieldWeights, aligned_contiguous, stream_handle
 from posendf_torch.ops.train_grad import manual_train_grads
 
 __all__ = ["fused_train_grads", "BranchRows", "branch_args",
-           "branch_ref", "reduce_ref", "tf32_split", "TileOut", "launch_tile", "launch_reduce",
+           "branch_ref", "reduce_ref", "tf32_split", "TileOut", "launch_tiles", "launch_reduce",
            "TILE_LAUNCHES", "REDUCE_LAUNCHES"]
 
 # launches of each kernel since its count was last set to 0
@@ -43,7 +45,6 @@ REDUCE_LAUNCHES = 0
 
 _EPS2 = 1e-24     # joint_axis_normalize guard (eps = 1e-12 squared)
 _EIK_EPS = 1e-12  # the eikonal norm's epsilon (losses.py)
-_TILE = 16        # poses per block of the tile kernel (kTile)
 
 
 def _check_args(w: FieldWeights, pose, dist_gt, man_poses, loss_type: str,
@@ -236,8 +237,8 @@ class TileOut:
     a_scr: torch.Tensor     # per layer a (rows, in_l) block: a_l (noisy) or x_l (manifold)
     c_scr: torch.Tensor     # per layer a (rows, out_l) block: c_l
     dd: torch.Tensor        # (rows,) the loss's cotangent on d
-    enc_slot: torch.Tensor  # (blocks, encoder floats): each block's encoder gradient
-    loss_slot: torch.Tensor  # (blocks, 2): each block's distance and eikonal sums
+    enc_slot: torch.Tensor  # (CTAs, encoder floats): each CTA's encoder gradient
+    loss_slot: torch.Tensor  # (CTAs, 2): each CTA's distance and eikonal sums
     rows: int
     eikonal: bool
 
@@ -260,31 +261,42 @@ class TileOut:
         return BranchRows(a=a, c=c, dd=self.dd, enc=enc, loss=self.loss_slot.sum(0))
 
 
-def launch_tile(w: FieldWeights, q: torch.Tensor, gt: Optional[torch.Tensor], *, eikonal: bool,
-                l2: bool, dd_coef: float, eik_coef: float) -> TileOut:
-    """One branch's tile kernel: ``eikonal=True`` for the noisy poses (with
-    labels ``gt``), ``False`` for the manifold poses (``gt`` None)."""
+def launch_tiles(w: FieldWeights, pose: torch.Tensor, gt: torch.Tensor, man: torch.Tensor,
+                 kw_n: dict, kw_m: dict) -> Tuple[TileOut, TileOut]:
+    """The tile kernel over both branches in one launch: the noisy poses
+    ``pose`` with labels ``gt`` and the manifold poses ``man``, each with its
+    :func:`branch_args`."""
     global TILE_LAUNCHES
-    pk = w.packed()
-    rows, dev = q.shape[0], q.device
-    blocks = -(-rows // _TILE)
+    pk, tc = w.packed(), w.tc_packed()
+    lib = _build.library("train")
+    J, F = w.num_joints, w.feature_size
     ins = sum(wl.shape[0] for wl, _ in w.layers)
     outs = sum(wl.shape[1] for wl, _ in w.layers)
-    out = TileOut(a_scr=torch.empty(rows * ins, dtype=torch.float32, device=dev),
-                  c_scr=torch.empty(rows * outs, dtype=torch.float32, device=dev),
-                  dd=torch.empty(rows, dtype=torch.float32, device=dev),
-                  enc_slot=torch.empty((blocks, pk.enc.numel()), dtype=torch.float32, device=dev),
-                  loss_slot=torch.empty((blocks, 2), dtype=torch.float32, device=dev), rows=rows,
-                  eikonal=eikonal)
-    _build.check(_build.library("train").posendf_train_tile(
-        q.data_ptr(), rows, None if gt is None else gt.data_ptr(), pk.enc.data_ptr(),
-        pk.parents.data_ptr(), w.num_joints, w.feature_size, pk.dfw.data_ptr(),
-        pk.meta.data_ptr(), pk.num_layers, pk.maxw, pk.zsum, _build.ACT_CODES[w.activation],
-        int(eikonal), int(l2), float(dd_coef), float(eik_coef), out.a_scr.data_ptr(),
-        out.c_scr.data_ptr(), out.dd.data_ptr(), out.enc_slot.data_ptr(),
-        out.loss_slot.data_ptr(), stream_handle(q)), "posendf_train_tile", "train")
+    args, tiles = [], []
+    for q, labels, kw in ((pose, gt, kw_n), (man, None, kw_m)):
+        rows, dev = q.shape[0], q.device
+        ctas = lib.posendf_train_tile_ctas(rows)
+        out = TileOut(a_scr=torch.empty(rows * ins, dtype=torch.float32, device=dev),
+                      c_scr=torch.empty(rows * outs, dtype=torch.float32, device=dev),
+                      dd=torch.empty(rows, dtype=torch.float32, device=dev),
+                      enc_slot=torch.empty((ctas, pk.enc.numel()), dtype=torch.float32,
+                                           device=dev),
+                      loss_slot=torch.empty((ctas, 2), dtype=torch.float32, device=dev),
+                      rows=rows, eikonal=kw["eikonal"])
+        scratch = torch.empty(lib.posendf_train_tile_scratch_floats(rows, J, F, tc.zsum),
+                              dtype=torch.float32, device=dev)
+        args += [q.data_ptr(), rows, None if labels is None else labels.data_ptr(),
+                 float(kw["dd_coef"]), out.a_scr.data_ptr(), out.c_scr.data_ptr(),
+                 out.dd.data_ptr(), out.enc_slot.data_ptr(), out.loss_slot.data_ptr(),
+                 scratch.data_ptr()]
+        tiles.append((out, scratch))
+    _build.check(lib.posendf_train_tile(
+        pk.enc.data_ptr(), pk.parents.data_ptr(), J, F, tc.slabs.data_ptr(), tc.vec.data_ptr(),
+        tc.prog.data_ptr(), tc.nfwd, tc.nbwd, pk.meta.data_ptr(), pk.num_layers,
+        _build.ACT_CODES[w.activation], int(kw_n["l2"]), float(kw_n["eik_coef"]), *args,
+        stream_handle(pose)), "posendf_train_tile", "train")
     TILE_LAUNCHES += 1
-    return out
+    return tiles[0][0], tiles[1][0]
 
 
 def launch_reduce(w: FieldWeights, noisy: TileOut, man: TileOut):
@@ -301,7 +313,7 @@ def launch_reduce(w: FieldWeights, noisy: TileOut, man: TileOut):
     partial = torch.empty(lib.posendf_train_reduce_partial_floats(
         pk.meta_host.data_ptr(), pk.num_layers, noisy.rows, man.rows),
         dtype=torch.float32, device=dev)
-    # the reduction sums the noisy blocks' slots, then the manifold's
+    # the reduction sums the noisy CTAs' slots, then the manifold's
     enc_slot = torch.cat([noisy.enc_slot, man.enc_slot])
     loss_slot = torch.cat([noisy.loss_slot, man.loss_slot])
     _build.check(lib.posendf_train_reduce(
@@ -319,8 +331,8 @@ def _launch(w: FieldWeights, pose, dist_gt, man_poses, *, loss_type: str, weight
             weight_man: float, weight_eikonal: float):
     kw_n, kw_m = branch_args(w, pose, dist_gt, man_poses, loss_type, weight_dist, weight_man,
                            weight_eikonal)
-    noisy = launch_tile(w, pose.contiguous(), dist_gt.contiguous(), **kw_n)
-    man = launch_tile(w, man_poses.contiguous(), None, **kw_m)
+    noisy, man = launch_tiles(w, aligned_contiguous(pose), dist_gt.contiguous(),
+                              aligned_contiguous(man_poses), kw_n, kw_m)
     flat, loss = launch_reduce(w, noisy, man)
     grads, off = {}, 0
     for k in ("w1", "b1", "w2", "b2"):
@@ -346,9 +358,9 @@ def fused_train_grads(w: FieldWeights, pose: torch.Tensor, dist_gt: torch.Tensor
     manifold poses ``man_poses`` (M, J, 4): returns ``(total, terms,
     grads)``, ``grads`` keyed like ``PoseNDF.state_dict()``.
 
-    CUDA tensors go through the two kernels (three launches), CPU tensors
-    through the plain version, ``manual_train_grads``. Deterministic: two
-    calls give the same bits.
+    CUDA tensors go through the two kernels (one tile launch, the reduction's
+    two), CPU tensors through the plain version, ``manual_train_grads``.
+    Deterministic: two calls give the same bits.
     """
     J = w.num_joints
     pose = pose.reshape(-1, J, 4)

@@ -13,7 +13,8 @@ chained with the next 64 columns at a time.
   formula (``tc_slab_offsets``) and the K permutation, are the TF32 split
   of the zero-padded W^T (forward) and W (backward) of every layer, each
   block once; hi + lo is the weight within 2^-22 of itself.
-* A model of the kernels that walks the program, takes the slabs from the
+* A model of the kernels (``tests/tc_model.py``, shared with the train
+  tile kernel's test) that walks the program, takes the slabs from the
   packed stream in order (every one, none left) and sums each product as
   lo.hi' + hi.lo' + hi.hi' of ``fused_train.tf32_split``, k8 step by k8
   step into fp32 accumulators that round toward zero (the tensor cores'
@@ -41,8 +42,9 @@ from posendf_torch.models.activations import (  # noqa: E402
     act_grad, out_act_grad_from_value, resolve,
 )
 from posendf_torch.ops import fused_grad, fused_model  # noqa: E402
-from posendf_torch.ops.fused_model import TC_CHUNK, TC_KPERM, TC_SLAB_K, TC_SLAB_N  # noqa: E402
+from posendf_torch.ops.fused_model import TC_SLAB_K  # noqa: E402
 from posendf_torch.ops.fused_train import tf32_split  # noqa: E402
+from tests import tc_model  # noqa: E402
 
 CKPT = "docs/quality/ckpt_l8_best.msgpack"
 D_ATOL = G_ATOL = 1e-5
@@ -74,29 +76,10 @@ def weights(request):
     return Field(tm).weights()
 
 
-def _blocks(tc):
-    """Each slab read back by the swizzle's formula: a list of (halves, 2,
-    rows, 32) tensors in K-position order (hi and lo of each 32 of K)."""
-    out = []
-    for slab, (_, _, _, _, cols) in zip(tc.slabs, tc.order):
-        off = fused_model.tc_slab_offsets(cols).reshape(-1)
-        halves = slab.reshape(-1, 2, cols * TC_SLAB_K)[:, :, off]
-        out.append(halves.reshape(-1, 2, cols, TC_SLAB_K))
-    return out
-
-
-def _features(block):
-    """K positions -> features within each 8-group (the inverse of TC_KPERM)."""
-    out = torch.empty_like(block)
-    out.reshape(*block.shape[:-1], -1, 8)[..., list(TC_KPERM)] = \
-        block.reshape(*block.shape[:-1], -1, 8)
-    return out
-
-
 def test_packed_slabs_are_the_split_weights(weights):
     tc = weights.tc_packed()
     D = tc.widths
-    blocks = _blocks(tc)
+    blocks = tc_model.slab_blocks(tc)
     assert len(blocks) == tc.nfwd + tc.nbwd == len(tc.order)
     for kind in ("wt", "w"):
         for l, (wl, _) in enumerate(weights.layers[:-1]):
@@ -113,8 +96,8 @@ def test_packed_slabs_are_the_split_weights(weights):
                     rows = slice(cg * cols, (cg + 1) * cols)
                     k0 = (kb * len(blocks[i]) + h) * TC_SLAB_K
                     assert bool(hi[rows, k0:k0 + TC_SLAB_K].isnan().all())   # each block once
-                    hi[rows, k0:k0 + TC_SLAB_K] = _features(half[0])
-                    lo[rows, k0:k0 + TC_SLAB_K] = _features(half[1])
+                    hi[rows, k0:k0 + TC_SLAB_K] = tc_model.features(half[0])
+                    lo[rows, k0:k0 + TC_SLAB_K] = tc_model.features(half[1])
                     seen += cols * TC_SLAB_K
             assert seen == want.numel(), (kind, l)
             h, lw = tf32_split(want)
@@ -130,87 +113,39 @@ def test_packed_slabs_are_the_split_weights(weights):
             assert not bool(hi[pad].any() or lo[pad].any()), (kind, l)
 
 
-def _toward_zero(t):
-    """float64 -> float32, rounded toward zero."""
-    t32 = t.float()
-    return torch.where(t32.double().abs() > t.abs(), torch.nextafter(t32, torch.zeros_like(t32)),
-                       t32)
-
-
 def _model(q, weights):
     """The field kernels' arithmetic: the plain encoder and normalization, the
-    DFNet by the program with each product in 3xTF32 from the packed slabs:
-    each k8 step's 8 products of a pass summed exactly and added to an fp32
-    accumulator rounding toward zero (the tensor cores' accumulation, as
-    modelled here), a fresh accumulator a slab added to the layer's sums in
-    fp32. Returns d (B, 1) and g (B, J, 4)."""
+    DFNet by the program with each product in 3xTF32 from the packed slabs
+    (``tests/tc_model.py``). Returns d (B, 1) and g (B, J, 4)."""
     tc = weights.tc_packed()
     name, beta = weights.activation, weights.beta
     act, out_act = resolve(name, beta)
-    prog = tc.prog.tolist()
-    head, steps = prog[:fused_model.TC_HEAD], prog[fused_model.TC_HEAD:]
-    steps = [steps[i:i + fused_model.TC_STEP] for i in range(0, len(steps), fused_model.TC_STEP)]
-    fwd, bwd = steps[:head[0]], steps[head[0]:]
-    assert len(bwd) == head[1]
-    stream = iter(_blocks(tc))
+    head, fwd, bwd = tc_model.program(tc)
+    stream = tc_model.SlabStream(tc)
     vec = tc.vec
     B = q.shape[0]
+    z, width = {}, tc_model.z_widths(tc)
 
-    def prod(a, K, N, cols=TC_SLAB_N):
-        tot = torch.zeros(B, N)
-        per = TC_SLAB_N // cols   # K blocks a slab: 1, or 2 in a chain's first product
-        for kb in range(0, K // TC_SLAB_K, per):
-            for cg in range(N // cols):
-                halves = next(stream)
-                c = slice(cg * cols, (cg + 1) * cols)
-                for h, (bh, bl) in enumerate(halves):
-                    k = slice((kb + h) * TC_SLAB_K, (kb + h + 1) * TC_SLAB_K)
-                    apos = a[:, k].reshape(B, -1, 8)[..., list(TC_KPERM)]
-                    ah, al = (t.double() for t in tf32_split(apos.reshape(B, TC_SLAB_K)))
-                    bh, bl = bh.double(), bl.double()
-                    acc = torch.zeros(B, cols)
-                    for kk in range(TC_SLAB_K // 8):
-                        k8 = slice(8 * kk, 8 * kk + 8)
-                        for x, y in ((al, bh), (ah, bl), (ah, bh)):   # the small terms first
-                            acc = _toward_zero(acc.double() + x[:, k8] @ y[:, k8].t())
-                    tot[:, c] = tot[:, c] + acc
-        return tot
+    def fwd_epi(acc, b, zo, cols):
+        z.setdefault(zo, torch.zeros(B, width[zo]))[:, cols] = acc + vec[b + cols.start:b + cols.stop]
+        return act(z[zo][:, cols])
+
+    def bwd_epi(acc, _, zo, cols):
+        return acc * act_grad(name, beta, z[zo][:, cols]) if zo >= 0 else acc
 
     # the encoder and the normalization, as the plain version computes them
     s = torch.sum(q * q, dim=1, keepdim=True)
     n = s.clamp_min(1e-24).sqrt()
     _, (zh, zf, _) = fused_model.field_forward_ref(q / n, weights, keep=True)
-    code = torch.cat([act(z) for z in zf], dim=-1)
+    code = torch.cat([act(zz) for zz in zf], dim=-1)
     x = torch.cat([code, code.new_zeros(B, head[2] - code.shape[1])], dim=-1)
-    z = {}
-    for chain, K, N, N2, b1, z1, b2, z2 in fwd:
-        if chain:
-            y, z[z1] = 0, torch.zeros(B, N)
-            for c in range(N // TC_CHUNK):
-                cols = slice(c * TC_CHUNK, (c + 1) * TC_CHUNK)
-                z[z1][:, cols] = prod(x, K, TC_CHUNK, TC_CHUNK) + vec[b1:b1 + N][cols]
-                y = y + prod(act(z[z1][:, cols]), TC_CHUNK, N2)
-            z[z2] = y + vec[b2:b2 + N2]
-            x = act(z[z2])
-        else:
-            z[z1] = prod(x, K, N) + vec[b1:b1 + N]
-            x = act(z[z1])
+    x, _ = tc_model.run(stream, x, fwd, fwd_epi)
     K = head[3]
     d = out_act(x[:, :K] @ vec[head[4]:head[4] + K][:, None] + vec[head[5]])
     g = (out_act_grad_from_value(name, beta, d) * vec[head[4]:head[4] + K]) * \
         act_grad(name, beta, z[head[6]])
-    for chain, K, N, N2, _, z1, _, z2 in bwd:
-        if chain:
-            y = 0
-            for c in range(N // TC_CHUNK):
-                cols = slice(c * TC_CHUNK, (c + 1) * TC_CHUNK)
-                h = prod(g, K, TC_CHUNK, TC_CHUNK) * act_grad(name, beta, z[z1][:, cols])
-                y = y + prod(h, TC_CHUNK, N2)
-            g = y * act_grad(name, beta, z[z2]) if z2 >= 0 else y
-        else:
-            acc = prod(g, K, N)
-            g = acc * act_grad(name, beta, z[z1]) if z1 >= 0 else acc
-    assert next(stream, None) is None   # every slab read
+    g, _ = tc_model.run(stream, g, bwd, bwd_epi)
+    assert stream.pos == len(stream.blocks)   # every slab read
     # the encoder's reverse walk and the normalization's VJP, as the plain version
     J, F = weights.num_joints, weights.feature_size
     gfeat = list(g[:, :J * F].reshape(B, J, F).unbind(1))
