@@ -12,7 +12,9 @@ tensor-core probe:
      ``train_kernels.cu``, ``knn_kernels.cu`` and ``int8_kernels.cu`` with
      nvcc, one process each, from four threads at once (timed), and logs
      the ``-Xptxas -v`` lines of the three field kernels (3xTF32 ``wgmma``:
-     registers, spills, shared memory)
+     registers, spills, shared memory); here and in phases 7, 11 and 14 a
+     wgmma kernel whose products ptxas serializes fails the run, but for the
+     two of ``SERIALIZED_KNOWN`` (an open fault)
   3. load: ``posendf_torch.load_field(ckpt, device="cuda")``
   4. kernel vs plain on the card, at B = 4096 and a ragged B = 1000:
      ``distance_fused`` vs ``distance``, ``distance_and_grad_fused`` vs
@@ -60,9 +62,11 @@ tensor-core probe:
      traversals as ``torch.matmul``; the reduction: ``torch.matmul`` per
      layer), and the encoder kernel vs its plain version at 131,072
  11. the kNN kernel vs its plain version ``knn_topk_ref`` on the card, every
-     engine (exact ``vpu``, ``mxu_bf16``, the ``mxu_fast`` bound on bf16
-     ``wgmma``, with its ``-Xptxas -v`` lines and its corpus pack held to
-     ``pack_bound_ref`` to the byte), at
+     engine (exact ``vpu`` and ``mxu_bf16``, one bf16 ``wgmma`` step a joint
+     as a filter, and the ``mxu_fast`` bound on bf16 ``wgmma``, with their
+     ``-Xptxas -v`` lines, a serialized ``wgmma`` failing the run, and their
+     corpus packs held to ``pack_joint_ref`` and ``pack_bound_ref`` to the
+     byte), at
      Q in {1000, 4096} x N in {20,000 (ragged), 65,536} x k in {1, 5, 8, 16,
      32}, unweighted and joint-weighted, tie-aware; a corpus of duplicated
      rows (the same indices, lowest first); two calls and split counts
@@ -83,7 +87,9 @@ tensor-core probe:
      rank within 1e-6, top-5 overlap 1); then times at Q = 4,096,
      N = 1,048,576, k = 5, where every engine's kernel output is held to its
      plain version's (and the main path's exact and bf16 labels of those
-     queries too), and the bound engine's to the ``torch.matmul`` yardstick
+     queries too), and the bound engine's to the ``torch.matmul`` yardstick;
+     each engine's corpus pack alone; the bounds of both tensor-core routes
+     and of the CUDA-core route the exact and bf16 engines had before
  14. the int8 kernel vs its plain version on the card: the trained field
      quantized on 4,096 numpy-seeded poses (``Field.quantize_int8``),
      nvcc's ``-Xptxas -v`` lines of the two wgmma kernels (registers, spills,
@@ -133,7 +139,9 @@ products and convolutions, so the plain path runs true fp32.
 kNN: the exact and bf16 engines compute each operation rounded on its own,
 in the plain version's order, so their distances are expected to be its bits;
 they are held to 1e-6 (x sum_j w_j when weighted) and to 1e-6 against JAX
-(fp32 sums in another order). The bound engine's 84-term sums differ in
+(fp32 sums in another order). On the tensor cores their values only filter
+(``csrc/knn_kernels.cu`` derives the margin): every distance that enters a
+list is the plain arithmetic's, so the bars stay. The bound engine's 84-term sums differ in
 order from the plain version's matrix products: 1e-5. Indices must match
 wherever a rank lies more than the bar from its neighbours. bf16 operands
 move a distance by at most (2^-8 + 2^-18) x sum_j w_j (``tests/
@@ -226,11 +234,17 @@ reduction's products count at their route's peak: three TF32 passes
 (3xTF32) at the dense TF32 tensor-core peak (494.7 TFLOP/s); the field
 kernels' encoder walks, output layer and epilogues (two operations an
 activation) and the reduction's slot sums at the fp32 peak. The kNN exact and bf16 engines, the
-unweighted distance the main path times: per joint and pair 4 products and
-3 sums for <q_j, c_j> and one sum of |.| into the pair's total (abs is an
-operand modifier), 8; per pair 1 - total / 21, one FMA, 2; so 8 x 21 + 2 =
-170 a pair (the rounding of the operands to bf16 is once per row, and the
-top-k selection's comparisons are not counted). The kNN bound engine's
+unweighted distance the main path times, on the tensor-core route: the
+products each engine needs at the bf16 tensor-core peak (989 TFLOP/s), the
+exact engine's three split products hi.hi' + lo.hi' + hi.lo', 3 x 2 x 84 a
+pair, the bf16 engine's one, 2 x 84 (the zero slots of a k16 group are not
+counted); the epilogue's one FFMA a joint, 2 x 21 a pair, at the fp32 peak;
+the fp32 queries and corpus read once; the larger of the three. The
+CUDA-core route they had before (logged beside it, not in the JSON line):
+per joint and pair 4 products and 3 sums for <q_j, c_j> and one sum of |.|
+into the pair's total (abs is an operand modifier), 8; per pair
+1 - total / 21, one FMA, 2; so 8 x 21 + 2 = 170 a pair at the fp32 peak
+(the top-k selection's comparisons are not counted). The kNN bound engine's
 operations count at the bf16 tensor-core peak (989 TFLOP/s): three passes of
 its K = 84 product. The int8 forward: its int8 products at the int8
 tensor-core peak (1,979 TOPS) plus its fp32 multiply-adds (the encoder,
@@ -283,6 +297,9 @@ BOUND_ATOL = 1e-5     # the bound engine: fp32 sums of 84 products in another or
 BF16_BAR = 2.0 ** -8 + 2.0 ** -18      # x sum_j w_j: how far bf16 operands move a distance
 YARD_BAR = 3 * 2.0 ** -16 + BOUND_ATOL  # the 3-pass bf16 split vs one fp32 product; docstring
 KNN_PAIR_OPS = 8 * 21 + 2              # fp32 operations of the distance a pair; docstring
+KNN_TC_OPS = {"vpu": 3 * 2 * 84,         # bf16 tensor-core operations a pair the engine needs:
+              "mxu_bf16": 2 * 84}        # three split products (exact), one (bf16)
+KNN_FFMA_OPS = 2 * 21                    # fp32 operations a pair of the epilogue: an FFMA a joint
 CORPUS_FILES, CORPUS_ROWS = 64, 16_384   # the main path's corpus: 1,048,576 poses
 KNN_Q, KNN_K = 4096, 5
 PEAK_INT8 = 1979e12                      # H100 SXM: int8 tensor cores, dense
@@ -297,7 +314,11 @@ PROBE_ROWS = (1000, SERVE_BATCH)
 WGMMA_KERNELS = {"field": ("field_kernel",),                             # by library
                  "int8": ("int8_forward_kernel", "probe_bf16_kernel"),
                  "train": ("train_tile_kernel", "train_reduce_kernel"),
-                 "knn": ("knn_bound_kernel", "knn_pack_kernel")}
+                 "knn": ("knn_bound_kernel", "knn_pack_kernel", "knn_joint_kernel",
+                         "knn_pack_joint_kernel")}
+# wgmma kernels whose products ptxas serializes (C7518: its dependence barrier
+# in a divergent path), an open fault (ROADMAP Queue 3); any other fails the run
+SERIALIZED_KNOWN = ("train_reduce_kernel", "knn_bound_kernel")
 REDUCE_FP32_ERR = 7.4e-6  # x max|leaf|: the fp32 CUDA-core reduction it replaced, whole gradient (docstring)
 
 
@@ -1204,6 +1225,20 @@ def knn_phases(card: str) -> list:
         assert_close(f"posendf_knn_pack's largest row norm, N = {N}", cmax,
                      cf.norm(dim=1).max()[None], rtol=1e-6, atol=0.0)
     log("  ok posendf_knn_pack vs pack_bound_ref at N = 20,000 and 65,536: the same bytes")
+    for N in (20_000, 65_536):     # the exact and bf16 engines' corpus pack, to the byte
+        _, cf, _, _ = fused_knn.kernel_operands(unit(8), unit(N), None, "vpu")
+        packed = torch.empty(lib.posendf_knn_joint_bytes(N), dtype=torch.uint8, device="cuda")
+        cmax = torch.zeros(21, device="cuda")
+        _build.check(lib.posendf_knn_pack_joint(cf.data_ptr(), N, packed.data_ptr(),
+                                                cmax.data_ptr(),
+                                                torch.cuda.current_stream().cuda_stream),
+                     "posendf_knn_pack_joint", "knn")
+        want, want_max = fused_knn.pack_joint_ref(cf)
+        if not torch.equal(packed, want):
+            raise AssertionError(f"posendf_knn_pack_joint vs pack_joint_ref, N = {N}: other bytes")
+        assert_close(f"posendf_knn_pack_joint's largest norm a joint, N = {N}", cmax, want_max,
+                     rtol=1e-6, atol=0.0)
+    log("  ok posendf_knn_pack_joint vs pack_joint_ref at N = 20,000 and 65,536: the same bytes")
     for Q in (1000, KNN_Q):
         for N in (20_000, 65_536):
             q, c = unit(Q), unit(N)
@@ -1409,7 +1444,7 @@ def knn_phases(card: str) -> list:
         def plain_call(e=e):
             got[e, "plain"] = plain(q, corpus, KNN_K, e)
 
-        times[e] = interleaved_ms(f"kNN {e} (both launches) vs knn_topk_ref", kernel, plain_call,
+        times[e] = interleaved_ms(f"kNN {e} (pack, top-k, merge) vs knn_topk_ref", kernel, plain_call,
                                   3, rounds=1, plain_reps=1)
         d_p, i_p = got[e, "plain"]
         d_next = plain(q, corpus, KNN_K + 1, e)[0][:, KNN_K]
@@ -1430,6 +1465,10 @@ def knn_phases(card: str) -> list:
             msg += f"; the main path's labels of these queries too: max |err| {err:.3e}"
         log(msg)
     fast_ms = cuda_ms(lambda: fused_knn.fused_geodesic_topk_fast(q, corpus, KNN_K), 3)
+    log(f"  the exact engine {times['vpu'][0]:.4f} ms vs fused_geodesic_topk_fast (the bound "
+        f"prescreen + exact rerank, the same labels) {fast_ms:.4f} ms: the "
+        f"{'exact engine' if times['vpu'][0] < fast_ms else 'prescreen + rerank'} is the faster "
+        f"(prepare.FAST_ENGINE_BACKENDS {sorted(prepare.FAST_ENGINE_BACKENDS)})  [{card}]")
     geo_ms = cuda_ms(lambda: geodesic_topk(q, corpus, KNN_K), 1)
     qf, cf, _, _ = fused_knn.kernel_operands(q, corpus, None, "mxu_fast")
     chunk = 65_536
@@ -1453,6 +1492,14 @@ def knn_phases(card: str) -> list:
         cf.data_ptr(), N, packed.data_ptr(), cmax.data_ptr(),
         torch.cuda.current_stream().cuda_stream), 5)
     del packed
+    knn_lib = _build.library("knn")
+    joint_bytes = knn_lib.posendf_knn_joint_bytes(N)
+    packed = torch.empty(joint_bytes, dtype=torch.uint8, device="cuda")
+    cmax = torch.zeros(21, device="cuda")
+    joint_pack_ms = cuda_ms(lambda: knn_lib.posendf_knn_pack_joint(
+        corpus.data_ptr(), N, packed.data_ptr(), cmax.data_ptr(),
+        torch.cuda.current_stream().cuda_stream), 5)
+    del packed
     lib_err = float((lib["d"] - got["mxu_fast"][0]).abs().max())
     if lib_err > YARD_BAR:
         raise AssertionError(f"the bound engine's values vs one fp32 product's: {lib_err:.3e} "
@@ -1461,21 +1508,33 @@ def knn_phases(card: str) -> list:
         f"geodesic_topk {geo_ms:.4f} ms; the bound's top-k by torch.matmul + torch.topk over "
         f"{chunk}-row chunks {lib_ms:.4f} ms (ok: its values within {lib_err:.3e} of the "
         f"kernel's, bar {YARD_BAR:.3e}); of the bound engine's call, the corpus pack "
-        f"{pack_ms:.4f} ms  [{card}]")
+        f"{pack_ms:.4f} ms; of the exact and bf16 engines' calls, the corpus pack "
+        f"(posendf_knn_pack_joint, {joint_bytes} bytes) {joint_pack_ms:.4f} ms  [{card}]")
 
     nbytes = 4 * (Q * 84 + N * 84 + 21) + Q * KNN_K * (4 + 8)
-    exact_bound = bound(KNN_PAIR_OPS * Q * N, nbytes)
+    core_bound = bound(KNN_PAIR_OPS * Q * N, nbytes)      # the CUDA-core route they had before
+    # the tensor-core route: the products each engine needs at the bf16 peak,
+    # an FFMA a joint and pair at the fp32 peak, the fp32 operands read once
+    tc_bound = {e: bound(KNN_TC_OPS[e] * Q * N, nbytes, PEAK_BF16) for e in KNN_TC_OPS}
+    ffma_bound = bound(KNN_FFMA_OPS * Q * N, nbytes)
+    joint_bound = {e: max(tc_bound[e], ffma_bound) for e in KNN_TC_OPS}
     bound_bound = bound(3 * 2 * 84 * Q * N, nbytes, PEAK_BF16)
-    log(f"bounds: exact and bf16 engines {exact_bound[0]:.4f} ms ({exact_bound[1]}, "
-        f"{KNN_PAIR_OPS} operations a pair on the fp32 CUDA cores), bound engine "
-        f"{bound_bound[0]:.4f} ms ({bound_bound[1]}, 3 bf16 passes of the K = 84 product on "
-        f"the tensor cores); reading the corpus once {N * 84 * 4 / PEAK_BYTES * 1e3:.4f} ms")
+    log(f"bounds: exact engine {joint_bound['vpu'][0]:.4f} ms ({joint_bound['vpu'][1]}), bf16 "
+        f"engine {joint_bound['mxu_bf16'][0]:.4f} ms ({joint_bound['mxu_bf16'][1]}): their "
+        f"products on the bf16 tensor cores {KNN_TC_OPS['vpu']} / {KNN_TC_OPS['mxu_bf16']} "
+        f"operations a pair {tc_bound['vpu'][0]:.4f} / {tc_bound['mxu_bf16'][0]:.4f} ms, "
+        f"{KNN_FFMA_OPS // 2} FFMA a pair {KNN_FFMA_OPS * Q * N / PEAK_FLOPS * 1e3:.4f} ms, the "
+        f"fp32 operands {nbytes / PEAK_BYTES * 1e3:.4f} ms; the CUDA-core route they had before "
+        f"{core_bound[0]:.4f} ms ({core_bound[1]}, {KNN_PAIR_OPS} operations a pair on the fp32 "
+        f"CUDA cores); bound engine {bound_bound[0]:.4f} ms ({bound_bound[1]}, 3 bf16 passes of "
+        f"the K = 84 product on the tensor cores); reading the fp32 corpus once "
+        f"{N * 84 * 4 / PEAK_BYTES * 1e3:.4f} ms")
     src = "posendf_torch/csrc/knn_kernels.cu"
     rows_out = []
     for e in engines:
-        b = bound_bound if e == "mxu_fast" else exact_bound
+        b = bound_bound if e == "mxu_fast" else joint_bound[e]
         launched = ("posendf_knn_pack + posendf_knn_bound" if e == "mxu_fast"
-                    else "posendf_knn_partial")
+                    else "posendf_knn_pack_joint + posendf_knn_joint")
         row = {"name": f"{launched} + posendf_knn_merge ({e})", "route": "cuda",
                "source": src, "replaces": "posendf_tpu/ops/fused_knn.py:68",
                "launches": launches[e], "max_abs_err": errs[e], "ms": times[e][0],
@@ -1483,6 +1542,9 @@ def knn_phases(card: str) -> list:
                "library_ms": lib_ms if e == "mxu_fast" else None}
         if e == "mxu_fast":
             row["library"] = f"torch.matmul + torch.topk per {chunk}-row chunk, one torch.topk"
+            row["pack_ms"] = pack_ms
+        else:
+            row["pack_ms"] = joint_pack_ms
         rows_out.append(row)
     return rows_out
 
@@ -1508,11 +1570,23 @@ def ptxas_lines(log_text: str, kernels) -> list:
 
 
 def log_ptxas(name: str) -> None:
-    """Log nvcc's ``-Xptxas -v`` lines of library ``name``'s wgmma kernels."""
+    """Log nvcc's ``-Xptxas -v`` lines of library ``name``'s wgmma kernels;
+    fail where ptxas serialized the wgmma of one not in SERIALIZED_KNOWN."""
     from posendf_torch import _build
 
-    for line in ptxas_lines(_build.build_info(name)["log"], WGMMA_KERNELS[name]):
+    text = _build.build_info(name)["log"]
+    for line in ptxas_lines(text, WGMMA_KERNELS[name]):
         log("  nvcc -Xptxas -v: " + line)
+    serial = [line.strip() for line in text.splitlines()
+              if "serialized" in line and any(k in line for k in WGMMA_KERNELS[name])]
+    for line in serial:
+        log("  nvcc -Xptxas -v: " + line)
+    new = [line for line in serial if not any(k in line for k in SERIALIZED_KNOWN)]
+    if new:
+        raise AssertionError(f"ptxas serialized the wgmma of {name}'s kernels: {new}")
+    if serial:
+        log(f"  known: ptxas serializes the wgmma of {', '.join(SERIALIZED_KNOWN)} "
+            "(an open fault); no other kernel's")
 
 
 def hold_strided(name: str, fn, q: torch.Tensor) -> None:

@@ -5,8 +5,8 @@ header, so it compiles in seconds:
 
   ``field``  ``csrc/field_kernels.cu``  forward, value-and-grad, projection step
   ``train``  ``csrc/train_kernels.cu``  encoder, training gradient (tile + reduction)
-  ``knn``    ``csrc/knn_kernels.cu``    geodesic top-k (per corpus range + merge; the
-                                        bound engine's corpus pack)
+  ``knn``    ``csrc/knn_kernels.cu``    geodesic top-k (the engines' corpus packs, the
+                                        top-k per corpus range, the merge)
   ``int8``   ``csrc/int8_kernels.cu``   int8 serving forward, bf16 / int8 probe chains
 
 All include ``csrc/common.cuh`` and ``csrc/hopper.cuh`` (the PTX of wgmma,
@@ -82,8 +82,14 @@ _SIGNATURES = {
         "posendf_train_error_string": ([_I], ctypes.c_char_p),
     },
     "knn": {
-        # q, Q, c, N, w, engine, kpad, S, part_d, part_i, stream
-        "posendf_knn_partial": ([_P, _I, _P, _I, _P, _I, _I, _I, _P, _P, _P], _I),
+        # c, N, packed, cmax, stream
+        "posendf_knn_pack_joint": ([_P, _I, _P, _P, _P], _I),
+        # N -> bytes of the exact and bf16 engines' packed corpus
+        "posendf_knn_joint_bytes": ([_I], ctypes.c_longlong),
+        # q, Q, c, packed, cmax, N, w (host, 21 floats), w_total, engine, k, kpad, S, part_d,
+        # part_i, stream
+        "posendf_knn_joint": ([_P, _I, _P, _P, _P, _I, ctypes.POINTER(_F), _F, _I, _I, _I, _I, _P,
+                               _P, _P], _I),
         # c, N, packed, cmax, stream
         "posendf_knn_pack": ([_P, _I, _P, _P, _P], _I),
         # N -> bytes of the packed corpus

@@ -259,8 +259,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--knn-precision", choices=["auto", "highest", "high", "default", "fast"],
                    default="auto",
                    help="search engine: 'auto' (default) takes the faster engine that gives "
-                        "exact labels, which on the card is exact 'highest' for now (see "
-                        "data/prepare.py FAST_ENGINE_BACKENDS); 'highest' is exact fp32; "
+                        "exact labels: exact 'highest' on the card and the CPU, the bound "
+                        "prescreen only on a device type of data/prepare.py "
+                        "FAST_ENGINE_BACKENDS (none) where its corpus probe passes; "
+                        "'highest' is exact fp32; "
                         "'fast' is the bound prescreen + exact rerank; "
                         "'default' rounds the distance products' inputs to bf16")
     p.add_argument("--fused-knn", choices=["auto", "on", "off"], default="auto",

@@ -1,10 +1,10 @@
 // PTX helpers of the Hopper (sm_90a) kernels in field_kernels.cu,
 // int8_kernels.cu, train_kernels.cu (the batch reduction) and
-// knn_kernels.cu (the bound engine): mbarriers, bulk copies (cp.async.bulk), per-thread asynchronous
-// copies (cp.async), named barriers, wgmma
-// descriptors of the 128-byte-swizzled K-major layout, wgmma fences, commit
-// and wait, the TF32 rounding of the 3xTF32 split, and the wgmma shapes the
-// kernels issue.
+// knn_kernels.cu (the bound engine and the exact / bf16 engines): mbarriers,
+// bulk copies (cp.async.bulk), per-thread asynchronous copies (cp.async),
+// named barriers, wgmma descriptors of the 128- and 32-byte-swizzled K-major
+// layouts, wgmma fences, commit and wait, the TF32 rounding of the 3xTF32
+// split, and the wgmma shapes the kernels issue.
 //
 // The K-major 128-byte-swizzle layout (what a wgmma descriptor of layout
 // type 1 reads): a tile of R rows (M or N) x 128 bytes of K is stored as
@@ -19,6 +19,15 @@
 // bytes. The layout is the same bytes for every element type, tf32 included
 // (a 128-byte line holds 32 tf32 values of K); tf32 has no transposed
 // (M- or N-major) form, so its shared-memory operand is stored K-major.
+//
+// The K-major 32-byte swizzle (layout type 3), for an operand whose K is one
+// k16 bf16 step: a tile of R rows x 32 bytes, atoms of 8 rows (256 bytes);
+// address bit 4 is XORed with address bit 7, so row r's 16-byte chunk c sits
+// at chunk c ^ ((r / 4) % 2). Byte b (< 32) of row r is at
+//
+//   r * 32 + (b ^ (((r / 4) % 2) * 16))
+//
+// (sw32_offset). A tile starts on a 256-byte boundary; SBO 256 bytes.
 
 #pragma once
 
@@ -33,6 +42,10 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 
 __host__ __device__ __forceinline__ int sw128_offset(int r, int b) {
   return (r >> 3) * 1024 + (r & 7) * 128 + ((((b >> 4) ^ (r & 7))) << 4) + (b & 15);
+}
+
+__host__ __device__ __forceinline__ int sw32_offset(int r, int b) {
+  return r * 32 + (b ^ (((r >> 2) & 1) << 4));
 }
 
 // ---- mbarriers ----
@@ -199,6 +212,13 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
          (static_cast<uint64_t>(1024 >> 4) << 32) | (static_cast<uint64_t>(1) << 62);
 }
 
+// descriptor of a K-major 32-byte-swizzled tile at shared address `addr`
+// (LBO unused: 1; SBO 256 bytes; layout type 3 = B32)
+__device__ __forceinline__ uint64_t desc_sw32(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(1) << 16) |
+         (static_cast<uint64_t>(256 >> 4) << 32) | (static_cast<uint64_t>(3) << 62);
+}
+
 // hand registers back to / take them from the SM's pool, for the whole warpgroup
 template <uint32_t R>
 __device__ __forceinline__ void setmaxnreg_dec() {
@@ -308,6 +328,23 @@ __device__ __forceinline__ void wgmma_m64n128k16_bf16(float (&d)[64], uint64_t d
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_m64n64k16_bf16(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31},"
+      " %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(da), "l"(db), "r"(scale_d));
 }
 

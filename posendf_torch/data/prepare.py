@@ -14,9 +14,10 @@ same seed gives the same bytes; the search runs on the device:
 
 The default search is the exact single-stage geodesic top-k. On the card it
 is the kNN kernel (``ops/fused_knn.py``). ``precision="auto"`` picks the
-bound-prescreen engine only where it is the faster one (on the card:
-:data:`FAST_ENGINE_BACKENDS`) and :func:`probe_fast_safety` finds it exact
-on this corpus; elsewhere 'auto' is exact 'highest'. The corpus goes to the
+bound-prescreen engine only on a device type where it is the faster one
+(:data:`FAST_ENGINE_BACKENDS`, now none: on the card the exact engine is)
+and where :func:`probe_fast_safety` finds it exact on this corpus;
+elsewhere 'auto' is exact 'highest'. The corpus goes to the
 device once per split, and each sequence's results stay there until every
 batch is dispatched.
 Multi-host fan-out is ``label_split(shard=(i, n))``: host i of n takes every
@@ -288,12 +289,14 @@ def _joint_weights_np() -> np.ndarray:
 
 # Device types on which the bound engine is the faster of the two engines
 # that give exact labels, so that 'auto' may pick it (where the corpus-safety
-# probe passes). CUDA: with its K = 84 product on the tensor cores (bf16
-# wgmma), the bound engine's prescreen + exact rerank
-# (fused_geodesic_topk_fast) is the faster one on an H100 per 4,096 x
-# 1,048,576 batch, for the same labels (chip_smoke.py phase 13 times both;
-# PERF.md).
-FAST_ENGINE_BACKENDS: frozenset = frozenset({"cuda"})
+# probe passes). None: on an H100 the exact engine, its per-joint products
+# on the tensor cores (bf16 wgmma) as a filter, searches a 4,096 x
+# 1,048,576 batch in less time than the bound engine's prescreen + exact
+# rerank (fused_geodesic_topk_fast) gives the same labels, and the bound
+# engine's time grows with the queries' noise where the exact engine's
+# does not (chip_smoke.py phase 13 and python -m posendf_torch.ops.breakdown
+# knn time both; PERF.md); on the CPU the bound engine is the slower one.
+FAST_ENGINE_BACKENDS: frozenset = frozenset()
 
 
 def probe_fast_safety(

@@ -1,11 +1,13 @@
 """Where the wgmma kernels' time goes: ``posendf_forward_int8``,
-``probe_bf16_chain``, ``posendf_project_step``, ``posendf_forward`` and
-``posendf_train_tile`` timed with parts of their work cut out of the
+``probe_bf16_chain``, ``posendf_project_step``, ``posendf_forward``,
+``posendf_train_tile`` and the kNN exact and bf16 engines
+(``posendf_knn_joint``) timed with parts of their work cut out of the
 source.
 
 ``ncu`` does not run where the card is, so this measures by subtraction:
-each variant is ``csrc/int8_kernels.cu``, ``csrc/field_kernels.cu`` or
-``csrc/train_kernels.cu`` with some statements replaced (its results are
+each variant is ``csrc/int8_kernels.cu``, ``csrc/field_kernels.cu``,
+``csrc/train_kernels.cu`` or ``csrc/knn_kernels.cu`` with some statements
+replaced (its results are
 wrong; only its time means something), built with the same nvcc flags into
 ``build/posendf_torch/breakdown/`` and timed through the same wrappers as
 the real kernel, in rounds.
@@ -48,9 +50,35 @@ of the trained field, the main path's training batch):
                too: the weight ring alone (three passes a noisy CTA, two a
                manifold one, with the output layer and the loss)
 
+``knn_kernels.cu``'s exact and bf16 engines (pack, top-k and merge at
+Q = 4,096 x N = 1,048,576, k = 5, on a synthetic pose manifold and one
+run of the reference sampler's noisy queries of it: five noise draws, each
+shared by a sigma group; with ``base``, the bound engine and
+``fused_geodesic_topk_fast`` on the same queries):
+
+  ``base``     the kernel as it is (12 held-back columns a thread; slab g + 2
+               copied from the start of slab g)
+  ``late``     slab g + 2 copied from the end of slab g (a whole kernel; its
+               results are held to ``base``'s)
+  ``pend0``    no held-back columns: each marked column recomputed at its
+               slab (a whole kernel, held to ``base``'s results)
+  ``nomark``   no column marked (the thresholds at -inf at run time): the
+               products, the epilogue and the rows' minima, no recompute
+  ``epi``      ``nomark`` without the wgmma products (the epilogue reads
+               stale accumulators): the epilogue and the ring
+  ``mma``      without the marks (so the compiler drops the epilogue that
+               feeds them): the products and the ring
+  ``ring``     ``mma`` without the products: the slab ring, the waits and
+               the A groups
+  ``compute``  ``nomark`` without the ring (every slab after the first two
+               computed on a stale slot): the products and the epilogue
+  ``epionly``  ``compute`` without the products: the epilogue alone
+
 Run on the card::
 
-    python -m posendf_torch.ops.breakdown
+    python -m posendf_torch.ops.breakdown [int8|field|train|knn ...]
+
+(no argument: every library).
 
 One line a kernel and variant: the median of CUDA-event means, at the main
 shapes (131,072 poses of the trained field; (131,072, 512) x 8 layers;
@@ -122,6 +150,21 @@ CUTS["train"] = {
     "noepi": _FIELD["noepi"],
     "noload": _FIELD["noload"],
 }
+CUTS["knn"] = {
+    "late": [("    refill(g + kJStages - 1);\n    const uint32_t cb", "    const uint32_t cb"),
+             ("  }\n  flush();\n", "    refill(g + kJStages - 1);\n  }\n  flush();\n")],
+    "pend0": [("constexpr int kJPend = 12;", "constexpr int kJPend = 0;")],
+    "noring": [("    const int s = await_slab(bars, kJStages, g);\n",
+                "    const int s = g < kJStages - 1 ? await_slab(bars, kJStages, g) : 0;\n"),
+               ("    refill(g + kJStages - 1);\n    const uint32_t cb", "    const uint32_t cb")],
+    "nomark": [("  thresholds();\n", "  thresholds();\n  if (a.N > 0) t0 = t1 = -INFINITY;\n")],
+    "nofilter": [("    if (__any_sync(0xffffffffu, lo0 <= t0 || lo1 <= t1)) {",
+                  "    if (false) {")],
+    "nomma": [("        wgmma_m64n64k16_bf16(nxt, desc_sw32(qa + (j + 1) * kJQTile),\n"
+               "                             desc_sw32(cb + (j + 1) * kJTile), 0);\n",
+               "        (void)nxt;\n"),
+              ("    wgmma_m64n64k16_bf16(acc0, desc_sw32(qa), desc_sw32(cb), 0);\n", "")],
+}
 VARIANTS = {
     "int8": {"base": [], "noenc": ["noenc"], "nof32": ["nof32"], "nomma": ["nomma"],
              "noepi": ["noepi"], "copies": ["noenc", "nof32", "nomma", "noepi"]},
@@ -130,6 +173,9 @@ VARIANTS = {
     "train": {"base": [], "noenc": ["noenc"], "nograd": ["nograd"], "nomma": ["nomma"],
               "nostore": ["nostore"],
               "ring": ["noenc", "nomma", "nostore", "noepi", "noload"]},
+    "knn": {"base": [], "late": ["late"], "pend0": ["pend0"], "nomark": ["nomark"],
+            "epi": ["nomark", "nomma"], "mma": ["nofilter"], "ring": ["nofilter", "nomma"],
+            "compute": ["nomark", "noring"], "epionly": ["nomark", "nomma", "noring"]},
 }
 
 
@@ -163,14 +209,30 @@ def _build_variant(job: Tuple[str, str]) -> ctypes.CDLL:
     return lib
 
 
-def main() -> None:
+def _knn_inputs():
+    """The labelling main path's search at its batch: 4,096 noisy queries of
+    a 1,048,576-pose synthetic manifold (as ``chip_smoke.py`` phase 13 makes
+    it), on the card."""
+    from posendf_torch.data.prepare import NoiseSpec, sample_noisy_queries
+    from posendf_torch.data.synthetic import manifold_family, synthetic_manifold_poses
+
+    g = np.random.default_rng(13)
+    family = manifold_family(g, latents=8)
+    corpus = np.concatenate([synthetic_manifold_poses(g, 16_384, family=family)
+                             for _ in range(64)])
+    queries = sample_noisy_queries(corpus[:16_384], 4096, NoiseSpec(), g)
+    return torch.from_numpy(queries).cuda(), torch.from_numpy(corpus).cuda()
+
+
+def main(which=None) -> None:
     if not torch.cuda.is_available():
         raise SystemExit("breakdown: torch.cuda.is_available() is false; it needs a card")
     import posendf_torch
-    from posendf_torch.ops import fused_grad, fused_int8, fused_train
+    from posendf_torch.ops import fused_grad, fused_int8, fused_knn, fused_train
     from posendf_torch.ops import int8_probe as P
 
-    jobs = [(lib, name) for lib in VARIANTS for name in VARIANTS[lib]]
+    which = list(VARIANTS) if not which else which
+    jobs = [(lib, name) for lib in which for name in VARIANTS[lib]]
     with ThreadPoolExecutor(len(jobs)) as pool:   # one nvcc a variant, all at once
         libs = dict(zip(jobs, pool.map(_build_variant, jobs)))
     root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -189,6 +251,8 @@ def main() -> None:
     gt = torch.from_numpy(np.abs(np.random.default_rng(5).normal(size=rows)).astype(np.float32)
                           * 0.1).cuda()
     kw_n, kw_m = fused_train.branch_args(w, qt[0], gt, qt[1], "l1", 1.0, 1.0, 1.0)
+    kq, kc = _knn_inputs() if "knn" in which else (None, None)
+    knn_base = {}
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
     print(card, flush=True)
@@ -205,6 +269,26 @@ def main() -> None:
                 if name in ("base", "nomma"):
                     t = P.cuda_ms(lambda: P.run_bf16(xb, wb), reps=5, rounds=5)
                     print(f"probe bf16 {name}: {t[0]:.4f} ms [{t[1]:.4f}-{t[2]:.4f}]", flush=True)
+                continue
+            if lib_name == "knn":
+                for e in ("vpu", "mxu_bf16"):
+                    out = fused_knn.fused_geodesic_topk(kq, kc, 5, dot_impl=e)
+                    if name == "base":
+                        knn_base[e] = out
+                    elif name in ("late", "pend0") and not all(
+                            torch.equal(x, y) for x, y in zip(out, knn_base[e])):
+                        raise AssertionError(f"kNN {e} {name}: other results than base")
+                    t = P.cuda_ms(lambda: fused_knn.fused_geodesic_topk(kq, kc, 5, dot_impl=e),
+                                  reps=3, rounds=5)
+                    print(f"kNN {e} Q=4096 N=1048576 k=5 {name}: {t[0]:.4f} ms "
+                          f"[{t[1]:.4f}-{t[2]:.4f}]", flush=True)
+                if name == "base":   # the other way to exact labels, on the same queries
+                    for what, fn in (("mxu_fast (the bound engine)", lambda: fused_knn.fused_geodesic_topk(
+                            kq, kc, 5, dot_impl="mxu_fast")), ("fused_geodesic_topk_fast", lambda:
+                            fused_knn.fused_geodesic_topk_fast(kq, kc, 5))):
+                        t = P.cuda_ms(fn, reps=3, rounds=3)
+                        print(f"kNN {what} Q=4096 N=1048576 k=5: {t[0]:.4f} ms "
+                              f"[{t[1]:.4f}-{t[2]:.4f}]", flush=True)
                 continue
             if lib_name == "train":
                 t = P.cuda_ms(lambda: fused_train.launch_tiles(w, qt[0], gt, qt[1], kw_n, kw_m),
@@ -224,4 +308,6 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    import sys
+
+    main(sys.argv[1:])

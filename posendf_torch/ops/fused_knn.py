@@ -21,16 +21,36 @@ on how the corpus was split and exact ties come lowest index first, as in
   ``"mxu"``       not ported: the TPU kept it only for the record (slower than
                   ``"vpu"`` at the same exactness); it raises.
 
-The exact and bf16 engines are one launch over S corpus ranges (a block of
-128 queries, one thread each, a best-k list in registers) and the merge.
-The bound engine is three: ``posendf_knn_pack`` splits the corpus into bf16
-hi and lo parts in the wgmma layout (:func:`pack_bound_ref` is its plain
-version) and takes its largest row norm, ``posendf_knn_bound`` runs the
-three passes on the tensor cores (wgmma, 128 queries a CTA) as a filter,
-recomputes each value that could enter a list in the plain version's
-arithmetic, and keeps a best-k list per thread over its own columns (4
-lists a query and range: :func:`bound_parts`); then the merge. So all three
-engines return the plain version's bits.
+Every engine is three launches on the card: a pack of the corpus, the
+top-k over S corpus ranges (a wgmma kernel whose tensor-core values
+filter), and the merge (``posendf_knn_merge``).
+
+* The exact and bf16 engines (``posendf_knn_pack_joint``,
+  ``posendf_knn_joint``): the pack stores each corpus row as 21 bf16 k16
+  groups ``[ch_j | ch_j | cl_j | 0]`` in the wgmma layout
+  (:func:`pack_joint_ref` is its plain version) and takes each joint's
+  largest norm; the top-k runs one bf16 ``wgmma`` step a joint (queries
+  ``[qh | ql | qh | 0]`` for the exact engine, ``[qh | 0 | 0 | 0]`` for
+  bf16) and ``d -= w_j |dot_j|`` on the CUDA cores, marks every column whose
+  value lies within :func:`joint_margin` of the k-th smallest distance its
+  query's lists hold, and recomputes each marked column in the plain
+  version's arithmetic, which alone enters the lists. What bounds them on
+  an H100: the 21 FFMA a pair of the epilogue (2.69 ms at 4,096 x 2^20),
+  above the products on the tensor cores (three split products a pair,
+  2.19 ms, for the exact engine; one, 0.73 ms, for bf16); measured, the
+  epilogue with its per-slab tests sets the pace (``python -m
+  posendf_torch.ops.breakdown knn``). The
+  fp32 CUDA-core design it replaced took ~10 issue slots a joint and pair.
+* The bound engine (``posendf_knn_pack``, ``posendf_knn_bound``): the pack
+  splits the corpus into bf16 hi and lo parts in the wgmma layout
+  (:func:`pack_bound_ref`) and takes its largest row norm; the top-k runs
+  the three passes of the K = 84 product on the tensor cores as a filter
+  and recomputes each value that could enter a list in the plain version's
+  arithmetic.
+
+Both top-k kernels keep a best-k list per thread over its own columns (4
+lists a query and range: :func:`joint_parts`, :func:`bound_parts`), so all
+three engines return the plain version's bits.
 
 A CUDA tensor goes through the kernels (or the call raises); a CPU tensor
 goes through :func:`knn_topk_ref`, the kernels' plain version, which computes
@@ -40,6 +60,7 @@ engine with three fp32 matrix products. Indices are int64.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import Optional, Tuple
 
@@ -51,25 +72,30 @@ from posendf_torch.ops.fused_model import aligned_contiguous, stream_handle
 from posendf_torch.ops.knn import bf16_round, geodesic_rerank, stream_topk
 
 __all__ = ["fused_geodesic_topk", "fused_geodesic_topk_fast", "geodesic_bound_scores",
-           "knn_topk_ref", "kernel_operands", "pack_bound_ref", "bound_parts", "LAUNCHES",
-           "ENGINES", "KMAX", "BOUND_SLAB_ROWS", "BOUND_SLAB_BYTES"]
+           "knn_topk_ref", "kernel_operands", "pack_bound_ref", "bound_parts", "pack_joint_ref",
+           "joint_parts", "joint_margin", "LAUNCHES", "ENGINES", "KMAX", "BOUND_SLAB_ROWS",
+           "BOUND_SLAB_BYTES", "JOINT_SLAB_ROWS", "JOINT_SLAB_BYTES", "JOINT_MARGIN",
+           "JOINT_MARGIN_W"]
 
 KMAX = 32                                              # the kernel's list holds <= 32
 ENGINES = {"vpu": 0, "mxu_bf16": 1, "mxu_fast": 2}     # dot_impl -> the kernel's engine
 
-# launches of the kNN kernels by engine (a call: the top-k launch and the
-# merge; the bound engine's also the corpus pack) since the counts were last
-# set to 0
+# launches of the kNN kernels by engine (a call: the corpus pack, the top-k
+# launch and the merge) since the counts were last set to 0
 LAUNCHES = dict.fromkeys(ENGINES, 0)
 _KPAD = 8
-_QTILE = 128              # queries per block (csrc/knn_kernels.cu kQTile, kBQ)
-_SLAB = 64                # corpus rows per slab of the exact and bf16 engines (kSlab)
+_QTILE = 128              # queries per CTA (csrc/knn_kernels.cu kBQ, kJQ)
+JOINT_SLAB_ROWS = 64      # corpus rows per slab of the exact and bf16 engines (kJN)
+JOINT_SLAB_BYTES = 21 * JOINT_SLAB_ROWS * 32   # a bf16 k16 group a joint and row: 43,008
+# the exact and bf16 engines' filter margin, JOINT_MARGIN[engine] S +
+# JOINT_MARGIN_W sum_j |w_j| (csrc/knn_kernels.cu derives it; joint_margin)
+JOINT_MARGIN = {"vpu": 1.1e-4, "mxu_bf16": 1.5e-5}
+JOINT_MARGIN_W = 6e-6
 BOUND_SLAB_ROWS = 128     # corpus rows per slab of the bound engine (kBN)
 BOUND_K = 96              # K = 84 padded to six bf16 k16 steps
 BOUND_SLAB_BYTES = BOUND_SLAB_ROWS * 2 * BOUND_K * 2   # [hi | lo] bf16 rows: 48 KB
 _LANE_PARTS = 4           # lists a query per range of the bound engine: one per lane % 4
 _KERNEL_JOINTS = 21
-_WAVES = 4                # blocks to aim for, in multiples of the SM count
 _REF_TILE = 4096          # corpus rows a step of the plain version
 
 
@@ -199,13 +225,51 @@ def pack_bound_ref(cf: torch.Tensor) -> torch.Tensor:
     return out.permute(0, 2, 1, 3, 4).contiguous().view(torch.uint8).reshape(-1)
 
 
-def bound_parts(N: int, S: int):
-    """The parts of the corpus whose best-k lists the bound engine writes, in
-    the partial buffer's order: for range s (ceil(N / S) rows rounded up to
-    whole slabs, the last one the rest) and lane part p (a thread's lane %
-    4), the rows of range s whose index % 8 is 2 p or 2 p + 1 (a thread's
-    accumulator columns). A list of index arrays, 4 S of them."""
-    rng = -(-(-(-N // S)) // BOUND_SLAB_ROWS) * BOUND_SLAB_ROWS
+def pack_joint_ref(cf: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the exact and bf16 engines' pack
+    (``posendf_knn_pack_joint``): (N, 84) fp32 corpus rows -> (the bytes of
+    ceil(N / 64) slabs (uint8), each joint's largest norm (21,) fp32). Row r,
+    joint j is one bf16 k16 group ``[ch_j | ch_j | cl_j | 0]`` (ch = bf16(c),
+    cl = bf16(c - ch)); a slab is 21 tiles of 64 rows x 32 bytes, one a
+    joint, in the K-major 32-byte swizzle (``csrc/hopper.cuh``): 16-byte
+    chunk c of row r at chunk c ^ ((r // 4) % 2). Rows past N are zeros."""
+    N, D = cf.shape
+    J = D // 4
+    slabs = -(-N // JOINT_SLAB_ROWS)
+    hi = cf.to(torch.bfloat16)
+    lo = (cf - hi.to(torch.float32)).to(torch.bfloat16)
+    g = torch.zeros((slabs * JOINT_SLAB_ROWS, J, 16), dtype=torch.bfloat16, device=cf.device)
+    g[:N, :, 0:4] = g[:N, :, 4:8] = hi.view(N, J, 4)
+    g[:N, :, 8:12] = lo.view(N, J, 4)
+    # (slab, row, joint, chunk, 8 values); stored chunk c' of a row is chunk c' ^ ((row // 4) % 2)
+    g = g.view(slabs, JOINT_SLAB_ROWS, J, 2, 8)
+    sw = (torch.arange(JOINT_SLAB_ROWS, device=cf.device) // 4) % 2
+    src = torch.arange(2, device=cf.device)[None, :] ^ sw[:, None]
+    out = g.gather(3, src[None, :, None, :, None].expand(g.shape))
+    packed = out.permute(0, 2, 1, 3, 4).contiguous().view(torch.uint8).reshape(-1)
+    cmax = (torch.linalg.vector_norm(cf.view(N, J, 4), dim=2).amax(0) if N
+            else cf.new_zeros(J))
+    return packed, cmax
+
+
+def joint_margin(qf: torch.Tensor, cmax: torch.Tensor, weights, dot_impl: str = "vpu"
+                 ) -> torch.Tensor:
+    """The exact and bf16 engines' filter margin of each query (float64,
+    (Q,)), the plain version of the kernel's: JOINT_MARGIN[engine] S +
+    JOINT_MARGIN_W sum_j |w_j|, S = sum_j |w_j| |q_j| cmax_j (q rounded to
+    bf16 for ``"mxu_bf16"``); at least twice the largest difference between
+    a tensor-core distance and the plain version's (``csrc/knn_kernels.cu``
+    derives it)."""
+    J = qf.shape[1] // 4
+    q = bf16_round(qf) if dot_impl == "mxu_bf16" else qf
+    w = torch.as_tensor(weights, dtype=torch.float64, device=qf.device).abs()
+    norms = torch.linalg.vector_norm(q.view(-1, J, 4).double(), dim=2)
+    S = norms @ (w * cmax.to(torch.float64))
+    return JOINT_MARGIN[dot_impl] * S + JOINT_MARGIN_W * float(w.sum())
+
+
+def _lane_parts(N: int, S: int, slab_rows: int):
+    rng = -(-(-(-N // S)) // slab_rows) * slab_rows
     idx = torch.arange(N)
     parts = []
     for s in range(S):
@@ -214,27 +278,36 @@ def bound_parts(N: int, S: int):
     return parts
 
 
-def _default_splits(Q: int, N: int, device: torch.device) -> int:
-    """Corpus ranges S so that ceil(Q / 128) x S blocks fill the card's SMs
-    about four times over."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    qtiles = -(-Q // _QTILE)
-    return max(1, min(-(-_WAVES * sms // qtiles), -(-N // _SLAB)))
+def bound_parts(N: int, S: int):
+    """The parts of the corpus whose best-k lists the bound engine writes, in
+    the partial buffer's order: for range s (ceil(N / S) rows rounded up to
+    whole slabs, the last one the rest) and lane part p (a thread's lane %
+    4), the rows of range s whose index % 8 is 2 p or 2 p + 1 (a thread's
+    accumulator columns). A list of index arrays, 4 S of them."""
+    return _lane_parts(N, S, BOUND_SLAB_ROWS)
 
 
-def _bound_splits(Q: int, N: int, device: torch.device) -> int:
-    """Corpus ranges S of the bound engine: as few as fill the SMs once,
+def joint_parts(N: int, S: int):
+    """The parts of the exact and bf16 engines' lists, as :func:`bound_parts`
+    with their 64-row slabs. A list may hold fewer than its part's best
+    rows: a column above the k-th smallest distance in the four lists of its
+    query and range is not in the top k, and is dropped."""
+    return _lane_parts(N, S, JOINT_SLAB_ROWS)
+
+
+def _splits(Q: int, N: int, slab_rows: int, device: torch.device) -> int:
+    """Corpus ranges S of the top-k kernels: as few as fill the SMs once,
     ceil(Q / 128) x S CTAs of one an SM. Every range costs each thread's
     lists a filling (about KPAD ln(rows / KPAD) entries, each recomputed in
     the plain arithmetic), so more ranges than the card needs cost time."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     qtiles = -(-Q // _QTILE)
-    return max(1, min(sms // qtiles, -(-N // BOUND_SLAB_ROWS)))
+    return max(1, min(sms // qtiles, -(-N // slab_rows)))
 
 
 def _launch(qf, cf, k, w_joint, w_total, dot_impl, splits=None):
     """The launches on :func:`kernel_operands`' output. ``splits``: the
-    number of corpus ranges S (default: enough blocks to fill the card); the
+    number of corpus ranges S (default: enough CTAs to fill the card); the
     result does not depend on it."""
     Q, D = qf.shape
     N = cf.shape[0]
@@ -242,14 +315,12 @@ def _launch(qf, cf, k, w_joint, w_total, dot_impl, splits=None):
         raise ValueError(f"the kNN kernel takes {_KERNEL_JOINTS} joints, got {D // 4}")
     qf, cf = aligned_contiguous(qf), aligned_contiguous(cf)
     bound = dot_impl == "mxu_fast"
-    if splits is None:
-        S = (_bound_splits if bound else _default_splits)(Q, N, qf.device)
-    else:
-        S = int(splits)
+    rows = BOUND_SLAB_ROWS if bound else JOINT_SLAB_ROWS
+    S = _splits(Q, N, rows, qf.device) if splits is None else int(splits)
     if S < 1:
         raise ValueError(f"splits must be >= 1, got {S}")
     kpad = _kpad(k)
-    parts = _LANE_PARTS * S if bound else S
+    parts = _LANE_PARTS * S
     part_d = torch.empty((parts, Q, kpad), dtype=torch.float32, device=qf.device)
     part_i = torch.empty((parts, Q, kpad), dtype=torch.int32, device=qf.device)
     dists = torch.empty((Q, k), dtype=torch.float32, device=qf.device)
@@ -266,11 +337,18 @@ def _launch(qf, cf, k, w_joint, w_total, dot_impl, splits=None):
                                            N, float(w_total), kpad, S, part_d.data_ptr(),
                                            part_i.data_ptr(), stream), "posendf_knn_bound", "knn")
     else:
-        w_dev = _device_weights(tuple(w_joint.tolist()), str(qf.device))
-        _build.check(lib.posendf_knn_partial(qf.data_ptr(), Q, cf.data_ptr(), N, w_dev.data_ptr(),
-                                             ENGINES[dot_impl], kpad, S, part_d.data_ptr(),
-                                             part_i.data_ptr(), stream),
-                     "posendf_knn_partial", "knn")
+        packed = torch.empty(lib.posendf_knn_joint_bytes(N), dtype=torch.uint8, device=qf.device)
+        cmax = torch.zeros(_KERNEL_JOINTS, dtype=torch.float32, device=qf.device)
+        _build.check(lib.posendf_knn_pack_joint(cf.data_ptr(), N, packed.data_ptr(),
+                                                cmax.data_ptr(), stream),
+                     "posendf_knn_pack_joint", "knn")
+        LAUNCHES[dot_impl] += 1
+        w_host = (ctypes.c_float * _KERNEL_JOINTS)(*(float(x) for x in w_joint))
+        w_sum = float(np.float32(np.sum(w_joint, dtype=np.float64)))   # W, rounded once
+        _build.check(lib.posendf_knn_joint(qf.data_ptr(), Q, cf.data_ptr(), packed.data_ptr(),
+                                           cmax.data_ptr(), N, w_host, w_sum, ENGINES[dot_impl],
+                                           k, kpad, S, part_d.data_ptr(), part_i.data_ptr(),
+                                           stream), "posendf_knn_joint", "knn")
     LAUNCHES[dot_impl] += 1
     _build.check(lib.posendf_knn_merge(part_d.data_ptr(), part_i.data_ptr(), parts, Q, kpad, k,
                                        dists.data_ptr(), idx.data_ptr(), stream),

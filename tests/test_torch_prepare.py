@@ -182,15 +182,22 @@ def test_probe_fast_safety_matches_jax(corpus_kind):
 
 
 def test_resolve_knn_precision_on_cuda_and_cpu(monkeypatch, capsys):
-    """'auto' on the card follows JAX's rule on the TPU (the bound engine is
-    the faster one there, ``FAST_ENGINE_BACKENDS``): the probe decides, and
-    searches the engine does not apply to stay exact; on a device type where
-    it is the slower one, 'auto' is exact 'highest'."""
+    """'auto' takes the bound engine only on a device type where it is the
+    faster of the two ways to exact labels (``FAST_ENGINE_BACKENDS``): none,
+    so 'auto' is exact 'highest' on the card and the CPU. On a device type
+    of the set it follows JAX's rule on the TPU: the probe decides, and
+    searches the engine does not apply to stay exact."""
     corpus = synthetic_manifold_poses(np.random.default_rng(13), 1024)
     ineligible = ({"backend": "cpu"}, {"backend": "cuda", "k_candidates": 50},
                   {"backend": "cuda", "k": 9}, {"backend": "cuda", "space": "joints"},
                   {"backend": "cuda", "fused": False}, {"backend": "cuda", "metric": "euc"})
-    assert prepare.FAST_ENGINE_BACKENDS == frozenset({"cuda"})
+    assert prepare.FAST_ENGINE_BACKENDS == frozenset()
+    for kwargs in ({"backend": "cuda"},) + ineligible:
+        assert prepare.resolve_knn_precision("auto", corpus, device="cpu", verbose=False,
+                                             **{"k": 5, **kwargs}) == ("highest", None), kwargs
+    prepare.resolve_knn_precision("auto", corpus, k=5, backend="cuda", device="cpu")
+    assert "slower than the exact one on cuda" in capsys.readouterr().out
+    monkeypatch.setattr(prepare, "FAST_ENGINE_BACKENDS", frozenset({"cuda"}))
     prec, stats = prepare.resolve_knn_precision("auto", corpus, k=5, backend="cuda",
                                                 device="cpu", rng=np.random.default_rng(14),
                                                 verbose=False)
@@ -203,10 +210,6 @@ def test_resolve_knn_precision_on_cuda_and_cpu(monkeypatch, capsys):
                                              **{"k": 5, **kwargs}) == ("highest", None), kwargs
     prepare.resolve_knn_precision("auto", corpus, k=5, backend="cpu", device="cpu")
     assert "slower than the exact one on cpu" in capsys.readouterr().out
-    monkeypatch.setattr(prepare, "FAST_ENGINE_BACKENDS", frozenset())
-    for kwargs in ({"backend": "cuda"},) + ineligible:
-        assert prepare.resolve_knn_precision("auto", corpus, device="cpu", verbose=False,
-                                             **{"k": 5, **kwargs}) == ("highest", None), kwargs
     for p in ("highest", "high", "default", "fast"):
         assert prepare.resolve_knn_precision(p, corpus, k=5) == (p, None)
 
