@@ -44,7 +44,10 @@ tensor-core probe:
      against ``manual_train_grads`` (every loss term and gradient leaf), two
      calls bitwise equal; the tile kernel alone against ``branch_ref`` at
      B = M in {1, 63, 65, 129} (cutting its 64-pose CTAs); the encoder kernel
-     against its plain version at B = 131,072 and 1000
+     (its ``-Xptxas -v`` lines logged) against its plain version at B = 1,
+     63, 65, 129, 1,000 and 131,072 (cutting its 64-pose CTAs), and at 1,000
+     and 131,072 on poses one float into their buffer against the aligned
+     result, to the bit
   8. against the JAX package: the gradient at 2,048 + 2,048 poses and three
      fused Adam steps vs ``tests/data/torch_port_train_expected.npz``
   9. main path, training: a synthetic dataset, ``Trainer(device="cuda")`` at
@@ -92,7 +95,7 @@ tensor-core probe:
      and of the CUDA-core route the exact and bf16 engines had before
  14. the int8 kernel vs its plain version on the card: the trained field
      quantized on 4,096 numpy-seeded poses (``Field.quantize_int8``),
-     nvcc's ``-Xptxas -v`` lines of the two wgmma kernels (registers, spills,
+     nvcc's ``-Xptxas -v`` lines of the three wgmma kernels (registers, spills,
      shared memory), ``QuantizedField.distance`` held to ``distance_ref`` at
      B = 1, 63, 65, 129, 1,000, 4,096 and 131,072 (cutting the kernel's
      64-pose CTAs), and on a strided and a permuted view to the bit; the int8 field held to the fp32 field at
@@ -112,12 +115,14 @@ tensor-core probe:
      to ``distance_ref`` / ``distance``; then times: the int8 kernel vs its
      plain version, vs the fp32 ``posendf_forward`` kernel in the same
      rounds, and the int8 products alone as ``torch._int_mm``
- 17. the probe kernels vs their plain versions at (1,000, 512) and
-     (131,072, 512), 1 and 8 layers; ``python -m posendf_torch.ops.int8_probe``'s
-     run (its launch counts set to 0 before and read after); times of both
-     chains against their library chains, rates and shares of the dense
-     peaks; the int8 / bf16 ratio is one of two routes (``wmma`` int8
-     against ``wgmma`` bf16), not of the card's rates
+ 17. the probe kernels (both ``wgmma``; the int8 chain's ``-Xptxas -v``
+     lines in phase 14's) vs their plain versions at (1, 512), (1,000, 512)
+     and (131,072, 512), 1 and 8 layers; ``python -m
+     posendf_torch.ops.int8_probe``'s run (its launch counts set to 0 before
+     and read after); times of both chains against their products as library
+     calls (``torch.matmul`` on bf16, ``torch._int_mm``; the int8 chain with
+     its requantization as library calls too), rates and shares of the dense
+     peaks, and the int8 / bf16 ratio
 
 Kernel and plain times are medians over rounds of plain, kernel, kernel,
 plain, each round a mean over a few calls (one call of the kNN plain
@@ -287,6 +292,7 @@ MAIN_BATCH, MAIN_STEPS = 10_000, 200
 SERVE_BATCH = 131_072
 TRAIN_FILES, TRAIN_PTS = 4, 5000       # the reference batch: 4 files x 5000 poses
 TILE_BATCHES = (1, 63, 65, 129)        # cut the tile kernel's 64-pose CTAs
+ENC_BATCHES = (1, 63, 65, 129, 1000, 131_072)   # cut the encoder kernel's 64-pose CTAs
 SEED = 0
 PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12  # H100 SXM: fp32 CUDA cores, HBM3
 PEAK_BF16 = 989e12                       # H100 SXM: bf16 tensor cores, dense
@@ -310,9 +316,9 @@ WQ_FLIP_SHARE = 1e-4  # quantization on the card vs JAX's: wq entries one level 
 BF16_CHAIN_SHARE = 0.10  # probe bf16, 8 layers: elements more than one spacing apart; docstring
 EXPORT_ATOL = 1e-6
 INT8_BATCHES = (1, 63, 65, 129, 1000, 4096, SERVE_BATCH)  # cut the 64-pose tile
-PROBE_ROWS = (1000, SERVE_BATCH)
+PROBE_ROWS = (1, 1000, SERVE_BATCH)   # 1 and 1,000 cut the int8 chain's 192-row CTAs
 WGMMA_KERNELS = {"field": ("field_kernel",),                             # by library
-                 "int8": ("int8_forward_kernel", "probe_bf16_kernel"),
+                 "int8": ("int8_forward_kernel", "probe_bf16_kernel", "probe_int8_kernel"),
                  "train": ("train_tile_kernel", "train_reduce_kernel"),
                  "knn": ("knn_bound_kernel", "knn_pack_kernel", "knn_joint_kernel",
                          "knn_pack_joint_kernel")}
@@ -776,7 +782,7 @@ def train_phases(field, card: str) -> list:
     import copy
     import tempfile
 
-    from posendf_torch import load_field
+    from posendf_torch import _build, load_field
     from posendf_torch.data.pipeline import TrainingBatcher
     from posendf_torch.data.splits import AMASS_SPLITS
     from posendf_torch.data.synthetic import write_synthetic_dataset
@@ -852,16 +858,33 @@ def train_phases(field, card: str) -> list:
                          atol=0.0)
         assert_leaves("fused_train_grads vs manual_train_grads", g_k, g_m)
 
-    def check_encoder(q) -> None:
+    def check_encoder(q, misaligned: bool = False) -> None:
+        """The encoder kernel against its plain version; with ``misaligned``,
+        also on a copy of q that starts one float into its buffer, to the
+        bit."""
         e = module.enc
+
+        def kernel(x):
+            return fused_encoder.fused_structure_encoder(x, e.w1, e.b1, e.w2, e.b2,
+                                                         parents=module.parents,
+                                                         activation=module.activation)
+
         with torch.no_grad():
-            got = fused_encoder.fused_structure_encoder(q, e.w1, e.b1, e.w2, e.b2,
-                                                        parents=module.parents,
-                                                        activation=module.activation)
+            got = kernel(q)
             want = structure_encoder_apply(q, e.w1, e.b1, e.w2, e.b2, parents=module.parents,
                                            activation=module.activation)
-        errs["enc"] = max(errs["enc"], assert_close(f"encoder kernel vs plain, B = {q.shape[0]}",
-                                                    got, want, atol=ENC_ATOL))
+            errs["enc"] = max(errs["enc"], assert_close(
+                f"encoder kernel vs plain, B = {q.shape[0]}", got, want, atol=ENC_ATOL))
+            if misaligned:
+                buf = torch.empty(q.numel() + 1, device=q.device)
+                shifted = buf[1:].view(q.shape).copy_(q)
+                if shifted.data_ptr() % 16 == 0 or not shifted.is_contiguous():
+                    raise AssertionError("the shifted poses are not a misaligned contiguous copy")
+                if not torch.equal(kernel(shifted), got):
+                    raise AssertionError(f"encoder kernel on poses one float into their buffer, "
+                                         f"B = {q.shape[0]}: not the aligned result")
+                log(f"  ok encoder kernel on poses one float into their buffer, B = "
+                    f"{q.shape[0]}: the aligned result, to the bit")
 
     # ---- 7. train kernels vs plain on the card ----
     log_ptxas("train")
@@ -875,8 +898,12 @@ def train_phases(field, card: str) -> list:
         log(f"tile kernel vs branch_ref, B = M = {B}")
         check_tile(*batch_on_card(B, B, SEED + 7 + B),
                    dict(loss_type="l1", weight_dist=0.7, weight_man=1.3, weight_eikonal=0.9))
-    for B in (SERVE_BATCH, 1000):
-        check_encoder(random_poses(gen, B, device="cuda"))
+    # the instances of this field's feature width (one an activation)
+    for line in ptxas_lines(_build.build_info("train")["log"],
+                            (f"encoder_kernelILi{w.feature_size}E",)):
+        log("  nvcc -Xptxas -v: " + line)
+    for B in ENC_BATCHES:
+        check_encoder(random_poses(gen, B, device="cuda"), misaligned=B in (1000, SERVE_BATCH))
 
     # ---- 8. against the JAX package ----
     ref = np.load(TRAIN_EXPECTED)
@@ -1810,9 +1837,12 @@ def serving_phases(field, card: str) -> list:
     # ---- 17. the probe kernels ----
     xb, wb, xi, wi, si = int8_probe.probe_inputs(rows=SERVE_BATCH, seed=SEED + 44)
     probe_err = {"bf16": 0.0, "int8": 0.0}
+    # a row's result does not depend on the rows beside it: below 1,000 rows
+    # (too few elements for the chain's share bar) the bf16 chain is held to
+    # its own result at the full batch, to the bit
+    full_bf16 = {n: int8_probe.run_bf16(xb, wb, n) for n in (1, int8_probe.LAYERS)}
     for rows in PROBE_ROWS:
-        log(f"probe kernels vs plain at ({rows}, 512); bf16 on {int8_probe.ROUTES['bf16']}, int8 "
-            f"on {int8_probe.ROUTES['int8']}")
+        log(f"probe kernels vs plain at ({rows}, 512), both on wgmma")
         # one layer at a time, each fed the plain chain's input: the bf16 layer bar
         x_in, worst, differ = xb[:rows], 0.0, []
         for l in range(int8_probe.LAYERS):
@@ -1836,6 +1866,13 @@ def serving_phases(field, card: str) -> list:
                 raise AssertionError(f"probe_int8_chain, {rows} rows, {layers} layers: not "
                                      f"bitwise equal")
             ob = int8_probe.run_bf16(xb[:rows], wb, layers)
+            if rows < 1000:
+                if not torch.equal(ob, full_bf16[layers][:rows]):
+                    raise AssertionError(f"probe_bf16_chain, {rows} rows, {layers} layers: not "
+                                         f"the full batch's first rows, bitwise")
+                log(f"  ok {layers} layer(s): int8 bitwise; bf16 chain the full batch's first "
+                    f"{rows} row(s), bitwise")
+                continue
             rb = int8_probe.run_bf16_ref(xb[:rows], wb, layers)
             ulps = int8_probe.bf16_ulps(ob, rb)
             share = float((ulps > 1).float().mean())
@@ -1871,17 +1908,23 @@ def serving_phases(field, card: str) -> list:
             f = torch._int_mm(x, wi[l]).float() * si[0, l]
             x = torch.clamp(torch.round(f), -127.0, 127.0).to(torch.int8)
 
+    def library_int8_products():             # the 8 products alone, torch._int_mm each
+        for l in range(int8_probe.LAYERS):
+            torch._int_mm(xi, wi[l])
+
     bf16_lib_ms = cuda_ms(library_bf16, 10)
-    i8_lib_ms = cuda_ms(library_int8, 10)
+    i8_chain_ms = cuda_ms(library_int8, 10)
+    i8_lib_ms = cuda_ms(library_int8_products, 10)
     ops = 2.0 * SERVE_BATCH * 512 * 512 * int8_probe.LAYERS
     for name, t, lib, peak in (("bf16", bf16_ms, bf16_lib_ms, PEAK_BF16),
                                ("int8", i8_ms, i8_lib_ms, PEAK_INT8)):
         log(f"probe {name}: kernel {t:.4f} ms, {ops / t / 1e9:.1f} T{'FLOP' if name == 'bf16' else 'OP'}"
-            f"/s = {ops / t * 1e3 / peak:.2%} of the dense peak; library chain {lib:.4f} ms, "
-            f"{ops / lib / 1e9:.1f} T/s  [{card}]")
-    log(f"probe int8 / bf16 speed: kernels {bf16_ms / i8_ms:.3f}x ({int8_probe.ROUTES['int8']} int8 "
-        f"against {int8_probe.ROUTES['bf16']} bf16: a ratio of two routes, not of the card's int8 "
-        f"and bf16 rates), library chains {bf16_lib_ms / i8_lib_ms:.3f}x  [{card}]")
+            f"/s = {ops / t * 1e3 / peak:.2%} of the dense peak; its products as a library call "
+            f"a layer {lib:.4f} ms, {ops / lib / 1e9:.1f} T/s  [{card}]")
+    log(f"probe int8 with requantization as library calls (torch._int_mm, scale, round, clamp, "
+        f"cast a layer) {i8_chain_ms:.4f} ms  [{card}]")
+    log(f"probe int8 / bf16 speed: kernels {bf16_ms / i8_ms:.3f}x (both on wgmma), products as "
+        f"library calls {bf16_lib_ms / i8_lib_ms:.3f}x  [{card}]")
 
     # bounds
     enc, qp_layers = qfield.qparams["enc"], qfield.qparams["layers"]
@@ -1914,7 +1957,7 @@ def serving_phases(field, card: str) -> list:
          "replaces": "scripts/int8_probe.py:41", "launches": probe_launches["int8"],
          "max_abs_err": probe_err["int8"], "ms": i8_ms, "plain_ms": i8_plain_ms,
          "bound_ms": i8_bound[0], "bound_by": i8_bound[1], "library_ms": i8_lib_ms,
-         "library": "torch._int_mm, scale, round, clamp, cast a layer"},
+         "library": "the 8 int8 products alone, torch._int_mm each (no requantization)"},
     ]
 
 

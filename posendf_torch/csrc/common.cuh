@@ -12,7 +12,6 @@
 
 namespace posendf {
 
-constexpr int kThreads = 512;  // threads per block of the int8 probe chain
 constexpr int kMaxF = 8;       // encoder feature width limit
 constexpr int kMaxE = 4 + kMaxF;
 constexpr int kMaxJ = 32;

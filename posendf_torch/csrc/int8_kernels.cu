@@ -8,19 +8,20 @@
 //                         (the measurement probe: a chain of 512 x 512
 //                         products in bf16 or int8 on the tensor cores)
 //
-// posendf_forward_int8 and probe_bf16_chain share one shape (hopper.cuh has
-// the PTX): consumer warpgroups (two in the bf16 chain, four in the int8
+// The three share one shape (hopper.cuh has the PTX): consumer warpgroups
+// (two in the bf16 chain, three in the int8 chain, four in the int8
 // forward) issue wgmma.mma_async with both operands in shared memory in the
 // K-major 128-byte-swizzled layout; a producer warp fills a ring of weight
 // slabs with cp.async.bulk, guarded by full / empty mbarrier pairs, so that
-// copies overlap products; a consumer warpgroup frees a slot (one arrival on
-// its empty barrier) as soon as its products of it are done. The wrappers
-// store the weights in that layout already (fused_int8.sw128_kmajor_offsets),
-// one slab one contiguous run of bytes. Every CTA copies its own slabs:
-// thread-block clusters that multicast each slab to 2 or 4 CTAs were measured
-// on an H100 and gained nothing in either kernel (PERF.md), so the kernels
-// launch without them. Between layers the consumers pass a named barrier,
-// after fence.proxy.async has made their plain stores visible to wgmma.
+// copies overlap products; a consumer warpgroup frees a slot (one arrival
+// on its empty barrier) as soon as its products of it are done. The
+// wrappers store the weights in that layout already
+// (fused_int8.sw128_kmajor_offsets), one slab one contiguous run of bytes.
+// Every CTA copies its own slabs: thread-block clusters that multicast each
+// slab to 2 or 4 CTAs were measured on an H100 and gained nothing in the
+// int8 forward or the bf16 chain (PERF.md), so the kernels launch without
+// them. Before products read what the consumers stored in shared memory,
+// the writers pass fence.proxy.async and a named barrier.
 //
 // ---- posendf_forward_int8 ----
 // Bound at the serving batch of 131,072 poses (an H100 SXM's peaks): the int8
@@ -75,22 +76,44 @@
 // bf16 (__float2bfloat16_rn, nearest even) over x, fence, and pass it again;
 // the last layer writes out row-major, rows past B masked.
 //
-// ---- probe_int8_chain (wmma) ----
-// A block keeps a tile of kPT = 64 rows of x in shared memory for all the
-// layers and streams each layer's weights through shared memory in slabs of
-// 64 rows, stored as 16 x 16 fragment tiles. Each warp owns two output column
-// tiles of all four row tiles. After a layer the block waits until every warp
-// has read x, then writes clip(rint(acc * s_l), +-127) over it (s is a power
-// of two in the probe, so the chain is exact). Bound: 1,979 TOPS int8
-// (0.28 ms). wmma's mma.sync path reaches only a part of Hopper's tensor-core
-// rate, so this chain measures what that route gives, not the card's ceiling.
-//
+// ---- probe_int8_chain ----
+// Bound at (131,072, 512) x 8 layers: 5.5e11 int8 operations at 1,979 TOPS
+// (0.28 ms); bytes 0.1 ms. The bf16 chain's shape with int8 operands
+// (wgmma.mma_async s32.s8.s8, both operands in shared memory; one 128-byte
+// swizzle line holds 128 int8 of K). A CTA keeps kQRows = 192 rows of x
+// (three consumer warpgroups of 64; 96 KB: the int8 tile is half the bf16
+// one, and more rows a CTA mean fewer weight bytes into the SM an
+// operation) beside an 8-slot ring of 16 KB slabs, 128 output channels x
+// 128 bytes of K: the layer's outputs in quarters (m64n128k32, 64 s32
+// accumulators a thread), slabs (quarter, K block) in that order, every
+// slab one bulk copy of the packed weights (fused_int8.sw128_kmajor_offsets,
+// nc = 128). The sums are exact integers (|acc| <= 512 x 127^2 < 2^24), so
+// the order does not matter and the chain is bitwise the plain one's.
+// The requantization (probe_convert: no FMA, rint, clamps without branches)
+// takes about as many issue slots as a third of the products take on the
+// tensor cores, so it runs beside other warpgroups' products: the turn at
+// the tensor cores goes round the consumer warpgroups, a quarter each, by
+// named barriers (a ping-pong schedule's): a warpgroup waits for its turn,
+// issues its quarter's 16 products (keeping one slab in flight, wgmma wait
+// 1, which frees the slot of the slab before), passes the turn on, and
+// requantizes its quarter while the next warpgroup's products run. A
+// warpgroup's products read only its own 64 rows of x and its epilogues
+// write only them, so beyond the turn the warpgroups share only the ring
+// (where a slab stays until the third warpgroup has had it). Quarters 0-2
+// are held, four int8 a register, until the warpgroup's quarter 3 has read
+// its rows; then it stores all four over them (a quarter of outputs is one
+// K block of the next layer's A) and passes fence.proxy.async and a barrier
+// of its own. The last layer writes fp32 rows, rows past B masked; they
+// read zeros. Registers: the producer warpgroup drops to 24, the consumers
+// take kQRegs (160) for 64 accumulators and 48 held words.
+// ops/breakdown.py times 128 rows a CTA (two consumer warpgroups) as
+// rows128.
+
 // Each launcher returns the launch's error (cudaFuncSetAttribute's, then
 // cudaGetLastError's); the Python wrapper raises on a nonzero value. No
 // launcher synchronizes or allocates.
 
 #include <cuda_bf16.h>
-#include <mma.h>
 
 #include "common.cuh"
 #include "hopper.cuh"
@@ -99,7 +122,6 @@ namespace {
 
 using namespace posendf;
 using namespace hopper;
-using namespace nvcuda;
 
 // ---- the wgmma kernels' common shape ----
 
@@ -534,124 +556,163 @@ __global__ void __launch_bounds__(kPThreads, 1)
   }
 }
 
-// ---- probe_int8_chain (wmma) ----
+// ---- probe_int8_chain ----
 
-constexpr int kFrag = 16;    // wmma m = n = k
-constexpr int kFragElems = kFrag * kFrag;
-constexpr int kWarps = kThreads / 32;
-constexpr int kPT = 64;    // rows of x per block
-constexpr int kPMT = kPT / kFrag;
-constexpr int kPNT = kPW / kFrag;
-static_assert(kPNT == 2 * kWarps, "each warp owns two output column tiles");
+constexpr int kQCW = 3;                          // consumer warpgroups, 64 rows of x each
+constexpr int kQRows = 64 * kQCW;                // rows of x a CTA
+constexpr int kQConsumers = 128 * kQCW;
+constexpr int kQThreads = kQConsumers + 128;     // and a producer warpgroup
+// registers a consumer thread takes (setmaxnreg) from what the launch gives
+// the CTA once the producer warpgroup has dropped to 24
+constexpr int kQRegs = (((65536 / kQThreads) / 8 * 8) * kQThreads - 128 * 24) / kQConsumers / 8 * 8;
+constexpr int kQNC = 128;                        // output channels a slab: a quarter of 512
+constexpr int kQParts = kPW / kQNC;              // quarters of a layer's outputs
+constexpr int kQKBlocks = kPW / kSlabK;          // 128-byte K blocks of an int8 row: 4
+constexpr int kQSlot = kQNC * kSlabK;            // 128 output channels x 128 of K: 16 KB
+constexpr int kQStages = 8;
+constexpr int kQBlock = kQRows * kSlabK;         // one K block of the x tile
+constexpr uint32_t kBarTurn = 2;                 // named barriers: a warpgroup's turn at the tensor cores,
+constexpr uint32_t kBarOwn = kBarTurn + kQCW;    // and its own stores, one each a warpgroup
+static_assert(kQNC == kSlabK, "a quarter of the outputs is one K block of the next layer's A");
+static_assert(kBarOwn + kQCW <= 16, "named barriers");
 
-template <typename T> struct ProbeKC;
-template <> struct ProbeKC<signed char> { static constexpr int value = 64; };
-
-template <typename T, typename Acc>
-__host__ __device__ constexpr size_t probe_smem_bytes() {
-  return sizeof(T) * (static_cast<size_t>(kPW) * kPT + static_cast<size_t>(kPW) * ProbeKC<T>::value) +
-         sizeof(Acc) * kWarps * kFragElems;
+__host__ __device__ constexpr size_t int8_chain_smem_bytes() {
+  return 1024 + static_cast<size_t>(kQStages) * kQSlot + static_cast<size_t>(kQRows) * kPW +
+         2 * kQStages * sizeof(uint64_t);
 }
 
-// element (m, k) of a row-major (rows, width) matrix kept as 16 x 16 tiles,
-// tile (k / 16, m / 16) of kPMT row tiles, row-major inside
-__device__ __forceinline__ int x_tile_off(int m, int k) {
-  return ((k >> 4) * kPMT + (m >> 4)) * kFragElems + (m & 15) * kFrag + (k & 15);
-}
-
+// clip(rint(acc * s), +-127) as the plain chain computes it: the int32 sum
+// converted exactly (|acc| < 2^24), one rounded product (no FMA), rint
+// (half to even, as torch.round), the clamps branch-free
 __device__ __forceinline__ signed char probe_convert(int acc, float s) {
   const float v = rintf(__fmul_rn(__int2float_rn(acc), s));
   return static_cast<signed char>(fminf(fmaxf(v, -127.f), 127.f));
 }
-__device__ __forceinline__ float probe_out(signed char v) { return static_cast<float>(v); }
 
-template <typename T, typename Acc, typename Out>
-__global__ void __launch_bounds__(kThreads)
-    probe_chain_kernel(const T* __restrict__ x, const T* __restrict__ w, const float* s, int B,
-                       int layers, Out* out) {
-  constexpr int KC = ProbeKC<T>::value;
-  constexpr int V = 16 / sizeof(T);   // elements of one 16-byte vector
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  T* xs = reinterpret_cast<T*>(smem_raw);              // kPT x kPW as tiles
-  T* ws = xs + kPW * kPT;                              // KC x kPW as tiles [n/16][k/16]
-  Acc* stage = reinterpret_cast<Acc*>(ws + kPW * KC);  // one 16 x 16 tile a warp
-  const int row0 = blockIdx.x * kPT;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+// the four sums of register group q (4 q .. 4 q + 3 of an m64n128 fragment:
+// row, columns c and c + 1; row + 8, the same columns) requantized, one byte
+// each, in register order
+__device__ __forceinline__ uint32_t quant4(const int (&acc)[64], int q, float s) {
+  uint32_t w = 0;
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    w |= static_cast<uint32_t>(static_cast<unsigned char>(probe_convert(acc[4 * q + e], s))) << (8 * e);
+  return w;
+}
 
-  for (int v = threadIdx.x; v < kPT * kPW / V; v += kThreads) {
-    const int m = v / (kPW / V), k = (v % (kPW / V)) * V;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + m < B) val = *reinterpret_cast<const uint4*>(x + static_cast<size_t>(row0 + m) * kPW + k);
-    *reinterpret_cast<uint4*>(xs + x_tile_off(m, k)) = val;
-  }
-
-  for (int l = 0; l < layers; ++l) {
-    wmma::fragment<wmma::accumulator, kFrag, kFrag, kFrag, Acc> acc[2][kPMT];
+// a quarter's words into the x tile: K block `part` (the quarter's 128
+// output channels are the next layer's K), bytes c and c + 1 of rows `row`
+// and `row` + 8
+__device__ __forceinline__ void store_quarter(unsigned char* xs, int part, int row, int cq,
+                                              const uint32_t (&w)[16]) {
+  unsigned char* blk = xs + part * kQBlock;
 #pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int mt = 0; mt < kPMT; ++mt) wmma::fill_fragment(acc[j][mt], static_cast<Acc>(0));
-    for (int k0 = 0; k0 < kPW; k0 += KC) {
-      __syncthreads();   // the previous slab is consumed, x is written
-      for (int v = threadIdx.x; v < KC * kPW / V; v += kThreads) {
-        const int r = v / (kPW / V), n = (v % (kPW / V)) * V;
-        *reinterpret_cast<uint4*>(ws + ((n >> 4) * (KC / kFrag) + (r >> 4)) * kFragElems +
-                                  (r & 15) * kFrag + (n & 15)) =
-            *reinterpret_cast<const uint4*>(w + (static_cast<size_t>(l) * kPW + k0 + r) * kPW + n);
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < KC / kFrag; ++kk) {
-        wmma::fragment<wmma::matrix_b, kFrag, kFrag, kFrag, T, wmma::row_major> fb[2];
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::load_matrix_sync(fb[j], ws + ((2 * warp + j) * (KC / kFrag) + kk) * kFragElems, kFrag);
-#pragma unroll
-        for (int mt = 0; mt < kPMT; ++mt) {
-          wmma::fragment<wmma::matrix_a, kFrag, kFrag, kFrag, T, wmma::row_major> fa;
-          wmma::load_matrix_sync(fa, xs + ((k0 / kFrag + kk) * kPMT + mt) * kFragElems, kFrag);
-#pragma unroll
-          for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[j][mt], fa, fb[j], acc[j][mt]);
-        }
-      }
-    }
-    __syncthreads();   // every warp has read all of x: the outputs replace it
-    const float sl = s != nullptr ? s[l] : 1.f;
-    Acc* st = stage + warp * kFragElems;
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-#pragma unroll
-      for (int mt = 0; mt < kPMT; ++mt) {
-        wmma::store_matrix_sync(st, acc[j][mt], kFrag, wmma::mem_row_major);
-        __syncwarp();
-        // output (m, n) is the next layer's input (m, k = n): tile (n / 16, m / 16),
-        // at the same place inside the tile as in the row-major stage
-        T* dst = xs + ((2 * warp + j) * kPMT + mt) * kFragElems;
-#pragma unroll
-        for (int r = 0; r < kFragElems / 32; ++r) dst[lane + 32 * r] = probe_convert(st[lane + 32 * r], sl);
-        __syncwarp();
-      }
-    }
-  }
-  __syncthreads();
-  for (int e = threadIdx.x; e < kPT * kPW; e += kThreads) {
-    const int m = e / kPW, n = e % kPW;
-    if (row0 + m < B) out[static_cast<size_t>(row0 + m) * kPW + n] = probe_out(xs[x_tile_off(m, n)]);
+  for (int q = 0; q < 16; ++q) {
+    const int c = 8 * q + cq;
+    *reinterpret_cast<unsigned short*>(blk + sw128_offset(row, c)) = static_cast<unsigned short>(w[q]);
+    *reinterpret_cast<unsigned short*>(blk + sw128_offset(row + 8, c)) =
+        static_cast<unsigned short>(w[q] >> 16);
   }
 }
 
-template <typename T, typename Acc, typename Out>
-int launch_probe(const T* x, const T* w, const float* s, int B, int layers, Out* out, void* stream) {
-  if (layers < 1 || B < 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (B == 0) return 0;
-  constexpr size_t smem = probe_smem_bytes<T, Acc>();
-  cudaError_t err = cudaFuncSetAttribute(probe_chain_kernel<T, Acc, Out>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  probe_chain_kernel<T, Acc, Out><<<(B + kPT - 1) / kPT, kThreads, smem,
-                                    static_cast<cudaStream_t>(stream)>>>(x, w, s, B, layers, out);
-  return static_cast<int>(cudaGetLastError());
+__global__ void __launch_bounds__(kQThreads, 1)
+    probe_int8_kernel(const signed char* __restrict__ x, const unsigned char* __restrict__ wp,
+                      const float* __restrict__ s, int B, int layers, float* __restrict__ out) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = align1024(smem_raw);
+  unsigned char* xs = ring + kQStages * kQSlot;   // (kQRows, 512) int8: 4 swizzled K blocks
+  uint64_t* bars = reinterpret_cast<uint64_t*>(xs + kQRows * kPW);
+  init_ring(bars, kQStages, 1, kQCW);
+
+  if (threadIdx.x >= kQConsumers) {
+    setmaxnreg_dec<24>();
+    // per layer: output channels 0-127, K block by K block, then 128-255, ...
+    if (threadIdx.x == kQConsumers)
+      for (int g = 0; g < layers * kQParts * kQKBlocks; ++g)
+        produce(bars, kQStages, ring, kQSlot, g, wp + static_cast<size_t>(g) * kQSlot, kQSlot);
+    __syncwarp();
+  } else {
+    setmaxnreg_inc<kQRegs>();
+    const int t = threadIdx.x, wg = t / 128, tw = t % 128;
+    const int row0 = blockIdx.x * kQRows;
+    // this warpgroup's 64 rows of x: row m's 16-byte chunk ch (16 int8) to K
+    // block ch / 8, chunk ch % 8; zeros past B
+    for (int v = tw; v < 64 * kPW / 16; v += 128) {
+      const int m = 64 * wg + v / (kPW / 16), ch = v % (kPW / 16);
+      uint4 val = make_uint4(0u, 0u, 0u, 0u);
+      if (row0 + m < B) val = reinterpret_cast<const uint4*>(x + static_cast<size_t>(row0 + m) * kPW)[ch];
+      *reinterpret_cast<uint4*>(xs + (ch / 8) * kQBlock + sw128_offset(m, (ch % 8) * 16)) = val;
+    }
+    fence_proxy_async();
+    named_bar_sync(kBarOwn + wg, 128);
+    // the turn at the tensor cores goes round the warpgroups, a quarter each:
+    // warpgroup 0 starts
+    const uint32_t my_turn = kBarTurn + wg, next_turn = kBarTurn + (wg + 1) % kQCW;
+    if (wg == kQCW - 1) named_bar_arrive(kBarTurn, 256);
+    const uint32_t a_base = smem_u32(xs) + wg * kAtomBytes;   // 64 rows x 128 bytes a warpgroup
+    const int row = 64 * wg + 16 * (tw / 32) + (tw % 32) / 4;
+    const int cq = 2 * (tw % 4);
+    int acc[64];
+    uint32_t held[kQParts - 1][16];   // quarters 0-2 requantized while the rest are summed
+    int g = 0;
+    for (int l = 0; l < layers; ++l) {
+      const float sl = __ldg(s + l);
+      const bool last = l == layers - 1;
+#pragma unroll
+      for (int part = 0; part < kQParts; ++part) {
+        named_bar_sync(my_turn, 256);
+        int prev = 0;
+        for (int kb = 0; kb < kQKBlocks; ++kb, ++g) {
+          const int st = await_slab(bars, kQStages, g);
+          const uint32_t b_base = smem_u32(ring + st * kQSlot);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            wgmma_m64n128k32_s8(acc, desc_sw128(a_base + kb * kQBlock + kk * 32),
+                                desc_sw128(b_base + kk * 32), (kb | kk) != 0);
+          wgmma_commit();
+          if (kb > 0) {   // the previous slab's products are done: free its slot
+            wgmma_wait<1>();
+            release(bars, kQStages, prev, tw);
+          }
+          prev = st;
+        }
+        // the next warpgroup's products queue behind these while this one's
+        // epilogue runs (the last warpgroup passes no turn after its last quarter)
+        if (!(last && part == kQParts - 1 && wg == kQCW - 1)) named_bar_arrive(next_turn, 256);
+        wgmma_wait<0>();
+        release(bars, kQStages, prev, tw);
+        fence_regs(acc);
+        // register 4 q + e: row + 8 (e / 2), column 128 part + 8 q + cq + e % 2
+        if (last) {
+#pragma unroll
+          for (int q = 0; q < 16; ++q) {
+            const int c = kQNC * part + 8 * q + cq;
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              if (row0 + row + 8 * h < B)
+                *reinterpret_cast<float2*>(out + static_cast<size_t>(row0 + row + 8 * h) * kPW + c) =
+                    make_float2(static_cast<float>(probe_convert(acc[4 * q + 2 * h], sl)),
+                                static_cast<float>(probe_convert(acc[4 * q + 2 * h + 1], sl)));
+            }
+          }
+        } else if (part < kQParts - 1) {
+#pragma unroll
+          for (int q = 0; q < 16; ++q) held[part][q] = quant4(acc, q, sl);
+        } else {
+          // every product of the layer has read this warpgroup's rows of x
+          uint32_t w[16];
+#pragma unroll
+          for (int q = 0; q < 16; ++q) w[q] = quant4(acc, q, sl);
+#pragma unroll
+          for (int p = 0; p < kQParts - 1; ++p) store_quarter(xs, p, row, cq, held[p]);
+          store_quarter(xs, kQParts - 1, row, cq, w);
+          fence_proxy_async();
+          named_bar_sync(kBarOwn + wg, 128);
+        }
+      }
+    }
+  }
 }
 
 }  // namespace
@@ -687,12 +748,16 @@ int probe_bf16_chain(const void* x, const void* wp, int B, int layers, void* out
                       static_cast<__nv_bfloat16*>(out));
 }
 
-// x (B, 512) int8, w (>= layers, 512, 512) int8, s (>= layers,) fp32 -> out (B, 512) fp32
-int probe_int8_chain(const void* x, const void* w, const float* s, int B, int layers, float* out,
+// x (B, 512) int8, wp the packed weights (>= layers x 256 KB,
+// fused_int8.sw128_kmajor_offsets with nc = 128), s (>= layers,) fp32 ->
+// out (B, 512) fp32
+int probe_int8_chain(const void* x, const void* wp, const float* s, int B, int layers, float* out,
                      void* stream) {
-  return launch_probe<signed char, int, float>(static_cast<const signed char*>(x),
-                                               static_cast<const signed char*>(w), s, B, layers,
-                                               out, stream);
+  if (layers < 1 || B < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0) return 0;
+  return launch_wgmma(probe_int8_kernel, (B + kQRows - 1) / kQRows, kQThreads, int8_chain_smem_bytes(),
+                      stream, static_cast<const signed char*>(x), static_cast<const unsigned char*>(wp),
+                      s, B, layers, out);
 }
 
 const char* posendf_int8_error_string(int err) {

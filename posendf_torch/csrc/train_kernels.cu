@@ -7,13 +7,26 @@
 //   posendf_train_reduce  /  (the full parameter gradient of losses.training_loss)
 //
 // ---- The encoder ----
-// One thread per pose walks the joints in index order (every parent index is
-// smaller than its child's) with the encoder's 3.7k weights in shared memory;
-// the block's features live in shared memory too, indexed by the parent
-// table, and leave in one coalesced copy of the block's run of the (B, J*F)
-// output (the JAX layout). At 131,072 poses it moves 110 MB and does 0.88
-// GFLOP, so it is bound by bytes.
-//
+// At 131,072 poses it moves 110 MB (poses in, features out) and does 0.88
+// GFLOP, so it is bound by bytes (0.033 ms at 3.35 TB/s). A CTA owns 64
+// poses and 70 KB of shared memory at J = 21, F = 6, so that three CTAs fit
+// an SM. Its poses (one contiguous run of the (B, J, 4) input) and the
+// packed weights (fused_encoder.pack_encoder: a row of float4s a hidden
+// unit or feature, E weights, the bias, zeros) come in with coalesced
+// 16-byte cp.async. The walk goes over the joints in index order (every
+// parent index is smaller than its child's); two neighbouring lanes share a
+// pose, lane r summing the hidden units r, r + 2, ... and then the features
+// r, r + 2, ... (one FMA a term in index order, then the bias, as the
+// one-thread-a-pose kernel before it), and trade hidden units by shuffles,
+// so a joint needs no CTA barrier, only __syncwarp before the children read
+// its features. What the walk waits on is the shared-memory pipe, and most
+// of its traffic is the weights: each load is a 128-bit broadcast feeding
+// four FMAs, and a hidden unit crosses to the other lane in one shuffle.
+// The activation is a template parameter (no branch a unit). The features stay in shared
+// memory in the output's order (pose-major rows of J * F floats), and the
+// CTA's output, one contiguous run of the (B, J * F) output (the JAX
+// layout), leaves in coalesced 16-byte stores.
+
 // ---- The training gradient ----
 // What it computes is manual_train_grads (ops/train_grad.py) for lrelu/relu,
 // where act'' = 0. On the TPU one kernel per branch kept the 1.37M gradient
@@ -103,83 +116,140 @@ using namespace hopper;
 // encoder
 // ---------------------------------------------------------------------------
 
-constexpr int kEncThreads = 64;  // poses per block, one thread each
+constexpr int kEncPoses = 64;                    // poses a CTA
+constexpr int kEncParts = 2;                     // threads a pose, neighbouring lanes of a warp
+static_assert(kEncParts == 2, "the walk exchanges hidden units between lane pairs");
+constexpr int kEncThreads = kEncPoses * kEncParts;
 
-// Shared memory, in floats: encoder weights | parents | features (J*F rows of
-// kEncThreads + 1: the pad keeps the output copy free of bank conflicts).
+// a packed weight row: E weights, the bias, zeros to a whole float4
+__host__ __device__ constexpr int enc_row(int F) { return round4(4 + F + 1); }
+
+// floats of the packed weights (fused_encoder.pack_encoder): per joint E
+// hidden rows, then F feature rows
+__host__ __device__ constexpr int enc_packed_floats(int J, int F) { return J * (4 + F + F) * enc_row(F); }
+
+// Shared memory, in floats: packed weights | poses (64, J, 4) | features
+// (64, J * F), the output's order | parents
 __host__ __device__ inline size_t encoder_smem_floats(int J, int F) {
-  return static_cast<size_t>(round4(enc_floats(J, F))) + round4(J) +
-         static_cast<size_t>(J) * F * (kEncThreads + 1);
+  return static_cast<size_t>(enc_packed_floats(J, F)) + kEncPoses * J * 4 +
+         round4(kEncPoses * J * F) + round4(J);
 }
 
-__global__ void __launch_bounds__(kEncThreads) encoder_kernel(
-    const float* __restrict__ quat, int B, const float* __restrict__ enc,
-    const int* __restrict__ parents, int J, int F, int act, float beta,
-    float* __restrict__ out) {
-  extern __shared__ float4 enc_smem4[];
-  float* w = reinterpret_cast<float*>(enc_smem4);
-  const int E = 4 + F, JF = J * F, ld = kEncThreads + 1;
-  const int nw = enc_floats(J, F);
-  int* par = reinterpret_cast<int*>(w + round4(nw));
-  float* feats = reinterpret_cast<float*>(par + round4(J));  // (J*F, ld)
-  for (int i = threadIdx.x; i < nw; i += kEncThreads) w[i] = enc[i];
-  for (int i = threadIdx.x; i < J; i += kEncThreads) par[i] = parents[i];
-  __syncthreads();
-  const int t = threadIdx.x;
-  const int b0 = blockIdx.x * kEncThreads;
-  const int b = b0 + t;
-
-  const float* w1 = w;                 // (J, E, E)
-  const float* b1 = w1 + J * E * E;    // (J, E)
-  const float* w2 = b1 + J * E;        // (J, E, F)
-  const float* b2 = w2 + J * E * F;    // (J, F)
-  if (b < B) {
-    const float4* q4 = reinterpret_cast<const float4*>(quat) + static_cast<size_t>(b) * J;
-    for (int j = 0; j < J; ++j) {
-      const float4 q = q4[j];
-      const int p = par[j];
-      float in[kMaxE];
-      in[0] = q.x;
-      in[1] = q.y;
-      in[2] = q.z;
-      in[3] = q.w;
+// z = sum_i in[i] w[i] in order from 0 (one FMA a term), then + w[E] (the
+// bias), w one packed row read as float4
+template <int E>
+__device__ __forceinline__ float enc_unit(const float (&in)[E], const float* w) {
+  float z = 0.f;
 #pragma unroll
-      for (int k = 0; k < kMaxF; ++k)
-        in[4 + k] = (k < F && p >= 0) ? feats[(p * F + k) * ld + t] : 0.f;
-      const float* w1j = w1 + j * E * E;
-      const float* w2j = w2 + j * E * F;
-      float h[kMaxE];
+  for (int c = 0; c < round4(E + 1) / 4; ++c) {
+    const float4 v = *reinterpret_cast<const float4*>(w + 4 * c);
+    const float f[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
-      for (int u = 0; u < kMaxE; ++u) {
-        float z = 0.f;
-        if (u < E) {
-#pragma unroll
-          for (int i = 0; i < kMaxE; ++i)
-            if (i < E) z = fmaf(in[i], w1j[i * E + u], z);
-          z = act_fwd(act, beta, z + b1[j * E + u]);
-        }
-        h[u] = z;
-      }
-#pragma unroll
-      for (int k = 0; k < kMaxF; ++k) {
-        if (k < F) {
-          float z = 0.f;
-#pragma unroll
-          for (int u = 0; u < kMaxE; ++u)
-            if (u < E) z = fmaf(h[u], w2j[u * F + k], z);
-          feats[(j * F + k) * ld + t] = act_fwd(act, beta, z + b2[j * F + k]);
-        }
-      }
+    for (int e = 0; e < 4; ++e) {
+      const int i = 4 * c + e;
+      if (i < E) z = fmaf(in[i], f[e], z);
+      else if (i == E) z = z + f[e];
     }
   }
+  return z;
+}
+
+template <int F, int ACT>
+__global__ void __launch_bounds__(kEncThreads) encoder_kernel(
+    const float* __restrict__ quat, int B, const float* __restrict__ wp,
+    const int* __restrict__ parents, int J, float beta, float* __restrict__ out) {
+  constexpr int E = 4 + F, RW = enc_row(F), NH = (E + kEncParts - 1) / kEncParts,
+                NF = (F + kEncParts - 1) / kEncParts;
+  extern __shared__ float4 enc_smem4[];
+  float* w = reinterpret_cast<float*>(enc_smem4);
+  float* qs = w + enc_packed_floats(J, F);
+  float* feats = qs + kEncPoses * J * 4;
+  int* par = reinterpret_cast<int*>(feats + round4(kEncPoses * J * F));
+  const int t = threadIdx.x;
+  const int b0 = blockIdx.x * kEncPoses, rows = min(kEncPoses, B - b0);
+  // the packed weights and the CTA's poses (one contiguous run) in 16-byte
+  // copies, neighbouring threads on neighbouring addresses; zeros past B
+  for (int i = t; i < enc_packed_floats(J, F) / 4; i += kEncThreads)
+    cp_async16(smem_u32(w + 4 * i), wp + 4 * i, 16);
+  const float* q0 = quat + static_cast<size_t>(b0) * J * 4;
+  for (int i = t; i < kEncPoses * J; i += kEncThreads)
+    cp_async16(smem_u32(qs + 4 * i), i < rows * J ? q0 + 4 * i : quat, i < rows * J ? 16 : 0);
+  cp_async_commit();
+  for (int i = t; i < J; i += kEncThreads) par[i] = parents[i];
+  cp_async_wait<0>();
   __syncthreads();
-  // the block's poses are one contiguous run of the (B, J*F) output
-  const int n = min(kEncThreads, B - b0) * JF;
-  float* o = out + static_cast<size_t>(b0) * JF;
-  for (int e = t; e < n; e += kEncThreads) {
-    const int tt = e / JF;
-    o[e] = feats[(e - tt * JF) * ld + tt];
+
+  // thread r of a pose sums the hidden units r, r + 2, ... and then the
+  // features likewise; the pose's two threads trade their hidden units by
+  // shuffles, and a joint's features, in shared memory, are read by its
+  // children: all within the warp
+  const int p = t / kEncParts, r = t % kEncParts;
+  const float* qp = qs + p * J * 4;
+  float* fp = feats + p * J * F;
+  for (int j = 0; j < J; ++j) {
+    const int pj = par[j];
+    const float* wj = w + j * (E + F) * RW;
+    float in[E];
+    const float4 q = *reinterpret_cast<const float4*>(qp + 4 * j);
+    in[0] = q.x;
+    in[1] = q.y;
+    in[2] = q.z;
+    in[3] = q.w;
+    if constexpr (F % 2 == 0) {
+#pragma unroll
+      for (int k = 0; k < F; k += 2) {
+        const float2 v = pj >= 0 ? *reinterpret_cast<const float2*>(fp + pj * F + k) : make_float2(0.f, 0.f);
+        in[4 + k] = v.x;
+        in[5 + k] = v.y;
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < F; ++k) in[4 + k] = pj >= 0 ? fp[pj * F + k] : 0.f;
+    }
+    float h[E];
+#pragma unroll
+    for (int i = 0; i < NH; ++i) {   // unit 2 i + r here, 2 i + 1 - r in the other thread
+      const int u = r + kEncParts * i;
+      const float mine = u < E ? act_fwd(ACT, beta, enc_unit<E>(in, wj + u * RW)) : 0.f;
+      const float other = __shfl_xor_sync(0xffffffffu, mine, 1);
+      if (2 * i < E) h[2 * i] = r ? other : mine;
+      if (2 * i + 1 < E) h[2 * i + 1] = r ? mine : other;
+    }
+#pragma unroll
+    for (int i = 0; i < NF; ++i) {
+      const int k = r + kEncParts * i;
+      if (k < F) fp[j * F + k] = act_fwd(ACT, beta, enc_unit<E>(h, wj + (E + k) * RW));
+    }
+    __syncwarp();
   }
+  __syncthreads();
+  // the CTA's poses are one contiguous run of the (B, J*F) output
+  const int n = rows * J * F;
+  float* o = out + static_cast<size_t>(b0) * J * F;
+  for (int i = t; i < n / 4; i += kEncThreads)
+    reinterpret_cast<float4*>(o)[i] = reinterpret_cast<const float4*>(feats)[i];
+  for (int i = 4 * (n / 4) + t; i < n; i += kEncThreads) o[i] = feats[i];
+}
+
+template <int F, int ACT>
+int launch_encoder(const float* quat, int B, const float* wp, const int* parents, int J, float beta,
+                   float* out, void* stream) {
+  const size_t smem = encoder_smem_floats(J, F) * sizeof(float);
+  const cudaError_t err = cudaFuncSetAttribute(encoder_kernel<F, ACT>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  encoder_kernel<F, ACT><<<(B + kEncPoses - 1) / kEncPoses, kEncThreads, smem,
+                           static_cast<cudaStream_t>(stream)>>>(quat, B, wp, parents, J, beta, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int F>
+int dispatch_encoder(const float* quat, int B, const float* wp, const int* parents, int J, int act,
+                     float beta, float* out, void* stream) {
+  if (act == kLRelu) return launch_encoder<F, kLRelu>(quat, B, wp, parents, J, beta, out, stream);
+  if (act == kRelu) return launch_encoder<F, kRelu>(quat, B, wp, parents, J, beta, out, stream);
+  return launch_encoder<F, kSoftplus>(quat, B, wp, parents, J, beta, out, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -1469,19 +1539,22 @@ int row_ranges(int rows) { return (rows + kSplitRows - 1) / kSplitRows; }
 
 extern "C" {
 
-int posendf_encoder(const float* quat, int B, const float* enc, const int* parents, int J, int F,
+// quat (B, J, 4) fp32, contiguous and 16-byte aligned; wp the packed weights
+// (fused_encoder.pack_encoder) -> out (B, J * F) fp32
+int posendf_encoder(const float* quat, int B, const float* wp, const int* parents, int J, int F,
                     int act, float beta, float* out, void* stream) {
   if (J < 1 || J > kMaxJ || F < 1 || F > kMaxF) return static_cast<int>(cudaErrorInvalidValue);
   if (B <= 0) return 0;
-  const size_t smem = encoder_smem_floats(J, F) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(encoder_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = (B + kEncThreads - 1) / kEncThreads;
-  encoder_kernel<<<blocks, kEncThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      quat, B, enc, parents, J, F, act, beta, out);
-  return static_cast<int>(cudaGetLastError());
+  switch (F) {
+    case 1: return dispatch_encoder<1>(quat, B, wp, parents, J, act, beta, out, stream);
+    case 2: return dispatch_encoder<2>(quat, B, wp, parents, J, act, beta, out, stream);
+    case 3: return dispatch_encoder<3>(quat, B, wp, parents, J, act, beta, out, stream);
+    case 4: return dispatch_encoder<4>(quat, B, wp, parents, J, act, beta, out, stream);
+    case 5: return dispatch_encoder<5>(quat, B, wp, parents, J, act, beta, out, stream);
+    case 6: return dispatch_encoder<6>(quat, B, wp, parents, J, act, beta, out, stream);
+    case 7: return dispatch_encoder<7>(quat, B, wp, parents, J, act, beta, out, stream);
+    default: return dispatch_encoder<8>(quat, B, wp, parents, J, act, beta, out, stream);
+  }
 }
 
 // Both branches of the training gradient in one launch: ceil(B / 64) CTAs a

@@ -1,8 +1,8 @@
-"""Where the wgmma kernels' time goes: ``posendf_forward_int8``,
-``probe_bf16_chain``, ``posendf_project_step``, ``posendf_forward``,
-``posendf_train_tile`` and the kNN exact and bf16 engines
-(``posendf_knn_joint``) timed with parts of their work cut out of the
-source.
+"""Where the hand-written kernels' time goes: ``posendf_forward_int8``,
+``probe_bf16_chain``, ``probe_int8_chain``, ``posendf_project_step``,
+``posendf_forward``, ``posendf_train_tile``, ``posendf_encoder`` and the kNN
+exact and bf16 engines (``posendf_knn_joint``) timed with parts of their
+work cut out of the source, or with another shape of the same kernel.
 
 ``ncu`` does not run where the card is, so this measures by subtraction:
 each variant is ``csrc/int8_kernels.cu``, ``csrc/field_kernels.cu``,
@@ -21,8 +21,15 @@ the real kernel, in rounds.
                the ring and are released)
   ``noepi``    without the int8 layers' epilogues
   ``copies``   all four cut: the weight ring alone
+  ``rows128``  the int8 probe chain with 128 rows a CTA (two consumer
+               warpgroups taking turns) instead of 192 (a whole kernel, held
+               to the plain chain)
+  ``noconv``   the int8 probe chain without its requantization arithmetic
+               (the sums' low bytes stored as they are)
+  ``qring``    the int8 probe chain without both: its ring, turns and stores
 
-The bf16 chain runs ``base`` and ``nomma`` (its products cut: the ring alone).
+The bf16 and int8 chains run ``base`` and ``nomma`` (their products cut: the
+ring alone), the int8 chain ``rows128`` and ``noconv`` too.
 
 ``field_kernels.cu`` (the projection step at 10,000 poses and the forward
 at 131,072):
@@ -49,6 +56,13 @@ of the trained field, the main path's training batch):
   ``ring``     those three cut, the epilogues and the A fragments' loads
                too: the weight ring alone (three passes a noisy CTA, two a
                manifold one, with the output layer and the loss)
+
+and its encoder kernel (131,072 poses of the trained field):
+
+  ``base``     the kernel as it is (two threads a pose)
+  ``encio``    without the joint walk: the copies in and out alone
+  ``walkonly`` the joint walk alone (no poses in, no features out)
+  ``wconst``   the walk's weights as constants (no weight loads)
 
 ``knn_kernels.cu``'s exact and bf16 engines (pack, top-k and merge at
 Q = 4,096 x N = 1,048,576, k = 5, on a synthetic pose manifold and one
@@ -111,7 +125,14 @@ CUTS: Dict[str, Dict[str, List[Tuple[str, str]]]] = {
                   ("wgmma_m64n32k32_s8(acc, da, db, (kb | kk) != 0);", "{ (void)da; (void)db; }"),
                   ("            wgmma_m64n256k16_bf16(acc, desc_sw128(a_base + kb * kPBlock + kk * 32),\n"
                    "                                  desc_sw128(b_base + kk * 32), (kb | kk) != 0);",
+                   "            (void)b_base;"),
+                  ("            wgmma_m64n128k32_s8(acc, desc_sw128(a_base + kb * kQBlock + kk * 32),\n"
+                   "                                desc_sw128(b_base + kk * 32), (kb | kk) != 0);",
                    "            (void)b_base;")],
+        "rows128": [("constexpr int kQCW = 3;", "constexpr int kQCW = 2;")],
+        "noconv": [("  const float v = rintf(__fmul_rn(__int2float_rn(acc), s));\n"
+                    "  return static_cast<signed char>(fminf(fmaxf(v, -127.f), 127.f));\n",
+                    "  return static_cast<signed char>(acc + (s > 0.f));\n")],
         "noepi": [("    for (int g = 0; g < WN / 8; ++g) {\n      const int col = col0 + 8 * g;",
                    "    for (int g = 0; g < WN / 8; ++g) {\n      if (a.B >= 0) continue;\n"
                    "      const int col = col0 + 8 * g;")],
@@ -147,6 +168,13 @@ CUTS["train"] = {
     "nograd": [("  encoder_grad<kAct>(a, cta, x, ez, gg, gx, cs, scal);\n", "")],
     "nomma": _FIELD["nomma"],
     "nostore": [("  if (s.dst == nullptr) return;\n", "  if (s.ld >= 0) return;\n")],
+    "walkonly": [("  for (int i = t; i < kEncPoses * J; i += kEncThreads)\n    cp_async16(smem_u32(qs",
+                  "  for (int i = t; B < 0 && i < kEncPoses * J; i += kEncThreads)\n    cp_async16(smem_u32(qs"),
+                 ("  for (int i = t; i < n / 4; i += kEncThreads)", "  for (int i = t; B < 0 && i < n / 4; i += kEncThreads)")],
+    "wconst": [("    const float4 v = *reinterpret_cast<const float4*>(w + 4 * c);",
+                "    const float4 v = make_float4(1e-3f * c, 2e-3f, 3e-3f, 4e-3f);")],
+    "encio": [("  for (int j = 0; j < J; ++j) {\n    const int pj = par[j];",
+               "  for (int j = 0; j < (B < 0 ? J : 0); ++j) {\n    const int pj = par[j];")],
     "noepi": _FIELD["noepi"],
     "noload": _FIELD["noload"],
 }
@@ -167,12 +195,16 @@ CUTS["knn"] = {
 }
 VARIANTS = {
     "int8": {"base": [], "noenc": ["noenc"], "nof32": ["nof32"], "nomma": ["nomma"],
-             "noepi": ["noepi"], "copies": ["noenc", "nof32", "nomma", "noepi"]},
+             "noepi": ["noepi"], "copies": ["noenc", "nof32", "nomma", "noepi"],
+             "rows128": ["rows128"], "noconv": ["noconv"],
+             "qring": ["nomma", "noconv"]},
     "field": {"base": [], "noenc": ["noenc"], "nomma": ["nomma"], "noepi": ["noepi"],
               "copies": ["noenc", "nomma", "noepi", "noload"]},
     "train": {"base": [], "noenc": ["noenc"], "nograd": ["nograd"], "nomma": ["nomma"],
               "nostore": ["nostore"],
-              "ring": ["noenc", "nomma", "nostore", "noepi", "noload"]},
+              "ring": ["noenc", "nomma", "nostore", "noepi", "noload"],
+              "encio": ["encio"], "walkonly": ["walkonly"],
+              "wconst": ["wconst"]},
     "knn": {"base": [], "late": ["late"], "pend0": ["pend0"], "nomark": ["nomark"],
             "epi": ["nomark", "nomma"], "mma": ["nofilter"], "ring": ["nofilter", "nomma"],
             "compute": ["nomark", "noring"], "epionly": ["nomark", "nomma", "noring"]},
@@ -228,7 +260,7 @@ def main(which=None) -> None:
     if not torch.cuda.is_available():
         raise SystemExit("breakdown: torch.cuda.is_available() is false; it needs a card")
     import posendf_torch
-    from posendf_torch.ops import fused_grad, fused_int8, fused_knn, fused_train
+    from posendf_torch.ops import fused_encoder, fused_grad, fused_int8, fused_knn, fused_train
     from posendf_torch.ops import int8_probe as P
 
     which = list(VARIANTS) if not which else which
@@ -244,7 +276,14 @@ def main(which=None) -> None:
     q10 = q[:10_000].clone()
     qf = field.quantize_int8(q[:4096])
     m = qf.module
-    xb, wb, *_ = P.probe_inputs(seed=2)
+    xb, wb, xi, wi, si = P.probe_inputs(seed=2)
+    enc = field.module.enc
+
+    def encoder():
+        with torch.no_grad():
+            return fused_encoder.fused_structure_encoder(q, enc.w1, enc.b1, enc.w2, enc.b2,
+                                                         parents=field.module.parents)
+
     rows = 20_000   # the main path's training batch, each branch
     qt = torch.from_numpy(np.random.default_rng(4).normal(size=(2, rows, 21, 4)).astype(np.float32))
     qt = (qt / qt.norm(dim=-1, keepdim=True)).cuda()
@@ -262,13 +301,20 @@ def main(which=None) -> None:
             _build.library = (lambda which="field", lib=lib, lib_name=lib_name:
                               lib if which == lib_name else library(which))
             if lib_name == "int8":
-                t = P.cuda_ms(lambda: fused_int8.fused_posendf_forward_int8(
-                    q, qf.qparams, parents=m.parents, activation=m.activation, beta=m.beta),
-                    reps=5, rounds=5)
-                print(f"int8 forward {name}: {t[0]:.4f} ms [{t[1]:.4f}-{t[2]:.4f}]", flush=True)
+                if name not in ("rows128", "noconv", "qring"):
+                    t = P.cuda_ms(lambda: fused_int8.fused_posendf_forward_int8(
+                        q, qf.qparams, parents=m.parents, activation=m.activation, beta=m.beta),
+                        reps=5, rounds=5)
+                    print(f"int8 forward {name}: {t[0]:.4f} ms [{t[1]:.4f}-{t[2]:.4f}]", flush=True)
                 if name in ("base", "nomma"):
                     t = P.cuda_ms(lambda: P.run_bf16(xb, wb), reps=5, rounds=5)
                     print(f"probe bf16 {name}: {t[0]:.4f} ms [{t[1]:.4f}-{t[2]:.4f}]", flush=True)
+                if name in ("base", "nomma", "rows128", "noconv", "qring"):
+                    if name == "rows128":   # a whole kernel: held to the plain chain
+                        if not torch.equal(P.run_int8(xi, wi, si), P.run_int8_ref(xi, wi, si)):
+                            raise AssertionError("probe int8 rows128: other results than plain")
+                    t = P.cuda_ms(lambda: P.run_int8(xi, wi, si), reps=5, rounds=5)
+                    print(f"probe int8 {name}: {t[0]:.4f} ms [{t[1]:.4f}-{t[2]:.4f}]", flush=True)
                 continue
             if lib_name == "knn":
                 for e in ("vpu", "mxu_bf16"):
@@ -291,6 +337,12 @@ def main(which=None) -> None:
                               f"[{t[1]:.4f}-{t[2]:.4f}]", flush=True)
                 continue
             if lib_name == "train":
+                if name in ("base", "encio", "walkonly", "wconst"):
+                    t = P.cuda_ms(encoder, reps=20, rounds=5)
+                    print(f"encoder B=131072 {name}: {t[0]:.4f} ms [{t[1]:.4f}-{t[2]:.4f}]",
+                          flush=True)
+                if name in ("encio", "walkonly", "wconst"):
+                    continue
                 t = P.cuda_ms(lambda: fused_train.launch_tiles(w, qt[0], gt, qt[1], kw_n, kw_m),
                               reps=3, rounds=5)
                 print(f"train tile B=M={rows} {name}: {t[0]:.4f} ms [{t[1]:.4f}-{t[2]:.4f}]",

@@ -1,9 +1,12 @@
 """The structure encoder in one CUDA kernel (forward only).
 
 Port of ``posendf_tpu/ops/fused_encoder.py::_encoder_kernel``. The kernel is
-``posendf_encoder`` in ``csrc/train_kernels.cu``: one thread per pose walks
-the 21 joints in index order, with all encoder weights in shared memory;
-only the poses come in and the (B, J*F) code goes out, in the JAX layout.
+``posendf_encoder`` in ``csrc/train_kernels.cu``: two threads a pose walk
+the 21 joints in index order, splitting each joint's hidden units and
+features, with the encoder's weights in shared memory as packed once per
+parameter version by :func:`pack_encoder` (a row of float4s a unit: its E
+weights, its bias, zeros); a CTA's poses come in as one contiguous run and
+its rows of the (B, J*F) code go out as one, in the JAX layout.
 
 ``fused_structure_encoder`` launches it for a CUDA tensor and runs its plain
 version, ``fused_structure_encoder_ref`` (the level-scheduled
@@ -16,18 +19,21 @@ gradient goes through it.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 
 from posendf_torch import _build
 from posendf_torch.models.encoder import structure_encoder_apply
-from posendf_torch.ops.fused_model import int_table, replay_backward, stream_handle
+from posendf_torch.ops.fused_model import (aligned_contiguous, int_table, packed_once,
+                                           replay_backward, stream_handle)
 
-__all__ = ["fused_structure_encoder", "fused_structure_encoder_ref", "LAUNCHES"]
+__all__ = ["fused_structure_encoder", "fused_structure_encoder_ref", "pack_encoder", "LAUNCHES"]
 
 # launches of the encoder kernel since the count was last set to 0
 LAUNCHES = 0
+
+_PACKED: Dict[tuple, tuple] = {}   # pack_encoder's last few packings (fused_model.packed_once)
 
 
 def fused_structure_encoder_ref(quat, w1, b1, w2, b2, *, parents: Tuple[int, ...],
@@ -49,6 +55,18 @@ def _check(quat, w1, parents) -> None:
         raise ValueError(f"poses on {quat.device} but the encoder's weights on {w1.device}")
 
 
+def pack_encoder(w1, b1, w2, b2) -> torch.Tensor:
+    """The kernel's weights: (J, E + F, R) fp32, for each joint its E hidden
+    units, then its F features, each a row of its E input weights, its bias
+    and zeros to R = the next multiple of 4 above E (whole float4s)."""
+    with torch.no_grad():
+        E = w1.shape[-1]
+        hid = torch.cat([w1.detach().float().transpose(1, 2), b1.detach().float()[..., None]], -1)
+        feat = torch.cat([w2.detach().float().transpose(1, 2), b2.detach().float()[..., None]], -1)
+        rows = torch.cat([hid, feat], 1)
+        return torch.nn.functional.pad(rows, (0, (E + 4) // 4 * 4 - (E + 1))).contiguous()
+
+
 def _launch(quat, w1, b1, w2, b2, parents, activation, beta) -> torch.Tensor:
     global LAUNCHES
     J, F = len(parents), w2.shape[-1]
@@ -57,13 +75,12 @@ def _launch(quat, w1, b1, w2, b2, parents, activation, beta) -> torch.Tensor:
                          f"with hidden width 4 + F; got J={J}, F={F}, H={w1.shape[-1]}")
     if activation not in _build.ACT_CODES:
         raise ValueError(f"unknown activation {activation!r}")
-    with torch.no_grad():
-        enc = torch.cat([t.detach().reshape(-1).float() for t in (w1, b1, w2, b2)])
+    wp = packed_once(_PACKED, (w1, b1, w2, b2), pack_encoder)
     par = int_table(tuple(parents), str(quat.device))
-    q = quat.contiguous()
+    q = aligned_contiguous(quat)
     out = torch.empty((q.shape[0], J * F), dtype=torch.float32, device=q.device)
     lib = _build.library("train")
-    _build.check(lib.posendf_encoder(q.data_ptr(), q.shape[0], enc.data_ptr(), par.data_ptr(),
+    _build.check(lib.posendf_encoder(q.data_ptr(), q.shape[0], wp.data_ptr(), par.data_ptr(),
                                      J, F, _build.ACT_CODES[activation], float(beta),
                                      out.data_ptr(), stream_handle(q)),
                  "posendf_encoder", "train")

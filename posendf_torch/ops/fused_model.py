@@ -384,6 +384,24 @@ def common_args(quat: torch.Tensor, weights: FieldWeights) -> list:
             weights.beta]
 
 
+def packed_once(cache: Dict[tuple, tuple], tensors: Tuple[torch.Tensor, ...], pack,
+                limit: int = 4) -> torch.Tensor:
+    """``pack(*tensors)``, cached in ``cache`` by the tensors' addresses,
+    shapes and device and by ``pack``; the entry holds the tensors, so their
+    addresses are not reused while it is cached, and an in-place change of
+    any of them (its ``_version``, as an optimizer step makes) packs them
+    anew. The last ``limit`` packings are kept."""
+    key = (pack.__name__,) + tuple((t.data_ptr(), tuple(t.shape), str(t.device)) for t in tensors)
+    version = tuple(t._version for t in tensors)
+    hit = cache.pop(key, None)
+    if hit is None or hit[1] != version:
+        hit = (tensors, version, pack(*tensors))
+    cache[key] = hit
+    while len(cache) > limit:
+        del cache[next(iter(cache))]
+    return hit[2]
+
+
 def stream_handle(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 

@@ -4,9 +4,9 @@ Counterpart of ``scripts/int8_probe.py``, whose two Pallas kernels become
 ``probe_bf16_chain`` and ``probe_int8_chain`` in ``csrc/int8_kernels.cu``.
 Both run ``layers`` products of a (rows, 512) activation tile with 512 x 512
 weights, at DFNet-like widths, the tile kept on chip across the layers, on
-two routes to the tensor cores: the bf16 chain on Hopper's ``wgmma`` (the
-full rate), the int8 chain on ``wmma`` (``mma.sync``, a part of it). Their
-speed ratio is a ratio of the two routes, not the card's int8 / bf16 answer.
+the same route to the tensor cores: Hopper's ``wgmma`` fed by a
+``cp.async.bulk`` ring of weight slabs, so their speed ratio is the card's
+int8 / bf16 answer for this chain.
 
   * bf16: x @ w_l with fp32 sums, rounded back to bf16 (the activation
     boundary);
@@ -16,23 +16,25 @@ speed ratio is a ratio of the two routes, not the card's int8 / bf16 answer.
 
 :func:`run_bf16` / :func:`run_int8` launch the kernels for CUDA tensors and
 run their plain versions (:func:`run_bf16_ref`, :func:`run_int8_ref`) for
-CPU tensors; ``LAUNCHES`` counts the kernel launches by name. With
-``s = 1/64`` (a power of two) the int8 chain is exact, so kernel and plain
-version agree to the bit.
+CPU tensors; ``LAUNCHES`` counts the kernel launches by name. The int8
+chain's int32 sums are exact and kernel and plain version take the same
+fp32 product and rounding, so they agree to the bit for any s.
 
 Run on the card::
 
     python -m posendf_torch.ops.int8_probe
 
-prints one line for each chain at (131,072, 512) x 8 layers: its route, the
-time (the median of CUDA-event means over several rounds, after warm-up),
-the rate and its share of the card's dense tensor-core peak, 989 TFLOP/s
-bf16 and 1,979 TOP/s int8 (an H100 SXM's data sheet), and the int8/bf16
-speed ratio of the two routes.
+prints one line for each chain at (131,072, 512) x 8 layers: the time
+(the median of CUDA-event means over several rounds, after warm-up), the
+rate and its share of the card's dense tensor-core peak, 989 TFLOP/s bf16
+and 1,979 TOP/s int8 (an H100 SXM's data sheet), and the int8/bf16 speed
+ratio.
 
-The bf16 kernel reads its weights transposed in the wgmma layout
-(``fused_int8.pack_sw128``); :func:`run_bf16` packs them once per tensor
-and keeps the last few packings (rebuilt if the tensor changed in place).
+Both kernels read their weights transposed in the wgmma layout
+(``fused_int8.pack_sw128``: :func:`pack_bf16` in slabs of 256 output
+channels, :func:`pack_int8` in slabs of 128); :func:`run_bf16` and
+:func:`run_int8` pack them once per tensor and keep the last few packings
+(rebuilt if the tensor changed in place).
 """
 
 from __future__ import annotations
@@ -44,9 +46,11 @@ import torch
 
 from posendf_torch import _build
 from posendf_torch.ops.fused_int8 import pack_sw128
+from posendf_torch.ops.fused_model import packed_once
 
-__all__ = ["run_bf16", "run_int8", "run_bf16_ref", "run_int8_ref", "pack_bf16", "bf16_ulps",
-           "bf16_layer_excess", "LAUNCHES", "ROUTES", "B", "W", "LAYERS", "PEAK_BF16", "PEAK_INT8"]
+__all__ = ["run_bf16", "run_int8", "run_bf16_ref", "run_int8_ref", "pack_bf16", "pack_int8",
+           "bf16_ulps",
+           "bf16_layer_excess", "LAUNCHES", "B", "W", "LAYERS", "PEAK_BF16", "PEAK_INT8"]
 
 B = 131_072
 W = 512
@@ -56,10 +60,9 @@ PEAK_INT8 = 1979e12    # H100 SXM, dense int8 tensor-core OP/s
 
 # launches of each kernel since its count was last set to 0
 LAUNCHES: Dict[str, int] = {"bf16": 0, "int8": 0}
-ROUTES = {"bf16": "wgmma", "int8": "wmma"}
+INT8_SLAB = 128        # output channels a slab of the int8 kernel's weights
 
-_PACKED: Dict[tuple, tuple] = {}
-_PACKED_MAX = 4
+_PACKED: Dict[tuple, tuple] = {}   # the last few packings of w (fused_model.packed_once)
 
 
 def run_bf16_ref(x: torch.Tensor, w: torch.Tensor, layers: int = LAYERS) -> torch.Tensor:
@@ -107,17 +110,12 @@ def pack_bf16(w: torch.Tensor) -> torch.Tensor:
     return torch.stack([pack_sw128(wl, 256) for wl in w])
 
 
-def _packed_bf16(w: torch.Tensor) -> torch.Tensor:
-    """:func:`pack_bf16` of w, cached; the entry holds w, so its address is
-    not reused while it is cached."""
-    key = (w.data_ptr(), tuple(w.shape), str(w.device))
-    hit = _PACKED.pop(key, None)
-    if hit is None or hit[1] != w._version:
-        hit = (w, w._version, pack_bf16(w))
-    _PACKED[key] = hit
-    while len(_PACKED) > _PACKED_MAX:
-        del _PACKED[next(iter(_PACKED))]
-    return hit[2]
+def pack_int8(w: torch.Tensor) -> torch.Tensor:
+    """w (layers, 512, 512) int8 -> each layer's w^T in the wgmma layout:
+    slabs of 128 output channels x 128 of K (16 KB), a quarter of the
+    channels K block by K block, then the next quarter
+    (``sw128_kmajor_offsets`` with nc = 128), the layers in order."""
+    return torch.stack([pack_sw128(wl, INT8_SLAB) for wl in w])
 
 
 def run_bf16(x: torch.Tensor, w: torch.Tensor, layers: int = LAYERS) -> torch.Tensor:
@@ -126,7 +124,7 @@ def run_bf16(x: torch.Tensor, w: torch.Tensor, layers: int = LAYERS) -> torch.Te
     _check(x, w, torch.bfloat16, layers)
     if x.device.type == "cpu":
         return run_bf16_ref(x, w, layers)
-    wp = _packed_bf16(w)
+    wp = packed_once(_PACKED, (w,), pack_bf16)
     out = torch.empty_like(x)
     _build.check(_build.library("int8").probe_bf16_chain(
         x.data_ptr(), wp.data_ptr(), x.shape[0], layers, out.data_ptr(), _stream(x)),
@@ -145,9 +143,10 @@ def run_int8(x: torch.Tensor, w: torch.Tensor, s: torch.Tensor,
     if x.device.type == "cpu":
         return run_int8_ref(x, w, s, layers)
     s = s.reshape(-1).contiguous()
+    wp = packed_once(_PACKED, (w,), pack_int8)
     out = torch.empty(x.shape, dtype=torch.float32, device=x.device)
     _build.check(_build.library("int8").probe_int8_chain(
-        x.data_ptr(), w.data_ptr(), s.data_ptr(), x.shape[0], layers, out.data_ptr(), _stream(x)),
+        x.data_ptr(), wp.data_ptr(), s.data_ptr(), x.shape[0], layers, out.data_ptr(), _stream(x)),
         "probe_int8_chain", "int8")
     LAUNCHES["int8"] += 1
     return out
@@ -215,14 +214,13 @@ def main() -> None:
     xb, wb, xi, wi, si = probe_inputs()
     flops = 2.0 * B * W * W * LAYERS
     t, lo, hi = cuda_ms(lambda: run_bf16(xb, wb))
-    print(f"bf16 ({ROUTES['bf16']}): {t:.4f} ms/iter [{lo:.4f}-{hi:.4f}], "
+    print(f"bf16 (wgmma): {t:.4f} ms/iter [{lo:.4f}-{hi:.4f}], "
           f"{flops / t / 1e9:.1f} TFLOP/s ({flops / t * 1e3 / PEAK_BF16 * 100:.1f}% of the bf16 "
           f"dense peak)", flush=True)
     t8, lo, hi = cuda_ms(lambda: run_int8(xi, wi, si))
-    print(f"int8 ({ROUTES['int8']}): {t8:.4f} ms/iter [{lo:.4f}-{hi:.4f}], "
+    print(f"int8 (wgmma): {t8:.4f} ms/iter [{lo:.4f}-{hi:.4f}], "
           f"{flops / t8 / 1e9:.1f} TOP/s ({flops / t8 * 1e3 / PEAK_INT8 * 100:.1f}% of the int8 "
-          f"dense peak), speed vs bf16 {t / t8:.2f}x ({ROUTES['int8']} int8 against "
-          f"{ROUTES['bf16']} bf16: a ratio of routes, not of the card's int8 and bf16 rates)  "
+          f"dense peak), speed vs bf16 {t / t8:.2f}x  "
           f"[{torch.cuda.get_device_name(0)}]", flush=True)
 
 

@@ -1,14 +1,15 @@
 """The weight layout of the port's wgmma kernels, read back on the CPU.
 
-``posendf_forward_int8`` and ``probe_bf16_chain`` (``posendf_torch/csrc/
-int8_kernels.cu``) read their weights transposed, as wgmma's K-major B, in
-slabs of the 128-byte swizzle; one slab is one contiguous bulk copy. The
-wrappers lay them out with ``fused_int8.sw128_kmajor_offsets``. Here a
-reader written from the documented formula (the one the kernels'
-descriptors encode, ``csrc/hopper.cuh``) takes every element back out of the
-packed buffers and must give the weights exactly: every int8 layer of the
-trained checkpoint (256x512, 512x1024, 1024x512, 512x256) and of a small
-config, and the probe's bf16 weights.
+``posendf_forward_int8``, ``probe_bf16_chain`` and ``probe_int8_chain``
+(``posendf_torch/csrc/int8_kernels.cu``) read their weights transposed, as
+wgmma's K-major B, in slabs of the 128-byte swizzle; one slab is one
+contiguous bulk copy. The wrappers lay them out with
+``fused_int8.sw128_kmajor_offsets``. Here a reader written from the
+documented formula (the one the kernels' descriptors encode,
+``csrc/hopper.cuh``) takes every element back out of the packed buffers and
+must give the weights exactly: every int8 layer of the trained checkpoint
+(256x512, 512x1024, 1024x512, 512x256) and of a small config, and the
+probe's bf16 and int8 weights.
 """
 
 import os
@@ -79,14 +80,24 @@ def test_int8_layers_read_back(which, shapes):
     assert qw.size == sum(K * N for K, N in shapes)
 
 
-def test_probe_weights_read_back():
-    w = (torch.randn(3, 512, 512, generator=torch.Generator().manual_seed(0)) * 0.05).bfloat16()
-    packed = int8_probe.pack_bf16(w).view(torch.int16).numpy()
+@pytest.mark.parametrize("dtype", ["bf16", "int8"])
+def test_probe_weights_read_back(dtype):
+    """The probe chains' weights: bf16 in slabs of 256 output channels x 64
+    of K, int8 in slabs of 128 x 128 of K; each layer's slabs at l x its
+    512 x 512 elements."""
+    g = torch.Generator().manual_seed(0)
+    if dtype == "bf16":
+        w = (torch.randn(3, 512, 512, generator=g) * 0.05).bfloat16()
+        packed, nc = int8_probe.pack_bf16(w).view(torch.int16).numpy(), 256
+        want = w.view(torch.int16).numpy()
+    else:
+        w = torch.randint(-127, 128, (3, 512, 512), generator=g, dtype=torch.int8)
+        packed, nc = int8_probe.pack_int8(w).numpy(), int8_probe.INT8_SLAB
+        want = w.numpy()
     k, n = np.meshgrid(np.arange(512), np.arange(512), indexing="ij")
     for l in range(3):
-        assert packed[l].nbytes == 512 * 1024       # each layer's slabs at l x 512 KB
-        np.testing.assert_array_equal(read(packed[l], 512, 512, 256, k, n),
-                                      w[l].view(torch.int16).numpy())
+        assert packed[l].nbytes == 512 * 512 * w.element_size()
+        np.testing.assert_array_equal(read(packed[l], 512, 512, nc, k, n), want[l])
 
 
 @pytest.mark.parametrize("K,N,nc,eb", [(128, 128, 128, 1), (256, 512, 256, 1),
