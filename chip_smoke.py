@@ -1,8 +1,8 @@
 """Smoke run of the PyTorch port (``posendf_torch``) on one CUDA card.
 
-Drives the pose prior's main path, the training path and the serving path
-(the int8 forward, ``torch.export`` artifacts) through their hand-written
-CUDA kernels on the full-width trained field
+Drives the pose prior's main path (in fp32 and in bf16), the training path
+and the serving path (the int8 forward, ``torch.export`` artifacts) through
+their hand-written CUDA kernels on the full-width trained field
 ``docs/quality/ckpt_l8_best.msgpack``, the data-manufacturing path (kNN
 labelling) against a 1,048,576-pose corpus, and the bf16 / int8
 tensor-core probe:
@@ -11,10 +11,11 @@ tensor-core probe:
   2. build: compiles ``posendf_torch/csrc/field_kernels.cu``,
      ``train_kernels.cu``, ``knn_kernels.cu`` and ``int8_kernels.cu`` with
      nvcc, one process each, from four threads at once (timed), and logs
-     the ``-Xptxas -v`` lines of the three field kernels (3xTF32 ``wgmma``:
+     the ``-Xptxas -v`` lines of the field kernel's six instances (three
+     activations, each on the 3xTF32 and the bf16 ``wgmma`` route:
      registers, spills, shared memory); here and in phases 7, 11 and 14 a
      wgmma kernel whose products ptxas serializes fails the run, but for the
-     two of ``SERIALIZED_KNOWN`` (an open fault)
+     two of ``SERIALIZED_KNOWN`` (PERF.md section 7)
   3. load: ``posendf_torch.load_field(ckpt, device="cuda")``
   4. kernel vs plain on the card, at B = 4096 and a ragged B = 1000:
      ``distance_fused`` vs ``distance``, ``distance_and_grad_fused`` vs
@@ -36,6 +37,33 @@ tensor-core probe:
      products too for the value-and-grad and the projection step), in the
      same rounds; the forward at 10,000 and at 131,072 poses (the latter in
      the ``kernels`` line)
+ 4b. the bf16 route (the trained field loaded with
+     ``compute_dtype="bfloat16"``): at B = 4096 and a ragged B = 1000 the
+     bf16 forward, value-and-grad and projection-step kernels, and 5
+     steps of ``project(fused=True)``, against their bf16 plain versions;
+     the three entry points on a strided and a permuted view against the
+     contiguous result, to the bit; the three kernels on the poses in
+     reverse order (the ragged tail CTA's poses then in the first CTA)
+     against the result reversed, to the bit; the forward and value-and-grad of seeded
+     softplus and relu bf16 fields at the trained widths against their
+     plain versions. Each held by ``fused_model.bf16_hold`` (below), which
+     also asserts that the bf16 kernel's result is beyond the bar from the
+     fp32 kernel's on most poses: a route that ran fp32 fails
+ 5b. against the JAX package: the bf16 kernels' d, g and a 10-step
+     projection of 256 probes, and the bf16 module path's d, vs
+     ``tests/data/torch_port_bf16_expected.npz`` (the fp32 values of
+     ``torch_port_l8_expected.npz``, the same probes, give the gap)
+ 6b. main path, bf16: ``distance_fused`` of 131,072 poses,
+     ``distance_and_grad_fused`` of 10,000 and a 200-step
+     ``project(fused=True)`` of 10,000, the launch counts set to 0 before
+     and read after (1, 1, 200); the forward, the value-and-grad and one
+     projection step of those 10,000 poses (157 CTAs, more than one wave)
+     held to their plain versions, and the three kernels on the poses in
+     reverse order against the result reversed, to the bit;
+     then times of the 200-step projection and of each bf16 kernel beside
+     its plain version and its library yardstick, the DFNet's products as
+     bf16 ``torch.matmul`` (in the same rounds), and its bound (the products
+     in one bf16 pass); the three join the ``kernels`` line
   7. train kernels vs plain on the card, at B = M = 4096 and a ragged
      B = 1000, M = 700, with nvcc's ``-Xptxas -v`` lines of the tile kernel
      and the reduction (both 3xTF32 ``wgmma``): the tile kernel and the
@@ -43,13 +71,17 @@ tensor-core probe:
      reduction's largest error logged beside its bar), ``fused_train_grads``
      against ``manual_train_grads`` (every loss term and gradient leaf), two
      calls bitwise equal; the tile kernel alone against ``branch_ref`` at
-     B = M in {1, 63, 65, 129} (cutting its 64-pose CTAs); the encoder kernel
+     B = M in {1, 63, 65, 129} (cutting its 64-pose CTAs); the tile kernel's
+     relu instance on the trained weights with relu activations, the same
+     checks at B = M = 4096 and B = 1000, M = 700, and the tile alone at
+     B = M = 63 and 129; the encoder kernel
      (its ``-Xptxas -v`` lines logged) against its plain version at B = 1,
      63, 65, 129, 1,000 and 131,072 (cutting its 64-pose CTAs), and at 1,000
      and 131,072 on poses one float into their buffer against the aligned
      result, to the bit
   8. against the JAX package: the gradient at 2,048 + 2,048 poses and three
-     fused Adam steps vs ``tests/data/torch_port_train_expected.npz``
+     fused Adam steps vs ``tests/data/torch_port_train_expected.npz``; the
+     relu field's gradient vs ``torch_port_relu_train_expected.npz``
   9. main path, training: a synthetic dataset, ``Trainer(device="cuda")`` at
      the amass widths and learning rate with ``fused_grads`` and
      ``live_head``, batch 4 x 5000, matched-head init,
@@ -57,7 +89,11 @@ tensor-core probe:
      ``load_field``, then 2 autodiff steps with ``strenc.fused``; the train
      and encoder kernels' launch counts set to 0 before and read after
  10. at the main path's batch of 20,000 + 20,000 poses: the checks of phase 7
-     on it, and the encoder kernel vs its plain version on both its halves;
+     on it, for the trained field and for the relu field (the trained
+     weights under relu, 0 on nearly every pose of the synthetic manifold:
+     its manifold loss sum is near 0 and held by the loss sums' floor,
+     below), and the encoder kernel
+     vs its plain version on both its halves;
      then times: the fused step vs the autodiff step, ``fused_train_grads`` vs
      ``manual_train_grads``, the weights' pack (``fused_model.pack_tc``, part
      of every fused step) alone, each train kernel vs its plain version and
@@ -131,7 +167,12 @@ versions at 1,048,576 poses); the log gives their ranges.
 Tolerances: d and g ``atol=1e-5``; projection ``rtol=1e-4, atol=1e-5`` (those
 of ``tests/test_fused_grad.py``: fp32 sums of up to 1024 terms taken in
 another order); the encoder ``atol=1e-6``. Training gradients: loss terms
-``rtol=1e-5``; each gradient leaf ``atol = 1e-4 x max|leaf|``, five times the
+``rtol=1e-5``, with a floor for a sum of small non-negative per-row terms:
+``atol = n x 1e-7`` for a sum of n terms (1e-7 for a mean), the 3xTF32
+products being some 1e-7 from exact a row (below). The relu field's
+manifold loss sum over the 20,000 synthetic rows, 0.46 and near 0 a row,
+came out 1.7e-5 from float64 in the tile (8.5e-10 a row, 3.6e-5 of the
+sum) against a floor of 2e-3 (measured on an H100); each gradient leaf ``atol = 1e-4 x max|leaf|``, five times the
 CPU bar of ``tests/test_train_grad.py`` (2e-5), because each leaf here is a
 sum over up to 40,000 poses taken in another order, and an L1 or ReLU kink
 (a pose whose d lies within rounding of its label or of 0) flips one pose's
@@ -195,6 +236,27 @@ relu fields' g passes a pose beyond the bar also where a DFNet
 pre-activation of it (float64) lies within KINK_NEAR = 1e-6 of 0, for at
 most 1% of the poses; the log names them.
 
+bf16 (phases 4b-6b): the kernel and its plain version round the same
+operands to bf16, but sum in other orders, so a value within a few fp32
+units of a bf16 rounding tie (or of a kink) rounds to neighbouring values
+on the two sides, and that pose moves by up to the order of the
+bf16-vs-fp32 gap. No per-pose bar admits that and stays tight, so
+``fused_model.bf16_hold`` holds shares and means: a pose is off beyond the
+fp32 bars (D_ATOL, G_ATOL, the projection's; one projection step's poses
+BF16_STEP_ATOL = 1e-6, since one step moves them by only some 3e-5 between
+bf16 and fp32); at most 45% of the poses may be off, while at least 80%
+are that far between the bf16 and the fp32 kernel (asserted, with each
+atol at most half the gap's median pose); the mean pose error is at most
+0.2 of the gap's, and the largest error at most twice the largest gap
+(the readings each bar sits between, sound and with one rounding left
+out, are in ``fused_model``'s comment). This replaces the per-pose kink
+allowance (KINK_NEAR, KINK_SHARE) for bf16: the tie poses are many more
+than the 1% of kinks (measured on an H100: 0.4-3.2% of the trained
+field's poses beyond the bars, 12.8% of a seeded softplus field's g). A
+fault in one CTA alone stays under those shares, so each bf16 kernel also
+runs on the poses reversed, the ragged tail's and the second wave's poses
+then in other CTAs, and must give the result reversed, to the bit.
+
 int8 serving: every int8 layer's sums are exact integers in the kernel and
 in the plain version alike (|acc| <= K 127^2 < 2^24), so their d can differ
 only through the fp32 part before the window: the encoder and layer 0 sum
@@ -236,7 +298,9 @@ peak (67 TFLOP/s, an FMA counted as two) and the bytes (each input read
 once, each output written once) over the memory rate (3.35 TB/s) of an H100
 SXM, counted from this run's shapes. The field kernels' and the training
 reduction's products count at their route's peak: three TF32 passes
-(3xTF32) at the dense TF32 tensor-core peak (494.7 TFLOP/s); the field
+(3xTF32) at the dense TF32 tensor-core peak (494.7 TFLOP/s), or, on the
+field kernels' bf16 route, one pass at the bf16 peak (989 TFLOP/s, the
+hidden layers' weights read as bf16); the field
 kernels' encoder walks, output layer and epilogues (two operations an
 activation) and the reduction's slot sums at the fp32 peak. The kNN exact and bf16 engines, the
 unweighted distance the main path times, on the tensor-core route: the
@@ -281,12 +345,16 @@ import torch
 CKPT = "docs/quality/ckpt_l8_best.msgpack"
 EXPECTED = "tests/data/torch_port_l8_expected.npz"
 TRAIN_EXPECTED = "tests/data/torch_port_train_expected.npz"
+RELU_TRAIN_EXPECTED = "tests/data/torch_port_relu_train_expected.npz"
+BF16_EXPECTED = "tests/data/torch_port_bf16_expected.npz"
 D_ATOL = 1e-5
 G_ATOL = 1e-5
 PROJ_RTOL, PROJ_ATOL = 1e-4, 1e-5
 ENC_ATOL = 1e-6
 KINK_NEAR, KINK_SHARE = 1e-6, 0.01   # a unit this near its kink may take the other slope; docstring
+BF16_STEP_ATOL = 1e-6   # one bf16 projection step's poses (docstring: bf16)
 TERM_RTOL = 1e-5
+TERM_ROW_ATOL = 1e-7   # a loss sum's floor, x its summands (a mean's: x 1); docstring
 LEAF_TOL = 1e-4      # x max|leaf|; the reason is in the module docstring
 MAIN_BATCH, MAIN_STEPS = 10_000, 200
 SERVE_BATCH = 131_072
@@ -323,7 +391,8 @@ WGMMA_KERNELS = {"field": ("field_kernel",),                             # by li
                  "knn": ("knn_bound_kernel", "knn_pack_kernel", "knn_joint_kernel",
                          "knn_pack_joint_kernel")}
 # wgmma kernels whose products ptxas serializes (C7518: its dependence barrier
-# in a divergent path), an open fault (ROADMAP Queue 3); any other fails the run
+# in a divergent path; its cost is an open question, PERF.md section 7); any
+# other fails the run
 SERIALIZED_KNOWN = ("train_reduce_kernel", "knn_bound_kernel")
 REDUCE_FP32_ERR = 7.4e-6  # x max|leaf|: the fp32 CUDA-core reduction it replaced, whole gradient (docstring)
 
@@ -699,6 +768,7 @@ def main() -> None:
     log(f"projection step B={MAIN_BATCH}: kernel {proj_ms:.4f} ms, plain "
         f"{proj_plain_ms_step:.4f} ms, products alone {proj_lib_ms:.4f} ms  [{card}]")
 
+    bf16 = bf16_phases(field, card)
     train = train_phases(field, card)
     knn = knn_phases(card)
     serving = serving_phases(field, card)
@@ -725,11 +795,232 @@ def main() -> None:
          "replaces": "posendf_tpu/ops/fused_grad.py:245", "launches": launches["proj"],
          "max_abs_err": errs["proj"], "ms": proj_ms, "plain_ms": proj_plain_ms_step,
          "bound_ms": vag_bound[0], "bound_by": vag_bound[1], "library_ms": proj_lib_ms},
-    ] + train + knn + serving
+    ] + bf16 + train + knn + serving
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": torch.cuda.get_device_name(0),
                                               "count": torch.cuda.device_count()}}), flush=True)
+
+
+def bf16_phases(field, card: str) -> list:
+    """Phases 4b-6b, the field kernels' bf16 route; returns its JSON entries.
+    The trained field loaded with ``compute_dtype="bfloat16"``; each bf16
+    result held to its reference by ``fused_model.bf16_hold`` (module
+    docstring), the bf16-vs-fp32 gap taken against the fp32 kernels on the
+    same poses."""
+    import posendf_torch
+    from posendf_torch.config import PoseNDFConfig
+    from posendf_torch.models import PoseNDF
+    from posendf_torch.ops import fused_grad, fused_model
+    from posendf_torch.projection import project, random_poses
+
+    cfg = PoseNDFConfig()
+    cfg.dfnet.compute_dtype = "bfloat16"
+    f16 = posendf_torch.load_field(CKPT, config=cfg, device="cuda")
+    w16, w32 = f16.weights(), field.weights()
+    tc = w16.tc_packed()
+    log(f"bf16 route: {CKPT} with compute_dtype='bfloat16', {tc.nfwd} + {tc.nbwd} bf16 weight "
+        f"slabs of {2 * fused_model.BF16_SLAB // 1024} KB (forward + backward)")
+    gen = torch.Generator().manual_seed(SEED + 20)
+    errs = {"fwd": 0.0, "vag": 0.0, "proj": 0.0}
+
+    def hold(name, got, want, fp32, **bars) -> float:
+        st = fused_model.bf16_hold(name, got, want, fp32, **bars)
+        log(f"  ok {name}: {st['off']:.4f} of the poses beyond the bar (bf16 vs fp32: "
+            f"{st['gap_off']:.4f}), mean pose error {st['mean']:.3e} (bf16 vs fp32: "
+            f"{st['gap_mean']:.3e}, ratio {st['mean'] / st['gap_mean']:.4f}), max "
+            f"{st['max']:.3e} (bf16 vs fp32: {st['gap_max']:.3e}, ratio "
+            f"{st['max'] / st['gap_max']:.4f})")
+        return st["max"]
+
+    def plain_project(q, w, steps):
+        """The plain projection: ``project_step_ref`` ``steps`` times."""
+        hist = []
+        for _ in range(steps):
+            d, q = fused_grad.project_step_ref(q, w)
+            hist.append(d[:, 0])
+        return q, torch.stack(hist)
+
+    # ---- 4 (bf16). the bf16 kernels vs their plain versions on the card ----
+    for B in (4096, 1000):
+        log(f"bf16 kernels vs plain, B = {B}")
+        q = random_poses(gen, B, device="cuda")
+        with torch.no_grad():
+            d_k, d_32 = f16.distance_fused(q), field.distance_fused(q)
+            errs["fwd"] = max(errs["fwd"], hold(
+                "bf16 forward kernel vs fused_posendf_forward_ref", d_k,
+                fused_model.fused_posendf_forward_ref(q, w16), d_32, atol=D_ATOL))
+            d_k, g_k = f16.distance_and_grad_fused(q)
+            d_p, g_p = fused_grad.fused_distance_and_grad_ref(q, w16)
+            d_32, g_32 = field.distance_and_grad_fused(q)
+            errs["vag"] = max(errs["vag"],
+                              hold("bf16 value-and-grad kernel d vs ref", d_k, d_p, d_32,
+                                   atol=D_ATOL),
+                              hold("bf16 value-and-grad kernel g vs ref", g_k, g_p, g_32,
+                                   atol=G_ATOL))
+            o_k, h_k = project(f16, q, steps=5, fused=True)
+            o_32, h_32 = project(field, q, steps=5, fused=True)
+            o_p, h_p = plain_project(q, w16, 5)
+            s_k, s_p = fused_grad.project_step(q, w16), fused_grad.project_step_ref(q, w16)
+            s_32 = fused_grad.project_step(q, w32)
+            errs["proj"] = max(
+                errs["proj"],
+                hold("bf16 project(fused=True), 5 steps, poses vs the plain steps", o_k, o_p, o_32,
+                     rtol=PROJ_RTOL, atol=PROJ_ATOL),
+                hold("bf16 project(fused=True), 5 steps, history vs the plain steps", h_k.t(),
+                     h_p.t(), h_32.t(), rtol=PROJ_RTOL, atol=PROJ_ATOL),
+                hold("bf16 projection-step kernel d vs ref", s_k[0], s_p[0], s_32[0],
+                     atol=D_ATOL),
+                hold("bf16 projection-step kernel q vs ref", s_k[1], s_p[1], s_32[1],
+                     atol=BF16_STEP_ATOL))
+            hold_reversed(f"bf16 forward kernel, B = {B}", f16.distance_fused, q)
+            hold_reversed(f"bf16 value-and-grad kernel, B = {B}", f16.distance_and_grad_fused, q)
+            hold_reversed(f"bf16 projection-step kernel, B = {B}",
+                          lambda p: fused_grad.project_step(p, w16), q)
+    q = random_poses(gen, 4096, device="cuda")
+    with torch.no_grad():
+        hold_strided("bf16 distance_fused", f16.distance_fused, q)
+        hold_strided("bf16 distance_and_grad_fused", f16.distance_and_grad_fused, q)
+        hold_strided("bf16 project(fused=True), 5 steps",
+                     lambda p: project(f16, p, steps=5, fused=True), q)
+    # the bf16 instances of the other activations: seeded fields at the trained widths
+    for act in ("softplus", "relu"):
+        mods = [PoseNDF(activation=act, compute_dtype=cd,
+                        generator=torch.Generator().manual_seed(3)).cuda()
+                for cd in ("bfloat16", "float32")]
+        with torch.no_grad():
+            for m in mods:
+                for param in m.dfnet.parameters():
+                    param.mul_(2.0)
+        wa16, wa32 = (fused_model.FieldWeights.from_module(m) for m in mods)
+        q = random_poses(gen, 1000, device="cuda")
+        with torch.no_grad():
+            d_p, g_p = fused_grad.fused_distance_and_grad_ref(q, wa16)
+            d_32, g_32 = fused_grad.fused_distance_and_grad(q, wa32)
+            hold(f"{act} field: bf16 forward kernel vs ref",
+                 fused_model.fused_posendf_forward(q, wa16), d_p, d_32, atol=D_ATOL)
+            d_k, g_k = fused_grad.fused_distance_and_grad(q, wa16)
+            hold(f"{act} field: bf16 value-and-grad kernel d vs ref", d_k, d_p, d_32, atol=D_ATOL)
+            hold(f"{act} field: bf16 value-and-grad kernel g vs ref", g_k, g_p, g_32, atol=G_ATOL)
+
+    # ---- 5 (bf16). against the JAX package ----
+    ref, ref32 = np.load(BF16_EXPECTED), np.load(EXPECTED)
+    if not np.array_equal(ref["probes"], ref32["probes"]):
+        raise AssertionError(f"{BF16_EXPECTED} and {EXPECTED} hold other probes")
+    probes = torch.from_numpy(ref["probes"]).cuda()
+    t = {k: torch.from_numpy(ref[k]) for k in ref.files}
+    t32 = {k: torch.from_numpy(ref32[k]) for k in ref32.files}
+    steps = t["proj_hist"].shape[0]
+    log(f"bf16 vs the JAX package ({BF16_EXPECTED}, {probes.shape[0]} probes; the gap against "
+        f"{EXPECTED})")
+    with torch.no_grad():
+        hold("bf16 distance_fused vs JAX", f16.distance_fused(probes), t["fwd_dist"], t32["dist"],
+             atol=D_ATOL)
+        d_k, g_k = f16.distance_and_grad_fused(probes)
+        o_k, h_k = project(f16, probes, steps=steps, fused=True)
+        d_m = f16.distance(probes)
+    hold("bf16 distance_and_grad_fused d vs JAX", d_k, t["vag_dist"], t32["dist"], atol=D_ATOL)
+    hold("bf16 distance_and_grad_fused g vs JAX", g_k, t["vag_grad"], t32["grad"], atol=G_ATOL)
+    hold(f"bf16 project(fused=True) {steps}-step poses vs JAX", o_k, t["proj_out"],
+         t32["proj_out"], rtol=PROJ_RTOL, atol=PROJ_ATOL)
+    hold(f"bf16 project(fused=True) {steps}-step history vs JAX", h_k.t(), t["proj_hist"].t(),
+         t32["proj_hist"].t(), rtol=PROJ_RTOL, atol=PROJ_ATOL)
+    hold("bf16 module path d vs JAX", d_m, t["module_dist"], t32["dist"], atol=D_ATOL)
+
+    # ---- 6 (bf16). main path: the bf16 field's forward, value-and-grad, projection ----
+    serve = random_poses(gen, SERVE_BATCH, device="cuda")
+    poses = random_poses(gen, MAIN_BATCH, device="cuda")
+    fused_model.LAUNCHES = fused_grad.VAG_LAUNCHES = fused_grad.PROJ_LAUNCHES = 0
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        d_serve = f16.distance_fused(serve)
+    d_solve, g_solve = f16.distance_and_grad_fused(poses)
+    out, hist = project(f16, poses, steps=MAIN_STEPS, fused=True)
+    torch.cuda.synchronize()
+    wall_first = time.perf_counter() - t0
+    launches = {"fwd": fused_model.LAUNCHES, "vag": fused_grad.VAG_LAUNCHES,
+                "proj": fused_grad.PROJ_LAUNCHES}
+    log(f"main path, bf16: {SERVE_BATCH}-pose forward, {MAIN_BATCH}-pose value-and-grad and "
+        f"{MAIN_STEPS} fused steps, launches {launches}, first run {wall_first:.3f} s")
+    if launches != {"fwd": 1, "vag": 1, "proj": MAIN_STEPS}:
+        raise AssertionError(f"the bf16 main path's launches {launches}")
+    for name, x, shape in (("d", d_serve, (SERVE_BATCH, 1)), ("d", d_solve, (MAIN_BATCH, 1)),
+                           ("g", g_solve, (MAIN_BATCH, 21, 4)),
+                           ("poses", out, (MAIN_BATCH, 21, 4)),
+                           ("history", hist, (MAIN_STEPS, MAIN_BATCH))):
+        if tuple(x.shape) != shape or not bool(torch.isfinite(x).all()):
+            raise AssertionError(f"bf16 main path {name}: shape {tuple(x.shape)} or non-finite")
+    with torch.no_grad():
+        errs["fwd"] = max(errs["fwd"], hold(
+            f"bf16 forward B={SERVE_BATCH} vs ref", d_serve,
+            fused_model.fused_posendf_forward_ref(serve, w16), field.distance_fused(serve),
+            atol=D_ATOL))
+        d_p, g_p = fused_grad.fused_distance_and_grad_ref(poses, w16)
+        d_32, g_32 = field.distance_and_grad_fused(poses)
+        errs["vag"] = max(errs["vag"],
+                          hold(f"bf16 value-and-grad B={MAIN_BATCH} d vs ref", d_solve, d_p, d_32,
+                               atol=D_ATOL),
+                          hold(f"bf16 value-and-grad B={MAIN_BATCH} g vs ref", g_solve, g_p, g_32,
+                               atol=G_ATOL))
+        s_k, s_p = fused_grad.project_step(poses, w16), fused_grad.project_step_ref(poses, w16)
+        s_32 = fused_grad.project_step(poses, w32)
+        errs["proj"] = max(errs["proj"],
+                           hold(f"bf16 projection step B={MAIN_BATCH} d vs ref", s_k[0], s_p[0],
+                                s_32[0], atol=D_ATOL),
+                           hold(f"bf16 projection step B={MAIN_BATCH} q vs ref", s_k[1], s_p[1],
+                                s_32[1], atol=BF16_STEP_ATOL))
+        del d_p, g_p, d_32, g_32, s_k, s_p, s_32
+        hold_reversed(f"bf16 forward kernel, B = {MAIN_BATCH}", f16.distance_fused, poses)
+        hold_reversed(f"bf16 value-and-grad kernel, B = {MAIN_BATCH}",
+                      f16.distance_and_grad_fused, poses)
+        hold_reversed(f"bf16 projection-step kernel, B = {MAIN_BATCH}",
+                      lambda p: fused_grad.project_step(p, w16), poses)
+    m0, m1 = float(hist[0].mean()), float(hist[-1].mean())
+    log(f"  mean distance {m0:.6f} -> {m1:.6f}")
+    if not m1 < m0:
+        raise AssertionError(f"the bf16 projection did not lower the mean distance ({m0} -> {m1})")
+    if float((out.norm(dim=-1) - 1).abs().max()) > 1e-5:
+        raise AssertionError("bf16 projected quaternions are not unit")
+
+    # times: kernel vs plain and the DFNet's products as bf16 torch.matmul, same rounds
+    proj_ms = cuda_ms(lambda: project(f16, poses, steps=MAIN_STEPS, fused=True), 3)
+    with torch.no_grad():
+        fwd_ms, fwd_plain_ms, fwd_lib_ms = interleaved_ms(
+            f"bf16 forward B={SERVE_BATCH}", lambda: f16.distance_fused(serve),
+            lambda: fused_model.fused_posendf_forward_ref(serve, w16), 5,
+            library=dfnet_products(w16, SERVE_BATCH, backward=False, dtype=torch.bfloat16),
+            card=card)
+        lib_vag = dfnet_products(w16, MAIN_BATCH, backward=True, dtype=torch.bfloat16)
+        vag_ms, vag_plain_ms, vag_lib_ms = interleaved_ms(
+            f"bf16 value-and-grad B={MAIN_BATCH}", lambda: f16.distance_and_grad_fused(poses),
+            lambda: fused_grad.fused_distance_and_grad_ref(poses, w16), 20, library=lib_vag,
+            card=card)
+        step_ms, step_plain_ms, step_lib_ms = interleaved_ms(
+            f"bf16 projection step B={MAIN_BATCH}", lambda: fused_grad.project_step(poses, w16),
+            lambda: fused_grad.project_step_ref(poses, w16), 20, library=lib_vag, card=card)
+    fwd_bound = field_bound(w16, SERVE_BATCH, backward=False, bf16=True)
+    vag_bound = field_bound(w16, MAIN_BATCH, backward=True, bf16=True)
+    log(f"bf16: {MAIN_STEPS}-step projection of {MAIN_BATCH} poses {proj_ms:.3f} ms; forward "
+        f"B={SERVE_BATCH} {fwd_ms:.4f} ms ({SERVE_BATCH / fwd_ms * 1e3:.4g} evals/s), bound "
+        f"{fwd_bound[0]:.4f} ms ({fwd_bound[1]}); value-and-grad {vag_ms:.4f} ms and projection "
+        f"step {step_ms:.4f} ms at {MAIN_BATCH}, bound {vag_bound[0]:.4f} ms ({vag_bound[1]}; "
+        f"the DFNet's products in one bf16 pass at {PEAK_BF16 / 1e12} TFLOP/s, the rest at "
+        f"{PEAK_FLOPS / 1e12})  [{card}]")
+    src = "posendf_torch/csrc/field_kernels.cu"
+    return [
+        {"name": "posendf_forward_bf16", "route": "cuda", "source": src,
+         "replaces": "posendf_tpu/ops/fused_model.py:38", "launches": launches["fwd"],
+         "max_abs_err": errs["fwd"], "ms": fwd_ms, "plain_ms": fwd_plain_ms,
+         "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1], "library_ms": fwd_lib_ms},
+        {"name": "posendf_value_and_grad_bf16", "route": "cuda", "source": src,
+         "replaces": "posendf_tpu/ops/fused_grad.py:229", "launches": launches["vag"],
+         "max_abs_err": errs["vag"], "ms": vag_ms, "plain_ms": vag_plain_ms,
+         "bound_ms": vag_bound[0], "bound_by": vag_bound[1], "library_ms": vag_lib_ms},
+        {"name": "posendf_project_step_bf16", "route": "cuda", "source": src,
+         "replaces": "posendf_tpu/ops/fused_grad.py:245", "launches": launches["proj"],
+         "max_abs_err": errs["proj"], "ms": step_ms, "plain_ms": step_plain_ms,
+         "bound_ms": vag_bound[0], "bound_by": vag_bound[1], "library_ms": step_lib_ms},
+    ]
 
 
 def traversal_flops(w) -> int:
@@ -739,15 +1030,16 @@ def traversal_flops(w) -> int:
     return 2 * (w.num_joints * (E * E + E * F) + sum(wl.numel() for wl, _ in w.layers))
 
 
-def dfnet_products(w, rows: int, backward: bool):
+def dfnet_products(w, rows: int, backward: bool, dtype=torch.float32):
     """The library yardstick of the field kernels: the DFNet's products alone,
-    one ``torch.matmul`` a layer on ``rows`` rows (fp32, TF32 off), each on
-    inputs made once; with ``backward`` also the input-gradient products
-    g W^T. Returns the call."""
+    one ``torch.matmul`` a layer on ``rows`` rows (fp32, TF32 off; or bf16
+    operands and product with ``dtype=torch.bfloat16``), each on inputs made
+    once; with ``backward`` also the input-gradient products g W^T. Returns
+    the call."""
     gen = torch.Generator(device="cuda").manual_seed(1)
-    mats = [wl.detach() for wl, _ in w.layers]
-    xs = [torch.randn(rows, m.shape[0], device="cuda", generator=gen) for m in mats]
-    gs = [torch.randn(rows, m.shape[1], device="cuda", generator=gen) for m in mats]
+    mats = [wl.detach().to(dtype) for wl, _ in w.layers]
+    xs = [torch.randn(rows, m.shape[0], device="cuda", generator=gen).to(dtype) for m in mats]
+    gs = [torch.randn(rows, m.shape[1], device="cuda", generator=gen).to(dtype) for m in mats]
 
     def run():
         for x, m in zip(xs, mats):
@@ -758,20 +1050,24 @@ def dfnet_products(w, rows: int, backward: bool):
     return run
 
 
-def field_bound(w, rows: int, backward: bool):
+def field_bound(w, rows: int, backward: bool, bf16: bool = False):
     """(ms, what bounds it) of a field kernel over ``rows`` poses: the
     DFNet's hidden products as three TF32 passes at the TF32 tensor-core
-    peak; the encoder (its walk and, with ``backward``, its reverse walk),
-    the output layer and two operations an activation of the epilogues
-    (bias and act, or act' and its product) at the fp32 peak; the poses in,
-    d (and g or the next poses) out and the parameters once."""
+    peak (``bf16``: one pass at the bf16 peak); the encoder (its walk and,
+    with ``backward``, its reverse walk), the output layer and two
+    operations an activation of the epilogues (bias and act, or act' and its
+    product) at the fp32 peak; the poses in, d (and g or the next poses) out
+    and the parameters once (the hidden products' weights in bf16 with
+    ``bf16``)."""
     E, F, J = 4 + w.feature_size, w.feature_size, w.num_joints
     passes = 2 if backward else 1
     tc_macs = sum(wl.numel() for wl, _ in w.layers[:-1])
     hidden = sum(wl.shape[1] for wl, _ in w.layers[:-1])
     cuda_ops = passes * (2 * J * (E * E + E * F) + 2 * w.layers[-1][0].numel() + 2 * hidden)
-    t_ops = (3 * 2 * tc_macs * passes * rows / PEAK_TF32 + cuda_ops * rows / PEAK_FLOPS) * 1e3
-    param_bytes = 4 * sum(t.numel() for t in w.tensors())
+    tc_time = (2 * tc_macs * passes * rows / PEAK_BF16 if bf16
+               else 3 * 2 * tc_macs * passes * rows / PEAK_TF32)
+    t_ops = (tc_time + cuda_ops * rows / PEAK_FLOPS) * 1e3
+    param_bytes = 4 * sum(t.numel() for t in w.tensors()) - (2 * tc_macs if bf16 else 0)
     nbytes = 4 * rows * (J * 4 * (2 if backward else 1) + 1) + param_bytes
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
@@ -797,17 +1093,24 @@ def train_phases(field, card: str) -> list:
     w = field.weights()
     gen = torch.Generator().manual_seed(SEED + 1)
     errs = {"tile": 0.0, "reduce": 0.0, "reduce_rel": 0.0, "enc": 0.0}
+    # the tile kernel's relu instance: the trained weights with relu activations
+    from posendf_torch.config import PoseNDFConfig
+
+    relu_cfg = PoseNDFConfig()
+    relu_cfg.dfnet.act = relu_cfg.strenc.act = "relu"
+    relu = load_field(CKPT, config=relu_cfg, device="cuda")
 
     def batch_on_card(rows_n, rows_m, seed):
         pose, dist, man = golden_inputs(seed, max(rows_n, rows_m))
         return (torch.from_numpy(pose[:rows_n]).cuda(), torch.from_numpy(dist[:rows_n]).cuda(),
                 torch.from_numpy(man[:rows_m]).cuda())
 
-    def check_tile(pose, dist, man, kw):
-        """The tile kernel against ``branch_ref`` on the same inputs: both
-        branches' rows (and encoder and loss slots) and the plain rows through
-        the same (plain) reduction, every leaf and the loss sums. Returns the
-        kernel's outputs and their plain reduction."""
+    def check_tile(pose, dist, man, kw, f=field):
+        """The tile kernel against ``branch_ref`` on the same inputs (of field
+        ``f``): both branches' rows (and encoder and loss slots) and the plain
+        rows through the same (plain) reduction, every leaf and the loss sums.
+        Returns the kernel's outputs and their plain reduction."""
+        w = f.weights()
         kw_n, kw_m = fused_train.branch_args(w, pose, dist, man, **kw)
         tiles = fused_train.launch_tiles(w, pose, dist, man, kw_n, kw_m)
         rows_k = [t.branch_rows(w) for t in tiles]
@@ -821,15 +1124,20 @@ def train_phases(field, card: str) -> list:
         ctas = [t.enc_slot.shape[0] for t in tiles]
         assert_leaves(f"tile kernel vs branch_ref, {ctas[0]} + {ctas[1]} CTAs (plain reduction "
                       "of both)", g_kp, g_pp)
-        assert_close("tile kernel loss sums vs branch_ref", l_kp, l_pp, rtol=TERM_RTOL, atol=0.0)
+        B, J, M = pose.shape[0], pose.shape[1], man.shape[0]
+        for i, (k, rows) in enumerate((("dist", B), ("eikonal", B * J), ("man_loss", M))):
+            assert_close(f"tile kernel loss sum {k} vs branch_ref", l_kp[i], l_pp[i],
+                         rtol=TERM_RTOL, atol=rows * TERM_ROW_ATOL)
         errs["tile"] = max(errs["tile"], max(float((g_kp[k] - g_pp[k]).abs().max()) for k in g_pp))
         return tiles, g_kp, l_kp
 
-    def check_train_kernels(pose, dist, man, kw) -> None:
+    def check_train_kernels(pose, dist, man, kw, f=field) -> None:
         """The tile kernel and the reduction each against its plain version on
         the same inputs, ``fused_train_grads`` against ``manual_train_grads``
-        (every loss term and gradient leaf), and two calls bitwise equal."""
-        tiles, g_kp, l_kp = check_tile(pose, dist, man, kw)
+        (every loss term and gradient leaf), and two calls bitwise equal;
+        field ``f``."""
+        w, m = f.weights(), f.module
+        tiles, g_kp, l_kp = check_tile(pose, dist, man, kw, f)
         flat, l_kk = fused_train.launch_reduce(w, *tiles)
         del tiles
         g_kk, off = {}, 0
@@ -851,11 +1159,11 @@ def train_phases(field, card: str) -> list:
             raise AssertionError("two calls of fused_train_grads differ")
         log("  ok two calls of fused_train_grads: the same bits")
         del t_r, te_r, g_r
-        t_m, te_m, g_m = manual_train_grads(sd, pose, dist, man, parents=module.parents,
-                                            activation=module.activation, **kw)
+        t_m, te_m, g_m = manual_train_grads(dict(m.state_dict()), pose, dist, man,
+                                            parents=m.parents, activation=m.activation, **kw)
         for k in te_m:
             assert_close(f"term {k} vs manual_train_grads", te_k[k], te_m[k], rtol=TERM_RTOL,
-                         atol=0.0)
+                         atol=TERM_ROW_ATOL)
         assert_leaves("fused_train_grads vs manual_train_grads", g_k, g_m)
 
     def check_encoder(q, misaligned: bool = False) -> None:
@@ -898,6 +1206,16 @@ def train_phases(field, card: str) -> list:
         log(f"tile kernel vs branch_ref, B = M = {B}")
         check_tile(*batch_on_card(B, B, SEED + 7 + B),
                    dict(loss_type="l1", weight_dist=0.7, weight_man=1.3, weight_eikonal=0.9))
+    # the relu instance (train_tile_kernel<relu>), at the same bars
+    for (B, M), loss_type in (((4096, 4096), "l1"), ((1000, 700), "l2")):
+        log(f"train kernels vs plain, the relu field, B = {B}, M = {M}, {loss_type}")
+        check_train_kernels(*batch_on_card(B, M, SEED + 9 + B),
+                            dict(loss_type=loss_type, weight_dist=0.7, weight_man=1.3,
+                                 weight_eikonal=0.9), relu)
+    for B in (63, 129):
+        log(f"tile kernel vs branch_ref, the relu field, B = M = {B}")
+        check_tile(*batch_on_card(B, B, SEED + 9 + B),
+                   dict(loss_type="l1", weight_dist=0.7, weight_man=1.3, weight_eikonal=0.9), relu)
     # the instances of this field's feature width (one an activation)
     for line in ptxas_lines(_build.build_info("train")["log"],
                             (f"encoder_kernelILi{w.feature_size}E",)):
@@ -917,6 +1235,17 @@ def train_phases(field, card: str) -> list:
         assert_close(f"term {k} vs JAX", terms[k], torch.tensor(float(ref[f"grad_term_{k}"])),
                      rtol=TERM_RTOL, atol=0.0)
     check_summaries("gradient", "grad", grads, ref)
+    ref_r = np.load(RELU_TRAIN_EXPECTED)
+    log(f"the relu field vs the JAX package ({RELU_TRAIN_EXPECTED}, {rows} + {rows} poses)")
+    pose_r, dist_r, man_r = batch_on_card(int(ref_r["rows"]), int(ref_r["rows"]),
+                                          int(ref_r["seed"]))
+    total, terms, grads = fused_train.fused_train_grads(relu.weights(), pose_r, dist_r, man_r)
+    assert_close("relu total vs JAX", total, torch.tensor(float(ref_r["grad_total"])),
+                 rtol=TERM_RTOL, atol=0.0)
+    for k in terms:
+        assert_close(f"relu term {k} vs JAX", terms[k],
+                     torch.tensor(float(ref_r[f"grad_term_{k}"])), rtol=TERM_RTOL, atol=0.0)
+    check_summaries("relu gradient", "grad", grads, ref_r)
     trained = load_field(CKPT, device="cuda").module
     lr = float(ref["lr"])
     step = make_train_step(trained, make_optimizer(trained.parameters(), lr,
@@ -1017,6 +1346,8 @@ def train_phases(field, card: str) -> list:
     kw = dict(loss_type="l1", weight_dist=1.0, weight_man=1.0, weight_eikonal=1.0)
     log(f"train kernels vs plain at the main path's batch, B = {B}, M = {M}")
     check_train_kernels(pose, dist, man, kw)
+    log(f"train kernels vs plain at the main path's batch, the relu field, B = {B}, M = {M}")
+    check_train_kernels(pose, dist, man, kw, relu)
     check_encoder(pose)
     check_encoder(man)
 
@@ -1613,7 +1944,7 @@ def log_ptxas(name: str) -> None:
         raise AssertionError(f"ptxas serialized the wgmma of {name}'s kernels: {new}")
     if serial:
         log(f"  known: ptxas serializes the wgmma of {', '.join(SERIALIZED_KNOWN)} "
-            "(an open fault); no other kernel's")
+            "(PERF.md section 7); no other kernel's")
 
 
 def hold_strided(name: str, fn, q: torch.Tensor) -> None:
@@ -1631,6 +1962,19 @@ def hold_strided(name: str, fn, q: torch.Tensor) -> None:
             if not torch.equal(a, b):
                 raise AssertionError(f"{name} on {what}: not the contiguous result")
     log(f"  ok {name} on poses[::2] and a permuted view: the contiguous result, to the bit")
+
+
+def hold_reversed(name: str, fn, q: torch.Tensor) -> None:
+    """``fn`` on the poses in reverse order gives, to the bit, its result
+    on ``q`` reversed: each pose's arithmetic does not depend on its CTA,
+    so a fault that a CTA (the ragged tail's, or a later wave's) alone
+    makes shows even where a statistical hold admits it."""
+    got, want = fn(q.flip(0)), fn(q)
+    for a, b in zip(got if isinstance(got, tuple) else (got,),
+                    want if isinstance(want, tuple) else (want,)):
+        if not torch.equal(a, b.flip(0)):
+            raise AssertionError(f"{name} on the poses reversed: not the result reversed")
+    log(f"  ok {name} on the {q.shape[0]} poses reversed: the result reversed, to the bit")
 
 
 def hold_int8(name: str, qfield, pose: torch.Tensor, d: torch.Tensor, d_ref) -> float:

@@ -45,8 +45,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 ACT_CODES = {"lrelu": 0, "relu": 1, "softplus": 2}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# (pose, B, enc, parents, J, F, slabs, vec, prog, nfwd, nbwd, act, beta, ...)
-_COMMON = [_P, _I, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _F]
+# (pose, B, enc, parents, J, F, slabs, vec, prog, nfwd, nbwd, act, beta, bf16, ...)
+_COMMON = [_P, _I, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _F, _I]
 _SIGNATURES = {
     "field": {
         # ..., d_out, stream

@@ -126,6 +126,7 @@ class PoseNDFConfig:
             parents=kinematics.parent_table(self.strenc.corrected_tree),
             use_fused=self.strenc.fused,
             ff_enc=self.dfnet.ff_enc,
+            ff_freqs=self.dfnet.ff_freqs,
             compute_dtype=self.dfnet.compute_dtype,
             live_head=self.dfnet.live_head,
             generator=generator,

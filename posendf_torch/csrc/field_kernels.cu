@@ -1,9 +1,9 @@
 // Hand-written Hopper kernels for the PoseNDF distance field (sm_90a).
 //
-// Three entry points share one kernel, `field_kernel<Act>` (the mode is a
-// launch argument; one instance an activation, so that an epilogue is a few
-// instructions, which made the kernels faster on an H100 than one body
-// choosing the activation at run time):
+// Three entry points share one kernel, `field_kernel<Act, Bf16>` (the mode
+// is a launch argument; one instance an activation, so that an epilogue is a
+// few instructions, which made the kernels faster on an H100 than one body
+// choosing the activation at run time; and one a route, 3xTF32 or bf16):
 //
 //   posendf_forward         replaces posendf_tpu/ops/fused_model.py::_model_kernel
 //                           (whole forward: encoder walk + DFNet + output act)
@@ -74,6 +74,31 @@
 //    named barriers a joint), the 64 -> 1 output layer (four threads a pose
 //    and a sum), the encoder's reverse walk, the normalization VJP and the
 //    projection step (four threads a pose).
+//  * The bf16 route (Bf16 = true: a field whose compute_dtype is bfloat16,
+//    the TPU kernels' compute_dtype="bfloat16") computes what the TPU
+//    kernels compute in that mode: every product, encoder, DFNet and output
+//    layer, forward and backward, on operands rounded to bf16 to nearest
+//    even (cvt.rn.bf16x2.f32, JAX's astype), summed in fp32; biases,
+//    activations, derivative state, the normalization and its VJP and the
+//    projection update in fp32. Its DFNet products are bf16 wgmma (m64n64k16,
+//    m64n32k16 in a chain's first product), one k16 step where 3xTF32 takes
+//    three k8 passes of one TF32 step each: A from registers, rounded from
+//    the fp32 activations as they are loaded (the activations stay fp32 in
+//    shared memory: they are rounded at the next product anyway), B from
+//    fused_model.pack_bf16's slabs, the same blocks in the same order as the
+//    3xTF32 route's (the same program), one bf16 line of 128 bytes a column
+//    in the 128-byte swizzle, 16 KB a slab. A thread's bf16 A registers hold
+//    K columns 2(t%4), +1, +8, +9 of a k16 step, the columns its accumulator
+//    holds in two adjacent 8-column groups, so K needs no permutation. Each
+//    32 of K goes to a fresh accumulator added in fp32, as in 3xTF32; the
+//    two routes share the slab ring and its loops (AFrag<Bf16>).
+//    The encoder walks, the output layer and the backward's start round
+//    their operands on the CUDA cores; the weights come rounded (the
+//    encoder's buffer and the output layer's w, by the wrapper). Bound: the
+//    DFNet's products in one bf16 pass at 989 TFLOP/s, 0.36 ms for the
+//    131,072-pose forward, 0.055 ms for a value-and-grad or projection step
+//    of 10,000; this route is the simple one, its ring and epilogues those of
+//    3xTF32.
 //  * The wrapper turns the layer list into a program (fused_model.
 //    tc_schedule): per pass a list of steps, a layer or a chain of two,
 //    and the slabs in the order the steps read them, so the ring's filler
@@ -101,7 +126,8 @@ constexpr int kFieldThreads = kConsumers;        // thread 0 also fills the ring
 constexpr int kSlabN = 128;                      // output columns a slab: 64 a warpgroup
 constexpr int kSlabK = 32;                       // K a slab: a 128-byte line of tf32
 constexpr int kHalfBytes = kSlabN * kSlabK * 4;  // the hi (or lo) half: 16 KB
-constexpr int kSlabBytes = 2 * kHalfBytes;
+constexpr int kSlabBytes = 2 * kHalfBytes;       // a ring slot, a 3xTF32 slab
+constexpr int kBf16SlabBytes = 128 * 128;        // a bf16 slab: 128 lines of 128 bytes
 constexpr int kStages = 2;
 constexpr int kXMax = 512;                       // widest activation kept whole
 constexpr int kChunk = 64;                       // a chained layer's output, a chunk at a time
@@ -125,6 +151,7 @@ struct Args {
   int mode;                    // kForward, kValueAndGrad or kProjectStep
   int act;
   float beta;
+  int bf16;                    // the route: 0 3xTF32, 1 bf16
   float* d_out;                // (B,)
   float* g_out;                // (B, J, 4) value-and-grad
   float* q_out;                // (B, J, 4) projection step
@@ -164,7 +191,31 @@ struct Ctx {
   int g;                      // the next slab
   int w, tw;                  // warpgroup, thread in it
   float beta;
+  int bytes;                  // of a slab: kSlabBytes, or kBf16SlabBytes in bf16
 };
+
+// x rounded to bf16 (to nearest even, as JAX's astype), as the fp32 of that
+// value
+__device__ __forceinline__ float rn_bf16(float x) {
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(0.f), "f"(x));
+  return __uint_as_float(r << 16);
+}
+
+// lo and hi rounded to bf16 in one register, lo in the low half (the lower K
+// column of a bf16 A fragment register)
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+
+// a product's operand on the CUDA cores: as it is, or rounded to bf16
+template <bool kBf16>
+__device__ __forceinline__ float op(float x) {
+  if constexpr (kBf16) return rn_bf16(x);
+  return x;
+}
 
 // The ring, with no branch near the wgmma that the compiler could take for
 // a divergent path (ptxas then serializes the wgmma): a slab's waiters spin
@@ -205,14 +256,14 @@ __device__ __forceinline__ void fill(const Ctx& cx, int g) {
   const int s = g % kStages;
   const uint32_t go = threadIdx.x == 0 && g < cx.n;
   const uint32_t full = smem_u32(cx.bars + s);
-  const unsigned char* src = cx.src + static_cast<size_t>(g < cx.n ? g : 0) * kSlabBytes;
+  const unsigned char* src = cx.src + static_cast<size_t>(g < cx.n ? g : 0) * cx.bytes;
   asm volatile(
       "{\n.reg .pred p;\n"
       "setp.ne.u32 p, %0, 0;\n"
       "@p mbarrier.arrive.expect_tx.shared::cta.b64 _, [%1], %2;\n"
       "@p cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%3], [%4], %2, [%1];\n"
       "}\n" ::"r"(go),
-      "r"(full), "r"(kSlabBytes), "r"(smem_u32(cx.ring + s * kSlabBytes)), "l"(src)
+      "r"(full), "r"(cx.bytes), "r"(smem_u32(cx.ring + s * kSlabBytes)), "l"(src)
       : "memory");
 }
 
@@ -244,34 +295,89 @@ __device__ __forceinline__ void load_a(const Buf& b, int r, int c, uint32_t (&hi
   }
 }
 
+// The bf16 A fragment of one k16 step at K column k (a multiple of 16) plus
+// 2 (t % 4): register j holds row r + 8 (j % 2), columns k + 8 (j / 2) and
+// the next one, rounded to bf16 from the fp32 activations.
+__device__ __forceinline__ void load_a_bf16(const Buf& b, int r, int k, uint32_t (&a)[4]) {
+  const float2 u0 = *reinterpret_cast<const float2*>(at(b, r, k));
+  const float2 v0 = *reinterpret_cast<const float2*>(at(b, r + 8, k));
+  const float2 u1 = *reinterpret_cast<const float2*>(at(b, r, k + 8));
+  const float2 v1 = *reinterpret_cast<const float2*>(at(b, r + 8, k + 8));
+  a[0] = pack_bf16x2(u0.x, u0.y);
+  a[1] = pack_bf16x2(v0.x, v0.y);
+  a[2] = pack_bf16x2(u1.x, u1.y);
+  a[3] = pack_bf16x2(v1.x, v1.y);
+}
+
+// The A fragments of 32 of K, from column k (a multiple of 8 plus 2 (t % 4)):
+// four k8 steps split into TF32 hi | lo (3xTF32), or two k16 steps rounded
+// to bf16 (hi only).
+template <bool kBf16>
+struct AFrag {
+  static constexpr int kSteps = kBf16 ? 2 : 4;
+  uint32_t hi[kSteps][4], lo[kBf16 ? 1 : kSteps][4];
+
+  __device__ __forceinline__ void load(const Buf& b, int r, int k) {
+#pragma unroll
+    for (int kk = 0; kk < kSteps; ++kk) {
+      if constexpr (kBf16)
+        load_a_bf16(b, r, k + 16 * kk, hi[kk]);
+      else
+        load_a(b, r, k + 8 * kk, hi[kk], lo[kk]);
+    }
+  }
+
+  // acc = A . B over these 32 of K, into a fresh accumulator: B's lines at
+  // shared address bh (3xTF32: its hi half; its lo half at bl).
+  template <int N>
+  __device__ __forceinline__ void mma(float (&acc)[N / 2], uint32_t bh, uint32_t bl) {
+#pragma unroll
+    for (int kk = 0; kk < kSteps; ++kk) {
+      if constexpr (kBf16) {
+        wgmma_bf16_rs<N>(acc, hi[kk], desc_sw128(bh + kk * 32), kk > 0);
+      } else {   // the small terms first
+        wgmma_tf32_rs<N>(acc, lo[kk], desc_sw128(bh + kk * 32), kk > 0);
+        wgmma_tf32_rs<N>(acc, hi[kk], desc_sw128(bl + kk * 32), 1);
+        wgmma_tf32_rs<N>(acc, hi[kk], desc_sw128(bh + kk * 32), 1);
+      }
+    }
+  }
+
+  __device__ __forceinline__ void keep() {
+#pragma unroll
+    for (int kk = 0; kk < kSteps; ++kk) {
+      keep_regs(hi[kk]);
+      if constexpr (!kBf16) keep_regs(lo[kk]);
+    }
+  }
+};
+
 // tot[cg] += A . B for nkb K-blocks of A (from `a`) and, per K-block, the
-// NG slabs of column groups 0..NG-1, in the ring's order. Each slab's 12
-// products sum into a fresh accumulator that is then added to tot in fp32
-// (IEEE adds): the tensor cores' own fp32 accumulation does not round to
-// nearest, so its error then spans 32 of K and not all of it.
-template <int NG>
+// NG slabs of column groups 0..NG-1, in the ring's order. Each slab's
+// products (12 TF32 or 2 bf16 wgmma) sum into a fresh accumulator that is
+// then added to tot in fp32 (IEEE adds): the tensor cores' own fp32
+// accumulation does not round to nearest, so its error then spans 32 of K
+// and not all of it. A 3xTF32 slab is its hi half then its lo half, warpgroup
+// w in the lines of columns 64w..64w+63 of each; a bf16 slab
+// (fused_model.pack_bf16) is 128 lines, one output column each, of 32 bf16
+// of K in their first 64 bytes, warpgroup w in lines 64w..64w+63.
+template <bool kBf16, int NG>
 __device__ __forceinline__ void product(float (&tot)[NG][32], const Buf& a, int nkb, Ctx& cx) {
   const int r = 16 * (cx.tw / 32) + (cx.tw % 32) / 4, c = 2 * (cx.tw % 4);
   float acc[32];
 #pragma unroll
   for (int i = 0; i < 32; ++i) acc[i] = 0.f;
   for (int kb = 0; kb < nkb; ++kb) {
-    uint32_t ah[4][4], al[4][4];
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) load_a(a, r, 32 * kb + 8 * kk + c, ah[kk], al[kk]);
+    AFrag<kBf16> f;
+    f.load(a, r, kSlabK * kb + c);
 #pragma unroll
     for (int cg = 0; cg < NG; ++cg) {
       const int g = cx.g++;
       const int s = wait_slab(cx, g);
-      const uint32_t hi = smem_u32(cx.ring + s * kSlabBytes) + cx.w * (kHalfBytes / 2);
-      const uint32_t lo = hi + kHalfBytes;
+      const uint32_t bh = smem_u32(cx.ring + s * kSlabBytes) +
+                          cx.w * ((kBf16 ? kBf16SlabBytes : kHalfBytes) / 2);
       wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {   // the small terms first
-        wgmma_tf32_rs<64>(acc, al[kk], desc_sw128(hi + kk * 32), kk > 0);
-        wgmma_tf32_rs<64>(acc, ah[kk], desc_sw128(lo + kk * 32), 1);
-        wgmma_tf32_rs<64>(acc, ah[kk], desc_sw128(hi + kk * 32), 1);
-      }
+      f.template mma<64>(acc, bh, bh + kHalfBytes);
       wgmma_commit();
       wgmma_wait<0>();
       release_slab(cx, g);
@@ -279,19 +385,18 @@ __device__ __forceinline__ void product(float (&tot)[NG][32], const Buf& a, int 
 #pragma unroll
       for (int i = 0; i < 32; ++i) tot[cg][i] += acc[i];
     }
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      keep_regs(ah[kk]);
-      keep_regs(al[kk]);
-    }
+    f.keep();
   }
 }
 
 // h += A . B for the first product of a chain: a slab is 64 columns x 64 of
-// K, the hi | lo halves of its first 32 of K, then of its second (16 KB
-// each); warpgroup w takes columns 32w..32w+31 (m64n32k8). Each 32 of K
-// folds into h as in product. A chunk of 64 columns keeps the chain's
-// sums a thread at 4 x 32 + 16 registers.
+// K, warpgroup w taking columns 32w..32w+31 (m64n32); each 32 of K folds
+// into h as in product. 3xTF32: the hi | lo halves of the slab's first 32
+// of K, then of its second (16 KB each). bf16: 64 lines (columns) of 64
+// bf16 of K, a whole 128-byte line each, the second 32 of K at byte 64. A
+// chunk of 64 columns keeps the chain's sums a thread at 4 x 32 + 16
+// registers.
+template <bool kBf16>
 __device__ __forceinline__ void product_chunk(float (&tot)[1][16], const Buf& a, int nkp, Ctx& cx) {
   const int r = 16 * (cx.tw / 32) + (cx.tw % 32) / 4, c = 2 * (cx.tw % 4);
   float acc[16];
@@ -300,32 +405,21 @@ __device__ __forceinline__ void product_chunk(float (&tot)[1][16], const Buf& a,
   for (int kp = 0; kp < nkp; ++kp) {
     const int g = cx.g++;
     const int s = wait_slab(cx, g);
+    const uint32_t slab = smem_u32(cx.ring + s * kSlabBytes);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      uint32_t ah[4][4], al[4][4];
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        load_a(a, r, 2 * kSlabK * kp + kSlabK * h + 8 * kk + c, ah[kk], al[kk]);
-      const uint32_t hi =
-          smem_u32(cx.ring + s * kSlabBytes) + h * kHalfBytes + cx.w * (kHalfBytes / 4);
-      const uint32_t lo = hi + kHalfBytes / 2;
+      AFrag<kBf16> f;
+      f.load(a, r, 2 * kSlabK * kp + kSlabK * h + c);
+      const uint32_t bh = kBf16 ? slab + cx.w * (kBf16SlabBytes / 4) + 64 * h
+                                : slab + h * kHalfBytes + cx.w * (kHalfBytes / 4);
       wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        wgmma_tf32_rs<32>(acc, al[kk], desc_sw128(hi + kk * 32), kk > 0);
-        wgmma_tf32_rs<32>(acc, ah[kk], desc_sw128(lo + kk * 32), 1);
-        wgmma_tf32_rs<32>(acc, ah[kk], desc_sw128(hi + kk * 32), 1);
-      }
+      f.template mma<32>(acc, bh, bh + kHalfBytes / 2);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(acc);
 #pragma unroll
       for (int i = 0; i < 16; ++i) tot[0][i] += acc[i];
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        keep_regs(ah[kk]);
-        keep_regs(al[kk]);
-      }
+      f.keep();
     }
     release_slab(cx, g);
   }
@@ -382,14 +476,14 @@ __device__ __forceinline__ void epilogue(const float (&acc)[NG][4 * NJ], int cg0
 }
 
 // One layer, K -> N = 128 NG, in place in x.
-template <int kAct, int NG>
+template <int kAct, bool kBf16, int NG>
 __device__ __forceinline__ void layer(const Buf& x, int K, const Epi& e, Ctx& cx) {
   float tot[NG][32];
 #pragma unroll
   for (int cg = 0; cg < NG; ++cg)
 #pragma unroll
     for (int i = 0; i < 32; ++i) tot[cg][i] = 0.f;
-  product<NG>(tot, x, K / kSlabK, cx);
+  product<kBf16, NG>(tot, x, K / kSlabK, cx);
   named_bar_sync(kBar, kConsumers);   // both warpgroups have read x
   epilogue<kAct, NG, 8>(tot, 0, e, cx);
   named_bar_sync(kBar, kConsumers);   // x holds the output
@@ -399,7 +493,7 @@ __device__ __forceinline__ void layer(const Buf& x, int K, const Epi& e, Ctx& cx
 // time through cb, each chunk at once 64 of the second product's K. The
 // second product's 4 x 32 sums a thread stay in registers through the
 // chunks.
-template <int kAct>
+template <int kAct, bool kBf16>
 __device__ __forceinline__ void chain(const Buf& x, const Buf& cb, int K, int N, Epi e1,
                                       const Epi& e2, Ctx& cx) {
   constexpr int NG2 = kXMax / kSlabN;
@@ -412,12 +506,12 @@ __device__ __forceinline__ void chain(const Buf& x, const Buf& cb, int K, int N,
     float h[1][16];
 #pragma unroll
     for (int i = 0; i < 16; ++i) h[0][i] = 0.f;
-    product_chunk(h, x, K / kChunk, cx);
+    product_chunk<kBf16>(h, x, K / kChunk, cx);
     named_bar_sync(kBar, kConsumers);   // both warpgroups have read the last chunk
     e1.col0 = c * kChunk;
     epilogue<kAct, 1, 4>(h, c, e1, cx);
     named_bar_sync(kBar, kConsumers);   // cb holds chunk c
-    product<NG2>(y, cb, kChunk / kSlabK, cx);
+    product<kBf16, NG2>(y, cb, kChunk / kSlabK, cx);
   }
   named_bar_sync(kBar, kConsumers);     // both warpgroups have read x
   epilogue<kAct, NG2, 8>(y, 0, e2, cx);
@@ -426,7 +520,7 @@ __device__ __forceinline__ void chain(const Buf& x, const Buf& cb, int K, int N,
 
 // One step of the program (fused_model.tc_schedule): [chain, K, N, N2,
 // bias1, z1, bias2, z2].
-template <int kAct>
+template <int kAct, bool kBf16>
 __device__ __forceinline__ void run_step(const int* st, const Buf& x, const Buf& cb,
                                          const float* vec, float* zb, Ctx& cx) {
   int s[kStep];
@@ -439,12 +533,12 @@ __device__ __forceinline__ void run_step(const int* st, const Buf& x, const Buf&
     const Epi e2{s[6] >= 0 ? vec + s[6] : nullptr,
                  zb != nullptr && s[7] >= 0 ? zb + static_cast<size_t>(kRows) * s[7] : nullptr, x,
                  0};
-    chain<kAct>(x, cb, s[1], s[2], e1, e2, cx);
+    chain<kAct, kBf16>(x, cb, s[1], s[2], e1, e2, cx);
   } else {
     switch (s[2] / kSlabN) {
-      case 1: layer<kAct, 1>(x, s[1], e1, cx); break;
-      case 2: layer<kAct, 2>(x, s[1], e1, cx); break;
-      default: layer<kAct, 4>(x, s[1], e1, cx); break;
+      case 1: layer<kAct, kBf16, 1>(x, s[1], e1, cx); break;
+      case 2: layer<kAct, kBf16, 2>(x, s[1], e1, cx); break;
+      default: layer<kAct, kBf16, 4>(x, s[1], e1, cx); break;
     }
   }
 }
@@ -453,8 +547,10 @@ __device__ __forceinline__ void run_step(const int* st, const Buf& x, const Buf&
 // x (64, D0): thread t owns pose t % 64 and the hidden units / features
 // t / 64, t / 64 + 4, ... of each joint, two named barriers a joint. With
 // ez, the pre-activations go to ez[(j (E + F) + o) 64 + pose]. hid holds a
-// joint's hidden units (kMaxE, 64), nrm the column norms (4, 64).
-template <int kAct>
+// joint's hidden units (kMaxE, 64), nrm the column norms (4, 64). In bf16
+// the products' operands are rounded: the normalized pose, the parent's
+// feature and h (the weights come rounded).
+template <int kAct, bool kBf16>
 __device__ __forceinline__ void encode(const Args& a, int row0, const Buf& x, int D0, float* hid,
                                        float* nrm, float* ez) {
   const int t = threadIdx.x, p = t % kRows, r = t / kRows;
@@ -485,12 +581,13 @@ __device__ __forceinline__ void encode(const Args& a, int row0, const Buf& x, in
     const float4 q = valid ? __ldg(q4 + j) : zero4;
     const int par = __ldg(a.parents + j);
     float in[kMaxE];
-    in[0] = q.x / n0;
-    in[1] = q.y / n1;
-    in[2] = q.z / n2;
-    in[3] = q.w / n3;
+    in[0] = op<kBf16>(q.x / n0);
+    in[1] = op<kBf16>(q.y / n1);
+    in[2] = op<kBf16>(q.z / n2);
+    in[3] = op<kBf16>(q.w / n3);
 #pragma unroll
-    for (int k = 0; k < kMaxF; ++k) in[4 + k] = (k < F && par >= 0) ? *at(x, p, par * F + k) : 0.f;
+    for (int k = 0; k < kMaxF; ++k)
+      in[4 + k] = (k < F && par >= 0) ? op<kBf16>(*at(x, p, par * F + k)) : 0.f;
     const float* w1j = w1 + j * E * E;
 #pragma unroll
     for (int oi = 0; oi < (kMaxE + 3) / 4; ++oi) {
@@ -502,7 +599,7 @@ __device__ __forceinline__ void encode(const Args& a, int row0, const Buf& x, in
           if (i < E) z = fmaf(in[i], __ldg(w1j + i * E + o), z);
         z += __ldg(b1 + j * E + o);
         if (ez != nullptr) ez[(j * (E + F) + o) * kRows + p] = z;
-        hid[o * kRows + p] = act_fwd(kAct, a.beta, z);
+        hid[o * kRows + p] = op<kBf16>(act_fwd(kAct, a.beta, z));
       }
     }
     named_bar_sync(kBar, kConsumers);
@@ -526,13 +623,13 @@ __device__ __forceinline__ void encode(const Args& a, int row0, const Buf& x, in
 
 // The output layer (K -> 1) on the CUDA cores: four threads a pose each sum
 // a quarter of K into part (4, 64); then d = out_act(sum + b) to dval (64)
-// and to d_out.
-template <int kAct>
+// and to d_out. In bf16 x is rounded (w comes rounded).
+template <int kAct, bool kBf16>
 __device__ __forceinline__ void output_layer(const Args& a, int row0, const Buf& x, int K,
                                              const float* wl, float bl, float* part, float* dval) {
   const int t = threadIdx.x, p = t % kRows, r = t / kRows, n = K / 4;
   float s = 0.f;
-  for (int c = r * n; c < (r + 1) * n; ++c) s = fmaf(*at(x, p, c), __ldg(wl + c), s);
+  for (int c = r * n; c < (r + 1) * n; ++c) s = fmaf(op<kBf16>(*at(x, p, c)), __ldg(wl + c), s);
   part[r * kRows + p] = s;
   named_bar_sync(kBar, kConsumers);
   if (t < kRows) {
@@ -545,13 +642,14 @@ __device__ __forceinline__ void output_layer(const Args& a, int row0, const Buf&
 }
 
 // The backward's start: the gradient at the last hidden layer's output,
-// out_act'(d) w act'(z), written to x (64, K) in the fragments' layout.
-template <int kAct>
+// out_act'(d) w act'(z), written to x (64, K) in the fragments' layout (in
+// bf16 out_act'(d) rounded, the operand of the output layer's product).
+template <int kAct, bool kBf16>
 __device__ __forceinline__ void backward_start(const Buf& x, int K, const float* wl, const float* z,
                                                const float* dval, const Ctx& cx) {
   const int r = 16 * (cx.tw / 32) + (cx.tw % 32) / 4;
-  const float go0 = out_act_grad_from_value(kAct, cx.beta, dval[r]);
-  const float go1 = out_act_grad_from_value(kAct, cx.beta, dval[r + 8]);
+  const float go0 = op<kBf16>(out_act_grad_from_value(kAct, cx.beta, dval[r]));
+  const float go1 = op<kBf16>(out_act_grad_from_value(kAct, cx.beta, dval[r + 8]));
   for (int cg = 0; cg < K / kSlabN; ++cg) {
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
@@ -572,8 +670,9 @@ __device__ __forceinline__ void backward_start(const Buf& x, int K, const float*
 // The encoder's reverse walk, j = J-1 .. 0, from the code gradient in x:
 // gf = gx_code[j] act'(f_pre); gh = (W2[j] gf) act'(h_pre) (thread t: the
 // units t / 64 + 4i, to gh (kMaxE, 64)); then W1[j] gh: its first 4 rows to
-// gx (J, 4, 64), the rest added into the parent's code gradient.
-template <int kAct>
+// gx (J, 4, 64), the rest added into the parent's code gradient. In bf16 gf
+// and gh, the products' operands, are rounded.
+template <int kAct, bool kBf16>
 __device__ __forceinline__ void encode_backward(const Args& a, const Buf& x, const float* ez,
                                                 float* gx, float* gh) {
   const int t = threadIdx.x, p = t % kRows, r = t / kRows;
@@ -586,7 +685,8 @@ __device__ __forceinline__ void encode_backward(const Args& a, const Buf& x, con
     float gf[kMaxF];
 #pragma unroll
     for (int k = 0; k < kMaxF; ++k)
-      gf[k] = k < F ? *at(x, p, j * F + k) * act_grad(kAct, a.beta, zj[(E + k) * kRows + p]) : 0.f;
+      gf[k] = k < F ? op<kBf16>(*at(x, p, j * F + k) * act_grad(kAct, a.beta, zj[(E + k) * kRows + p]))
+                    : 0.f;
     const float* w2j = w2 + j * E * F;
 #pragma unroll
     for (int oi = 0; oi < (kMaxE + 3) / 4; ++oi) {
@@ -596,7 +696,7 @@ __device__ __forceinline__ void encode_backward(const Args& a, const Buf& x, con
 #pragma unroll
         for (int k = 0; k < kMaxF; ++k)
           if (k < F) s = fmaf(__ldg(w2j + o * F + k), gf[k], s);
-        gh[o * kRows + p] = s * act_grad(kAct, a.beta, zj[o * kRows + p]);
+        gh[o * kRows + p] = op<kBf16>(s * act_grad(kAct, a.beta, zj[o * kRows + p]));
       }
     }
     named_bar_sync(kBar, kConsumers);
@@ -681,7 +781,7 @@ __device__ __forceinline__ void finish(const Args& a, int row0, const float* gx,
   }
 }
 
-template <int kAct>
+template <int kAct, bool kBf16>
 __global__ void __launch_bounds__(kFieldThreads, 1) field_kernel(const __grid_constant__ Args a) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* ring = align1024(smem_raw);
@@ -691,8 +791,15 @@ __global__ void __launch_bounds__(kFieldThreads, 1) field_kernel(const __grid_co
   init_ring(bars, kStages, 1, 1);   // full barriers; the empty ones go unused
 
   const bool grad = a.mode != kForward;
-  Ctx cx{bars, ring, a.slabs, grad ? a.nfwd + a.nbwd : a.nfwd, 0,
-         static_cast<int>(threadIdx.x) / 128, static_cast<int>(threadIdx.x) % 128, a.beta};
+  Ctx cx{bars,
+         ring,
+         a.slabs,
+         grad ? a.nfwd + a.nbwd : a.nfwd,
+         0,
+         static_cast<int>(threadIdx.x) / 128,
+         static_cast<int>(threadIdx.x) % 128,
+         a.beta,
+         kBf16 ? kBf16SlabBytes : kSlabBytes};
   for (int g = 0; g < kStages; ++g) fill(cx, g);
 
   const int row0 = blockIdx.x * kRows;
@@ -705,21 +812,35 @@ __global__ void __launch_bounds__(kFieldThreads, 1) field_kernel(const __grid_co
                    : nullptr;
   float* ez = zb != nullptr ? zb + static_cast<size_t>(kRows) * zsum : nullptr;
 
-  encode<kAct>(a, row0, x, __ldg(head + 2), cs, cs + kMaxE * kRows, ez);
+  encode<kAct, kBf16>(a, row0, x, __ldg(head + 2), cs, cs + kMaxE * kRows, ez);
   const int* step = head + kHead;
-  for (int i = 0; i < nfwd_steps; ++i, step += kStep) run_step<kAct>(step, x, cb, a.vec, zb, cx);
+  for (int i = 0; i < nfwd_steps; ++i, step += kStep) run_step<kAct, kBf16>(step, x, cb, a.vec, zb, cx);
   // the output layer: d
   const int K = __ldg(head + 3);
   const float* wl = a.vec + __ldg(head + 4);
-  output_layer<kAct>(a, row0, x, K, wl, __ldg(a.vec + __ldg(head + 5)), cs, cs + 4 * kRows);
+  output_layer<kAct, kBf16>(a, row0, x, K, wl, __ldg(a.vec + __ldg(head + 5)), cs, cs + 4 * kRows);
   if (!grad) return;
-  backward_start<kAct>(x, K, wl, zb + static_cast<size_t>(kRows) * __ldg(head + 6), cs + 4 * kRows,
-                       cx);
-  for (int i = 0; i < nbwd_steps; ++i, step += kStep) run_step<kAct>(step, x, cb, a.vec, zb, cx);
+  backward_start<kAct, kBf16>(x, K, wl, zb + static_cast<size_t>(kRows) * __ldg(head + 6),
+                              cs + 4 * kRows, cx);
+  for (int i = 0; i < nbwd_steps; ++i, step += kStep) run_step<kAct, kBf16>(step, x, cb, a.vec, zb, cx);
   // every slab is read: the ring's space holds gx
   float* gx = reinterpret_cast<float*>(ring);
-  encode_backward<kAct>(a, x, ez, gx, cs);
+  encode_backward<kAct, kBf16>(a, x, ez, gx, cs);
   finish(a, row0, gx, cs + kMaxE * kRows, cs + (kMaxE + 4) * kRows);
+}
+
+template <bool kBf16>
+int launch_route(const Args& a, dim3 ctas, void* stream) {
+  switch (a.act) {   // one kernel an activation, so each epilogue is a few instructions
+    case kLRelu:
+      return launch_wgmma(field_kernel<kLRelu, kBf16>, ctas, kFieldThreads, kFieldSmem, stream, a);
+    case kRelu:
+      return launch_wgmma(field_kernel<kRelu, kBf16>, ctas, kFieldThreads, kFieldSmem, stream, a);
+    case kSoftplus:
+      return launch_wgmma(field_kernel<kSoftplus, kBf16>, ctas, kFieldThreads, kFieldSmem, stream,
+                          a);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 int launch(Args a, int mode, void* stream) {
@@ -728,20 +849,14 @@ int launch(Args a, int mode, void* stream) {
   if (a.B <= 0) return 0;
   a.mode = mode;
   const dim3 ctas((a.B + kRows - 1) / kRows);
-  switch (a.act) {   // one kernel an activation, so each epilogue is a few instructions
-    case kLRelu:
-      return launch_wgmma(field_kernel<kLRelu>, ctas, kFieldThreads, kFieldSmem, stream, a);
-    case kRelu:
-      return launch_wgmma(field_kernel<kRelu>, ctas, kFieldThreads, kFieldSmem, stream, a);
-    case kSoftplus:
-      return launch_wgmma(field_kernel<kSoftplus>, ctas, kFieldThreads, kFieldSmem, stream, a);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (a.bf16)
+    return launch_route<true>(a, ctas, stream);
+  return launch_route<false>(a, ctas, stream);
 }
 
 Args common_args(const float* pose, int B, const float* enc, const int* parents, int J, int F,
                  const void* slabs, const float* vec, const int* prog, int nfwd, int nbwd, int act,
-                 float beta) {
+                 float beta, int bf16) {
   Args a{};
   a.pose = pose;
   a.B = B;
@@ -756,6 +871,7 @@ Args common_args(const float* pose, int B, const float* enc, const int* parents,
   a.nbwd = nbwd;
   a.act = act;
   a.beta = beta;
+  a.bf16 = bf16;
   a.step_scale = 1.f;
   return a;
 }
@@ -766,17 +882,17 @@ extern "C" {
 
 int posendf_forward(const float* pose, int B, const float* enc, const int* parents, int J, int F,
                     const void* slabs, const float* vec, const int* prog, int nfwd, int nbwd,
-                    int act, float beta, float* d_out, void* stream) {
-  Args a = common_args(pose, B, enc, parents, J, F, slabs, vec, prog, nfwd, nbwd, act, beta);
+                    int act, float beta, int bf16, float* d_out, void* stream) {
+  Args a = common_args(pose, B, enc, parents, J, F, slabs, vec, prog, nfwd, nbwd, act, beta, bf16);
   a.d_out = d_out;
   return launch(a, kForward, stream);
 }
 
 int posendf_value_and_grad(const float* pose, int B, const float* enc, const int* parents, int J,
                            int F, const void* slabs, const float* vec, const int* prog, int nfwd,
-                           int nbwd, int act, float beta, float* d_out, float* g_out,
+                           int nbwd, int act, float beta, int bf16, float* d_out, float* g_out,
                            float* zscratch, void* stream) {
-  Args a = common_args(pose, B, enc, parents, J, F, slabs, vec, prog, nfwd, nbwd, act, beta);
+  Args a = common_args(pose, B, enc, parents, J, F, slabs, vec, prog, nfwd, nbwd, act, beta, bf16);
   a.d_out = d_out;
   a.g_out = g_out;
   a.zscratch = zscratch;
@@ -785,10 +901,10 @@ int posendf_value_and_grad(const float* pose, int B, const float* enc, const int
 
 int posendf_project_step(const float* pose, int B, const float* enc, const int* parents, int J,
                          int F, const void* slabs, const float* vec, const int* prog, int nfwd,
-                         int nbwd, int act, float beta, float* d_out, float* q_out,
+                         int nbwd, int act, float beta, int bf16, float* d_out, float* q_out,
                          float* zscratch, float step_scale, int tangent, int renormalize,
                          void* stream) {
-  Args a = common_args(pose, B, enc, parents, J, F, slabs, vec, prog, nfwd, nbwd, act, beta);
+  Args a = common_args(pose, B, enc, parents, J, F, slabs, vec, prog, nfwd, nbwd, act, beta, bf16);
   a.d_out = d_out;
   a.q_out = q_out;
   a.zscratch = zscratch;

@@ -9,6 +9,9 @@ for the whole batch, and it stays differentiable for the eikonal term.
 matrix products through ``torch.matmul``). ``distance_fused`` /
 ``distance_and_grad_fused`` go through the hand-written kernels
 (``ops/fused_model.py``, ``ops/fused_grad.py``) for CUDA tensors.
+The fused paths take the standard encoder + DFNet architecture and refuse
+``ff_enc`` with ValueError (``FieldWeights.from_module``), as JAX's do; a
+bf16 module (``compute_dtype="bfloat16"``) runs the kernels' bf16 route.
 ``Field.quantize_int8`` gives the int8 serving view, :class:`QuantizedField`
 (``ops/fused_int8.py``), which saves to and loads from the JAX package's
 ``posendf-int8-v1`` file.
@@ -78,7 +81,7 @@ class Field:
 
     def distance_fused(self, pose: torch.Tensor) -> torch.Tensor:
         """Whole-model forward in one kernel; differentiable (its backward is
-        the plain formula's)."""
+        the plain formula's) but in bf16, where the backward raises."""
         pose = pose.reshape(-1, self.module.num_joints, 4)
         return fused_posendf_forward(pose, self.weights())
 

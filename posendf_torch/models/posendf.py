@@ -16,6 +16,7 @@ from torch import nn
 from posendf_torch import kinematics
 from posendf_torch.models.dfnet import DFNet
 from posendf_torch.models.encoder import StructureEncoder
+from posendf_torch.models.pos_encoder import encoded_dim, positional_encoding
 from posendf_torch.quat import joint_axis_normalize
 
 __all__ = ["PoseNDF"]
@@ -25,11 +26,11 @@ class PoseNDF(nn.Module):
     """Distance field d(pose): (B, 21, 4) quaternion pose -> (B, 1).
 
     ``use_fused`` runs the structure encoder through its CUDA kernel
-    (``ops/fused_encoder.py``) for CUDA tensors.
-
-    ``ff_enc=True`` (positional encoding of the DFNet input) and
-    ``compute_dtype="bfloat16"`` are not ported yet (ROADMAP Queue 1 item 5)
-    and raise ``NotImplementedError``.
+    (``ops/fused_encoder.py``) for CUDA tensors. ``ff_enc`` lifts the code
+    into ``ff_freqs`` octaves of Fourier features
+    (``models/pos_encoder.py``) before the DFNet. ``compute_dtype`` is the
+    DFNet's ("bfloat16": bf16 operands, fp32 sums; see ``models/dfnet.py``);
+    the encoder stays fp32, as in the JAX module.
     """
 
     def __init__(self, num_joints: int = 21, use_encoder: bool = True,
@@ -37,25 +38,19 @@ class PoseNDF(nn.Module):
                  dfnet_dims: Tuple[int, ...] = (256, 512, 1024, 512, 256, 64),
                  activation: str = "lrelu", beta: float = 100.0,
                  parents: Tuple[int, ...] = kinematics.REFERENCE_PARENTS,
-                 use_fused: bool = False, ff_enc: bool = False, compute_dtype: str = "float32",
-                 live_head: bool = False,
+                 use_fused: bool = False, ff_enc: bool = False, ff_freqs: int = 4,
+                 compute_dtype: str = "float32", live_head: bool = False,
                  generator: Optional[torch.Generator] = None, device=None):
         super().__init__()
         if generator is None:  # no global RNG: a fixed seed
             generator = torch.Generator().manual_seed(0)
-        if ff_enc:
-            raise NotImplementedError(
-                "ff_enc (positional encoding) is not ported yet: ROADMAP Queue 1 item 5")
-        if compute_dtype != "float32":
-            raise NotImplementedError(
-                f"compute_dtype={compute_dtype!r} is not ported yet (float32 only): "
-                "ROADMAP Queue 1 item 5")
         self.num_joints = num_joints
         self.use_encoder = use_encoder
         self.activation = activation
         self.beta = beta
         self.parents = tuple(parents)
         self.ff_enc = ff_enc
+        self.ff_freqs = ff_freqs
         self.compute_dtype = compute_dtype
         if use_encoder:
             self.enc = StructureEncoder(parents=self.parents, feature_size=feature_size,
@@ -66,9 +61,11 @@ class PoseNDF(nn.Module):
         else:
             self.enc = None
             in_dim = num_joints * 4
+        if ff_enc:
+            in_dim = encoded_dim(in_dim, ff_freqs)
         self.dfnet = DFNet(in_dim=in_dim, dims=tuple(dfnet_dims), activation=activation,
-                           beta=beta, live_head=live_head, generator=generator,
-                           device=device)
+                           beta=beta, live_head=live_head, compute_dtype=compute_dtype,
+                           generator=generator, device=device)
 
     def forward(self, pose: torch.Tensor, normalize_input: bool = True) -> torch.Tensor:
         """(B, 21, 4) -> (B, 1) non-negative distances. ``normalize_input``
@@ -78,4 +75,6 @@ class PoseNDF(nn.Module):
         x = joint_axis_normalize(pose) if normalize_input else pose
         if self.enc is not None:
             x = self.enc(x)
+        if self.ff_enc:
+            x = positional_encoding(x.reshape(x.shape[0], -1), self.ff_freqs)
         return self.dfnet(x)

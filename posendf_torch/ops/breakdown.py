@@ -138,25 +138,20 @@ CUTS: Dict[str, Dict[str, List[Tuple[str, str]]]] = {
                    "      const int col = col0 + 8 * g;")],
     },
     "field": {
-        "noenc": [("  encode<kAct>(a, row0, x, __ldg(head + 2), cs, cs + kMaxE * kRows, ez);\n", ""),
-                  ("  encode_backward<kAct>(a, x, ez, gx, cs);\n", "")],
-        "nomma": [("        wgmma_tf32_rs<64>(acc, al[kk], desc_sw128(hi + kk * 32), kk > 0);\n"
-                   "        wgmma_tf32_rs<64>(acc, ah[kk], desc_sw128(lo + kk * 32), 1);\n"
-                   "        wgmma_tf32_rs<64>(acc, ah[kk], desc_sw128(hi + kk * 32), 1);\n",
-                   "        (void)hi;\n        (void)lo;\n"),
-                  ("        wgmma_tf32_rs<32>(acc, al[kk], desc_sw128(hi + kk * 32), kk > 0);\n"
-                   "        wgmma_tf32_rs<32>(acc, ah[kk], desc_sw128(lo + kk * 32), 1);\n"
-                   "        wgmma_tf32_rs<32>(acc, ah[kk], desc_sw128(hi + kk * 32), 1);\n",
-                   "        (void)hi;\n        (void)lo;\n")],
+        "noenc": [("  encode<kAct, kBf16>(a, row0, x, __ldg(head + 2), cs, cs + kMaxE * kRows, ez);\n", ""),
+                  ("  encode_backward<kAct, kBf16>(a, x, ez, gx, cs);\n", "")],
+        "nomma": [("  __device__ __forceinline__ void mma(float (&acc)[N / 2], uint32_t bh, uint32_t bl) {\n",
+                   "  __device__ __forceinline__ void mma(float (&acc)[N / 2], uint32_t bh, uint32_t bl) {\n"
+                   "    if (bh != ~0u) return;\n")],
         "noepi": [("__device__ __forceinline__ void epilogue(const float (&acc)[NG][4 * NJ], int cg0, const Epi& e,\n"
                    "                                         const Ctx& cx) {\n",
                    "__device__ __forceinline__ void epilogue(const float (&acc)[NG][4 * NJ], int cg0, const Epi& e,\n"
                    "                                         const Ctx& cx) {\n  if (e.col0 >= 0) return;\n")],
-        "noload": [("    for (int kk = 0; kk < 4; ++kk) load_a(a, r, 32 * kb + 8 * kk + c, ah[kk], al[kk]);\n",
-                    "    for (int kk = 0; kk < 4; ++kk)\n      for (int j = 0; j < 4; ++j) ah[kk][j] = al[kk][j] = 0u;\n"),
-                   ("      for (int kk = 0; kk < 4; ++kk)\n"
-                    "        load_a(a, r, 2 * kSlabK * kp + kSlabK * h + 8 * kk + c, ah[kk], al[kk]);\n",
-                    "      for (int kk = 0; kk < 4; ++kk)\n        for (int j = 0; j < 4; ++j) ah[kk][j] = al[kk][j] = 0u;\n")],
+        "noload": [("      if constexpr (kBf16)\n"
+                    "        load_a_bf16(b, r, k + 16 * kk, hi[kk]);\n"
+                    "      else\n"
+                    "        load_a(b, r, k + 8 * kk, hi[kk], lo[kk]);\n",
+                    "      for (int j = 0; j < 4; ++j) hi[kk][j] = lo[kBf16 ? 0 : kk][j] = 0u;\n")],
     },
 }
 _FIELD = CUTS["field"]
@@ -166,7 +161,14 @@ CUTS["train"] = {
               ("  if (a.eikonal) eikonal(a, row0, gx, gx + J * 4 * kRows, scal);\n", ""),
               ("  encoder_grad<kAct>(a, cta, x, ez, gg, gx, cs, scal);\n", "")],
     "nograd": [("  encoder_grad<kAct>(a, cta, x, ez, gg, gx, cs, scal);\n", "")],
-    "nomma": _FIELD["nomma"],
+    "nomma": [("        wgmma_tf32_rs<64>(acc, al[kk], desc_sw128(hi + kk * 32), kk > 0);\n"
+               "        wgmma_tf32_rs<64>(acc, ah[kk], desc_sw128(lo + kk * 32), 1);\n"
+               "        wgmma_tf32_rs<64>(acc, ah[kk], desc_sw128(hi + kk * 32), 1);\n",
+               "        (void)hi;\n        (void)lo;\n"),
+              ("        wgmma_tf32_rs<32>(acc, al[kk], desc_sw128(hi + kk * 32), kk > 0);\n"
+               "        wgmma_tf32_rs<32>(acc, ah[kk], desc_sw128(lo + kk * 32), 1);\n"
+               "        wgmma_tf32_rs<32>(acc, ah[kk], desc_sw128(hi + kk * 32), 1);\n",
+               "        (void)hi;\n        (void)lo;\n")],
     "nostore": [("  if (s.dst == nullptr) return;\n", "  if (s.ld >= 0) return;\n")],
     "walkonly": [("  for (int i = t; i < kEncPoses * J; i += kEncThreads)\n    cp_async16(smem_u32(qs",
                   "  for (int i = t; B < 0 && i < kEncPoses * J; i += kEncThreads)\n    cp_async16(smem_u32(qs"),
@@ -176,7 +178,11 @@ CUTS["train"] = {
     "encio": [("  for (int j = 0; j < J; ++j) {\n    const int pj = par[j];",
                "  for (int j = 0; j < (B < 0 ? J : 0); ++j) {\n    const int pj = par[j];")],
     "noepi": _FIELD["noepi"],
-    "noload": _FIELD["noload"],
+    "noload": [("    for (int kk = 0; kk < 4; ++kk) load_a(a, r, 32 * kb + 8 * kk + c, ah[kk], al[kk]);\n",
+                "    for (int kk = 0; kk < 4; ++kk)\n      for (int j = 0; j < 4; ++j) ah[kk][j] = al[kk][j] = 0u;\n"),
+               ("      for (int kk = 0; kk < 4; ++kk)\n"
+                "        load_a(a, r, 2 * kSlabK * kp + kSlabK * h + 8 * kk + c, ah[kk], al[kk]);\n",
+                "      for (int kk = 0; kk < 4; ++kk)\n        for (int j = 0; j < 4; ++j) ah[kk][j] = al[kk][j] = 0u;\n")],
 }
 CUTS["knn"] = {
     "late": [("    refill(g + kJStages - 1);\n    const uint32_t cb", "    const uint32_t cb"),

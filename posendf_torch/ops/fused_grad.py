@@ -18,6 +18,14 @@ The projection step then takes ``q <- q - step_scale d g`` with the optional
 tangent projection and per-quaternion renormalization. Unlike the TPU
 value-and-grad kernel, the CUDA one folds the normalization's VJP in.
 
+A bf16 field (``FieldWeights.compute_dtype``) runs both kernels' bf16 route,
+as the TPU kernels' ``compute_dtype="bfloat16"``: every product of the
+forward and of the backward on operands rounded to bf16 (the weights, and
+the cotangent at each product: ``g`` before each W^T, ``gf`` and ``gh`` in
+the encoder's reverse walk), summed in fp32; the derivative state (the
+pre-activations, act' exact), the normalization's VJP and the update in
+fp32.
+
 Each wrapper launches its kernel for a CUDA tensor and runs the plain
 PyTorch version (``fused_distance_and_grad_ref``, ``project_step_ref``) for
 a CPU tensor. Outputs are values, not part of an autograd graph, as in JAX.
@@ -32,7 +40,8 @@ import torch
 from posendf_torch import _build
 from posendf_torch.models.activations import act_grad, out_act_grad_from_value
 from posendf_torch.ops.fused_model import (
-    FieldWeights, aligned_contiguous, check_poses, common_args, field_forward_ref, stream_handle,
+    FieldWeights, aligned_contiguous, check_poses, common_args, field_forward_ref, operand,
+    stream_handle,
 )
 from posendf_torch.quat import quat_normalize
 
@@ -51,23 +60,25 @@ _EPS2 = 1e-24   # eps**2 of the normalizations (eps = 1e-12)
 
 def _field_fwd_bwd_ref(x: torch.Tensor, weights: FieldWeights) -> Tuple[torch.Tensor, torch.Tensor]:
     """Forward and input-only backward over pre-normalized poses, written out
-    as the kernels compute them: returns d (B, 1) and dd/dx (B, J, 4)."""
+    as the kernels compute them: returns d (B, 1) and dd/dx (B, J, 4). In
+    bf16 both operands of every product are rounded to bf16."""
     name, beta = weights.activation, weights.beta
+    c = operand(weights)
     d, (zh, zf, zs) = field_forward_ref(x, weights, keep=True)
     g = out_act_grad_from_value(name, beta, d)
     L = len(weights.layers)
     for l in range(L - 1, -1, -1):
         if l < L - 1:
             g = g * act_grad(name, beta, zs[l])
-        g = torch.matmul(g, weights.layers[l][0].t())
+        g = torch.matmul(c(g), c(weights.layers[l][0]).t())
     B, J, F = x.shape[0], weights.num_joints, weights.feature_size
     gfeat = list(g.reshape(B, J, F).unbind(1))
-    w1, w2 = weights.enc["w1"], weights.enc["w2"]
+    w1, w2 = c(weights.enc["w1"]), c(weights.enc["w2"])
     gx = [None] * J
     for j in range(J - 1, -1, -1):
         gf = gfeat[j] * act_grad(name, beta, zf[j])
-        gh = torch.matmul(gf, w2[j].t()) * act_grad(name, beta, zh[j])
-        gin = torch.matmul(gh, w1[j].t())                   # (B, 4 + F)
+        gh = torch.matmul(c(gf), w2[j].t()) * act_grad(name, beta, zh[j])
+        gin = torch.matmul(c(gh), w1[j].t())                # (B, 4 + F)
         gx[j] = gin[:, :4]
         p = weights.parents[j]
         if p >= 0:

@@ -4,16 +4,21 @@ Port of ``posendf_tpu/ops/fused_model.py::_model_kernel``. The kernel is
 ``posendf_forward`` in ``csrc/field_kernels.cu``: joint-axis normalization,
 the 21-joint encoder walk and every DFNet layer for a tile of 64 poses in
 one program, the DFNet's products as 3xTF32 ``wgmma`` on the tensor cores;
-only the poses come in and d goes out through device memory.
+only the poses come in and d goes out through device memory. A field whose
+module computes in bf16 (``compute_dtype="bfloat16"``) runs the kernels'
+bf16 route, as the TPU kernel's ``compute_dtype`` does: every product, the
+encoder's and the output layer's included, on operands rounded to bf16,
+summed in fp32; biases, activations and derivative state in fp32.
 
 ``fused_posendf_forward`` launches it for a CUDA tensor and runs its plain
 PyTorch version, ``fused_posendf_forward_ref``, for a CPU tensor. Under
 autograd it is a ``torch.autograd.Function`` whose backward differentiates
 the plain version, as the JAX kernel's ``custom_vjp`` differentiates the
-XLA formula; that backward is itself differentiable. This module also holds
-:class:`FieldWeights`, the view of a model that the kernels read, and its
-packing into device buffers: :class:`Packed` for the train kernels and
-:class:`TcPacked` (:func:`pack_tc`) for the three field kernels.
+XLA formula; that backward is itself differentiable (in bf16 it raises,
+as JAX's does). This module also holds :class:`FieldWeights`, the view of a
+model that the kernels read, and its packing into device buffers:
+:class:`Packed` for the train kernels and :class:`TcPacked` for the three
+field kernels (:func:`pack_tc` in fp32, :func:`pack_bf16` in bf16).
 """
 
 from __future__ import annotations
@@ -26,11 +31,13 @@ import torch
 
 from posendf_torch import _build
 from posendf_torch.models.activations import resolve
+from posendf_torch.models.dfnet import bf16_round
 from posendf_torch.quat import joint_axis_normalize
 
 __all__ = ["FieldWeights", "fused_posendf_forward", "fused_posendf_forward_ref", "replay_backward",
-           "int_table", "aligned_contiguous", "TcPacked", "pack_tc", "tc_width", "tc_widths",
-           "tc_schedule", "tc_slab_offsets", "TC_CHUNK", "LAUNCHES"]
+           "int_table", "aligned_contiguous", "TcPacked", "pack_tc", "pack_bf16", "tc_width",
+           "tc_widths", "tc_schedule", "tc_slab_offsets", "bf16_slab_offsets", "operand",
+           "bf16_hold", "TC_CHUNK", "BF16_SLAB", "LAUNCHES"]
 
 # launches of the forward kernel since the count was last set to 0
 LAUNCHES = 0
@@ -52,27 +59,33 @@ class Packed:
 @dataclass
 class FieldWeights:
     """What the fused kernels need from a PoseNDF: the parent table, the
-    activation and the parameter tensors themselves (not copies, so the
-    plain versions always see the current values)."""
+    activation, the parameter tensors themselves (not copies, so the plain
+    versions always see the current values) and the module's compute dtype,
+    "float32" or "bfloat16"."""
 
     parents: Tuple[int, ...]
     activation: str
     beta: float
     enc: Dict[str, torch.Tensor]
     layers: List[Tuple[torch.Tensor, torch.Tensor]]
+    compute_dtype: str = "float32"
     _packed: Optional[Packed] = field(default=None, repr=False)
     _tc: Optional["TcPacked"] = field(default=None, repr=False)
 
     @classmethod
     def from_module(cls, module) -> "FieldWeights":
-        if not module.use_encoder:
+        if not module.use_encoder or module.ff_enc:
             raise ValueError("the fused kernels support the standard encoder+DFNet "
-                             "architecture (use_encoder=True)")
+                             "architecture (use_encoder=True, ff_enc=False)")
         enc = module.enc
         return cls(parents=tuple(module.parents), activation=module.activation,
                    beta=float(module.beta),
                    enc={"w1": enc.w1, "b1": enc.b1, "w2": enc.w2, "b2": enc.b2},
-                   layers=module.dfnet.layers())
+                   layers=module.dfnet.layers(), compute_dtype=module.compute_dtype)
+
+    @property
+    def bf16(self) -> bool:
+        return self.compute_dtype == "bfloat16"
 
     @property
     def num_joints(self) -> int:
@@ -97,9 +110,10 @@ class FieldWeights:
         return self._packed
 
     def tc_packed(self) -> "TcPacked":
-        """The field kernels' weights (:func:`pack_tc`), built once and reused."""
+        """The field kernels' weights (:func:`pack_tc`, or :func:`pack_bf16`
+        in bf16), built once and reused."""
         if self._tc is None:
-            self._tc = pack_tc(self)
+            self._tc = pack_bf16(self) if self.bf16 else pack_tc(self)
         return self._tc
 
 
@@ -279,6 +293,19 @@ class _TcPlan:
     order: List[Tuple[str, int, int, int, int]]
 
 
+def _weight_ids(shapes: Tuple[Tuple[int, int], ...], widths: Tuple[int, ...], zero: int) -> dict:
+    """The ids of the weights W_l of ``shapes`` (in, out), flattened one after
+    another, as each padded matrix the slabs cut: {("w", l): (D_l, D_l+1),
+    ("wt", l): its transpose}, padding ``zero``."""
+    mats, base = {}, 0
+    for l, (i, o) in enumerate(shapes):
+        m = torch.full((widths[l], widths[l + 1]), zero, dtype=torch.int64)
+        m[:i, :o] = torch.arange(base, base + i * o).view(i, o)
+        mats["w", l], mats["wt", l] = m, m.t()
+        base += i * o
+    return mats
+
+
 @functools.lru_cache(maxsize=None)
 def _tc_plan(shapes: Tuple[Tuple[int, int], ...], device: str) -> _TcPlan:
     """The plan of hidden layers of ``shapes`` (in, out) on ``device``: the
@@ -289,12 +316,7 @@ def _tc_plan(shapes: Tuple[Tuple[int, int], ...], device: str) -> _TcPlan:
     header, fwd, bwd, fslabs, bslabs = tc_schedule(widths)
     total = sum(i * o for i, o in shapes)
     zero = 2 * total
-    mats, base = {}, 0
-    for l, (i, o) in enumerate(shapes):
-        m = torch.full((widths[l], widths[l + 1]), zero, dtype=torch.int64)
-        m[:i, :o] = torch.arange(base, base + i * o).view(i, o)
-        mats["w", l], mats["wt", l] = m, m.t()
-        base += i * o
+    mats = _weight_ids(shapes, widths, zero)
     order = fslabs + bslabs
     cut = {key: _slab_ids(mats[key[:2]], key[2], total, zero)
            for key in {(kind, l, cols) for kind, l, _, _, cols in order}}
@@ -309,7 +331,8 @@ def _tc_plan(shapes: Tuple[Tuple[int, int], ...], device: str) -> _TcPlan:
 class TcPacked:
     """A field's weights as the field kernels read them, on one device."""
 
-    slabs: torch.Tensor           # (nfwd + nbwd, TC_SLAB_FLOATS) fp32, in the order they are read
+    slabs: torch.Tensor           # (nfwd + nbwd, TC_SLAB_FLOATS) fp32, in the order they are
+                                  # read; bf16: (nfwd + nbwd, BF16_SLAB) bf16
     vec: torch.Tensor             # padded biases of layers 0..L-2 | output layer's w (padded) | b
     prog: torch.Tensor            # int32: the header, the forward's steps, the backward's
     widths: Tuple[int, ...]       # padded widths D[0..L-1]
@@ -317,6 +340,32 @@ class TcPacked:
     nbwd: int                     # slabs of the backward
     zsum: int                     # pre-activation floats a pose (padded hidden widths)
     order: List[Tuple[str, int, int, int, int]]   # (matrix, layer, K block, column group, columns)
+    enc: Optional[torch.Tensor] = None   # bf16: the encoder's w1 | b1 | w2 | b2, w1, w2 rounded
+    bf16: bool = False
+
+
+def _tc_check(w: FieldWeights) -> Tuple[Tuple[int, int], ...]:
+    """The hidden layers' shapes (in, out), once the field kernels are known
+    to take the field."""
+    J, F, L = w.num_joints, w.feature_size, len(w.layers)
+    if J > _MAX_JOINTS or F > _MAX_FEATURE or L > _MAX_LAYERS or L < 2:
+        raise ValueError(f"the field kernels take at most {_MAX_JOINTS} joints, feature size "
+                         f"{_MAX_FEATURE} and 2 to {_MAX_LAYERS} layers; got {J}, {F}, {L}")
+    if w.layers[-1][0].shape[1] != 1:
+        raise ValueError("the last DFNet layer must have one output")
+    return tuple(tuple(wl.shape) for wl, _ in w.layers[:-1])
+
+
+def _tc_vec(w: FieldWeights, widths: Tuple[int, ...]) -> torch.Tensor:
+    """The padded biases of the hidden layers | the output layer's w (padded;
+    rounded to bf16 in bf16) | its b, fp32."""
+    def pad(t: torch.Tensor, n: int) -> torch.Tensor:
+        flat = t.detach().reshape(-1).float()
+        return torch.cat([flat, flat.new_zeros(n - flat.numel())])
+
+    w_out, b_out = w.layers[-1]
+    return torch.cat([pad(b, widths[l + 1]) for l, (_, b) in enumerate(w.layers[:-1])] +
+                     [pad(operand(w)(w_out.detach()), widths[-1]), pad(b_out, 4)]).contiguous()
 
 
 def pack_tc(w: FieldWeights) -> TcPacked:
@@ -329,29 +378,159 @@ def pack_tc(w: FieldWeights) -> TcPacked:
     few launches."""
     from posendf_torch.ops.fused_train import tf32_split
 
-    J, F, L = w.num_joints, w.feature_size, len(w.layers)
-    if J > _MAX_JOINTS or F > _MAX_FEATURE or L > _MAX_LAYERS or L < 2:
-        raise ValueError(f"the field kernels take at most {_MAX_JOINTS} joints, feature size "
-                         f"{_MAX_FEATURE} and 2 to {_MAX_LAYERS} layers; got {J}, {F}, {L}")
-    if w.layers[-1][0].shape[1] != 1:
-        raise ValueError("the last DFNet layer must have one output")
-    plan = _tc_plan(tuple(tuple(wl.shape) for wl, _ in w.layers[:-1]), str(w.device))
-    widths = plan.widths
+    if w.bf16:
+        raise ValueError("pack_tc packs an fp32 field; a bf16 one is pack_bf16's")
+    plan = _tc_plan(_tc_check(w), str(w.device))
     with torch.no_grad():
         hi, lo = tf32_split(torch.cat([wl.detach().reshape(-1).float()
                                        for wl, _ in w.layers[:-1]]))
         src = torch.cat([hi, lo, hi.new_zeros(1)])
         slabs = torch.index_select(src, 0, plan.index).view(-1, TC_SLAB_FLOATS)
-
-        def pad(t: torch.Tensor, n: int) -> torch.Tensor:
-            flat = t.detach().reshape(-1).float()
-            return torch.cat([flat, flat.new_zeros(n - flat.numel())])
-
-        w_out, b_out = w.layers[-1]
-        vec = torch.cat([pad(b, widths[l + 1]) for l, (_, b) in enumerate(w.layers[:-1])] +
-                        [pad(w_out, widths[-1]), pad(b_out, 4)]).contiguous()
-    return TcPacked(slabs=slabs, vec=vec, prog=plan.prog, widths=widths, nfwd=plan.nfwd,
+        vec = _tc_vec(w, plan.widths)
+    return TcPacked(slabs=slabs, vec=vec, prog=plan.prog, widths=plan.widths, nfwd=plan.nfwd,
                     nbwd=plan.nbwd, zsum=plan.zsum, order=plan.order)
+
+
+# ---- the field kernels' bf16 weights ----
+#
+# The bf16 route reads the slabs of the same program (tc_schedule), in the
+# same order, each holding the same block of a weight matrix: 128 output
+# columns x 32 of K (64 x 64 for the first product of a chain), rounded to
+# bf16, one 128-byte line a column in the K-major 128-byte swizzle (a k16
+# step reads 32 bytes of each line). A 128-column slab fills the first 64
+# bytes of its lines, a 64-column one its 64 lines whole; the rest of the
+# BF16_SLAB elements (16 KB) are zeros. K is in feature order: a thread's
+# bf16 A registers hold features 2(t%4), +1, +8, +9 of a k16 step, the
+# columns its accumulators hold in two adjacent 8-column groups.
+
+BF16_SLAB = 8192      # bf16 elements a slab: 16 KB, 128 lines of 128 bytes
+
+
+def bf16_slab_offsets(rows: int, kl: int) -> torch.Tensor:
+    """Where a bf16 slab keeps element (line r, K position k < kl <= 64):
+    (rows, kl) offsets in bf16 elements, byte 2k of line r at
+    csrc/hopper.cuh's sw128_offset."""
+    r = torch.arange(rows)[:, None]
+    k = torch.arange(kl)[None, :]
+    return (r // 8) * 512 + (r % 8) * 64 + ((k // 8) ^ (r % 8)) * 8 + k % 8
+
+
+def _bf16_slab_ids(m: torch.Tensor, cols: int, zero: int) -> torch.Tensor:
+    """Every bf16 slab of an (N, K) matrix of element ids: (K / kl, N / cols,
+    BF16_SLAB) ids, kl = 32 (cols 128) or 64 (cols 64), padding ``zero``."""
+    N, K = m.shape
+    kl = TC_SLAB_FLOATS // 2 // cols
+    b = m.reshape(N // cols, cols, K // kl, kl).permute(2, 0, 1, 3)
+    out = torch.full((K // kl, N // cols, BF16_SLAB), zero, dtype=m.dtype)
+    out[..., bf16_slab_offsets(cols, kl).reshape(-1)] = b.reshape(K // kl, N // cols, -1)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _bf16_index(shapes: Tuple[Tuple[int, int], ...], device: str) -> torch.Tensor:
+    """The bf16 slabs of hidden layers of ``shapes`` (in, out) as one gather:
+    slab element f is element index[f] of the weights W_l flattened one after
+    another and followed by one zero."""
+    plan = _tc_plan(shapes, "cpu")
+    total = sum(i * o for i, o in shapes)
+    mats = _weight_ids(shapes, plan.widths, total)
+    cut = {key: _bf16_slab_ids(mats[key[:2]], key[2], total)
+           for key in {(kind, l, cols) for kind, l, _, _, cols in plan.order}}
+    index = torch.stack([cut[kind, l, cols][kb, cg] for kind, l, kb, cg, cols in plan.order])
+    return index.reshape(-1).to(device=device, dtype=torch.int32)
+
+
+def pack_bf16(w: FieldWeights) -> TcPacked:
+    """The field kernels' bf16 weights: :func:`pack_tc`'s program and slab
+    order, each slab its block of the zero-padded W^T (forward) or W
+    (backward) rounded to bf16 (the layout above); the biases in fp32, the
+    output layer's w rounded to bf16 (kept as fp32) and its b; the
+    encoder's w1 | b1 | w2 | b2 with w1 and w2 rounded to bf16."""
+    if not w.bf16:
+        raise ValueError("pack_bf16 packs a field whose compute_dtype is 'bfloat16'")
+    shapes = _tc_check(w)
+    plan = _tc_plan(shapes, str(w.device))
+    with torch.no_grad():
+        flat = torch.cat([wl.detach().reshape(-1).to(torch.bfloat16) for wl, _ in w.layers[:-1]])
+        src = torch.cat([flat, flat.new_zeros(1)])
+        slabs = torch.index_select(src, 0, _bf16_index(shapes, str(w.device))).view(-1, BF16_SLAB)
+        enc = torch.cat([(bf16_round(w.enc[k]) if k in ("w1", "w2") else w.enc[k])
+                         .detach().reshape(-1).float() for k in ("w1", "b1", "w2", "b2")])
+        vec = _tc_vec(w, plan.widths)
+    return TcPacked(slabs=slabs, vec=vec, prog=plan.prog, widths=plan.widths, nfwd=plan.nfwd,
+                    nbwd=plan.nbwd, zsum=plan.zsum, order=plan.order, enc=enc.contiguous(),
+                    bf16=True)
+
+
+# How a bf16 result is held to a reference computed in bf16 elsewhere (the
+# kernel to its plain version, the port to JAX). Both round the same operands
+# to bf16, but their fp32 sums differ in order by a few units in the last
+# place, and where a value lies that close to a bf16 rounding tie (or an
+# activation's kink) the two round it to neighbouring bf16 values: the pose's
+# result then moves by what one bf16 spacing of one operand carries to it,
+# up to the order of the bf16-vs-fp32 gap itself. No per-pose bar both admits
+# that and stays tight, so the hold is on shares and means, each against the
+# gap (the same reference's distance from the fp32 result on the same poses).
+# Each bar sits between the largest reading of a sound result and the
+# smallest of a result with one rounding left out (CPU: the port's plain
+# versions and module path against JAX's, 128 poses of seeded lrelu, relu
+# and softplus fields and the trained field's 256 probes, with planted
+# faults; H100: the kernels against their plain versions):
+#  * a pose is off where any of its values differs by more than
+#    atol + rtol |want| (the fp32 bars: summation order only); at most
+#    BF16_OFF_SHARE of the poses may be off. Sound: up to 0.289 (the port's
+#    module path g against JAX's on the seeded softplus field, whose g is
+#    small), 0.172 for the plain kernel versions, 0.128 for the kernels on
+#    the card. One rounding left out: 0.766 and more on what it touches (the
+#    g cast before the 1024-wide layer's transposed product; the output
+#    layer's operand; the encoder's), 1.0 for an fp32 result. At least
+#    BF16_GAP_SHARE of the poses must be that far from the fp32 result, and
+#    atol at most half the gap's median pose (asserted: the bar tells bf16
+#    from fp32);
+#  * the mean over poses of each pose's largest error is at most
+#    BF16_MEAN_RATIO of the same mean of the gap. Sound: up to 0.103 (CPU,
+#    as above), 0.051 on the card; the encoder's operands unrounded 0.58 and
+#    more, an fp32 result 1.0. One cast dropped elsewhere can read as little
+#    as 0.045 (the backward's) or 0.164 (the output layer's, on the trained
+#    field): the share catches those;
+#  * the largest error is at most BF16_MAX_RATIO of the largest gap: one
+#    tie moves a pose by up to about the gap (sound: up to 0.685 on the
+#    CPU), so a pose beyond twice the gap is a fault, not a tie.
+# A fault in one CTA alone (a ragged tail, a later wave) can stay under the
+# shares; the card checks those by moving the poses between CTAs
+# (``chip_smoke.hold_reversed``, to the bit).
+BF16_OFF_SHARE, BF16_GAP_SHARE, BF16_MEAN_RATIO, BF16_MAX_RATIO = 0.45, 0.8, 0.2, 2.0
+
+
+def bf16_hold(name: str, got: torch.Tensor, want: torch.Tensor, fp32: torch.Tensor, *,
+              atol: float, rtol: float = 0.0) -> dict:
+    """Hold ``got`` to ``want`` (both bf16 results; the first dimension is
+    the pose) by the rule above, ``fp32`` being the fp32 result on the same
+    poses. Returns the measured shares and means; raises AssertionError."""
+    got, want, fp32 = (t.detach().double().cpu().reshape(t.shape[0], -1)
+                       for t in (got, want, fp32))
+    if got.shape != want.shape or fp32.shape != want.shape:
+        raise AssertionError(f"{name}: shapes {tuple(got.shape)}, {tuple(want.shape)}, "
+                             f"{tuple(fp32.shape)}")
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{name}: non-finite values")
+    bar = atol + rtol * want.abs()
+    err, gap = (got - want).abs(), (fp32 - want).abs()
+    st = dict(off=float((err > bar).any(1).double().mean()),
+              gap_off=float((gap > bar).any(1).double().mean()),
+              mean=float(err.amax(1).mean()), gap_mean=float(gap.amax(1).mean()),
+              max=float(err.max()), gap_max=float(gap.max()),
+              gap_median=float(gap.amax(1).median()))
+    msg = (f"{name}: {st['off']:.4f} of the poses beyond atol={atol} rtol={rtol} (bf16 vs fp32: "
+           f"{st['gap_off']:.4f}); mean pose error {st['mean']:.3e} (gap {st['gap_mean']:.3e}); "
+           f"max {st['max']:.3e} (gap {st['gap_max']:.3e})")
+    if st["gap_off"] < BF16_GAP_SHARE or 2 * atol > st["gap_median"]:
+        raise AssertionError(f"{msg}: the bar does not tell bf16 from fp32 "
+                             f"(median gap {st['gap_median']:.3e})")
+    if (st["off"] > BF16_OFF_SHARE or st["mean"] > BF16_MEAN_RATIO * st["gap_mean"]
+            or st["max"] > BF16_MAX_RATIO * st["gap_max"]):
+        raise AssertionError(msg)
+    return st
 
 
 def check_poses(quat: torch.Tensor, weights: FieldWeights) -> None:
@@ -376,12 +555,14 @@ def aligned_contiguous(t: torch.Tensor) -> torch.Tensor:
 
 
 def common_args(quat: torch.Tensor, weights: FieldWeights) -> list:
-    """The launchers' leading arguments, shared by the three kernels."""
+    """The launchers' leading arguments, shared by the three kernels; the
+    last one picks the route (0: 3xTF32, 1: bf16)."""
     pk, tc = weights.packed(), weights.tc_packed()
-    return [quat.data_ptr(), quat.shape[0], pk.enc.data_ptr(), pk.parents.data_ptr(),
+    enc = pk.enc if tc.enc is None else tc.enc
+    return [quat.data_ptr(), quat.shape[0], enc.data_ptr(), pk.parents.data_ptr(),
             weights.num_joints, weights.feature_size, tc.slabs.data_ptr(), tc.vec.data_ptr(),
             tc.prog.data_ptr(), tc.nfwd, tc.nbwd, _build.ACT_CODES[weights.activation],
-            weights.beta]
+            weights.beta, int(tc.bf16)]
 
 
 def packed_once(cache: Dict[tuple, tuple], tensors: Tuple[torch.Tensor, ...], pack,
@@ -406,25 +587,36 @@ def stream_handle(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def operand(weights: FieldWeights):
+    """How the kernels take a product's operands: as they are (fp32), or
+    rounded to bf16 (:func:`~posendf_torch.models.dfnet.bf16_round`)."""
+    return bf16_round if weights.bf16 else (lambda t: t)
+
+
 def field_forward_ref(x: torch.Tensor, weights: FieldWeights, keep: bool = False):
     """Plain forward over pre-normalized poses x (B, J, 4), walking the joints
     in index order as the kernel does. Returns d (B, 1) and, with ``keep``,
-    the pre-activations the backward needs: (encoder h, encoder f, DFNet z)."""
+    the pre-activations the backward needs: (encoder h, encoder f, DFNet z).
+    In bf16 both operands of every product are rounded to bf16 (the poses, a
+    parent's feature, h, every DFNet input; the weights) and their products
+    summed in fp32, as the TPU kernel's ``cast`` rounds them."""
     act, out_act = resolve(weights.activation, weights.beta)
+    c = operand(weights)
     w1, b1, w2, b2 = (weights.enc[k] for k in ("w1", "b1", "w2", "b2"))
+    w1, w2 = c(w1), c(w2)
     B, F = x.shape[0], weights.feature_size
     zero = x.new_zeros((B, F))
     feats, zh, zf = [], [], []
     for j, p in enumerate(weights.parents):
         inp = torch.cat([x[:, j], zero if p == -1 else feats[p]], dim=-1)   # (B, 4+F)
-        zh.append(torch.matmul(inp, w1[j]) + b1[j])
-        zf.append(torch.matmul(act(zh[j]), w2[j]) + b2[j])
+        zh.append(torch.matmul(c(inp), w1[j]) + b1[j])
+        zf.append(torch.matmul(c(act(zh[j])), w2[j]) + b2[j])
         feats.append(act(zf[j]))
     h = torch.cat(feats, dim=-1)
     zs = []
     L = len(weights.layers)
     for l, (w, b) in enumerate(weights.layers):
-        z = torch.matmul(h, w) + b
+        z = torch.matmul(c(h), c(w)) + b
         if l < L - 1:
             zs.append(z)
             h = act(z)
@@ -484,6 +676,12 @@ class _FusedForward(torch.autograd.Function):
     def backward(ctx, grad):
         (quat,) = ctx.saved_tensors
         weights = ctx.weights
+        if weights.bf16:
+            # as JAX's custom_vjp refuses it: its fallback is the fp32 function's gradient
+            raise NotImplementedError(
+                "differentiating through the fused whole-model forward with "
+                "compute_dtype='bfloat16' is unsupported; use the module path "
+                "(Field.distance / distance_and_grad) for gradients")
         g_quat, *g_params = replay_backward(
             lambda q: fused_posendf_forward_ref(q, weights), quat, weights.tensors(), grad,
             ctx.needs_input_grad[0])
@@ -495,7 +693,8 @@ def fused_posendf_forward(quat: torch.Tensor, weights: FieldWeights) -> torch.Te
 
     A CUDA tensor goes through the kernel, a CPU tensor through the plain
     version; both are differentiable, twice (the backward is the plain
-    version's, see :func:`replay_backward`).
+    version's, see :func:`replay_backward`), but for a bf16 field, whose
+    backward raises, as JAX's does.
     """
     check_poses(quat, weights)
     if quat.device.type == "cuda":

@@ -53,10 +53,11 @@ def _check_args(w: FieldWeights, pose, dist_gt, man_poses, loss_type: str,
         raise ValueError(
             f"fused_train_grads supports lrelu/relu (got {w.activation!r}); "
             "use ops.train_grad.manual_train_grads or autodiff for softplus")
-    if compute_dtype != "float32":
+    if compute_dtype != "float32" or w.bf16:
         raise ValueError(
             "fused_train_grads computes parameter gradients in fp32 only "
-            f"(got compute_dtype={compute_dtype!r}); bf16 buys no speed "
+            f"(got compute_dtype={compute_dtype!r}, a field of "
+            f"{w.compute_dtype!r}); bf16 buys no speed "
             "here and corrupts near-cancelling gradient sums")
     if loss_type not in ("l1", "l2"):
         raise ValueError(f"unknown loss_type {loss_type!r}")

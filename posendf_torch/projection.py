@@ -45,7 +45,9 @@ def project(field: Field, poses: torch.Tensor, steps: int = 10, renormalize: boo
       renormalize: re-normalize each joint quaternion after every step.
       step_scale: multiplier on the d * grad step.
       tangent: remove each joint's radial gradient component before stepping.
-      fused: one kernel launch per step (``ops/fused_grad.py``).
+      fused: one kernel launch per step (``ops/fused_grad.py``), in the
+        module's compute dtype; the standard encoder + DFNet only
+        (``ff_enc`` raises ValueError, as in JAX).
 
     Returns:
       (projected poses (B, 21, 4), distance history (steps, B)); history[i]

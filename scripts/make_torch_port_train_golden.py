@@ -17,9 +17,15 @@ too slow at full width on the CPU. The poses are not stored: both sides
 draw them from the stored seeds with :func:`make_inputs`, numpy only.
 Output: ``tests/data/torch_port_train_expected.npz`` (under 1 MB).
 ``chip_smoke.py`` holds the port's CUDA train kernels to it, and
-``tests/test_torch_training.py`` the port's CPU path. Usage::
+``tests/test_torch_training.py`` the port's CPU path.
 
-    JAX_PLATFORMS=cpu python scripts/make_torch_port_train_golden.py
+With ``--relu``, only the gradient (the loss terms, the total and the
+per-leaf summaries) of the same checkpoint's weights with relu activations
+(encoder and DFNet), at the same poses, into
+``tests/data/torch_port_relu_train_expected.npz``: the field that runs the
+train tile kernel's relu instance. Usage::
+
+    JAX_PLATFORMS=cpu python scripts/make_torch_port_train_golden.py [--relu]
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CKPT = os.path.join(ROOT, "docs", "quality", "ckpt_l8_best.msgpack")
 OUT = os.path.join(ROOT, "tests", "data", "torch_port_train_expected.npz")
+RELU_OUT = os.path.join(ROOT, "tests", "data", "torch_port_relu_train_expected.npz")
 SEED = 20261016
 ROWS = 2048          # noisy poses, and manifold poses, per batch
 STEPS = 3
@@ -88,8 +95,11 @@ def main() -> None:
     from posendf_tpu.losses import training_loss
     from posendf_tpu.training.trainer import make_optimizer, make_train_step
 
+    relu = "--relu" in sys.argv[1:]
     cfg = PoseNDFConfig()
     cfg.dfnet.precision = "highest"
+    if relu:
+        cfg.dfnet.act = cfg.strenc.act = "relu"
     field = load_field(CKPT, config=cfg)
     module, params = field.module, field.params
     out = {"seed": np.int64(SEED), "rows": np.int64(ROWS), "steps": np.int64(STEPS),
@@ -102,6 +112,11 @@ def main() -> None:
     for k, v in terms.items():
         out[f"grad_term_{k}"] = np.float64(v)
     summarize("grad", _flat(grads), out)
+    if relu:
+        np.savez_compressed(RELU_OUT, **out)
+        print(f"wrote {RELU_OUT} ({os.path.getsize(RELU_OUT)} bytes): total {float(total):.6f}, "
+              f"terms {[float(v) for v in terms.values()]}")
+        return
 
     opt = make_optimizer(LR, WEIGHT_DECAY)
     step = jax.jit(make_train_step(module, opt, loss_type="l1",

@@ -189,12 +189,15 @@ def test_fresh_init_layout_matches_jax():
 
 
 def test_unported_options_raise():
-    """ff_enc and bf16 still raise; strenc.fused (ported since) builds the
-    encoder on its kernel, with the same weights as the plain encoder."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PoseNDF(ff_enc=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PoseNDF(compute_dtype="bfloat16")
+    """Every option is ported now: ff_enc and bf16 construct (their values
+    are held to JAX in tests/test_torch_bf16.py and test_torch_pos_encoder.py)
+    and an unknown compute dtype raises; strenc.fused builds the encoder on
+    its kernel, with the same weights as the plain encoder."""
+    ff = PoseNDF(ff_enc=True, ff_freqs=2)
+    assert ff.dfnet.w0.shape == (126 * 5, 256) and ff.ff_freqs == 2
+    assert PoseNDF(compute_dtype="bfloat16").dfnet.compute_dtype == "bfloat16"
+    with pytest.raises(ValueError, match="compute_dtype"):
+        PoseNDF(compute_dtype="float16")
     cfg = PoseNDFConfig()
     cfg.strenc.fused = True
     fused = cfg.make_model()

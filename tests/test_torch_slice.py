@@ -51,7 +51,9 @@ def test_import_loads_no_jax():
             "posendf_torch.data.splits, posendf_torch.data.pipeline, "
             "posendf_torch.training.metrics, posendf_torch.training.checkpoints, "
             "posendf_torch.training.init_utils, posendf_torch.training.trainer, "
-            "posendf_torch.ops.fused_int8, posendf_torch.ops.int8_probe, posendf_torch.export\n"
+            "posendf_torch.ops.fused_int8, posendf_torch.ops.int8_probe, posendf_torch.export, "
+            "posendf_torch.models.pos_encoder, posendf_torch.models.dfnet, "
+            "posendf_torch.ops.fused_model, posendf_torch.ops.fused_grad\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "{'jax', 'jaxlib', 'flax', 'msgpack', 'yaml', 'posendf_tpu'})\n"
             "assert not bad, bad\n")

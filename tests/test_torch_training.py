@@ -43,6 +43,7 @@ torch.backends.cudnn.allow_tf32 = False
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 L8 = os.path.join(ROOT, "docs", "quality", "ckpt_l8_best.msgpack")
 TRAIN_EXPECTED = os.path.join(ROOT, "tests", "data", "torch_port_train_expected.npz")
+RELU_TRAIN_EXPECTED = os.path.join(ROOT, "tests", "data", "torch_port_relu_train_expected.npz")
 GRAD_TOL = 2e-5
 DIMS = (32, 48, 16)
 WEIGHTS = dict(weight_dist=0.7, weight_man=2.5, weight_eikonal=0.3)
@@ -214,3 +215,24 @@ def test_plain_path_reproduces_the_jax_train_golden():
         assert err.max() <= 2 * steps * lr and np.mean(err > lr / 20) <= 0.01, k
         np.testing.assert_allclose(float(a.norm()), float(ref[f"param_norm_{k}"]), rtol=1e-6,
                                    err_msg=k)
+
+
+def test_plain_path_reproduces_the_jax_relu_train_golden():
+    """The trained weights with relu activations (the field that runs the
+    train tile kernel's relu instance on the card), 2,048 + 2,048 poses: the
+    train kernels' plain version against the JAX package's autodiff
+    gradient (``scripts/make_torch_port_train_golden.py --relu``), at the
+    bars of the lrelu golden."""
+    from posendf_torch.config import PoseNDFConfig
+
+    ref = np.load(RELU_TRAIN_EXPECTED)
+    cfg = PoseNDFConfig()
+    cfg.dfnet.act = cfg.strenc.act = "relu"
+    field = posendf_torch.load_field(L8, config=cfg, device="cpu")
+    assert field.module.activation == "relu"
+    pose, dist, man = map(torch.from_numpy, _golden_inputs()(int(ref["seed"]), int(ref["rows"])))
+    total, terms, grads = fused_train.fused_train_grads(field.weights(), pose, dist, man)
+    np.testing.assert_allclose(float(total), float(ref["grad_total"]), rtol=1e-5)
+    for k in terms:
+        np.testing.assert_allclose(float(terms[k]), float(ref[f"grad_term_{k}"]), rtol=1e-5)
+    _assert_summaries("grad", grads, ref, GRAD_TOL)
