@@ -25,7 +25,10 @@ tensor-core probe:
      permuted-then-viewed tensor against the contiguous result, to the bit
      (``distance_fused``'s gradient through the copy too); the forward and
      value-and-grad kernels of a seeded softplus and a seeded relu field at
-     the trained widths against their plain versions
+     the trained widths against their plain versions, and the value-and-grad
+     on their poses reversed, to the bit; the same for a seeded 32-joint
+     softplus field of 8 features (the encoder walks at a run-time width,
+     the poses read from device memory)
   5. against the JAX package: d, g and a 10-step projection of 256 probes
      vs ``tests/data/torch_port_l8_expected.npz``
   6. main path: ``distance_fused``, ``distance_and_grad_fused`` and a
@@ -38,15 +41,21 @@ tensor-core probe:
      same rounds; the forward at 10,000 and at 131,072 poses (the latter in
      the ``kernels`` line)
  4b. the bf16 route (the trained field loaded with
-     ``compute_dtype="bfloat16"``): at B = 4096 and a ragged B = 1000 the
-     bf16 forward, value-and-grad and projection-step kernels, and 5
-     steps of ``project(fused=True)``, against their bf16 plain versions;
-     the three entry points on a strided and a permuted view against the
-     contiguous result, to the bit; the three kernels on the poses in
-     reverse order (the ragged tail CTA's poses then in the first CTA)
-     against the result reversed, to the bit; the forward and value-and-grad of seeded
-     softplus and relu bf16 fields at the trained widths against their
-     plain versions. Each held by ``fused_model.bf16_hold`` (below), which
+     ``compute_dtype="bfloat16"``): at B = 4096 and the ragged B = 4159
+     (65 CTAs, an odd count) and 1000 the bf16 forward, value-and-grad and
+     projection-step kernels, and 5 steps of ``project(fused=True)``,
+     against their bf16 plain versions; the three entry points on a strided
+     and a permuted view (4159 poses) against the contiguous result, to the
+     bit; the three kernels on the poses in reverse order (the ragged tail
+     CTA's poses then in the first CTA) against the result reversed, to the
+     bit; the forward and value-and-grad of seeded softplus and relu bf16
+     fields at the trained widths (softplus keeps fp32 pre-activations,
+     lrelu and relu a bit a unit) against their plain versions, and the
+     three kernels on their poses reversed; the 32-joint field of
+     phase 4 in bf16; the derivative-state
+     scratch of each activation (a bit a unit: at most 1/32 of softplus's
+     floats).
+     Each held by ``fused_model.bf16_hold`` (below), which
      also asserts that the bf16 kernel's result is beyond the bar from the
      fp32 kernel's on most poses: a route that ran fp32 fails
  5b. against the JAX package: the bf16 kernels' d, g and a 10-step
@@ -678,6 +687,25 @@ def main() -> None:
         assert_close(f"{act} field: value-and-grad kernel d vs ref", d_k, d_p, atol=D_ATOL)
         assert_rows_close(f"{act} field: value-and-grad kernel g vs ref", g_k, g_p, g_64,
                           atol=G_ATOL, kink=torch.cat(zs, 1).abs().amin(1))
+        with torch.no_grad():   # each act's derivative state (a bit a unit, or fp32), any CTA
+            hold_reversed(f"{act} field: value-and-grad kernel, B = 1000",
+                          lambda p: fused_grad.fused_distance_and_grad(p, w_act), q)
+    # the encoder walks at a feature width other than 6 and poses past the ring's space
+    module = wide_encoder_field("float32")
+    w_wide = fused_model.FieldWeights.from_module(module)
+    w_wide64 = fused_model.FieldWeights.from_module(copy.deepcopy(module).double())
+    q = torch.nn.functional.normalize(torch.randn((1000, 32, 4), generator=gen_act).cuda(), dim=-1)
+    with torch.no_grad():
+        d_p, g_p = fused_grad.fused_distance_and_grad_ref(q, w_wide)
+        _, g_64 = fused_grad.fused_distance_and_grad_ref(q.double(), w_wide64)
+        d_k, g_k = fused_grad.fused_distance_and_grad(q, w_wide)
+        assert_close("32-joint F=8 field: forward kernel vs ref",
+                     fused_model.fused_posendf_forward(q, w_wide), d_p, atol=D_ATOL)
+        assert_close("32-joint F=8 field: value-and-grad kernel d vs ref", d_k, d_p, atol=D_ATOL)
+        assert_rows_close("32-joint F=8 field: value-and-grad kernel g vs ref", g_k, g_p, g_64,
+                          atol=G_ATOL)
+        hold_reversed("32-joint F=8 field: value-and-grad kernel, B = 1000",
+                      lambda p: fused_grad.fused_distance_and_grad(p, w_wide), q)
 
     # ---- 5. against the JAX package ----
     ref = np.load(EXPECTED)
@@ -809,6 +837,7 @@ def bf16_phases(field, card: str) -> list:
     docstring), the bf16-vs-fp32 gap taken against the fp32 kernels on the
     same poses."""
     import posendf_torch
+    from posendf_torch import _build
     from posendf_torch.config import PoseNDFConfig
     from posendf_torch.models import PoseNDF
     from posendf_torch.ops import fused_grad, fused_model
@@ -842,7 +871,7 @@ def bf16_phases(field, card: str) -> list:
         return q, torch.stack(hist)
 
     # ---- 4 (bf16). the bf16 kernels vs their plain versions on the card ----
-    for B in (4096, 1000):
+    for B in (4096, 4159, 1000):
         log(f"bf16 kernels vs plain, B = {B}")
         q = random_poses(gen, B, device="cuda")
         with torch.no_grad():
@@ -877,7 +906,7 @@ def bf16_phases(field, card: str) -> list:
             hold_reversed(f"bf16 value-and-grad kernel, B = {B}", f16.distance_and_grad_fused, q)
             hold_reversed(f"bf16 projection-step kernel, B = {B}",
                           lambda p: fused_grad.project_step(p, w16), q)
-    q = random_poses(gen, 4096, device="cuda")
+    q = random_poses(gen, 2 * 4159, device="cuda")
     with torch.no_grad():
         hold_strided("bf16 distance_fused", f16.distance_fused, q)
         hold_strided("bf16 distance_and_grad_fused", f16.distance_and_grad_fused, q)
@@ -902,6 +931,32 @@ def bf16_phases(field, card: str) -> list:
             d_k, g_k = fused_grad.fused_distance_and_grad(q, wa16)
             hold(f"{act} field: bf16 value-and-grad kernel d vs ref", d_k, d_p, d_32, atol=D_ATOL)
             hold(f"{act} field: bf16 value-and-grad kernel g vs ref", g_k, g_p, g_32, atol=G_ATOL)
+            for what, fn in (("forward", lambda p: fused_model.fused_posendf_forward(p, wa16)),
+                             ("value-and-grad", lambda p: fused_grad.fused_distance_and_grad(p, wa16)),
+                             ("projection-step", lambda p: fused_grad.project_step(p, wa16))):
+                hold_reversed(f"{act} field: bf16 {what} kernel, B = 1000", fn, q)
+    # the encoder walks at a feature width other than 6 and poses past the ring's space
+    wa16, wa32 = (fused_model.FieldWeights.from_module(wide_encoder_field(cd))
+                  for cd in ("bfloat16", "float32"))
+    q = torch.nn.functional.normalize(torch.randn((1000, 32, 4), generator=gen).cuda(), dim=-1)
+    with torch.no_grad():
+        d_p, g_p = fused_grad.fused_distance_and_grad_ref(q, wa16)
+        d_32, g_32 = fused_grad.fused_distance_and_grad(q, wa32)
+        d_k, g_k = fused_grad.fused_distance_and_grad(q, wa16)
+        hold("32-joint F=8 field: bf16 value-and-grad kernel d vs ref", d_k, d_p, d_32, atol=D_ATOL)
+        hold("32-joint F=8 field: bf16 value-and-grad kernel g vs ref", g_k, g_p, g_32, atol=G_ATOL)
+        hold_reversed("32-joint F=8 field: bf16 value-and-grad kernel, B = 1000",
+                      lambda p: fused_grad.fused_distance_and_grad(p, wa16), q)
+    # the derivative state the value-and-grad and projection-step kernels keep, a launch
+    lib = _build.library()
+    scratch = {act: lib.posendf_field_scratch_floats(MAIN_BATCH, w16.num_joints, w16.feature_size,
+                                                    tc.zsum, _build.ACT_CODES[act])
+               for act in ("lrelu", "relu", "softplus")}
+    if not scratch["lrelu"] == scratch["relu"] <= scratch["softplus"] // 32:
+        raise AssertionError(f"derivative-state scratch at B = {MAIN_BATCH}: {scratch} floats")
+    log(f"  derivative state in device memory at B = {MAIN_BATCH}: {4 * scratch['lrelu']} bytes for "
+        f"lrelu and relu (a bit a unit; the encoder's in shared memory), {4 * scratch['softplus']} "
+        f"for softplus (fp32 pre-activations)")
 
     # ---- 5 (bf16). against the JAX package ----
     ref, ref32 = np.load(BF16_EXPECTED), np.load(EXPECTED)
@@ -1021,6 +1076,23 @@ def bf16_phases(field, card: str) -> list:
          "max_abs_err": errs["proj"], "ms": step_ms, "plain_ms": step_plain_ms,
          "bound_ms": vag_bound[0], "bound_by": vag_bound[1], "library_ms": step_lib_ms},
     ]
+
+
+def wide_encoder_field(compute_dtype: str):
+    """A seeded softplus field whose encoder the field kernels walk with the
+    feature width at run time and the poses read from device memory (32
+    joints of 8 features: its rows and poses do not both fit the ring's
+    space): a binary tree of joints, DFNet (200, 300), weights doubled."""
+    from posendf_torch.models import PoseNDF
+
+    parents = (-1,) + tuple((j - 1) // 2 for j in range(1, 32))
+    module = PoseNDF(num_joints=32, parents=parents, feature_size=8, dfnet_dims=(200, 300),
+                     activation="softplus", compute_dtype=compute_dtype,
+                     generator=torch.Generator().manual_seed(4)).cuda()
+    with torch.no_grad():
+        for param in module.dfnet.parameters():
+            param.mul_(2.0)
+    return module
 
 
 def traversal_flops(w) -> int:

@@ -55,8 +55,8 @@ _SIGNATURES = {
         "posendf_value_and_grad": (_COMMON + [_P, _P, _P, _P], _I),
         # ..., d_out, q_out, zscratch, step_scale, tangent, renormalize, stream
         "posendf_project_step": (_COMMON + [_P, _P, _P, _F, _I, _I, _P], _I),
-        # (B, J, F, zsum) -> floats of the pre-activation scratch a launch needs
-        "posendf_field_scratch_floats": ([_I, _I, _I, _I], ctypes.c_longlong),
+        # (B, J, F, zsum, act) -> floats of the derivative-state scratch a launch needs
+        "posendf_field_scratch_floats": ([_I, _I, _I, _I, _I], ctypes.c_longlong),
         # () -> dynamic shared memory bytes of one CTA
         "posendf_smem_bytes": ([], _I),
         "posendf_error_string": ([_I], ctypes.c_char_p),

@@ -50,6 +50,17 @@ __device__ __forceinline__ float act_grad(int act, float beta, float z) {
   return 1.f / (1.f + expf(-beta * z));
 }
 
+// lrelu's and relu's act'(z) takes two values, so the field kernels keep it
+// as one bit: act_grad_bit(act, act_bit(act, z)) == act_grad(act, beta, z)
+// for every z (z == 0 and NaN included)
+__device__ __forceinline__ uint32_t act_bit(int act, float z) {
+  return act == kLRelu ? (z >= 0.f ? 1u : 0u) : (z > 0.f ? 1u : 0u);
+}
+
+__device__ __forceinline__ float act_grad_bit(int act, uint32_t bit) {
+  return bit ? 1.f : (act == kLRelu ? 0.01f : 0.f);
+}
+
 // relu'(z) = [relu(z) > 0]; softplus: sigmoid(beta z) = 1 - exp(-beta d)
 __device__ __forceinline__ float out_act_grad_from_value(int act, float beta, float d) {
   if (act == kSoftplus) return 1.f - expf(-beta * d);

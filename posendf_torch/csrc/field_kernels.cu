@@ -23,14 +23,16 @@
 // passes (3xTF32): 8.2 MFLOP a pose a pass at 494.7 TFLOP/s, 2.16 ms for
 // the forward of 131,072 poses and 0.33 ms for a value-and-grad or
 // projection step of 10,000. The design:
-//  * A CTA owns 64 poses (one wgmma M) and two warpgroups. The weights
-//    stream through a ring of two 32 KB slabs in shared memory, copied by
-//    cp.async.bulk under mbarriers; thread 0 refills a slot once both
-//    warpgroups have passed a named barrier after its products, with no
-//    divergent branch near the wgmma (ptxas serializes them otherwise).
+//  * A CTA owns 64 poses (one wgmma M) and two consumer warpgroups. The
+//    weights stream through a ring of two 32 KB slabs in shared memory,
+//    copied by cp.async.bulk under mbarriers; thread 0 refills a slot once
+//    both warpgroups have passed a named barrier after its products, with
+//    no divergent branch near the wgmma (ptxas serializes them otherwise).
 //    Every CTA reads the whole network from L2 (11 MB a pass, pre-split,
 //    see below). 256 threads leave 255 registers a thread (a separate
-//    producer warp would leave 168: registers go to warps in fours).
+//    producer warp would leave 168: registers go to warps in fours; the
+//    bf16 route below, whose A fragments take a quarter of the registers,
+//    has one and gives its registers to the consumers with setmaxnreg).
 //  * Products: D = A . B with A the activations (64, K) and B the weights.
 //    A comes from registers (TF32 has no transposed shared-memory operand,
 //    and the split of A would double its shared memory): each thread loads
@@ -61,44 +63,67 @@
 //    stays in the accumulators (at most 4 x 32 registers a thread, 512
 //    columns) until both warpgroups have read the input, then overwrites
 //    it. A wider layer (the 1024-wide one) is chained with the next: its
-//    output is made 64 columns at a time (m64n32k8, slabs of 64 columns x
-//    64 of K) into a 16 KB chunk buffer and at once taken as 64 of the next
+//    output is made 64 columns at a time (m64n32, slabs of 64 columns x
+//    twice a slab's K) into a 16 KB chunk buffer and at once taken as 64 of the next
 //    layer's K, so it never exists whole.
 //  * Epilogues in the accumulators' registers: bias, activation, and for
-//    the backward the pre-activations, kept in a global scratch buffer in
-//    the fragments' own order (one 16-byte store / load a thread and 8
-//    columns). The backward runs the transposed products with act'(z)
-//    from that scratch; the encoder's pre-activations go there too.
-//  * On the CUDA cores: the input normalization, the encoder walk (four
-//    threads a pose, one per hidden unit / feature of a joint in turn, two
-//    named barriers a joint), the 64 -> 1 output layer (four threads a pose
-//    and a sum), the encoder's reverse walk, the normalization VJP and the
-//    projection step (four threads a pose).
+//    the backward the derivative state (below), kept in a global scratch
+//    buffer in the fragments' own order. The backward runs the transposed
+//    products with act'(z) from that scratch; the encoder's goes there too.
+//  * On the CUDA cores: the input normalization, the encoder walk and its
+//    reverse (four neighbouring lanes a pose trading hidden units by
+//    shuffles, float4 weight rows staged in the ring's space, no CTA
+//    barrier a joint: see "the encoder walks" below), the 64 -> 1 output layer (four
+//    threads a pose and a sum), the normalization VJP and the projection
+//    step (four threads a pose). The biases and the output layer's weights
+//    are copied to shared memory once a CTA (where they fit, kVecSmem), so
+//    no epilogue waits on L2, which the weight ring keeps busy.
 //  * The bf16 route (Bf16 = true: a field whose compute_dtype is bfloat16,
 //    the TPU kernels' compute_dtype="bfloat16") computes what the TPU
 //    kernels compute in that mode: every product, encoder, DFNet and output
 //    layer, forward and backward, on operands rounded to bf16 to nearest
 //    even (cvt.rn.bf16x2.f32, JAX's astype), summed in fp32; biases,
 //    activations, derivative state, the normalization and its VJP and the
-//    projection update in fp32. Its DFNet products are bf16 wgmma (m64n64k16,
-//    m64n32k16 in a chain's first product), one k16 step where 3xTF32 takes
-//    three k8 passes of one TF32 step each: A from registers, rounded from
-//    the fp32 activations as they are loaded (the activations stay fp32 in
-//    shared memory: they are rounded at the next product anyway), B from
-//    fused_model.pack_bf16's slabs, the same blocks in the same order as the
-//    3xTF32 route's (the same program), one bf16 line of 128 bytes a column
-//    in the 128-byte swizzle, 16 KB a slab. A thread's bf16 A registers hold
-//    K columns 2(t%4), +1, +8, +9 of a k16 step, the columns its accumulator
-//    holds in two adjacent 8-column groups, so K needs no permutation. Each
-//    32 of K goes to a fresh accumulator added in fp32, as in 3xTF32; the
-//    two routes share the slab ring and its loops (AFrag<Bf16>).
+//    projection update in fp32. Bound: the DFNet's products in one bf16
+//    pass at 989 TFLOP/s, 0.36 ms for the 131,072-pose forward, 0.055 ms
+//    for a value-and-grad or projection step of 10,000. One bf16 wgmma k16
+//    step does what 3xTF32 takes three k8 passes of one TF32 step each for,
+//    so what bounds this route is taking the weights in: its design is
+//    about the ring.
+//     - Slabs of weights only (fused_model.pack_bf16): 16 KB, 128 output
+//       columns x 64 of K, one 128-byte line of bf16 a column in the
+//       128-byte swizzle (a chain's first product: 64 columns x 128 of K,
+//       two tiles of 64 lines), so a pass takes 168 slabs of the trained
+//       field where the 3xTF32 route takes 336 of 32 KB.
+//     - A ring of four 16 KB stages (64 KB, the 3xTF32 route's two slots)
+//       kept full by a producer warpgroup (setmaxnreg: 24 registers, the
+//       two consumer warpgroups 240): its thread 0 copies the slabs in
+//       reading order, waiting only for a slot's empty barrier, so copies
+//       stay in flight across layers and through the epilogues. Each
+//       consumer warpgroup frees a slot with one arrival on that barrier
+//       (a predicated asm block: no branch near the wgmma), so the two
+//       warpgroups do not move in lockstep between layers' barriers.
+//     - Products: bf16 wgmma m64n64k16 (m64n32k16 in a chain's first
+//       product), A from registers, rounded from the fp32 activations as
+//       they are loaded (the activations stay fp32 in shared memory: they
+//       are rounded at the next product anyway). A thread's bf16 A
+//       registers hold K columns 2(t%4), +1, +8, +9 of a k16 step, the
+//       columns its accumulator holds in two adjacent 8-column groups, so K
+//       needs no permutation. Each slab's four k16 steps (64 of K) go to a
+//       fresh accumulator added to the layer's sums in fp32.
 //    The encoder walks, the output layer and the backward's start round
 //    their operands on the CUDA cores; the weights come rounded (the
-//    encoder's buffer and the output layer's w, by the wrapper). Bound: the
-//    DFNet's products in one bf16 pass at 989 TFLOP/s, 0.36 ms for the
-//    131,072-pose forward, 0.055 ms for a value-and-grad or projection step
-//    of 10,000; this route is the simple one, its ring and epilogues those of
-//    3xTF32.
+//    encoder's buffer and the output layer's w, by the wrapper).
+//  * Derivative state, in both routes, as the TPU kernels keep it
+//    (fused_grad.py's _act_store): for lrelu and relu, whose act' takes two
+//    values, one bit a unit and pose (act_bit, act_grad_bit in common.cuh:
+//    act'(z) exactly, z == 0 included): the DFNet's 64 bits a unit in a
+//    global scratch per CTA (posendf_field_scratch_floats; 22 KB a CTA of
+//    the trained field) in the fragments' own order, a thread storing one
+//    word of its 32 (16 in a chain's chunk) bits a column group and the
+//    backward loading it before the layer's products; the encoder's in
+//    shared memory, a byte a unit and warp (8 poses). For softplus the fp32
+//    pre-activations, all in the global scratch (806 KB a CTA).
 //  * The wrapper turns the layer list into a program (fused_model.
 //    tc_schedule): per pass a list of steps, a layer or a chain of two,
 //    and the slabs in the order the steps read them, so the ring's filler
@@ -109,6 +134,8 @@
 //
 // Each launcher returns cudaGetLastError(); the Python wrapper raises on a
 // nonzero value. No launcher synchronizes or allocates.
+
+#include <type_traits>
 
 #include "common.cuh"
 #include "hopper.cuh"
@@ -122,21 +149,48 @@ enum Mode { kForward = 0, kValueAndGrad = 1, kProjectStep = 2 };
 
 constexpr int kRows = 64;                        // poses a CTA: one wgmma M
 constexpr int kConsumers = 256;                  // two consumer warpgroups
-constexpr int kFieldThreads = kConsumers;        // thread 0 also fills the ring
 constexpr int kSlabN = 128;                      // output columns a slab: 64 a warpgroup
-constexpr int kSlabK = 32;                       // K a slab: a 128-byte line of tf32
-constexpr int kHalfBytes = kSlabN * kSlabK * 4;  // the hi (or lo) half: 16 KB
-constexpr int kSlabBytes = 2 * kHalfBytes;       // a ring slot, a 3xTF32 slab
-constexpr int kBf16SlabBytes = 128 * 128;        // a bf16 slab: 128 lines of 128 bytes
-constexpr int kStages = 2;
+constexpr int kHalfBytes = 16384;                // 3xTF32: a slab's hi (or lo) half, 128 x 32 tf32
 constexpr int kXMax = 512;                       // widest activation kept whole
 constexpr int kChunk = 64;                       // a chained layer's output, a chunk at a time
 constexpr int kHead = 8, kStep = 8;              // ints of the program's header and of a step
 constexpr uint32_t kBar = 1;                     // named barrier of the consumers
-// ring | activations (64, 512) | chunk (64, 64) | barriers; 1024 to align the ring
-constexpr size_t kFieldSmem = 1024 + static_cast<size_t>(kStages) * kSlabBytes +
-                              static_cast<size_t>(kRows) * (kXMax + kChunk) * sizeof(float) +
-                              2 * kStages * sizeof(uint64_t);
+
+// The two routes' slabs and rings.
+template <bool kBf16>
+struct Route;
+template <>
+struct Route<false> {                             // 3xTF32
+  static constexpr int kSlabK = 32;               // K a slab: a 128-byte line of tf32
+  static constexpr int kSlot = 2 * kHalfBytes;    // hi | lo: 32 KB
+  static constexpr int kStages = 2;
+  static constexpr int kThreads = kConsumers;     // thread 0 also fills the ring
+};
+template <>
+struct Route<true> {                              // bf16
+  static constexpr int kSlabK = 64;               // K a slab: a 128-byte line of bf16
+  static constexpr int kSlot = kSlabN * kSlabK * 2;   // 16 KB
+  static constexpr int kStages = 4;
+  static constexpr int kThreads = kConsumers + 128;   // and a producer warpgroup
+};
+
+constexpr int kVecSmem = 3072;                  // floats of vec kept in shared memory, if it fits
+constexpr int kEzSmem = 8 * kMaxJ * (kMaxE + kMaxF);   // bytes: the encoder's act' bits (lrelu, relu)
+
+// ring | activations (64, 512) | chunk (64, 64) | vec | encoder bits |
+// parents | barriers; 1024 to align the ring
+template <bool kBf16>
+constexpr size_t field_smem() {
+  return 1024 + static_cast<size_t>(Route<kBf16>::kStages) * Route<kBf16>::kSlot +
+         static_cast<size_t>(kRows) * (kXMax + kChunk) * sizeof(float) + kVecSmem * sizeof(float) +
+         kEzSmem + kMaxJ * sizeof(int) + 2 * Route<kBf16>::kStages * sizeof(uint64_t);
+}
+
+// Bytes of derivative state a unit (a hidden column or an encoder unit) of
+// a CTA's 64 poses: one bit a pose (lrelu, relu) or the fp32 pre-activation
+// (softplus).
+template <int kAct>
+constexpr int kZUnit = kAct == kSoftplus ? kRows * 4 : kRows / 8;
 
 struct Args {
   const float* pose;           // (B, J, 4)
@@ -144,7 +198,7 @@ struct Args {
   const float* enc;            // w1 (J,E,E) | b1 (J,E) | w2 (J,E,F) | b2 (J,F), E = 4 + F
   const int* parents;          // (J,), -1 = root
   int J, F;
-  const unsigned char* slabs;  // the forward's slabs, then the backward's (kSlabBytes each)
+  const unsigned char* slabs;  // the forward's slabs, then the backward's (a ring slot each)
   const float* vec;            // padded biases | output layer's w (padded) | its b
   const int* prog;             // header (kHead), the forward's steps, the backward's (kStep each)
   int nfwd, nbwd;              // slabs of each pass
@@ -155,7 +209,7 @@ struct Args {
   float* d_out;                // (B,)
   float* g_out;                // (B, J, 4) value-and-grad
   float* q_out;                // (B, J, 4) projection step
-  float* zscratch;             // per CTA: (zsum + J (E + F)) x 64 pre-activations
+  unsigned char* zscratch;     // per CTA: (zsum + J (E + F)) units of derivative state (kZUnit)
   float step_scale;
   int tangent, renormalize;
 };
@@ -172,26 +226,25 @@ __device__ __forceinline__ float* at(const Buf& b, int r, int c) {
   return b.p + r * b.ld + (c ^ ((r & 3) << 3));
 }
 
-// An epilogue: forward (bias set) z = acc + b, kept at z where set, then
-// act(z); backward (bias null) acc times act'(z) read from z where set.
-// The result goes to dst, column c - col0.
+// An epilogue: forward (bias set) z = acc + b, its derivative state kept at
+// z where set, then act(z); backward (bias null) acc times act'(z) read from
+// z where set. The result goes to dst, column c - col0.
 struct Epi {
   const float* bias;
-  float* z;
+  unsigned char* z;
   Buf dst;
   int col0;
 };
 
 // What a thread carries through the products.
 struct Ctx {
-  uint64_t* bars;
+  uint64_t* bars;             // full barriers, then empty ones (bf16)
   unsigned char* ring;
   const unsigned char* src;   // the slabs in global memory
   int n;                      // slabs of the launch
   int g;                      // the next slab
   int w, tw;                  // warpgroup, thread in it
   float beta;
-  int bytes;                  // of a slab: kSlabBytes, or kBf16SlabBytes in bf16
 };
 
 // x rounded to bf16 (to nearest even, as JAX's astype), as the fp32 of that
@@ -217,12 +270,14 @@ __device__ __forceinline__ float op(float x) {
   return x;
 }
 
-// The ring, with no branch near the wgmma that the compiler could take for
+// The rings, with no branch near the wgmma that the compiler could take for
 // a divergent path (ptxas then serializes the wgmma): a slab's waiters spin
-// inside one asm block, and once both warpgroups have passed a named
-// barrier after a slab's products, thread 0 refills the slot through a
-// predicated asm block (full barriers count that one arrival and the
-// slab's bytes; no empty barriers).
+// inside one asm block; the 3xTF32 route's thread 0 refills a slot, once
+// both warpgroups have passed a named barrier after its products, through a
+// predicated asm block (full barriers count that one arrival and the slab's
+// bytes; no empty barriers); in the bf16 route thread 0 of each consumer
+// warpgroup arrives on the slot's empty barrier through a predicated asm
+// block and the producer warpgroup refills it.
 
 // wait until the phase of `parity` of barrier `bar` has completed; a wait
 // of more than 2^35 clocks (about 20 s) is a lost arrival and traps
@@ -244,33 +299,51 @@ __device__ __forceinline__ void spin_wait(uint32_t bar, uint32_t parity) {
 }
 
 // slab g has landed; returns its slot
+template <bool kBf16>
 __device__ __forceinline__ int wait_slab(const Ctx& cx, int g) {
-  const int s = g % kStages;
-  spin_wait(smem_u32(cx.bars + s), static_cast<uint32_t>(g / kStages) & 1);
+  constexpr int S = Route<kBf16>::kStages;
+  const int s = g % S;
+  spin_wait(smem_u32(cx.bars + s), static_cast<uint32_t>(g / S) & 1);
   return s;
 }
 
-// thread 0 copies slab g into its slot (every thread runs the asm; its
-// predicate holds on thread 0 alone, and only while g < n)
+// 3xTF32: thread 0 copies slab g into its slot (every thread runs the asm;
+// its predicate holds on thread 0 alone, and only while g < n)
 __device__ __forceinline__ void fill(const Ctx& cx, int g) {
-  const int s = g % kStages;
+  constexpr int S = Route<false>::kStages, kSlot = Route<false>::kSlot;
+  const int s = g % S;
   const uint32_t go = threadIdx.x == 0 && g < cx.n;
   const uint32_t full = smem_u32(cx.bars + s);
-  const unsigned char* src = cx.src + static_cast<size_t>(g < cx.n ? g : 0) * cx.bytes;
+  const unsigned char* src = cx.src + static_cast<size_t>(g < cx.n ? g : 0) * kSlot;
   asm volatile(
       "{\n.reg .pred p;\n"
       "setp.ne.u32 p, %0, 0;\n"
       "@p mbarrier.arrive.expect_tx.shared::cta.b64 _, [%1], %2;\n"
       "@p cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%3], [%4], %2, [%1];\n"
       "}\n" ::"r"(go),
-      "r"(full), "r"(cx.bytes), "r"(smem_u32(cx.ring + s * kSlabBytes)), "l"(src)
+      "r"(full), "r"(kSlot), "r"(smem_u32(cx.ring + s * kSlot)), "l"(src)
       : "memory");
 }
 
-// both warpgroups are done with slab g's slot: refill it with slab g + kStages
+// this warpgroup is done with slab g's slot. 3xTF32: once both are, refill
+// it with slab g + 2; bf16: thread 0 of the warpgroup arrives on its empty
+// barrier (two arrivals free it for the producer).
+template <bool kBf16>
 __device__ __forceinline__ void release_slab(const Ctx& cx, int g) {
-  named_bar_sync(kBar, kConsumers);
-  fill(cx, g + kStages);
+  constexpr int S = Route<kBf16>::kStages;
+  if constexpr (kBf16) {
+    const uint32_t go = cx.tw == 0;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.u32 p, %0, 0;\n"
+        "@p mbarrier.arrive.shared::cta.b64 _, [%1];\n"
+        "}\n" ::"r"(go),
+        "r"(smem_u32(cx.bars + S + g % S))
+        : "memory");
+  } else {
+    named_bar_sync(kBar, kConsumers);
+    fill(cx, g + S);
+  }
 }
 
 template <int N>
@@ -309,12 +382,12 @@ __device__ __forceinline__ void load_a_bf16(const Buf& b, int r, int k, uint32_t
   a[3] = pack_bf16x2(v1.x, v1.y);
 }
 
-// The A fragments of 32 of K, from column k (a multiple of 8 plus 2 (t % 4)):
-// four k8 steps split into TF32 hi | lo (3xTF32), or two k16 steps rounded
-// to bf16 (hi only).
+// The A fragments of a slab's K (Route::kSlabK), from column k (a multiple
+// of 8 plus 2 (t % 4)): four k8 steps split into TF32 hi | lo (3xTF32, 32
+// of K), or four k16 steps rounded to bf16 (hi only, 64 of K).
 template <bool kBf16>
 struct AFrag {
-  static constexpr int kSteps = kBf16 ? 2 : 4;
+  static constexpr int kSteps = 4;
   uint32_t hi[kSteps][4], lo[kBf16 ? 1 : kSteps][4];
 
   __device__ __forceinline__ void load(const Buf& b, int r, int k) {
@@ -327,8 +400,9 @@ struct AFrag {
     }
   }
 
-  // acc = A . B over these 32 of K, into a fresh accumulator: B's lines at
-  // shared address bh (3xTF32: its hi half; its lo half at bl).
+  // acc = A . B over this K, into a fresh accumulator: B's lines at shared
+  // address bh (3xTF32: its hi half; its lo half at bl), a step's 32 bytes
+  // of each line kk * 32 bytes in.
   template <int N>
   __device__ __forceinline__ void mma(float (&acc)[N / 2], uint32_t bh, uint32_t bl) {
 #pragma unroll
@@ -354,15 +428,17 @@ struct AFrag {
 
 // tot[cg] += A . B for nkb K-blocks of A (from `a`) and, per K-block, the
 // NG slabs of column groups 0..NG-1, in the ring's order. Each slab's
-// products (12 TF32 or 2 bf16 wgmma) sum into a fresh accumulator that is
+// products (12 TF32 or 4 bf16 wgmma) sum into a fresh accumulator that is
 // then added to tot in fp32 (IEEE adds): the tensor cores' own fp32
-// accumulation does not round to nearest, so its error then spans 32 of K
-// and not all of it. A 3xTF32 slab is its hi half then its lo half, warpgroup
-// w in the lines of columns 64w..64w+63 of each; a bf16 slab
-// (fused_model.pack_bf16) is 128 lines, one output column each, of 32 bf16
-// of K in their first 64 bytes, warpgroup w in lines 64w..64w+63.
+// accumulation does not round to nearest, so its error then spans a slab's
+// K (32, or 64 in bf16) and not all of it. A 3xTF32 slab is its hi half
+// then its lo half, warpgroup w in the lines of columns 64w..64w+63 of each;
+// a bf16 slab (fused_model.pack_bf16) is 128 lines, one output column of 64
+// bf16 of K each, warpgroup w in lines 64w..64w+63: w's B is 8 KB in, in
+// both routes.
 template <bool kBf16, int NG>
 __device__ __forceinline__ void product(float (&tot)[NG][32], const Buf& a, int nkb, Ctx& cx) {
+  constexpr int kSlot = Route<kBf16>::kSlot, kSlabK = Route<kBf16>::kSlabK;
   const int r = 16 * (cx.tw / 32) + (cx.tw % 32) / 4, c = 2 * (cx.tw % 4);
   float acc[32];
 #pragma unroll
@@ -373,14 +449,13 @@ __device__ __forceinline__ void product(float (&tot)[NG][32], const Buf& a, int 
 #pragma unroll
     for (int cg = 0; cg < NG; ++cg) {
       const int g = cx.g++;
-      const int s = wait_slab(cx, g);
-      const uint32_t bh = smem_u32(cx.ring + s * kSlabBytes) +
-                          cx.w * ((kBf16 ? kBf16SlabBytes : kHalfBytes) / 2);
+      const int s = wait_slab<kBf16>(cx, g);
+      const uint32_t bh = smem_u32(cx.ring + s * kSlot) + cx.w * 8192;
       wgmma_fence();
       f.template mma<64>(acc, bh, bh + kHalfBytes);
       wgmma_commit();
       wgmma_wait<0>();
-      release_slab(cx, g);
+      release_slab<kBf16>(cx, g);
       fence_regs(acc);
 #pragma unroll
       for (int i = 0; i < 32; ++i) tot[cg][i] += acc[i];
@@ -389,29 +464,30 @@ __device__ __forceinline__ void product(float (&tot)[NG][32], const Buf& a, int 
   }
 }
 
-// h += A . B for the first product of a chain: a slab is 64 columns x 64 of
-// K, warpgroup w taking columns 32w..32w+31 (m64n32); each 32 of K folds
-// into h as in product. 3xTF32: the hi | lo halves of the slab's first 32
-// of K, then of its second (16 KB each). bf16: 64 lines (columns) of 64
-// bf16 of K, a whole 128-byte line each, the second 32 of K at byte 64. A
-// chunk of 64 columns keeps the chain's sums a thread at 4 x 32 + 16
-// registers.
+// h += A . B for the first product of a chain: a slab is 64 columns x 2
+// kSlabK of K, warpgroup w taking columns 32w..32w+31 (m64n32); each half
+// of its K folds into h as in product. 3xTF32: the hi | lo halves of the
+// slab's first 32 of K, then of its second (16 KB each). bf16: two tiles of
+// 64 lines (columns) of 64 bf16 of K (8 KB each), the second 64 of K in the
+// second. A chunk of 64 columns keeps the chain's sums a thread at 4 x 32
+// + 16 registers.
 template <bool kBf16>
 __device__ __forceinline__ void product_chunk(float (&tot)[1][16], const Buf& a, int nkp, Ctx& cx) {
+  constexpr int kSlot = Route<kBf16>::kSlot, kSlabK = Route<kBf16>::kSlabK;
+  constexpr int kPart = kBf16 ? 8192 : kHalfBytes;   // bytes of one half of K
   const int r = 16 * (cx.tw / 32) + (cx.tw % 32) / 4, c = 2 * (cx.tw % 4);
   float acc[16];
 #pragma unroll
   for (int i = 0; i < 16; ++i) acc[i] = 0.f;
   for (int kp = 0; kp < nkp; ++kp) {
     const int g = cx.g++;
-    const int s = wait_slab(cx, g);
-    const uint32_t slab = smem_u32(cx.ring + s * kSlabBytes);
+    const int s = wait_slab<kBf16>(cx, g);
+    const uint32_t slab = smem_u32(cx.ring + s * kSlot);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       AFrag<kBf16> f;
       f.load(a, r, 2 * kSlabK * kp + kSlabK * h + c);
-      const uint32_t bh = kBf16 ? slab + cx.w * (kBf16SlabBytes / 4) + 64 * h
-                                : slab + h * kHalfBytes + cx.w * (kHalfBytes / 4);
+      const uint32_t bh = slab + h * kPart + cx.w * 4096;
       wgmma_fence();
       f.template mma<32>(acc, bh, bh + kHalfBytes / 2);
       wgmma_commit();
@@ -421,31 +497,40 @@ __device__ __forceinline__ void product_chunk(float (&tot)[1][16], const Buf& a,
       for (int i = 0; i < 16; ++i) tot[0][i] += acc[i];
       f.keep();
     }
-    release_slab(cx, g);
+    release_slab<kBf16>(cx, g);
   }
 }
 
 // The epilogue of column groups cg0..cg0+NG-1, each 16 NJ columns wide (8
 // NJ a warpgroup: NJ = 8 after m64n64 products, 4 after m64n32). Register
 // 4j + i of group cg is row r + 8 (i / 2), column 16 NJ cg + 8 NJ w + 8 j +
-// 2 (t % 4) + i % 2; its pre-activations are float4 (((cg * 2 + w) NJ + j)
-// 128 + t) of z. A group's loads (bias or z) are issued before its stores,
-// which the compiler could not move them past.
+// 2 (t % 4) + i % 2. Its derivative state: softplus, the pre-activations,
+// float4 (((cg * 2 + w) NJ + j) 128 + t) of z; lrelu and relu, bit 4j + i
+// of word ((cg * 2 + w) 128 + t) of z (32-bit words for NJ = 8, 16-bit for
+// 4). A group's loads (bias or z) are issued before its stores, which the
+// compiler could not move them past.
 template <int kAct, int NG, int NJ>
 __device__ __forceinline__ void epilogue(const float (&acc)[NG][4 * NJ], int cg0, const Epi& e,
-                                         const Ctx& cx) {
+                                         const Ctx& cx, const uint32_t (&zbits)[NG]) {
+  constexpr bool kSel = kAct != kSoftplus;
+  using Word = std::conditional_t<NJ == 8, uint32_t, uint16_t>;
+  static_assert(NJ == 8 || NJ == 4, "epilogue widths: 8 or 4 columns a j");
   const int r = 16 * (cx.tw / 32) + (cx.tw % 32) / 4;
 #pragma unroll
   for (int cg = 0; cg < NG; ++cg) {
-    const int c0 = (cg0 + cg) * 16 * NJ + 8 * NJ * cx.w + 2 * (cx.tw % 4);
-    float4* zp = e.z != nullptr
-                     ? reinterpret_cast<float4*>(e.z) + ((cg0 + cg) * 2 + cx.w) * NJ * 128 + cx.tw
-                     : nullptr;
-    float4 in[NJ];   // the bias pair (forward) or z (backward) of each j
+    const int blk = (cg0 + cg) * 2 + cx.w;
+    const int c0 = blk * 8 * NJ + 2 * (cx.tw % 4);
+    float4* zp = !kSel && e.z != nullptr ? reinterpret_cast<float4*>(e.z) + blk * NJ * 128 + cx.tw
+                                         : nullptr;
+    Word* zw = kSel && e.z != nullptr ? reinterpret_cast<Word*>(e.z) + blk * 128 + cx.tw : nullptr;
+    float4 in[NJ];   // the bias pair (forward) or z (backward, softplus) of each j
+    // lrelu, relu: act'(z) a bit (backward: loaded by the caller before the
+    // products, off this path), or the forward's bits
+    uint32_t bits = e.bias == nullptr ? zbits[cg] : 0u;
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
-      if (e.bias != nullptr) {
-        const float2 b = __ldg(reinterpret_cast<const float2*>(e.bias + c0 + 8 * j));
+      if (e.bias != nullptr) {   // vec, in shared memory where it fits
+        const float2 b = *reinterpret_cast<const float2*>(e.bias + c0 + 8 * j);
         in[j] = make_float4(b.x, b.y, b.x, b.y);
       } else if (zp != nullptr) {
         in[j] = zp[j * 128];
@@ -461,16 +546,42 @@ __device__ __forceinline__ void epilogue(const float (&acc)[NG][4 * NJ], int cg0
         v[3] += in[j].w;
         if (zp != nullptr) zp[j * 128] = make_float4(v[0], v[1], v[2], v[3]);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) v[i] = act_fwd(kAct, cx.beta, v[i]);
+        for (int i = 0; i < 4; ++i) {
+          if constexpr (kSel)
+            if (zw != nullptr) bits |= act_bit(kAct, v[i]) << (4 * j + i);
+          v[i] = act_fwd(kAct, cx.beta, v[i]);
+        }
       } else if (zp != nullptr) {
         v[0] *= act_grad(kAct, cx.beta, in[j].x);
         v[1] *= act_grad(kAct, cx.beta, in[j].y);
         v[2] *= act_grad(kAct, cx.beta, in[j].z);
         v[3] *= act_grad(kAct, cx.beta, in[j].w);
+      } else if (zw != nullptr) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) v[i] *= act_grad_bit(kAct, (bits >> (4 * j + i)) & 1u);
       }
       const int c = c0 + 8 * j - e.col0;
       *reinterpret_cast<float2*>(at(e.dst, r, c)) = make_float2(v[0], v[1]);
       *reinterpret_cast<float2*>(at(e.dst, r + 8, c)) = make_float2(v[2], v[3]);
+    }
+    if (e.bias != nullptr && zw != nullptr) *zw = static_cast<Word>(bits);
+  }
+}
+
+// The backward's act' bits (lrelu, relu) of column groups cg0..cg0+NG-1
+// of an epilogue (NJ = 8: 32-bit words, 4: 16-bit), loaded before the
+// products so that their latency stays off the epilogue's path; zeros
+// elsewhere.
+template <int kAct, int NG, int NJ>
+__device__ __forceinline__ void load_bits(uint32_t (&zbits)[NG], int cg0, const Epi& e,
+                                          const Ctx& cx) {
+#pragma unroll
+  for (int cg = 0; cg < NG; ++cg) {
+    zbits[cg] = 0u;
+    if (kAct != kSoftplus && e.bias == nullptr && e.z != nullptr) {
+      const int i = ((cg0 + cg) * 2 + cx.w) * 128 + cx.tw;
+      zbits[cg] = NJ == 8 ? reinterpret_cast<const uint32_t*>(e.z)[i]
+                          : reinterpret_cast<const uint16_t*>(e.z)[i];
     }
   }
 }
@@ -483,9 +594,11 @@ __device__ __forceinline__ void layer(const Buf& x, int K, const Epi& e, Ctx& cx
   for (int cg = 0; cg < NG; ++cg)
 #pragma unroll
     for (int i = 0; i < 32; ++i) tot[cg][i] = 0.f;
-  product<kBf16, NG>(tot, x, K / kSlabK, cx);
+  uint32_t zbits[NG];
+  load_bits<kAct, NG, 8>(zbits, 0, e, cx);
+  product<kBf16, NG>(tot, x, K / Route<kBf16>::kSlabK, cx);
   named_bar_sync(kBar, kConsumers);   // both warpgroups have read x
-  epilogue<kAct, NG, 8>(tot, 0, e, cx);
+  epilogue<kAct, NG, 8>(tot, 0, e, cx, zbits);
   named_bar_sync(kBar, kConsumers);   // x holds the output
 }
 
@@ -496,43 +609,47 @@ __device__ __forceinline__ void layer(const Buf& x, int K, const Epi& e, Ctx& cx
 template <int kAct, bool kBf16>
 __device__ __forceinline__ void chain(const Buf& x, const Buf& cb, int K, int N, Epi e1,
                                       const Epi& e2, Ctx& cx) {
-  constexpr int NG2 = kXMax / kSlabN;
+  constexpr int NG2 = kXMax / kSlabN, kSlabK = Route<kBf16>::kSlabK;
   float y[NG2][32];
 #pragma unroll
   for (int cg = 0; cg < NG2; ++cg)
 #pragma unroll
     for (int i = 0; i < 32; ++i) y[cg][i] = 0.f;
+  uint32_t z2[NG2];
+  load_bits<kAct, NG2, 8>(z2, 0, e2, cx);
   for (int c = 0; c < N / kChunk; ++c) {
     float h[1][16];
 #pragma unroll
     for (int i = 0; i < 16; ++i) h[0][i] = 0.f;
-    product_chunk<kBf16>(h, x, K / kChunk, cx);
+    uint32_t z1[1];
+    load_bits<kAct, 1, 4>(z1, c, e1, cx);
+    product_chunk<kBf16>(h, x, K / (2 * kSlabK), cx);
     named_bar_sync(kBar, kConsumers);   // both warpgroups have read the last chunk
     e1.col0 = c * kChunk;
-    epilogue<kAct, 1, 4>(h, c, e1, cx);
+    epilogue<kAct, 1, 4>(h, c, e1, cx, z1);
     named_bar_sync(kBar, kConsumers);   // cb holds chunk c
     product<kBf16, NG2>(y, cb, kChunk / kSlabK, cx);
   }
   named_bar_sync(kBar, kConsumers);     // both warpgroups have read x
-  epilogue<kAct, NG2, 8>(y, 0, e2, cx);
+  epilogue<kAct, NG2, 8>(y, 0, e2, cx, z2);
   named_bar_sync(kBar, kConsumers);
 }
 
 // One step of the program (fused_model.tc_schedule): [chain, K, N, N2,
-// bias1, z1, bias2, z2].
+// bias1, z1, bias2, z2]; z in units (columns) of derivative state from zb.
 template <int kAct, bool kBf16>
 __device__ __forceinline__ void run_step(const int* st, const Buf& x, const Buf& cb,
-                                         const float* vec, float* zb, Ctx& cx) {
+                                         const float* vec, unsigned char* zb, Ctx& cx) {
   int s[kStep];
 #pragma unroll
   for (int i = 0; i < kStep; ++i) s[i] = __ldg(st + i);
   const Epi e1{s[4] >= 0 ? vec + s[4] : nullptr,
-               zb != nullptr && s[5] >= 0 ? zb + static_cast<size_t>(kRows) * s[5] : nullptr,
+               zb != nullptr && s[5] >= 0 ? zb + static_cast<size_t>(kZUnit<kAct>) * s[5] : nullptr,
                s[0] ? cb : x, 0};
   if (s[0]) {
     const Epi e2{s[6] >= 0 ? vec + s[6] : nullptr,
-                 zb != nullptr && s[7] >= 0 ? zb + static_cast<size_t>(kRows) * s[7] : nullptr, x,
-                 0};
+                 zb != nullptr && s[7] >= 0 ? zb + static_cast<size_t>(kZUnit<kAct>) * s[7] : nullptr,
+                 x, 0};
     chain<kAct, kBf16>(x, cb, s[1], s[2], e1, e2, cx);
   } else {
     switch (s[2] / kSlabN) {
@@ -543,82 +660,193 @@ __device__ __forceinline__ void run_step(const int* st, const Buf& x, const Buf&
   }
 }
 
+// ---- the encoder walks ----
+// Four threads a pose, its four neighbouring lanes of a warp (pose t / 4,
+// part r = t % 4; a warp holds 8 poses): part r sums the hidden units (and
+// then the features, and in the reverse walk the rows) r, r + 4, ..., one
+// FMA a term in index order from the packed rows of fused_model.pack_walk
+// (float4 loads, each feeding four FMAs), and the pose's four parts trade
+// hidden units by shuffles, so a joint needs no CTA barrier: its features
+// (or its parent's code gradient) stay in the pose's row of x, read by the
+// same warp after a __syncwarp. A walk first copies its rows (and the
+// forward walk the CTA's poses, where they fit) into the ring's space, which
+// the walks have to themselves: the forward walk runs before the ring's
+// first copy (the bf16 producer waits on kBarRing), the reverse walk after
+// its last slab. So no joint waits on L2. kF: the feature width at compile
+// time (6, the SMPL fields'), or 0 for any width at run time.
+
+// the packed walk rows (fused_model.pack_walk): per joint E hidden rows and
+// F feature rows of E weights, the bias and zeros to R = 4 ceil((E + 1) / 4)
+// floats; then W2's rows (J, E, 4 ceil(F / 4)) and W1's (J, E, 4 ceil(E / 4)).
+// nf, nb: the floats of each walk's rows.
+template <int kF>
+struct Walk {
+  int F, E, R, RF, RE, nf, nb;
+  __device__ __forceinline__ explicit Walk(const Args& a) {
+    F = kF > 0 ? kF : a.F;
+    E = 4 + F;
+    R = round4(E + 1);
+    RF = round4(F);
+    RE = round4(E);
+    nf = a.J * (E + F) * R;
+    nb = a.J * E * (RF + RE);
+  }
+};
+
+constexpr int kRingFloats = 16384;   // the ring's space in floats (64 KB in both routes)
+constexpr uint32_t kBarRing = 2;     // the consumers' arrival: the forward walk is done with the ring
+
+// copy n floats from global `src` to shared `dst` in float4s (every
+// consumer thread)
+__device__ __forceinline__ void stage(float* dst, const float* src, int n) {
+  for (int i = threadIdx.x; i < n / 4; i += kConsumers)
+    reinterpret_cast<float4*>(dst)[i] = __ldg(reinterpret_cast<const float4*>(src) + i);
+}
+
+// z = sum_{i < n} in[i] row[i] in order from 0 (one FMA a term), then, with
+// `bias`, + row[n]; the row (in shared memory) read as float4
+template <int N>
+__device__ __forceinline__ float walk_dot(const float (&in)[N], const float* row, int n, bool bias) {
+  const float4* r4 = reinterpret_cast<const float4*>(row);
+  float z = 0.f;
+#pragma unroll
+  for (int c = 0; c < (N + 4) / 4; ++c) {
+    if (4 * c < n + (bias ? 1 : 0)) {   // a float4 the row holds
+      const float4 v = r4[c];
+      const float f[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = 4 * c + e;
+        if (i < N && i < n) z = fmaf(in[i], f[e], z);
+        else if (bias && i == n) z += f[e];
+      }
+    }
+  }
+  return z;
+}
+
+// the value of unit u from the pose's part u % 4 (each part passing its slot
+// u / 4); every lane of the warp calls this
+template <int kSlots>
+__device__ __forceinline__ float from_part(const float (&mine)[kSlots], int u) {
+  return __shfl_sync(0xffffffffu, mine[u / 4], (threadIdx.x & 28) | (u & 3));
+}
+
+// The encoder's derivative state, unit u of J (E + F) (joint j's hidden
+// units, then its features) of pose p: softplus, the pre-activation at float
+// u 64 + p of ez; lrelu and relu, bit p % 8 of byte 8u + p / 8 (a warp's 8
+// poses).
+template <int kAct>
+__device__ __forceinline__ float enc_grad(const unsigned char* ez, int u, int p, float beta) {
+  if constexpr (kAct == kSoftplus)
+    return act_grad(kAct, beta, reinterpret_cast<const float*>(ez)[u * kRows + p]);
+  return act_grad_bit(kAct, (ez[8 * u + p / 8] >> (p % 8)) & 1u);
+}
+
+// keep the derivative state of units u0 + 4 i + r (r the part, i < kSlots,
+// those below n) of the pose, pre-activations z[i]: softplus as they are;
+// lrelu and relu a ballot of the warp a slot, its lanes 0-3 each storing
+// the byte of one unit. Every lane of the warp calls this.
+template <int kAct, int kSlots>
+__device__ __forceinline__ void enc_keep(unsigned char* ez, int u0, int n, const float (&z)[kSlots]) {
+  const int t = threadIdx.x, p = t / 4, r = t % 4, lane = t % 32;
+#pragma unroll
+  for (int i = 0; i < kSlots; ++i) {
+    const int k = r + 4 * i;
+    if constexpr (kAct == kSoftplus) {
+      if (k < n) reinterpret_cast<float*>(ez)[(u0 + k) * kRows + p] = z[i];
+    } else {
+      const uint32_t bits = __ballot_sync(0xffffffffu, k < n && act_bit(kAct, z[i]));
+      uint32_t b = 0;   // lane l < 4: bit 4 pp + l of each pose pp of the warp
+#pragma unroll
+      for (int pp = 0; pp < 8; ++pp) b |= ((bits >> (4 * pp + lane)) & 1u) << pp;
+      if (lane < 4 && 4 * i + lane < n) ez[8 * (u0 + 4 * i + lane) + t / 32] = static_cast<unsigned char>(b);
+    }
+  }
+}
+
 // Input normalization and encoder walk of the CTA's 64 poses into the code
-// x (64, D0): thread t owns pose t % 64 and the hidden units / features
-// t / 64, t / 64 + 4, ... of each joint, two named barriers a joint. With
-// ez, the pre-activations go to ez[(j (E + F) + o) 64 + pose]. hid holds a
-// joint's hidden units (kMaxE, 64), nrm the column norms (4, 64). In bf16
-// the products' operands are rounded: the normalized pose, the parent's
-// feature and h (the weights come rounded).
-template <int kAct, bool kBf16>
-__device__ __forceinline__ void encode(const Args& a, int row0, const Buf& x, int D0, float* hid,
-                                       float* nrm, float* ez) {
-  const int t = threadIdx.x, p = t % kRows, r = t / kRows;
-  const int J = a.J, F = a.F, E = 4 + F;
+// x (64, D0), four threads a pose (above), from rows and poses staged in the
+// ring's space `wr`. With ez, the derivative state (enc_keep). In bf16 the
+// products' operands are rounded: the normalized pose, the parent's feature
+// and h (the weights come rounded). Ends with a named barrier: x holds the
+// code.
+template <int kAct, bool kBf16, int kF>
+__device__ __forceinline__ void encode(const Args& a, int row0, const Buf& x, int D0,
+                                       unsigned char* ez, const int* parents, float* wr) {
+  const int t = threadIdx.x, p = t / 4, r = t % 4;
+  const int J = a.J;
+  const Walk<kF> w(a);
+  const int E = w.E, F = w.F;
+  // the rows, then the CTA's poses (p, j) as float4 nf / 4 + p J + j, zeros
+  // past B, where they fit
+  stage(wr, a.enc, w.nf);
+  const bool staged = w.nf + kRows * J * 4 <= kRingFloats;
+  float* qs = wr + w.nf;
+  if (staged) {
+    const float4* src = reinterpret_cast<const float4*>(a.pose) + static_cast<size_t>(row0) * J;
+    const int n = min(kRows, a.B - row0) * J;
+    for (int i = t; i < kRows * J; i += kConsumers)
+      reinterpret_cast<float4*>(qs)[i] = i < n ? __ldg(src + i) : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
   const bool valid = row0 + p < a.B;
   const float4* q4 =
       reinterpret_cast<const float4*>(a.pose) + static_cast<size_t>(valid ? row0 + p : 0) * J;
-  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
-  const float* w1 = a.enc;
-  const float* b1 = w1 + J * E * E;
-  const float* w2 = b1 + J * E;
-  const float* b2 = w2 + J * E * F;
-  {
-    float s = 0.f;   // component r: the normalization's sum over the joints
-    for (int j = 0; j < J; ++j) {
-      const float4 q = valid ? __ldg(q4 + j) : zero4;
-      const float v = r == 0 ? q.x : r == 1 ? q.y : r == 2 ? q.z : q.w;
-      s = fmaf(v, v, s);
-    }
-    nrm[r * kRows + p] = sqrtf(fmaxf(s, kEps2));
-  }
+  auto pose = [&](int j) {
+    return staged ? reinterpret_cast<const float4*>(qs)[p * J + j]
+                  : (valid ? __ldg(q4 + j) : make_float4(0.f, 0.f, 0.f, 0.f));
+  };
   const int JF = J * F, pad = D0 - JF;   // the code's padding columns are zeros
   if (pad > 0)
     for (int i = t; i < kRows * pad; i += kConsumers) *at(x, i / pad, JF + i % pad) = 0.f;
-  named_bar_sync(kBar, kConsumers);
-  const float n0 = nrm[p], n1 = nrm[kRows + p], n2 = nrm[2 * kRows + p], n3 = nrm[3 * kRows + p];
+  named_bar_sync(kBar, kConsumers);   // the rows (and the poses) are staged
+  float n[4];
+  {
+    float s = 0.f;   // component r: the normalization's sum over the joints
+    for (int j = 0; j < J; ++j) {
+      const float4 q = pose(j);
+      const float v = r == 0 ? q.x : r == 1 ? q.y : r == 2 ? q.z : q.w;
+      s = fmaf(v, v, s);
+    }
+    const float nr = sqrtf(fmaxf(s, kEps2));
+#pragma unroll
+    for (int c = 0; c < 4; ++c) n[c] = __shfl_sync(0xffffffffu, nr, (t & 28) | c);
+  }
   for (int j = 0; j < J; ++j) {
-    const float4 q = valid ? __ldg(q4 + j) : zero4;
-    const int par = __ldg(a.parents + j);
+    const float4 q = pose(j);
+    const int par = parents[j];
     float in[kMaxE];
-    in[0] = op<kBf16>(q.x / n0);
-    in[1] = op<kBf16>(q.y / n1);
-    in[2] = op<kBf16>(q.z / n2);
-    in[3] = op<kBf16>(q.w / n3);
+    in[0] = op<kBf16>(q.x / n[0]);
+    in[1] = op<kBf16>(q.y / n[1]);
+    in[2] = op<kBf16>(q.z / n[2]);
+    in[3] = op<kBf16>(q.w / n[3]);
 #pragma unroll
     for (int k = 0; k < kMaxF; ++k)
       in[4 + k] = (k < F && par >= 0) ? op<kBf16>(*at(x, p, par * F + k)) : 0.f;
-    const float* w1j = w1 + j * E * E;
+    const float* rows = wr + j * (E + F) * w.R;
+    float z[kMaxE / 4], mine[kMaxE / 4];
 #pragma unroll
-    for (int oi = 0; oi < (kMaxE + 3) / 4; ++oi) {
-      const int o = r + 4 * oi;
-      if (o < E) {
-        float z = 0.f;
-#pragma unroll
-        for (int i = 0; i < kMaxE; ++i)
-          if (i < E) z = fmaf(in[i], __ldg(w1j + i * E + o), z);
-        z += __ldg(b1 + j * E + o);
-        if (ez != nullptr) ez[(j * (E + F) + o) * kRows + p] = z;
-        hid[o * kRows + p] = op<kBf16>(act_fwd(kAct, a.beta, z));
-      }
+    for (int i = 0; i < kMaxE / 4; ++i) {
+      const int u = r + 4 * i;
+      z[i] = u < E ? walk_dot(in, rows + u * w.R, E, true) : 0.f;
+      mine[i] = op<kBf16>(act_fwd(kAct, a.beta, z[i]));
     }
-    named_bar_sync(kBar, kConsumers);
-    const float* w2j = w2 + j * E * F;
+    if (ez != nullptr) enc_keep<kAct>(ez, j * (E + F), E, z);
+    float h[kMaxE];
 #pragma unroll
-    for (int ki = 0; ki < (kMaxF + 3) / 4; ++ki) {
-      const int k = r + 4 * ki;
-      if (k < F) {
-        float z = 0.f;
+    for (int u = 0; u < kMaxE; ++u) h[u] = u < E ? from_part(mine, u) : 0.f;
+    float zf[kMaxF / 4];
 #pragma unroll
-        for (int o = 0; o < kMaxE; ++o)
-          if (o < E) z = fmaf(hid[o * kRows + p], __ldg(w2j + o * F + k), z);
-        z += __ldg(b2 + j * F + k);
-        if (ez != nullptr) ez[(j * (E + F) + E + k) * kRows + p] = z;
-        *at(x, p, j * F + k) = act_fwd(kAct, a.beta, z);
-      }
+    for (int i = 0; i < kMaxF / 4; ++i) {
+      const int k = r + 4 * i;
+      zf[i] = k < F ? walk_dot(h, rows + (E + k) * w.R, E, true) : 0.f;
+      if (k < F) *at(x, p, j * F + k) = act_fwd(kAct, a.beta, zf[i]);
     }
-    named_bar_sync(kBar, kConsumers);
+    if (ez != nullptr) enc_keep<kAct>(ez, j * (E + F) + E, F, zf);
+    __syncwarp();
   }
+  fence_proxy_async();   // the staged rows and poses, before the ring's copies overwrite them
+  named_bar_sync(kBar, kConsumers);
 }
 
 // The output layer (K -> 1) on the CUDA cores: four threads a pose each sum
@@ -629,7 +857,7 @@ __device__ __forceinline__ void output_layer(const Args& a, int row0, const Buf&
                                              const float* wl, float bl, float* part, float* dval) {
   const int t = threadIdx.x, p = t % kRows, r = t / kRows, n = K / 4;
   float s = 0.f;
-  for (int c = r * n; c < (r + 1) * n; ++c) s = fmaf(op<kBf16>(*at(x, p, c)), __ldg(wl + c), s);
+  for (int c = r * n; c < (r + 1) * n; ++c) s = fmaf(op<kBf16>(*at(x, p, c)), wl[c], s);
   part[r * kRows + p] = s;
   named_bar_sync(kBar, kConsumers);
   if (t < kRows) {
@@ -643,80 +871,94 @@ __device__ __forceinline__ void output_layer(const Args& a, int row0, const Buf&
 
 // The backward's start: the gradient at the last hidden layer's output,
 // out_act'(d) w act'(z), written to x (64, K) in the fragments' layout (in
-// bf16 out_act'(d) rounded, the operand of the output layer's product).
+// bf16 out_act'(d) rounded, the operand of the output layer's product); z
+// is that layer's derivative state (epilogue's layout, NJ = 8).
 template <int kAct, bool kBf16>
-__device__ __forceinline__ void backward_start(const Buf& x, int K, const float* wl, const float* z,
-                                               const float* dval, const Ctx& cx) {
+__device__ __forceinline__ void backward_start(const Buf& x, int K, const float* wl,
+                                               const unsigned char* z, const float* dval,
+                                               const Ctx& cx) {
   const int r = 16 * (cx.tw / 32) + (cx.tw % 32) / 4;
   const float go0 = op<kBf16>(out_act_grad_from_value(kAct, cx.beta, dval[r]));
   const float go1 = op<kBf16>(out_act_grad_from_value(kAct, cx.beta, dval[r + 8]));
   for (int cg = 0; cg < K / kSlabN; ++cg) {
+    const int blk = cg * 2 + cx.w;
+    uint32_t bits = 0;
+    if constexpr (kAct != kSoftplus) bits = reinterpret_cast<const uint32_t*>(z)[blk * 128 + cx.tw];
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      const int c = cg * kSlabN + 64 * cx.w + 8 * j + 2 * (cx.tw % 4);
-      const float4 zz = reinterpret_cast<const float4*>(z)[((cg * 2 + cx.w) * 8 + j) * 128 + cx.tw];
-      const float2 wv = __ldg(reinterpret_cast<const float2*>(wl + c));
-      *reinterpret_cast<float2*>(at(x, r, c)) =
-          make_float2(go0 * wv.x * act_grad(kAct, cx.beta, zz.x),
-                      go0 * wv.y * act_grad(kAct, cx.beta, zz.y));
+      const int c = blk * 64 + 8 * j + 2 * (cx.tw % 4);
+      float4 gz;   // act'(z) of the thread's four values
+      if constexpr (kAct == kSoftplus) {
+        const float4 zz = reinterpret_cast<const float4*>(z)[(blk * 8 + j) * 128 + cx.tw];
+        gz = make_float4(act_grad(kAct, cx.beta, zz.x), act_grad(kAct, cx.beta, zz.y),
+                         act_grad(kAct, cx.beta, zz.z), act_grad(kAct, cx.beta, zz.w));
+      } else {
+        gz = make_float4(act_grad_bit(kAct, (bits >> (4 * j)) & 1u),
+                         act_grad_bit(kAct, (bits >> (4 * j + 1)) & 1u),
+                         act_grad_bit(kAct, (bits >> (4 * j + 2)) & 1u),
+                         act_grad_bit(kAct, (bits >> (4 * j + 3)) & 1u));
+      }
+      const float2 wv = *reinterpret_cast<const float2*>(wl + c);
+      *reinterpret_cast<float2*>(at(x, r, c)) = make_float2(go0 * wv.x * gz.x, go0 * wv.y * gz.y);
       *reinterpret_cast<float2*>(at(x, r + 8, c)) =
-          make_float2(go1 * wv.x * act_grad(kAct, cx.beta, zz.z),
-                      go1 * wv.y * act_grad(kAct, cx.beta, zz.w));
+          make_float2(go1 * wv.x * gz.z, go1 * wv.y * gz.w);
     }
   }
   named_bar_sync(kBar, kConsumers);
 }
 
-// The encoder's reverse walk, j = J-1 .. 0, from the code gradient in x:
-// gf = gx_code[j] act'(f_pre); gh = (W2[j] gf) act'(h_pre) (thread t: the
-// units t / 64 + 4i, to gh (kMaxE, 64)); then W1[j] gh: its first 4 rows to
-// gx (J, 4, 64), the rest added into the parent's code gradient. In bf16 gf
-// and gh, the products' operands, are rounded.
-template <int kAct, bool kBf16>
-__device__ __forceinline__ void encode_backward(const Args& a, const Buf& x, const float* ez,
-                                                float* gx, float* gh) {
-  const int t = threadIdx.x, p = t % kRows, r = t / kRows;
-  const int J = a.J, F = a.F, E = 4 + F;
-  const float* w1 = a.enc;
-  const float* w2 = w1 + J * E * E + J * E;
+// The encoder's reverse walk, j = J-1 .. 0, from the code gradient in x,
+// four threads a pose (above): gf = gx_code[j] act'(f_pre) (every part, all
+// F); gh = (W2[j] gf) act'(h_pre) (part r: units r + 4i, then traded); then
+// W1[j] gh (part r: rows r + 4i): its first 4 rows to gx (J, 4, 64, at the
+// ring's start), the rest added into the parent's code gradient. The rows
+// staged after gx. act' from ez (enc_grad). In bf16 gf and gh, the
+// products' operands, are rounded. Ends with a named barrier: gx is whole.
+template <int kAct, bool kBf16, int kF>
+__device__ __forceinline__ void encode_backward(const Args& a, const Buf& x,
+                                                const unsigned char* ez, float* gx,
+                                                const int* parents) {
+  const int t = threadIdx.x, p = t / 4, r = t % 4;
+  const int J = a.J;
+  const Walk<kF> w(a);
+  const int E = w.E, F = w.F;
+  float* w2 = gx + J * 4 * kRows;    // W2's rows, then W1's
+  float* w1 = w2 + J * E * w.RF;
+  stage(w2, a.enc + w.nf, w.nb);
+  named_bar_sync(kBar, kConsumers);
   for (int j = J - 1; j >= 0; --j) {
-    const int par = __ldg(a.parents + j);
-    const float* zj = ez + j * (E + F) * kRows;
+    const int par = parents[j];
+    const int u0 = j * (E + F);
     float gf[kMaxF];
 #pragma unroll
     for (int k = 0; k < kMaxF; ++k)
-      gf[k] = k < F ? op<kBf16>(*at(x, p, j * F + k) * act_grad(kAct, a.beta, zj[(E + k) * kRows + p]))
+      gf[k] = k < F ? op<kBf16>(*at(x, p, j * F + k) * enc_grad<kAct>(ez, u0 + E + k, p, a.beta))
                     : 0.f;
-    const float* w2j = w2 + j * E * F;
+    float mine[kMaxE / 4];
 #pragma unroll
-    for (int oi = 0; oi < (kMaxE + 3) / 4; ++oi) {
-      const int o = r + 4 * oi;
-      if (o < E) {
-        float s = 0.f;
-#pragma unroll
-        for (int k = 0; k < kMaxF; ++k)
-          if (k < F) s = fmaf(__ldg(w2j + o * F + k), gf[k], s);
-        gh[o * kRows + p] = op<kBf16>(s * act_grad(kAct, a.beta, zj[o * kRows + p]));
-      }
+    for (int i = 0; i < kMaxE / 4; ++i) {
+      const int o = r + 4 * i;
+      mine[i] = o < E ? op<kBf16>(walk_dot(gf, w2 + (j * E + o) * w.RF, F, false) *
+                                  enc_grad<kAct>(ez, u0 + o, p, a.beta))
+                      : 0.f;
     }
-    named_bar_sync(kBar, kConsumers);
-    const float* w1j = w1 + j * E * E;
+    float gh[kMaxE];
 #pragma unroll
-    for (int ii = 0; ii < (kMaxE + 3) / 4; ++ii) {
+    for (int o = 0; o < kMaxE; ++o) gh[o] = o < E ? from_part(mine, o) : 0.f;
+#pragma unroll
+    for (int ii = 0; ii < kMaxE / 4; ++ii) {
       const int i = r + 4 * ii;
       if (i < E && (i < 4 || par >= 0)) {
-        float s = 0.f;
-#pragma unroll
-        for (int o = 0; o < kMaxE; ++o)
-          if (o < E) s = fmaf(__ldg(w1j + i * E + o), gh[o * kRows + p], s);
+        const float s = walk_dot(gh, w1 + (j * E + i) * w.RE, E, false);
         if (i < 4)
           gx[(j * 4 + i) * kRows + p] = s;
         else
           *at(x, p, par * F + i - 4) += s;
       }
     }
-    named_bar_sync(kBar, kConsumers);
+    __syncwarp();
   }
+  named_bar_sync(kBar, kConsumers);
 }
 
 // The normalization's VJP (x = q / n  =>  g = gx / n - q [s >= eps^2]
@@ -781,64 +1023,134 @@ __device__ __forceinline__ void finish(const Args& a, int row0, const float* gx,
   }
 }
 
+// The walks, with the SMPL fields' feature width at compile time.
 template <int kAct, bool kBf16>
-__global__ void __launch_bounds__(kFieldThreads, 1) field_kernel(const __grid_constant__ Args a) {
-  extern __shared__ unsigned char smem_raw[];
-  unsigned char* ring = align1024(smem_raw);
-  float* xs = reinterpret_cast<float*>(ring + kStages * kSlabBytes);
-  float* cs = xs + kRows * kXMax;
-  uint64_t* bars = reinterpret_cast<uint64_t*>(cs + kRows * kChunk);
-  init_ring(bars, kStages, 1, 1);   // full barriers; the empty ones go unused
+__device__ __forceinline__ void walk_forward(const Args& a, int row0, const Buf& x, int D0,
+                                             unsigned char* ez, const int* parents, float* wr) {
+  if (a.F == 6)
+    encode<kAct, kBf16, 6>(a, row0, x, D0, ez, parents, wr);
+  else
+    encode<kAct, kBf16, 0>(a, row0, x, D0, ez, parents, wr);
+}
 
+template <int kAct, bool kBf16>
+__device__ __forceinline__ void walk_backward(const Args& a, const Buf& x, const unsigned char* ez,
+                                              float* gx, const int* parents) {
+  if (a.F == 6)
+    encode_backward<kAct, kBf16, 6>(a, x, ez, gx, parents);
+  else
+    encode_backward<kAct, kBf16, 0>(a, x, ez, gx, parents);
+}
+
+// The consumers' program (threads 0..255): vec to shared memory where it
+// fits, the encoder walk, the forward's steps, the output layer and, with a
+// gradient, the backward's start and steps, the encoder's reverse walk and
+// finish. The derivative state: the DFNet's in the CTA's global scratch;
+// the encoder's in shared memory (ezs, lrelu and relu) or after the DFNet's
+// (softplus).
+template <int kAct, bool kBf16>
+__device__ __forceinline__ void consume(const Args& a, Ctx& cx, unsigned char* ring, float* xs,
+                                        float* cs, float* vs, unsigned char* ezs, int* ps) {
   const bool grad = a.mode != kForward;
-  Ctx cx{bars,
-         ring,
-         a.slabs,
-         grad ? a.nfwd + a.nbwd : a.nfwd,
-         0,
-         static_cast<int>(threadIdx.x) / 128,
-         static_cast<int>(threadIdx.x) % 128,
-         a.beta,
-         kBf16 ? kBf16SlabBytes : kSlabBytes};
-  for (int g = 0; g < kStages; ++g) fill(cx, g);
-
   const int row0 = blockIdx.x * kRows;
   const int E = 4 + a.F;
   const int* head = a.prog;
   const int nfwd_steps = __ldg(head), nbwd_steps = __ldg(head + 1);
   const int zsum = __ldg(head + 7);
   const Buf x{xs, kXMax}, cb{cs, kChunk};
-  float* zb = grad ? a.zscratch + static_cast<size_t>(blockIdx.x) * kRows * (zsum + a.J * (E + a.F))
-                   : nullptr;
-  float* ez = zb != nullptr ? zb + static_cast<size_t>(kRows) * zsum : nullptr;
+  // vec: the biases, the output layer's w and (last) its b
+  const int nvec = __ldg(head + 5) + 1;
+  const float* vec = a.vec;
+  if (nvec <= kVecSmem) {   // read before the first epilogue, after encode's barriers
+    for (int i = threadIdx.x; i < nvec; i += kConsumers) vs[i] = __ldg(a.vec + i);
+    vec = vs;
+  }
+  if (static_cast<int>(threadIdx.x) < a.J)   // read after encode's barriers
+    ps[threadIdx.x] = __ldg(a.parents + threadIdx.x);
+  const size_t enc_bytes = kAct == kSoftplus ? static_cast<size_t>(a.J) * (E + a.F) * kRows * 4 : 0;
+  unsigned char* zb =
+      grad ? a.zscratch + static_cast<size_t>(blockIdx.x) * (kZUnit<kAct> * static_cast<size_t>(zsum) + enc_bytes)
+           : nullptr;
+  unsigned char* ez = !grad ? nullptr
+                      : kAct == kSoftplus ? zb + static_cast<size_t>(kZUnit<kAct>) * zsum
+                                          : ezs;
 
-  encode<kAct, kBf16>(a, row0, x, __ldg(head + 2), cs, cs + kMaxE * kRows, ez);
+  // the forward walk has the ring's space; then the ring's first copies
+  walk_forward<kAct, kBf16>(a, row0, x, __ldg(head + 2), ez, ps, reinterpret_cast<float*>(ring));
+  if constexpr (kBf16)
+    named_bar_arrive(kBarRing, kConsumers + 32);   // the producer's warp waits on it
+  else
+    for (int g = 0; g < Route<false>::kStages; ++g) fill(cx, g);
   const int* step = head + kHead;
-  for (int i = 0; i < nfwd_steps; ++i, step += kStep) run_step<kAct, kBf16>(step, x, cb, a.vec, zb, cx);
+  for (int i = 0; i < nfwd_steps; ++i, step += kStep) run_step<kAct, kBf16>(step, x, cb, vec, zb, cx);
   // the output layer: d
   const int K = __ldg(head + 3);
-  const float* wl = a.vec + __ldg(head + 4);
-  output_layer<kAct, kBf16>(a, row0, x, K, wl, __ldg(a.vec + __ldg(head + 5)), cs, cs + 4 * kRows);
+  const float* wl = vec + __ldg(head + 4);
+  output_layer<kAct, kBf16>(a, row0, x, K, wl, vec[nvec - 1], cs, cs + 4 * kRows);
   if (!grad) return;
-  backward_start<kAct, kBf16>(x, K, wl, zb + static_cast<size_t>(kRows) * __ldg(head + 6),
+  backward_start<kAct, kBf16>(x, K, wl, zb + static_cast<size_t>(kZUnit<kAct>) * __ldg(head + 6),
                               cs + 4 * kRows, cx);
-  for (int i = 0; i < nbwd_steps; ++i, step += kStep) run_step<kAct, kBf16>(step, x, cb, a.vec, zb, cx);
+  for (int i = 0; i < nbwd_steps; ++i, step += kStep) run_step<kAct, kBf16>(step, x, cb, vec, zb, cx);
   // every slab is read: the ring's space holds gx
   float* gx = reinterpret_cast<float*>(ring);
-  encode_backward<kAct, kBf16>(a, x, ez, gx, cs);
+  walk_backward<kAct, kBf16>(a, x, ez, gx, ps);
   finish(a, row0, gx, cs + kMaxE * kRows, cs + (kMaxE + 4) * kRows);
+}
+
+template <int kAct, bool kBf16>
+__global__ void __launch_bounds__(Route<kBf16>::kThreads, 1)
+    field_kernel(const __grid_constant__ Args a) {
+  constexpr int S = Route<kBf16>::kStages, kSlot = Route<kBf16>::kSlot;
+  extern __shared__ unsigned char smem_raw[];
+  // aligned by pointer arithmetic on the shared array, so that the compiler
+  // keeps every access below a shared-memory one
+  unsigned char* ring = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  float* xs = reinterpret_cast<float*>(ring + S * kSlot);
+  float* cs = xs + kRows * kXMax;
+  float* vs = cs + kRows * kChunk;
+  unsigned char* ezs = reinterpret_cast<unsigned char*>(vs + kVecSmem);
+  int* ps = reinterpret_cast<int*>(ezs + kEzSmem);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(ps + kMaxJ);
+  // full barriers (one arrival, the slab's bytes); bf16: empty ones (an
+  // arrival of each consumer warpgroup)
+  init_ring(bars, S, 1, kConsumers / 128);
+
+  const int n = a.mode != kForward ? a.nfwd + a.nbwd : a.nfwd;
+  Ctx cx{bars,
+         ring,
+         a.slabs,
+         n,
+         0,
+         static_cast<int>(threadIdx.x) / 128,
+         static_cast<int>(threadIdx.x) % 128,
+         a.beta};
+  if constexpr (kBf16) {
+    if (threadIdx.x >= kConsumers) {   // the producer warpgroup: its thread 0 copies every slab
+      setmaxnreg_dec<24>();
+      if (threadIdx.x < kConsumers + 32) {
+        named_bar_sync(kBarRing, kConsumers + 32);   // once the forward walk is done with the ring
+        if (threadIdx.x == kConsumers)
+          for (int g = 0; g < n; ++g)
+            produce(bars, S, ring, kSlot, g, a.slabs + static_cast<size_t>(g) * kSlot, kSlot);
+      }
+      return;
+    }
+    setmaxnreg_inc<240>();
+  }
+  consume<kAct, kBf16>(a, cx, ring, xs, cs, vs, ezs, ps);
 }
 
 template <bool kBf16>
 int launch_route(const Args& a, dim3 ctas, void* stream) {
+  constexpr int kThreads = Route<kBf16>::kThreads;
+  constexpr size_t kSmem = field_smem<kBf16>();
   switch (a.act) {   // one kernel an activation, so each epilogue is a few instructions
     case kLRelu:
-      return launch_wgmma(field_kernel<kLRelu, kBf16>, ctas, kFieldThreads, kFieldSmem, stream, a);
+      return launch_wgmma(field_kernel<kLRelu, kBf16>, ctas, kThreads, kSmem, stream, a);
     case kRelu:
-      return launch_wgmma(field_kernel<kRelu, kBf16>, ctas, kFieldThreads, kFieldSmem, stream, a);
+      return launch_wgmma(field_kernel<kRelu, kBf16>, ctas, kThreads, kSmem, stream, a);
     case kSoftplus:
-      return launch_wgmma(field_kernel<kSoftplus, kBf16>, ctas, kFieldThreads, kFieldSmem, stream,
-                          a);
+      return launch_wgmma(field_kernel<kSoftplus, kBf16>, ctas, kThreads, kSmem, stream, a);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -891,39 +1203,44 @@ int posendf_forward(const float* pose, int B, const float* enc, const int* paren
 int posendf_value_and_grad(const float* pose, int B, const float* enc, const int* parents, int J,
                            int F, const void* slabs, const float* vec, const int* prog, int nfwd,
                            int nbwd, int act, float beta, int bf16, float* d_out, float* g_out,
-                           float* zscratch, void* stream) {
+                           void* zscratch, void* stream) {
   Args a = common_args(pose, B, enc, parents, J, F, slabs, vec, prog, nfwd, nbwd, act, beta, bf16);
   a.d_out = d_out;
   a.g_out = g_out;
-  a.zscratch = zscratch;
+  a.zscratch = static_cast<unsigned char*>(zscratch);
   return launch(a, kValueAndGrad, stream);
 }
 
 int posendf_project_step(const float* pose, int B, const float* enc, const int* parents, int J,
                          int F, const void* slabs, const float* vec, const int* prog, int nfwd,
                          int nbwd, int act, float beta, int bf16, float* d_out, float* q_out,
-                         float* zscratch, float step_scale, int tangent, int renormalize,
+                         void* zscratch, float step_scale, int tangent, int renormalize,
                          void* stream) {
   Args a = common_args(pose, B, enc, parents, J, F, slabs, vec, prog, nfwd, nbwd, act, beta, bf16);
   a.d_out = d_out;
   a.q_out = q_out;
-  a.zscratch = zscratch;
+  a.zscratch = static_cast<unsigned char*>(zscratch);
   a.step_scale = step_scale;
   a.tangent = tangent;
   a.renormalize = renormalize;
   return launch(a, kProjectStep, stream);
 }
 
-// Floats of the pre-activation scratch of a value-and-grad or projection
-// launch over B poses: per 64-pose CTA, the DFNet's zsum and the encoder's
-// J (E + F) a pose.
-long long posendf_field_scratch_floats(int B, int J, int F, int zsum) {
+// Floats (4-byte words) of the derivative-state scratch of a value-and-grad
+// or projection launch over B poses with activation act: per 64-pose CTA,
+// the DFNet's zsum units of 64 bits (lrelu, relu: two words; the encoder's
+// bits stay in shared memory) or of 64 fp32 pre-activations, then the
+// encoder's J (E + F) units of those (softplus).
+long long posendf_field_scratch_floats(int B, int J, int F, int zsum, int act) {
   const long long ctas = (B + kRows - 1) / kRows;
-  return ctas * kRows * (zsum + J * (2 * F + 4));
+  return act == kSoftplus ? ctas * kRows * (zsum + J * (2 * F + 4)) : ctas * (kRows / 32) * zsum;
 }
 
-// Bytes of dynamic shared memory one CTA takes.
-int posendf_smem_bytes() { return static_cast<int>(kFieldSmem); }
+// Bytes of dynamic shared memory one CTA takes (the larger route's).
+int posendf_smem_bytes() {
+  return static_cast<int>(field_smem<true>() > field_smem<false>() ? field_smem<true>()
+                                                                   : field_smem<false>());
+}
 
 const char* posendf_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -32,13 +32,19 @@ The bf16 and int8 chains run ``base`` and ``nomma`` (their products cut: the
 ring alone), the int8 chain ``rows128`` and ``noconv`` too.
 
 ``field_kernels.cu`` (the projection step at 10,000 poses and the forward
-at 131,072):
+at 131,072, each on the trained field in fp32 (the 3xTF32 route) and loaded
+with ``compute_dtype="bfloat16"`` (the bf16 route); a cut reaches both
+routes where they share the code):
 
   ``base``     the kernels as they are
-  ``noenc``    without the encoder walk and its reverse walk
+  ``noenc``    without the encoder walk and its reverse walk (the calls of
+               ``walk_forward`` and ``walk_backward``, each with its rows'
+               staging; before the four-lanes-a-pose walks, of ``encode``
+               and ``encode_backward``: the same cut)
   ``nomma``    without the wgmma products (the A fragments are still loaded
                and split, the slabs still stream and are released)
-  ``noepi``    without the DFNet layers' epilogues
+  ``noepi``    without the DFNet layers' epilogues (and so without the
+               folds into the layers' sums, which nothing reads then)
   ``copies``   those three cut and the A fragments' loads too: the weight
                ring alone (with the output layer and the CUDA-core ends)
 
@@ -138,15 +144,17 @@ CUTS: Dict[str, Dict[str, List[Tuple[str, str]]]] = {
                    "      const int col = col0 + 8 * g;")],
     },
     "field": {
-        "noenc": [("  encode<kAct, kBf16>(a, row0, x, __ldg(head + 2), cs, cs + kMaxE * kRows, ez);\n", ""),
-                  ("  encode_backward<kAct, kBf16>(a, x, ez, gx, cs);\n", "")],
+        "noenc": [("  walk_forward<kAct, kBf16>(a, row0, x, __ldg(head + 2), ez, ps, reinterpret_cast<float*>(ring));\n",
+                   ""),
+                  ("  walk_backward<kAct, kBf16>(a, x, ez, gx, ps);\n", "")],
         "nomma": [("  __device__ __forceinline__ void mma(float (&acc)[N / 2], uint32_t bh, uint32_t bl) {\n",
                    "  __device__ __forceinline__ void mma(float (&acc)[N / 2], uint32_t bh, uint32_t bl) {\n"
                    "    if (bh != ~0u) return;\n")],
         "noepi": [("__device__ __forceinline__ void epilogue(const float (&acc)[NG][4 * NJ], int cg0, const Epi& e,\n"
-                   "                                         const Ctx& cx) {\n",
+                   "                                         const Ctx& cx, const uint32_t (&zbits)[NG]) {\n",
                    "__device__ __forceinline__ void epilogue(const float (&acc)[NG][4 * NJ], int cg0, const Epi& e,\n"
-                   "                                         const Ctx& cx) {\n  if (e.col0 >= 0) return;\n")],
+                   "                                         const Ctx& cx, const uint32_t (&zbits)[NG]) {\n"
+                   "  if (e.col0 >= 0) return;\n")],
         "noload": [("      if constexpr (kBf16)\n"
                     "        load_a_bf16(b, r, k + 16 * kk, hi[kk]);\n"
                     "      else\n"
@@ -154,7 +162,6 @@ CUTS: Dict[str, Dict[str, List[Tuple[str, str]]]] = {
                     "      for (int j = 0; j < 4; ++j) hi[kk][j] = lo[kBf16 ? 0 : kk][j] = 0u;\n")],
     },
 }
-_FIELD = CUTS["field"]
 CUTS["train"] = {
     "noenc": [("  encode<kAct>(a, row0, x, __ldg(head + 2), cs, scal, ez);\n", ""),
               ("  encode_backward<kAct>(a, row0 + static_cast<int>(threadIdx.x) % kRows < a.B, x, ez, gg, gx, cs);\n", ""),
@@ -177,7 +184,10 @@ CUTS["train"] = {
                 "    const float4 v = make_float4(1e-3f * c, 2e-3f, 3e-3f, 4e-3f);")],
     "encio": [("  for (int j = 0; j < J; ++j) {\n    const int pj = par[j];",
                "  for (int j = 0; j < (B < 0 ? J : 0); ++j) {\n    const int pj = par[j];")],
-    "noepi": _FIELD["noepi"],
+    "noepi": [("__device__ __forceinline__ void epilogue(const float (&acc)[NG][4 * NJ], int cg0, const Epi& e,\n"
+               "                                         const Ctx& cx) {\n",
+               "__device__ __forceinline__ void epilogue(const float (&acc)[NG][4 * NJ], int cg0, const Epi& e,\n"
+               "                                         const Ctx& cx) {\n  if (e.col0 >= 0) return;\n")],
     "noload": [("    for (int kk = 0; kk < 4; ++kk) load_a(a, r, 32 * kb + 8 * kk + c, ah[kk], al[kk]);\n",
                 "    for (int kk = 0; kk < 4; ++kk)\n      for (int j = 0; j < 4; ++j) ah[kk][j] = al[kk][j] = 0u;\n"),
                ("      for (int kk = 0; kk < 4; ++kk)\n"
@@ -266,6 +276,7 @@ def main(which=None) -> None:
     if not torch.cuda.is_available():
         raise SystemExit("breakdown: torch.cuda.is_available() is false; it needs a card")
     import posendf_torch
+    from posendf_torch.config import PoseNDFConfig
     from posendf_torch.ops import fused_encoder, fused_grad, fused_int8, fused_knn, fused_train
     from posendf_torch.ops import int8_probe as P
 
@@ -274,9 +285,13 @@ def main(which=None) -> None:
     with ThreadPoolExecutor(len(jobs)) as pool:   # one nvcc a variant, all at once
         libs = dict(zip(jobs, pool.map(_build_variant, jobs)))
     root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-    field = posendf_torch.load_field(os.path.join(root, "docs", "quality", "ckpt_l8_best.msgpack"),
-                                     device="cuda")
+    ckpt = os.path.join(root, "docs", "quality", "ckpt_l8_best.msgpack")
+    field = posendf_torch.load_field(ckpt, device="cuda")
     w = field.weights()
+    cfg16 = PoseNDFConfig()
+    cfg16.dfnet.compute_dtype = "bfloat16"
+    f16 = posendf_torch.load_field(ckpt, config=cfg16, device="cuda")
+    w16 = f16.weights()
     q = np.random.default_rng(3).normal(size=(131_072, 21, 4)).astype(np.float32)
     q = torch.from_numpy(q / np.linalg.norm(q, axis=-1, keepdims=True)).cuda()
     q10 = q[:10_000].clone()
@@ -355,12 +370,13 @@ def main(which=None) -> None:
                       flush=True)
                 continue
             with torch.no_grad():
-                t = P.cuda_ms(lambda: fused_grad.project_step(q10, w), reps=10, rounds=5)
-                print(f"projection step B=10000 {name}: {t[0]:.4f} ms [{t[1]:.4f}-{t[2]:.4f}]",
-                      flush=True)
-                t = P.cuda_ms(lambda: field.distance_fused(q), reps=5, rounds=5)
-                print(f"forward B=131072 {name}: {t[0]:.4f} ms [{t[1]:.4f}-{t[2]:.4f}]",
-                      flush=True)
+                for route, fw, ww in (("", field, w), ("bf16 ", f16, w16)):
+                    t = P.cuda_ms(lambda: fused_grad.project_step(q10, ww), reps=10, rounds=5)
+                    print(f"{route}projection step B=10000 {name}: {t[0]:.4f} ms "
+                          f"[{t[1]:.4f}-{t[2]:.4f}]", flush=True)
+                    t = P.cuda_ms(lambda: fw.distance_fused(q), reps=5, rounds=5)
+                    print(f"{route}forward B=131072 {name}: {t[0]:.4f} ms [{t[1]:.4f}-{t[2]:.4f}]",
+                          flush=True)
     finally:
         _build.library = library
 

@@ -22,8 +22,9 @@ A bf16 field (``FieldWeights.compute_dtype``) runs both kernels' bf16 route,
 as the TPU kernels' ``compute_dtype="bfloat16"``: every product of the
 forward and of the backward on operands rounded to bf16 (the weights, and
 the cotangent at each product: ``g`` before each W^T, ``gf`` and ``gh`` in
-the encoder's reverse walk), summed in fp32; the derivative state (the
-pre-activations, act' exact), the normalization's VJP and the update in
+the encoder's reverse walk), summed in fp32; the derivative state (act'
+exact: a bit a unit for lrelu and relu, the fp32 pre-activations for
+softplus, in both routes), the normalization's VJP and the update in
 fp32.
 
 Each wrapper launches its kernel for a CUDA tensor and runs the plain
@@ -113,10 +114,13 @@ def project_step_ref(q: torch.Tensor, weights: FieldWeights, *, step_scale: floa
 
 
 def _zscratch(quat: torch.Tensor, weights: FieldWeights) -> torch.Tensor:
-    """The pre-activations the kernels keep for their backward: as many
-    floats as the library says a launch over these poses needs."""
+    """The derivative state the kernels keep for their backward, as many
+    floats as the library says a launch over these poses needs: a bit a unit
+    and pose for lrelu and relu (act' takes two values), the fp32
+    pre-activations for softplus, as the TPU kernels' ``_act_store``."""
     n = _build.library().posendf_field_scratch_floats(
-        quat.shape[0], weights.num_joints, weights.feature_size, weights.tc_packed().zsum)
+        quat.shape[0], weights.num_joints, weights.feature_size, weights.tc_packed().zsum,
+        _build.ACT_CODES[weights.activation])
     return torch.empty(n, dtype=torch.float32, device=quat.device)
 
 

@@ -18,7 +18,8 @@ XLA formula; that backward is itself differentiable (in bf16 it raises,
 as JAX's does). This module also holds :class:`FieldWeights`, the view of a
 model that the kernels read, and its packing into device buffers:
 :class:`Packed` for the train kernels and :class:`TcPacked` for the three
-field kernels (:func:`pack_tc` in fp32, :func:`pack_bf16` in bf16).
+field kernels (:func:`pack_tc` in fp32, :func:`pack_bf16` in bf16; the
+encoder walks' rows :func:`pack_walk`).
 """
 
 from __future__ import annotations
@@ -36,8 +37,8 @@ from posendf_torch.quat import joint_axis_normalize
 
 __all__ = ["FieldWeights", "fused_posendf_forward", "fused_posendf_forward_ref", "replay_backward",
            "int_table", "aligned_contiguous", "TcPacked", "pack_tc", "pack_bf16", "tc_width",
-           "tc_widths", "tc_schedule", "tc_slab_offsets", "bf16_slab_offsets", "operand",
-           "bf16_hold", "TC_CHUNK", "BF16_SLAB", "LAUNCHES"]
+           "tc_widths", "tc_schedule", "tc_slab_offsets", "bf16_slab_offsets", "pack_walk", "operand",
+           "bf16_hold", "TC_CHUNK", "BF16_SLAB", "BF16_SLAB_K", "LAUNCHES"]
 
 # launches of the forward kernel since the count was last set to 0
 LAUNCHES = 0
@@ -71,6 +72,7 @@ class FieldWeights:
     compute_dtype: str = "float32"
     _packed: Optional[Packed] = field(default=None, repr=False)
     _tc: Optional["TcPacked"] = field(default=None, repr=False)
+    _walk: Optional[torch.Tensor] = field(default=None, repr=False)
 
     @classmethod
     def from_module(cls, module) -> "FieldWeights":
@@ -115,6 +117,13 @@ class FieldWeights:
         if self._tc is None:
             self._tc = pack_bf16(self) if self.bf16 else pack_tc(self)
         return self._tc
+
+    def walk_packed(self) -> torch.Tensor:
+        """The field kernels' encoder weights (:func:`pack_walk`), built once
+        and reused."""
+        if self._walk is None:
+            self._walk = pack_walk(self)
+        return self._walk
 
 
 @functools.lru_cache(maxsize=None)
@@ -181,10 +190,11 @@ def tc_widths(dims) -> Tuple[int, ...]:
     return tuple(D)
 
 
-def tc_schedule(widths: Tuple[int, ...]):
+def tc_schedule(widths: Tuple[int, ...], slab_k: int = TC_SLAB_K):
     """The field kernels' program and slab order for padded widths
     D[0..L-1] (D[0] the code, D[l + 1] layer l's output; layer L-1, the
-    output layer, runs on the CUDA cores).
+    output layer, runs on the CUDA cores), for slabs of ``slab_k`` of K
+    (32 for the 3xTF32 route, 64 for the bf16 route: BF16_SLAB_K).
 
     Returns (header, forward steps, backward steps, forward slabs, backward
     slabs). A step is [chain, K, N, N2, bias1, z1, bias2, z2]: a layer
@@ -195,9 +205,10 @@ def tc_schedule(widths: Tuple[int, ...]):
     pose, of the pre-activations the forward keeps or the backward reads
     for act', -1 for none. A slab is (matrix, layer, K block, column group,
     columns): matrix "wt" = W^T (out, in) for the forward, "w" = W (in,
-    out) for the backward, both (N, K); 128 columns x 32 of K, or, for the
-    first product of a chain, TC_CHUNK = 64 columns x 64 of K (blocks and
-    groups counted in those units). The header is [forward steps, backward
+    out) for the backward, both (N, K); 128 columns x ``slab_k`` of K, or,
+    for the first product of a chain, TC_CHUNK = 64 columns x 2 ``slab_k``
+    of K (blocks and groups counted in those units). The program does not
+    depend on ``slab_k``, only the slabs do. The header is [forward steps, backward
     steps, D[0], D[L-1], offset of the output layer's w, of its b, z offset
     of layer L-2, zsum]."""
     D, n = list(widths), len(widths) - 1
@@ -211,14 +222,14 @@ def tc_schedule(widths: Tuple[int, ...]):
                              f"{TC_XMAX} (padded): widths {D}")
     zoff = [sum(D[1:l + 1]) for l in range(n)]
     zsum = sum(D[1:])
-    kbs = lambda k: range(k // TC_SLAB_K)          # noqa: E731
+    kbs = lambda k: range(k // slab_k)             # noqa: E731
     cgs = lambda k: range(k // TC_SLAB_N)          # noqa: E731
-    ck = TC_CHUNK // TC_SLAB_K                     # K blocks of a chunk
+    ck = TC_CHUNK // slab_k                        # K blocks of a chunk
 
     def chain_slabs(m, first, second, K, N, N2):
         out = []
         for c in range(N // TC_CHUNK):
-            out += [(m, first, k, c, TC_CHUNK) for k in range(K // TC_CHUNK)]
+            out += [(m, first, k, c, TC_CHUNK) for k in range(K // (2 * slab_k))]
             out += [(m, second, ck * c + k, g, TC_SLAB_N) for k in range(ck) for g in cgs(N2)]
         return out
 
@@ -340,7 +351,6 @@ class TcPacked:
     nbwd: int                     # slabs of the backward
     zsum: int                     # pre-activation floats a pose (padded hidden widths)
     order: List[Tuple[str, int, int, int, int]]   # (matrix, layer, K block, column group, columns)
-    enc: Optional[torch.Tensor] = None   # bf16: the encoder's w1 | b1 | w2 | b2, w1, w2 rounded
     bf16: bool = False
 
 
@@ -393,73 +403,118 @@ def pack_tc(w: FieldWeights) -> TcPacked:
 
 # ---- the field kernels' bf16 weights ----
 #
-# The bf16 route reads the slabs of the same program (tc_schedule), in the
-# same order, each holding the same block of a weight matrix: 128 output
-# columns x 32 of K (64 x 64 for the first product of a chain), rounded to
-# bf16, one 128-byte line a column in the K-major 128-byte swizzle (a k16
-# step reads 32 bytes of each line). A 128-column slab fills the first 64
-# bytes of its lines, a 64-column one its 64 lines whole; the rest of the
-# BF16_SLAB elements (16 KB) are zeros. K is in feature order: a thread's
-# bf16 A registers hold features 2(t%4), +1, +8, +9 of a k16 step, the
-# columns its accumulators hold in two adjacent 8-column groups.
+# The bf16 route reads the slabs of the same program (tc_schedule), each a
+# whole 16 KB of weights rounded to bf16 (BF16_SLAB elements, no padding but
+# the zero-padded widths'): 128 output columns x 64 of K, one 128-byte line a
+# column in the K-major 128-byte swizzle (a k16 step reads 32 bytes of each
+# line; warpgroup w takes lines 64w..64w+63); for the first product of a
+# chain, 64 columns x 128 of K, two such tiles of 64 lines (K 0-63, then
+# 64-127; warpgroup w takes lines 32w..32w+31 of each). So a pass reads half
+# the slabs of the 3xTF32 route's 32 of K (tc_schedule with slab_k =
+# BF16_SLAB_K: 168 a pass for the trained field, 336 in 3xTF32). K is in
+# feature order: a thread's bf16 A registers hold features 2(t%4), +1, +8,
+# +9 of a k16 step, the columns its accumulators hold in two adjacent
+# 8-column groups. The kernels' fresh accumulator spans a slab (64 of K)
+# before it is added to the layer's fp32 sums.
 
 BF16_SLAB = 8192      # bf16 elements a slab: 16 KB, 128 lines of 128 bytes
+BF16_SLAB_K = 64      # K of a 128-column bf16 slab: one 128-byte line
 
 
 def bf16_slab_offsets(rows: int, kl: int) -> torch.Tensor:
-    """Where a bf16 slab keeps element (line r, K position k < kl <= 64):
-    (rows, kl) offsets in bf16 elements, byte 2k of line r at
-    csrc/hopper.cuh's sw128_offset."""
+    """Where a bf16 slab of ``rows`` output columns x ``kl`` of K (rows x kl
+    = BF16_SLAB) keeps element (column r, K position k): (rows, kl)
+    offsets in bf16 elements. K 64h..64h+63 of column r is line r + rows h,
+    byte 2 (k % 64) of that line at csrc/hopper.cuh's sw128_offset."""
     r = torch.arange(rows)[:, None]
     k = torch.arange(kl)[None, :]
-    return (r // 8) * 512 + (r % 8) * 64 + ((k // 8) ^ (r % 8)) * 8 + k % 8
+    line, kk = r + rows * (k // BF16_SLAB_K), k % BF16_SLAB_K
+    return (line // 8) * 512 + (line % 8) * 64 + ((kk // 8) ^ (line % 8)) * 8 + kk % 8
 
 
-def _bf16_slab_ids(m: torch.Tensor, cols: int, zero: int) -> torch.Tensor:
+def _bf16_slab_ids(m: torch.Tensor, cols: int) -> torch.Tensor:
     """Every bf16 slab of an (N, K) matrix of element ids: (K / kl, N / cols,
-    BF16_SLAB) ids, kl = 32 (cols 128) or 64 (cols 64), padding ``zero``."""
+    BF16_SLAB) ids, kl = BF16_SLAB / cols (64 for 128 columns, 128 for the
+    64 of a chain's first product)."""
     N, K = m.shape
-    kl = TC_SLAB_FLOATS // 2 // cols
+    kl = BF16_SLAB // cols
     b = m.reshape(N // cols, cols, K // kl, kl).permute(2, 0, 1, 3)
-    out = torch.full((K // kl, N // cols, BF16_SLAB), zero, dtype=m.dtype)
+    out = torch.empty((K // kl, N // cols, BF16_SLAB), dtype=m.dtype)
     out[..., bf16_slab_offsets(cols, kl).reshape(-1)] = b.reshape(K // kl, N // cols, -1)
     return out
 
 
+@dataclass(frozen=True)
+class _Bf16Plan:
+    """What :func:`pack_bf16` needs of a structure, made once."""
+
+    index: torch.Tensor   # (slabs x BF16_SLAB,) int32: into the flat weights and one zero
+    nfwd: int
+    nbwd: int
+    order: List[Tuple[str, int, int, int, int]]
+
+
 @functools.lru_cache(maxsize=None)
-def _bf16_index(shapes: Tuple[Tuple[int, int], ...], device: str) -> torch.Tensor:
+def _bf16_plan(shapes: Tuple[Tuple[int, int], ...], device: str) -> _Bf16Plan:
     """The bf16 slabs of hidden layers of ``shapes`` (in, out) as one gather:
     slab element f is element index[f] of the weights W_l flattened one after
-    another and followed by one zero."""
-    plan = _tc_plan(shapes, "cpu")
+    another and followed by one zero; the slabs in the order of
+    ``tc_schedule(widths, BF16_SLAB_K)``."""
+    widths = tc_widths([shapes[0][0]] + [o for _, o in shapes])
+    _, _, _, fslabs, bslabs = tc_schedule(widths, BF16_SLAB_K)
     total = sum(i * o for i, o in shapes)
-    mats = _weight_ids(shapes, plan.widths, total)
-    cut = {key: _bf16_slab_ids(mats[key[:2]], key[2], total)
-           for key in {(kind, l, cols) for kind, l, _, _, cols in plan.order}}
-    index = torch.stack([cut[kind, l, cols][kb, cg] for kind, l, kb, cg, cols in plan.order])
-    return index.reshape(-1).to(device=device, dtype=torch.int32)
+    mats = _weight_ids(shapes, widths, total)
+    order = fslabs + bslabs
+    cut = {key: _bf16_slab_ids(mats[key[:2]], key[2])
+           for key in {(kind, l, cols) for kind, l, _, _, cols in order}}
+    index = torch.stack([cut[kind, l, cols][kb, cg] for kind, l, kb, cg, cols in order])
+    return _Bf16Plan(index=index.reshape(-1).to(device=device, dtype=torch.int32),
+                     nfwd=len(fslabs), nbwd=len(bslabs), order=order)
 
 
 def pack_bf16(w: FieldWeights) -> TcPacked:
-    """The field kernels' bf16 weights: :func:`pack_tc`'s program and slab
-    order, each slab its block of the zero-padded W^T (forward) or W
-    (backward) rounded to bf16 (the layout above); the biases in fp32, the
-    output layer's w rounded to bf16 (kept as fp32) and its b; the
-    encoder's w1 | b1 | w2 | b2 with w1 and w2 rounded to bf16."""
+    """The field kernels' bf16 weights: :func:`pack_tc`'s program, the slabs
+    of ``tc_schedule(widths, BF16_SLAB_K)`` in their order, each its block
+    of the zero-padded W^T (forward) or W (backward) rounded to bf16 (the
+    layout above); the biases in fp32, the output layer's w rounded to bf16
+    (kept as fp32) and its b. (The encoder's rounded weights are
+    :func:`pack_walk`'s.)"""
     if not w.bf16:
         raise ValueError("pack_bf16 packs a field whose compute_dtype is 'bfloat16'")
     shapes = _tc_check(w)
-    plan = _tc_plan(shapes, str(w.device))
+    plan, bp = _tc_plan(shapes, str(w.device)), _bf16_plan(shapes, str(w.device))
     with torch.no_grad():
         flat = torch.cat([wl.detach().reshape(-1).to(torch.bfloat16) for wl, _ in w.layers[:-1]])
         src = torch.cat([flat, flat.new_zeros(1)])
-        slabs = torch.index_select(src, 0, _bf16_index(shapes, str(w.device))).view(-1, BF16_SLAB)
-        enc = torch.cat([(bf16_round(w.enc[k]) if k in ("w1", "w2") else w.enc[k])
-                         .detach().reshape(-1).float() for k in ("w1", "b1", "w2", "b2")])
+        slabs = torch.index_select(src, 0, bp.index).view(-1, BF16_SLAB)
         vec = _tc_vec(w, plan.widths)
-    return TcPacked(slabs=slabs, vec=vec, prog=plan.prog, widths=plan.widths, nfwd=plan.nfwd,
-                    nbwd=plan.nbwd, zsum=plan.zsum, order=plan.order, enc=enc.contiguous(),
-                    bf16=True)
+    return TcPacked(slabs=slabs, vec=vec, prog=plan.prog, widths=plan.widths, nfwd=bp.nfwd,
+                    nbwd=bp.nbwd, zsum=plan.zsum, order=bp.order, bf16=True)
+
+
+def _round4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def pack_walk(w: FieldWeights) -> torch.Tensor:
+    """The field kernels' encoder weights, as their walks read them (float4
+    rows, csrc/field_kernels.cu's Walk), flat fp32: the forward walk's rows
+    (J, E + F, R), for each joint its E hidden units then its F features,
+    each a row of its E input weights, its bias and zeros to R = 4 ceil((E
+    + 1) / 4) (``fused_encoder.pack_encoder``'s rows); then the reverse
+    walk's rows of W2 (J, E, 4 ceil(F / 4)) and of W1 (J, E, 4 ceil(E / 4)),
+    zero-padded. In bf16 w1 and w2 are rounded to bf16 (the products'
+    operands), the biases not."""
+    from posendf_torch.ops.fused_encoder import pack_encoder
+
+    c = operand(w)
+    with torch.no_grad():
+        w1, w2 = (c(w.enc[k].detach().float()) for k in ("w1", "w2"))
+        E, F = w1.shape[-1], w2.shape[-1]
+        rows = pack_encoder(w1, w.enc["b1"], w2, w.enc["b2"])
+        pad = torch.nn.functional.pad
+        return torch.cat([rows.reshape(-1), pad(w2, (0, _round4(F) - F)).reshape(-1),
+                          pad(w1, (0, _round4(E) - E)).reshape(-1)]).contiguous()
 
 
 # How a bf16 result is held to a reference computed in bf16 elsewhere (the
@@ -555,12 +610,12 @@ def aligned_contiguous(t: torch.Tensor) -> torch.Tensor:
 
 
 def common_args(quat: torch.Tensor, weights: FieldWeights) -> list:
-    """The launchers' leading arguments, shared by the three kernels; the
-    last one picks the route (0: 3xTF32, 1: bf16)."""
+    """The launchers' leading arguments, shared by the three kernels (the
+    encoder's weights as :func:`pack_walk` rows); the last one picks the
+    route (0: 3xTF32, 1: bf16)."""
     pk, tc = weights.packed(), weights.tc_packed()
-    enc = pk.enc if tc.enc is None else tc.enc
-    return [quat.data_ptr(), quat.shape[0], enc.data_ptr(), pk.parents.data_ptr(),
-            weights.num_joints, weights.feature_size, tc.slabs.data_ptr(), tc.vec.data_ptr(),
+    return [quat.data_ptr(), quat.shape[0], weights.walk_packed().data_ptr(),
+            pk.parents.data_ptr(), weights.num_joints, weights.feature_size, tc.slabs.data_ptr(), tc.vec.data_ptr(),
             tc.prog.data_ptr(), tc.nfwd, tc.nbwd, _build.ACT_CODES[weights.activation],
             weights.beta, int(tc.bf16)]
 

@@ -1,6 +1,7 @@
-"""A CPU model of the port's 3xTF32 tensor-core arithmetic, shared by
-``tests/test_torch_field_tc.py`` (the field kernels) and
-``tests/test_torch_train_tc.py`` (the train tile kernel).
+"""A CPU model of the port's tensor-core arithmetic, shared by
+``tests/test_torch_field_tc.py`` (the field kernels), ``tests/test_torch_bf16_tc.py``
+(the field kernels' bf16 route) and ``tests/test_torch_train_tc.py`` (the
+train tile kernel).
 
 Both kernels run every DFNet product as ``wgmma`` from the weight slabs of
 ``fused_model.pack_tc`` in the order of its program (``tc_schedule``): A
@@ -12,6 +13,14 @@ tensor cores' accumulation as modelled here); a fresh accumulator for each
 model takes the slabs from the packed stream in order, reads each back by
 the swizzle's formula, and computes the slabs of one K-block at once (their
 accumulators are independent).
+
+The bf16 route (a pack of ``fused_model.pack_bf16``) reads the slabs of
+``tc_schedule(widths, BF16_SLAB_K)``, 128 columns x 64 of K (64 x 128 for
+a chain's first product), each read back by ``bf16_slab_offsets``; A is
+the activations rounded to bf16 to nearest even; each k16 step's 16
+products (exact in fp32) go into an fp32 accumulator that rounds toward
+zero, a fresh one for each 64 of K (a slab, or each half of a chain's first
+slab), added to the layer's sums in fp32 in the order of K.
 """
 
 from __future__ import annotations
@@ -20,12 +29,14 @@ from typing import Callable, Dict, List
 
 import torch
 
+from posendf_torch.models.dfnet import bf16_round
 from posendf_torch.ops import fused_model
-from posendf_torch.ops.fused_model import TC_CHUNK, TC_KPERM, TC_SLAB_K, TC_SLAB_N
+from posendf_torch.ops.fused_model import BF16_SLAB, BF16_SLAB_K, TC_CHUNK, TC_KPERM, TC_SLAB_K, \
+    TC_SLAB_N
 from posendf_torch.ops.fused_train import tf32_split
 
-__all__ = ["slab_blocks", "features", "toward_zero", "SlabStream", "product", "program",
-           "z_widths", "run"]
+__all__ = ["slab_blocks", "bf16_slab_blocks", "features", "toward_zero", "SlabStream", "product",
+           "product_bf16", "program", "z_widths", "run"]
 
 
 def slab_blocks(tc) -> List[torch.Tensor]:
@@ -36,6 +47,17 @@ def slab_blocks(tc) -> List[torch.Tensor]:
         off = fused_model.tc_slab_offsets(cols).reshape(-1)
         halves = slab.reshape(-1, 2, cols * TC_SLAB_K)[:, :, off]
         out.append(halves.reshape(-1, 2, cols, TC_SLAB_K))
+    return out
+
+
+def bf16_slab_blocks(tc) -> List[torch.Tensor]:
+    """Each bf16 slab read back by the layout's formula: a list of (cols,
+    BF16_SLAB / cols) float64 tensors, column by K."""
+    out = []
+    for slab, (_, _, _, _, cols) in zip(tc.slabs, tc.order):
+        kl = BF16_SLAB // cols
+        out.append(slab[fused_model.bf16_slab_offsets(cols, kl).reshape(-1)].double()
+                   .reshape(cols, kl))
     return out
 
 
@@ -60,7 +82,8 @@ class SlabStream:
     slabs a second time)."""
 
     def __init__(self, tc):
-        self.blocks = slab_blocks(tc)
+        self.bf16 = tc.bf16
+        self.blocks = bf16_slab_blocks(tc) if tc.bf16 else slab_blocks(tc)
         self.pos = 0
 
     def take(self, n: int) -> List[torch.Tensor]:
@@ -77,7 +100,10 @@ def product(stream: SlabStream, a: torch.Tensor, K: int, N: int, cols: int = TC_
             tot: torch.Tensor = None) -> torch.Tensor:
     """``tot`` (fp32, zeros if None) plus a[:, :K] . B for the next slabs of
     the stream: per K-block of a slab (32 of K, or 64 for the first product
-    of a chain, ``cols`` = 64), the N / cols slabs of its column groups."""
+    of a chain, ``cols`` = 64), the N / cols slabs of its column groups.
+    A bf16 stream takes :func:`product_bf16`."""
+    if stream.bf16:
+        return product_bf16(stream, a, K, N, cols, tot)
     B = a.shape[0]
     halves = TC_SLAB_N // cols              # 32-wide K-blocks a slab
     groups = N // cols
@@ -99,6 +125,33 @@ def product(stream: SlabStream, a: torch.Tensor, K: int, N: int, cols: int = TC_
     tot = torch.zeros(B, N) if tot is None else tot
     for kb in range(nkb):
         tot = tot + acc[:, kb]
+    return tot
+
+
+def product_bf16(stream: SlabStream, a: torch.Tensor, K: int, N: int, cols: int = TC_SLAB_N,
+                 tot: torch.Tensor = None) -> torch.Tensor:
+    """``tot`` (fp32, zeros if None) plus a[:, :K] . B in the bf16 route: per
+    K-block of a slab (BF16_SLAB / cols of K), the N / cols slabs of its
+    column groups; A rounded to bf16, k16 steps into a toward-zero
+    accumulator, a fresh one each BF16_SLAB_K of K."""
+    B = a.shape[0]
+    kl = BF16_SLAB // cols                  # a slab's K: 64, or 128 (cols = 64)
+    parts = kl // BF16_SLAB_K               # fresh accumulators a slab
+    groups, nf = N // cols, K // BF16_SLAB_K
+    bw = torch.empty(nf, N, BF16_SLAB_K, dtype=torch.float64)
+    for s, blk in enumerate(stream.take(K // kl * groups)):
+        kbs, cg = divmod(s, groups)
+        for h in range(parts):
+            bw[kbs * parts + h, cg * cols:(cg + 1) * cols] = \
+                blk[:, h * BF16_SLAB_K:(h + 1) * BF16_SLAB_K]
+    ab = bf16_round(a[:, :K]).double().reshape(B, nf, BF16_SLAB_K)
+    acc = torch.zeros(B, nf, N)
+    for kk in range(BF16_SLAB_K // 16):
+        k16 = slice(16 * kk, 16 * kk + 16)
+        acc = toward_zero(acc.double() + torch.einsum("bkf,knf->bkn", ab[..., k16], bw[..., k16]))
+    tot = torch.zeros(B, N) if tot is None else tot
+    for f in range(nf):
+        tot = tot + acc[:, f]
     return tot
 
 

@@ -69,7 +69,7 @@ from posendf_torch.models import PoseNDF  # noqa: E402
 from posendf_torch.models.dfnet import bf16_round  # noqa: E402
 from posendf_torch.ops import fused_grad, fused_model, fused_train  # noqa: E402
 from posendf_torch.ops.fused_model import (  # noqa: E402
-    BF16_SLAB, FieldWeights, bf16_hold, bf16_slab_offsets,
+    BF16_SLAB, BF16_SLAB_K, FieldWeights, bf16_hold, bf16_slab_offsets,
 )
 from posendf_torch.projection import project  # noqa: E402
 from posendf_torch.training.trainer import make_optimizer, make_train_step  # noqa: E402
@@ -250,11 +250,14 @@ def test_bf16_hold_fails_a_dropped_rounding(fault, monkeypatch):
 
 def test_bf16_pack_is_the_rounded_weights():
     """``pack_bf16`` against its layout, read back by hopper.cuh's
-    ``sw128_offset`` formula: each slab (pack_tc's order) is its block of the
-    zero-padded W^T (forward) or W (backward) rounded to bf16, a 128-column
-    slab in the first 32 of K of its lines, a 64-column one (a chain's first
-    product) in all 64, zeros elsewhere; the output layer's w and the
-    encoder's w1 and w2 rounded, the biases not; the program of pack_tc."""
+    ``sw128_offset`` formula: each slab (the order of ``tc_schedule(widths,
+    BF16_SLAB_K)``) is its block of the zero-padded W^T (forward) or W
+    (backward) rounded to bf16, a 128-column slab 64 of K a line, a
+    64-column one (a chain's first product) 128 of K in two tiles of 64
+    lines; every element of a slab is a weight (zero only where the weight
+    is padding); the output layer's w rounded, the biases not; the program
+    of pack_tc, half its slabs; the encoder walks' rows (``pack_walk``),
+    w1 and w2 rounded in bf16 and not in fp32."""
     # 126 -> 200 -> 700 -> 96 -> 1: padded to 128, 256, 768 (chained), 512
     tm = PoseNDF(dfnet_dims=(200, 700, 96), compute_dtype="bfloat16",
                  generator=torch.Generator().manual_seed(5))
@@ -262,32 +265,63 @@ def test_bf16_pack_is_the_rounded_weights():
     tc = w.tc_packed()
     tc32 = fused_model.pack_tc(FieldWeights.from_module(_fp32(tm)))
     assert tc.bf16 and tc.slabs.dtype == torch.bfloat16 and tc.slabs.shape[1] == BF16_SLAB
-    assert tc.order == tc32.order and tc.widths == tc32.widths == (128, 256, 768, 512)
-    assert torch.equal(tc.prog, tc32.prog) and (tc.nfwd, tc.nbwd) == (tc32.nfwd, tc32.nbwd)
-    mats = {}
+    assert tc.widths == tc32.widths == (128, 256, 768, 512)
+    _, _, _, fslabs, bslabs = fused_model.tc_schedule(tc.widths, BF16_SLAB_K)
+    assert tc.order == fslabs + bslabs and (tc.nfwd, tc.nbwd) == (len(fslabs), len(bslabs))
+    assert 2 * tc.nfwd == tc32.nfwd and 2 * tc.nbwd == tc32.nbwd
+    assert torch.equal(tc.prog, tc32.prog) and tc.slabs.shape[0] == tc.nfwd + tc.nbwd
+    mats, pads = {}, {}
     for l, (wl, _) in enumerate(w.layers[:-1]):
         m = torch.zeros(tc.widths[l], tc.widths[l + 1])
         m[:wl.shape[0], :wl.shape[1]] = bf16_round(wl.detach())
+        pad = torch.ones(tc.widths[l], tc.widths[l + 1], dtype=torch.bool)
+        pad[:wl.shape[0], :wl.shape[1]] = False
         mats["w", l], mats["wt", l] = m, m.t()
+        pads["w", l], pads["wt", l] = pad, pad.t()
+    seen = {key: torch.zeros_like(m, dtype=torch.int32) for key, m in mats.items()}
     for slab, (kind, l, kb, cg, cols) in zip(tc.slabs, tc.order):
-        kl = 4096 // cols
+        kl = BF16_SLAB // cols
         off = bf16_slab_offsets(cols, kl).reshape(-1)
-        want = mats[kind, l][cg * cols:(cg + 1) * cols, kb * kl:(kb + 1) * kl]
-        assert torch.equal(slab[off].float().reshape(cols, kl), want), (kind, l, kb, cg)
-        rest = torch.ones(BF16_SLAB, dtype=torch.bool)
-        rest[off] = False
-        assert not bool(slab[rest].any())
+        assert torch.equal(off.sort().values, torch.arange(BF16_SLAB))   # every element in use
+        block = (slice(cg * cols, (cg + 1) * cols), slice(kb * kl, (kb + 1) * kl))
+        assert torch.equal(slab[off].float().reshape(cols, kl), mats[kind, l][block]), \
+            (kind, l, kb, cg)
+        # an element that is not a weight (padding) is zero
+        assert not bool(slab[off].reshape(cols, kl)[pads[kind, l][block]].any())
+        seen[kind, l][block] += 1
+    assert all(bool((n == 1).all()) for n in seen.values())   # each block once
+    # the formula: K 64h + k of column r at line r + cols h, sw128 chunk (k / 8) ^ (line % 8)
+    for cols, kl in ((128, 64), (64, 128)):
+        off = bf16_slab_offsets(cols, kl)
+        for r, k in ((0, 0), (5, 17), (cols - 1, kl - 1), (9, 70 % kl)):
+            line, kk = r + cols * (k // 64), k % 64
+            assert int(off[r, k]) * 2 == (line // 8) * 1024 + (line % 8) * 128 + \
+                (((kk * 2) // 16) ^ (line % 8)) * 16 + (kk * 2) % 16
     n_out = w.layers[-1][0].numel()
     o0 = sum(tc.widths[1:])
     assert torch.equal(tc.vec[o0:o0 + n_out], bf16_round(w.layers[-1][0].detach()).reshape(-1))
     assert torch.equal(tc.vec[:o0], tc32.vec[:o0])
+    # the encoder walks' rows (pack_walk), read back by their formula: w1 and w2 rounded in
+    # bf16, not in fp32; the biases as they are
     enc = tm.enc
-    want = torch.cat([bf16_round(enc.w1.detach()).reshape(-1), enc.b1.detach().reshape(-1),
-                      bf16_round(enc.w2.detach()).reshape(-1), enc.b2.detach().reshape(-1)])
-    assert torch.equal(tc.enc, want)
-    # the common arguments pick the bf16 route and its encoder buffer
+    for wf, rnd in ((w, bf16_round), (FieldWeights.from_module(_fp32(tm)), lambda t: t)):
+        w1, b1, w2, b2 = (t.detach() for t in (enc.w1, enc.b1, enc.w2, enc.b2))
+        J, E, F = w1.shape[0], w1.shape[-1], w2.shape[-1]
+        R, RF, RE = 4 * -(-(E + 1) // 4), 4 * -(-F // 4), 4 * -(-E // 4)
+        walk = wf.walk_packed()
+        assert walk.numel() == J * ((E + F) * R + E * RF + E * RE)
+        rows = walk[:J * (E + F) * R].view(J, E + F, R)
+        assert torch.equal(rows[:, :E, :E], rnd(w1).transpose(1, 2))
+        assert torch.equal(rows[:, :E, E], b1) and torch.equal(rows[:, E:, E], b2)
+        assert torch.equal(rows[:, E:, :E], rnd(w2).transpose(1, 2))
+        assert not bool(rows[..., E + 1:].any())
+        r2 = walk[J * (E + F) * R:J * ((E + F) * R + E * RF)].view(J, E, RF)
+        r1 = walk[J * ((E + F) * R + E * RF):].view(J, E, RE)
+        assert torch.equal(r2[..., :F], rnd(w2)) and not bool(r2[..., F:].any())
+        assert torch.equal(r1[..., :E], rnd(w1)) and not bool(r1[..., E:].any())
+    # the common arguments pick the bf16 route and the walks' rows
     args = fused_model.common_args(torch.zeros(1, 21, 4), w)
-    assert args[-1] == 1 and args[2] == tc.enc.data_ptr()
+    assert args[-1] == 1 and args[2] == w.walk_packed().data_ptr()
     assert fused_model.common_args(torch.zeros(1, 21, 4), FieldWeights.from_module(_fp32(tm)))[-1] == 0
     with pytest.raises(ValueError, match="bfloat16"):
         fused_model.pack_bf16(FieldWeights.from_module(_fp32(tm)))
