@@ -4,8 +4,8 @@ Drives the pose prior's main path (in fp32 and in bf16), the training path
 and the serving path (the int8 forward, ``torch.export`` artifacts) through
 their hand-written CUDA kernels on the full-width trained field
 ``docs/quality/ckpt_l8_best.msgpack``, the data-manufacturing path (kNN
-labelling) against a 1,048,576-pose corpus, and the bf16 / int8
-tensor-core probe:
+labelling) against a 1,048,576-pose corpus, the bf16 / int8 tensor-core
+probe, and the experiments path (motion denoising, interpolation):
 
   1. device: requires CUDA; prints the card's name and power limit
   2. build: compiles ``posendf_torch/csrc/field_kernels.cu``,
@@ -168,6 +168,38 @@ tensor-core probe:
      calls (``torch.matmul`` on bf16, ``torch._int_mm``; the int8 chain with
      its requantization as library calls too), rates and shares of the dense
      peaks, and the int8 / bf16 ratio
+ 18. the experiments path (motion denoising; no kernel of its own): against
+     the JAX package (``tests/data/torch_port_denoise_expected.npz``, the
+     128-vertex synthetic body) a 2 x 5 ``MotionDenoiser`` solve of one
+     60-frame clip (its pose and every step's terms), ``estimate_clip_noise``
+     given JAX's probe noise and one ``interpolate`` path, at the CPU test's
+     bars; then on a synthetic body of SMPL's 6,890 vertices (its Jtr with
+     smplx's 21 landmarks) ``run_sweep`` of ``synthesize_grid``'s
+     ``DEFAULT_GRID`` (4 levels x 2 clips x 60 frames, the trained field's
+     manifold), 10 x 50 steps batched, with the reference and the adaptive
+     schedule: every v2v finite, every clip's final pose_pr below its
+     input's mean field distance; the sigma-0.1 level again serially, each
+     clip's pose held to its batched solve (atol 2e-5) and the v2v table
+     (rtol 1e-3, atol 1e-4), the bars of ``tests/test_experiments.py``;
+     that level's first clip solved again with ``strenc.fused`` (the
+     ``posendf_encoder`` count set to 0 before and at least 500 after; the
+     final pose and terms held to its serial module-path solve's); the
+     2 x 4-step horizon of both comparisons at the tight bars (pose atol
+     2e-5); times: ms a solve step on both paths (the serial solves and the
+     fused one), the device kernels and busy time of a step
+     (``torch.profiler``), each sweep's wall seconds and ``lbs_forward`` of
+     60 frames alone
+
+A 500-step denoise solve is sensitive to rounding: the reference schedule's
+self-weighted prior (1e7 L^2) and the trained head's zero region turn sums
+taken in another order into another path. On an H100 (700 W) two such
+solves ended 1.2e-2, 1.7e-2 (serial vs batched, the level's v2v 7.0e-4 cm
+apart) and 2.2e-2 (the encoder kernel vs its plain version, the final
+terms within 3.1e-5 of each other) apart in their largest pose dof,
+while the same comparisons at 2 x 4 steps stayed within 5.4e-6. So phase
+18 holds the short horizon at the bars of ``tests/test_experiments.py``
+(pose 2e-5; metrics rtol 1e-3, atol 1e-4) and the 500-step solves' v2v at
+that metric bar, their final terms at rtol 5e-3 and their poses at 0.1.
 
 Kernel and plain times are medians over rounds of plain, kernel, kernel,
 plain, each round a mean over a few calls (one call of the kNN plain
@@ -403,6 +435,12 @@ WGMMA_KERNELS = {"field": ("field_kernel",),                             # by li
 # in a divergent path; its cost is an open question, PERF.md section 7); any
 # other fails the run
 SERIALIZED_KNOWN = ("train_reduce_kernel", "knn_bound_kernel")
+DENOISE_EXPECTED = "tests/data/torch_port_denoise_expected.npz"
+SMPL_VERTICES = 6890                     # SMPL's mesh: the skinning as large as a real solve's
+GRID_FAMILY_SEED, GRID_LATENTS, GRID_FREQ = 123, 8, (0.5, 1.2)   # the L8 field's manifold
+SOLVE_POSE_ATOL, SOLVE_HIST_RTOL = 5e-5, 1e-4   # the 2 x 5 solve vs JAX, the CPU test's bars
+NOISE_D_ATOL, NOISE_S_ATOL = 1e-6, 1e-4         # estimate_clip_noise vs JAX, the CPU test's
+LONG_SOLVE_POSE_ATOL, LONG_SOLVE_TERM_RTOL = 0.1, 5e-3   # two 500-step solves: docstring
 REDUCE_FP32_ERR = 7.4e-6  # x max|leaf|: the fp32 CUDA-core reduction it replaced, whole gradient (docstring)
 
 
@@ -560,14 +598,19 @@ def interleaved_ms(name: str, kernel, plain, reps: int, rounds: int = 5, plain_r
     return (k, p, statistics.median(ls)) if ls else (k, p)
 
 
+def card_name() -> str:
+    """The card's name and power limit, as nvidia-smi prints them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+
+
 def main() -> None:
     # ---- 1. device ----
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    card = card_name()
     log(card)
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, cuda {torch.version.cuda}")
 
@@ -800,6 +843,7 @@ def main() -> None:
     train = train_phases(field, card)
     knn = knn_phases(card)
     serving = serving_phases(field, card)
+    experiments_phase(card)
 
     # bounds of the field kernels at the main path's shapes: 3xTF32 products
     fwd_bound = field_bound(w, MAIN_BATCH, backward=False)
@@ -2376,6 +2420,203 @@ def serving_phases(field, card: str) -> list:
          "library": "the 8 int8 products alone, torch._int_mm each (no requantization)"},
     ]
 
+
+def denoise_histories(den, noisy, iterations: int, steps_per_iter: int):
+    """(final pose (T, 69), history {term: (steps,)}) of one clip's solve,
+    through the denoiser's solver (the history ``optimize`` does not return)."""
+    init = den.body_model(pose_body=noisy)
+    pose, hist = den._solve(init.body_pose[None], {"betas": init.betas,
+                                                   "init_joints": init.Jtr[None]},
+                            iterations, steps_per_iter)
+    return pose[0], {k: v[:, 0] for k, v in hist.items()}
+
+
+def experiments_phase(card: str) -> None:
+    """Phase 18, the motion-denoising path (no kernel of its own; the
+    structure encoder's, row 4, when ``strenc.fused`` is set). Raises on any
+    failure."""
+    import tempfile
+
+    from posendf_torch import load_field
+    from posendf_torch.config import PoseNDFConfig
+    from posendf_torch.data.synthetic import manifold_family
+    from posendf_torch.experiments import denoise
+    from posendf_torch.experiments.denoise_benchmark import (DEFAULT_GRID, run_sweep,
+                                                             synthesize_grid)
+    from posendf_torch.experiments.interpolate import interpolate
+    from posendf_torch.ops import fused_encoder
+    from posendf_torch.quat import axis_angle_to_quaternion
+    from posendf_torch.smpl import BodyModel, lbs, synthetic_model
+
+    class Recording(denoise.MotionDenoiser):
+        """Keeps each solve's (input, final pose, metrics), and each serial
+        solve's milliseconds (CUDA events around the call)."""
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.solves, self.ms = [], []
+
+        def optimize(self, noisy, *a, **kw):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            pose, m = super().optimize(noisy, *a, **kw)
+            end.record()
+            end.synchronize()
+            self.ms.append(start.elapsed_time(end))
+            self.solves.append((np.asarray(noisy)[None], pose[None], m))
+            return pose, m
+
+        def optimize_many(self, noisy, *a, **kw):
+            pose, m = super().optimize_many(noisy, *a, **kw)
+            self.solves.append((np.asarray(noisy), pose, m))
+            return pose, m
+
+    t_phase = time.perf_counter()
+    field = load_field(CKPT, device="cuda")
+    body = BodyModel(model=synthetic_model(num_vertices=SMPL_VERTICES), device="cuda")
+    ref = np.load(DENOISE_EXPECTED)
+    log(f"experiments: {CKPT}, a synthetic body of {SMPL_VERTICES} vertices (Jtr "
+        f"{tuple(body(pose_body=ref['noisy']).Jtr.shape[1:])})")
+
+    # ---- against the JAX package, on the golden's 128-vertex body ----
+    pose, hist = denoise_histories(denoise.MotionDenoiser(field, BodyModel(device="cuda")),
+                                   ref["noisy"], 2, 5)
+    assert_close("2 x 5 denoise solve of 60 frames: pose vs JAX", pose,
+                 torch.from_numpy(ref["solve_pose"]), atol=SOLVE_POSE_ATOL)
+    for k in ("pose_pr", "temp", "data", "total"):
+        assert_close(f"2 x 5 denoise solve: {k} history vs JAX", hist[k],
+                     torch.from_numpy(ref[f"hist_{k}"]), rtol=SOLVE_HIST_RTOL, atol=1e-7)
+    q = axis_angle_to_quaternion(torch.from_numpy(ref["noisy"][:, :63]).reshape(60, 21, 3))
+    stats = denoise.estimate_clip_noise(field, q, probe_noise=ref["probe_noise"])
+    for k, want in zip(("s", "s_field", "s_temporal", "d_input", "d_floor", "d_probe"),
+                       ref["noise_stats"]):
+        assert_close(f"estimate_clip_noise {k} vs JAX", torch.tensor([stats[k]]),
+                     torch.tensor([want]), atol=NOISE_S_ATOL if k[0] == "s" else NOISE_D_ATOL)
+    path, dist = interpolate(field, ref["interp_a"], ref["interp_b"], num_steps=10,
+                             projection_steps=10)
+    assert_close("interpolate path vs JAX", path, torch.from_numpy(ref["interp_path"]),
+                 atol=PROJ_ATOL)
+    assert_close("interpolate distances vs JAX", dist, torch.from_numpy(ref["interp_dist"]),
+                 atol=D_ATOL)
+
+    # ---- the sweep: 4 levels x 2 clips x 60 frames, 10 x 50 steps, batched ----
+    family = manifold_family(np.random.default_rng(GRID_FAMILY_SEED), 21,
+                             latents=GRID_LATENTS, freq_range=GRID_FREQ)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = synthesize_grid(tmp, DEFAULT_GRID, seqs_per_level=2, family=family)
+        sweeps = {}
+        for specs in ("reference", "adaptive"):
+            den = Recording(field, body, specs=specs)
+            t0 = time.perf_counter()
+            table = run_sweep(den, root, iterations=10, steps_per_iter=50)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            sweeps[specs] = (den, table)
+            if len(table) != len(DEFAULT_GRID) or len(den.solves) != len(DEFAULT_GRID):
+                raise AssertionError(f"sweep {specs}: levels {sorted(table)}, "
+                                     f"{len(den.solves)} solves")
+            for level, v2v in table.items():
+                if v2v.shape != (2,) or not np.isfinite(v2v).all():
+                    raise AssertionError(f"sweep {specs} {level}: v2v {v2v}")
+            for noisy, _, m in den.solves:
+                C, T = noisy.shape[:2]
+                with torch.no_grad():
+                    q = axis_angle_to_quaternion(
+                        torch.from_numpy(noisy[..., :63]).cuda().reshape(C * T, 21, 3))
+                    d_in = field.distance(q).reshape(C, T).mean(1).cpu().numpy()
+                if not (m["final_pose_pr"] < d_in).all():
+                    raise AssertionError(f"sweep {specs}: final pose_pr {m['final_pose_pr']} "
+                                         f"not below the inputs' mean distance {d_in}")
+            log(f"  ok sweep {specs}: {len(den.solves)} batched solves of 2 clips, every final "
+                f"pose_pr below its input's mean field distance; v2v cm "
+                + ", ".join(f"{k} {np.round(v, 4).tolist()}" for k, v in table.items())
+                + f"; wall {wall:.3f} s  [{card}]")
+        # one level serially: each clip alone against its batched solve
+        level = "noise_0.1_60"
+        serial_den = Recording(field, body, specs="reference")
+        serial = run_sweep(serial_den, root, grid_names=[level], iterations=10,
+                           steps_per_iter=50, batch_clips=False)
+        noisy, gt = (np.stack([denoise._load_pose_file(os.path.join(root, level, q, f))
+                               for q in sorted(os.listdir(os.path.join(root, level)))])
+                     for f in ("observations.npz", "gt_results.npz"))
+    batched = [(n, p) for n, p, _ in sweeps["reference"][0].solves]
+    for c, (noisy_c, pose_c, _) in enumerate(serial_den.solves):
+        want = next(p[c] for n, p in batched if np.array_equal(n[c], noisy_c[0]))
+        assert_close(f"{level} clip {c}: 500-step serial solve vs batched, pose", pose_c[0], want,
+                     atol=LONG_SOLVE_POSE_ATOL)
+    assert_close(f"{level}: 500-step serial v2v vs batched", torch.from_numpy(serial[level]),
+                 torch.from_numpy(sweeps["reference"][1][level]), rtol=1e-3, atol=1e-4)
+    # the horizon of tests/test_experiments.py's serial-vs-batched test (2 x 4 steps), its bars
+    den = denoise.MotionDenoiser(field, body)
+    many_pose, many_m = den.optimize_many(noisy, gt, iterations=2, steps_per_iter=4)
+    for c in range(len(noisy)):
+        pose_c, m_c = den.optimize(noisy[c], gt[c], iterations=2, steps_per_iter=4)
+        assert_close(f"{level} clip {c}: 2 x 4-step serial solve vs batched, pose", pose_c,
+                     many_pose[c], atol=2e-5)
+        for k in ("v2v_cm", "v2v_input_cm", "final_pose_pr"):
+            assert_close(f"{level} clip {c}: 2 x 4-step serial vs batched, {k}",
+                         torch.tensor([m_c[k]]), torch.tensor([many_m[k][c]]), rtol=1e-3,
+                         atol=1e-4)
+
+    # ---- the structure encoder's kernel on the solve's path ----
+    cfg = PoseNDFConfig()
+    cfg.strenc.fused = True
+    fused_field = load_field(CKPT, config=cfg, device="cuda")
+    short = {name: denoise_histories(denoise.MotionDenoiser(f, body), ref["noisy"], 2, 4)
+             for name, f in (("module path", field), ("fused encoder", fused_field))}
+    assert_close("2 x 4-step solve, fused encoder vs module path: pose",
+                 short["fused encoder"][0], short["module path"][0], atol=2e-5)
+    # clip 0 of the level again, 10 x 50 steps with strenc.fused, against its serial solve
+    fused_den = Recording(fused_field, body, specs="reference")
+    fused_encoder.LAUNCHES = 0
+    pose_f, m_f = fused_den.optimize(noisy[0], gt[0], iterations=10, steps_per_iter=50)
+    launches = fused_encoder.LAUNCHES
+    log(f"  500-step solve of 60 frames at {SMPL_VERTICES} vertices with strenc.fused: "
+        f"posendf_encoder launched {launches} times")
+    if launches < 500:
+        raise AssertionError(f"posendf_encoder launched {launches} times in a 500-step solve")
+    pose_m, m_m = serial_den.solves[0][1][0], serial_den.solves[0][2]
+    assert_close(f"{level} clip 0, 500 steps: fused encoder vs module path, pose", pose_f,
+                 pose_m, atol=LONG_SOLVE_POSE_ATOL)
+    for k in ("final_pose_pr", "final_temp", "v2v_cm"):
+        assert_close(f"{level} clip 0, 500 steps: fused encoder vs module path, {k}",
+                     torch.tensor([m_f[k]]), torch.tensor([m_m[k]]), rtol=LONG_SOLVE_TERM_RTOL,
+                     atol=1e-6)
+    step_ms = statistics.median(serial_den.ms) / 500
+    for name, ms in (("module path", step_ms), ("fused encoder", fused_den.ms[0] / 500)):
+        log(f"time denoise solve, {name}: {ms:.4f} ms a step (a 500-step solve of 60 frames at "
+            f"{SMPL_VERTICES} vertices, its metrics' body-model passes included; CUDA events "
+            f"around the call)  [{card}]")
+
+    # ---- where a step's time goes: module-path steps under the profiler ----
+    from torch.profiler import ProfilerActivity, profile
+
+    den = denoise.MotionDenoiser(field, body)
+    steps = 5
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        denoise_histories(den, ref["noisy"], 1, steps)
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if kernels:
+        busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / steps
+        log(f"  {steps} module-path steps under torch.profiler: {len(kernels) / steps:.0f} device "
+            f"kernels a step, busy {busy_ms:.4f} ms a step: {100 * (1 - busy_ms / step_ms):.1f}% "
+            f"of the unprofiled {step_ms:.4f} ms step idle ({wall_ms:.4f} ms a step under the "
+            f"profiler)  [{card}]")
+    else:
+        log("  torch.profiler recorded no device kernel: device busy share not measured")
+
+    # ---- lbs_forward alone ----
+    pb = torch.from_numpy(ref["noisy"]).cuda()
+    betas, orient = torch.zeros((60, 10), device="cuda"), torch.zeros((60, 3), device="cuda")
+    with torch.no_grad():
+        ms = cuda_ms(lambda: lbs.lbs_forward(body.model, betas, orient, pb), 50)
+    log(f"time lbs_forward, 60 frames, {SMPL_VERTICES} vertices: {ms:.4f} ms (mean of 50 calls "
+        f"after one)  [{card}]")
+    log(f"experiments phase: {time.perf_counter() - t_phase:.1f} s")
 
 if __name__ == "__main__":
     os.chdir(os.path.dirname(os.path.abspath(__file__)))

@@ -8,6 +8,9 @@ go through the same key mapping as ``posendf_tpu/training/torch_import.py``
 (torch ``Linear`` weights transpose; root BoneMLP weights (10, 4) are
 zero-padded to 10 input rows).
 
+:func:`smpl_model_from_jax` carries a JAX package ``SMPLModel``'s arrays
+over into the port's body model.
+
 The msgpack files are read by a small decoder of the subset flax writes
 (``flax.serialization.msgpack_serialize``) and written by a matching
 encoder (:func:`msgpack_serialize`), so neither ``msgpack`` nor ``flax`` is
@@ -27,6 +30,7 @@ from posendf_torch import kinematics
 __all__ = [
     "msgpack_restore", "msgpack_serialize", "load_msgpack_params", "params_from_jax",
     "params_from_torch_state_dict", "torch_state_dict_from_params", "load_torch_checkpoint",
+    "smpl_model_from_jax",
 ]
 
 # flax's msgpack extension type codes
@@ -314,3 +318,20 @@ def load_torch_checkpoint(path: str, **kwargs) -> Tuple[Dict[str, torch.Tensor],
     state_dict = ckpt.get("model_state_dict", ckpt)
     epoch = ckpt.get("epoch")
     return params_from_torch_state_dict(state_dict, **kwargs), epoch
+
+
+SMPL_FIELDS = ("v_template", "shapedirs", "posedirs", "j_regressor", "lbs_weights")
+
+
+def smpl_model_from_jax(model, device="cpu"):
+    """The JAX package's ``SMPLModel`` (or any object with its fields:
+    ``v_template``, ``shapedirs``, ``posedirs`` (207, V*3), ``j_regressor``,
+    ``lbs_weights`` as arrays, ``faces``, ``parents``) -> the port's
+    :class:`~posendf_torch.smpl.SMPLModel` on ``device``, the same float32
+    values in the same layouts."""
+    from posendf_torch.smpl.lbs import SMPLModel
+
+    arrays = {f: torch.from_numpy(np.array(getattr(model, f), dtype=np.float32)).to(device)
+              for f in SMPL_FIELDS}
+    return SMPLModel(**arrays, faces=np.asarray(model.faces, np.int32),
+                     parents=tuple(int(p) for p in model.parents))

@@ -1,8 +1,11 @@
 """Command line of the PyTorch port, as ``posendf_tpu/cli.py``: ``train``
 (the distance field, on one device), ``generate`` (pose sampling by
 manifold projection, without the mesh output), ``prepare-data`` (AMASS
-sampling and kNN distance labelling) and ``export`` (a ``torch.export``
-artifact of the forward, the int8 forward or a whole projection).
+sampling and kNN distance labelling), ``export`` (a ``torch.export``
+artifact of the forward, the int8 forward or a whole projection),
+``denoise`` (a motion clip optimized under the prior), ``denoise-bench``
+(the noise-grid sweep) and ``interpolate`` (slerp + projection between two
+poses).
 
 Usage::
 
@@ -12,6 +15,12 @@ Usage::
     python -m posendf_torch.cli prepare-data --amass-raw raw/ --out-dir data/ --stage label
     python -m posendf_torch.cli export --ckpt docs/quality/ckpt_l8_best.msgpack --int8 \
         --calib poses.npz --save-quantized field.int8.msgpack --out model.int8.pt2
+    python -m posendf_torch.cli denoise --ckpt docs/quality/ckpt_l8_best.msgpack \
+        --motion-data noisy.npz --gt-data gt.npz --specs adaptive --out denoised.npz
+    python -m posendf_torch.cli denoise-bench --ckpt docs/quality/ckpt_l8_best.msgpack \
+        --data-root grid/ --synthesize --out table.npz
+    python -m posendf_torch.cli interpolate --ckpt docs/quality/ckpt_l8_best.msgpack \
+        --pose-a a.npz --pose-b b.npz --num-steps 10 --out path.npz
 
 Each runs on the card unless ``--device cpu`` is given.
 """
@@ -142,6 +151,37 @@ def cmd_export(args) -> None:
     print(f"exported {args.what} (batch={batch}, device={args.device}) -> {args.out}")
 
 
+def cmd_denoise(args) -> None:
+    from posendf_torch.experiments.denoise import run_cli
+
+    run_cli(args)
+
+
+def cmd_denoise_bench(args) -> None:
+    from posendf_torch.experiments.denoise import BALANCED_SPECS, MotionDenoiser
+    from posendf_torch.experiments.denoise_benchmark import run_sweep, synthesize_grid
+    from posendf_torch.field import load_field
+    from posendf_torch.smpl import BodyModel
+
+    field = load_field(args.ckpt, config=args.config, device=args.device)
+    bm = BodyModel(bm_path=args.bm_path, device=args.device)
+    data_root = args.data_root
+    if args.synthesize:
+        data_root = synthesize_grid(args.data_root, seqs_per_level=args.seqs_per_level,
+                                    family_seed=args.family_seed)
+    specs = {"balanced": BALANCED_SPECS, "adaptive": "adaptive"}.get(args.specs)
+    denoiser = MotionDenoiser(field, bm, specs=specs)
+    run_sweep(denoiser, data_root, iterations=args.iterations,
+              steps_per_iter=args.steps_per_iter, out_path=args.out,
+              batch_clips=not args.serial_clips)
+
+
+def cmd_interpolate(args) -> None:
+    from posendf_torch.experiments.interpolate import run_cli
+
+    run_cli(args)
+
+
 CALIB_KEYS = ("pose", "pose_body", "quats", "poses")
 
 
@@ -204,6 +244,17 @@ def _add_common(p: argparse.ArgumentParser,
     p.add_argument("--device", default="cuda", help=device_help)
 
 
+def _add_mesh_out(p: argparse.ArgumentParser, default_dir: str) -> None:
+    """Mesh and render output flags (the reference renders before/after
+    meshes in every experiment, exp_utils.py:30-63)."""
+    p.add_argument("--save-mesh", action="store_true",
+                   help=f"write OBJ meshes (default dir: {default_dir})")
+    p.add_argument("--render", action="store_true",
+                   help="write PNG renders (PIL) or .npy grayscale")
+    p.add_argument("--mesh-dir", default=None,
+                   help=f"mesh/render output dir (default {default_dir})")
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="python -m posendf_torch.cli")
     sub = parser.add_subparsers(dest="command", required=True)
@@ -253,8 +304,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--weighted", action="store_true",
                    help="joint-rank-weighted distance (dist_utils.py:39)")
     p.add_argument("--space", choices=["quat", "joints"], default="quat",
-                   help="candidate-search embedding: raw quats ('joints', the SMPL "
-                        "joint positions, is not ported yet)")
+                   help="candidate-search embedding: raw quats or the SMPL joint positions "
+                        "(forward kinematics of --bm-path's model)")
     p.add_argument("--bm-path", default=None, help="SMPL model for --space joints")
     p.add_argument("--knn-precision", choices=["auto", "highest", "high", "default", "fast"],
                    default="auto",
@@ -301,6 +352,53 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--quantized", default=None,
                    help="export the int8 forward of a saved quantized field (implies --int8)")
     p.set_defaults(fn=cmd_export)
+
+    specs_help = ("anneal schedule: 'reference' = motion_denoise.py:31-34 exact; 'balanced' = "
+                  "gentler prior and temporal weights for near-manifold inputs; 'adaptive' = a "
+                  "per-clip schedule scaled by the field's own noise estimate")
+    p = sub.add_parser("denoise", help="motion denoising with the field prior")
+    _add_common(p)
+    p.add_argument("--motion-data", required=True)
+    p.add_argument("--gt-data", default=None)
+    p.add_argument("--out", default=None)
+    p.add_argument("--bm-path", default=None,
+                   help="SMPL model file (.pkl/.npz); default: the synthetic 128-vertex body")
+    p.add_argument("--specs", choices=("reference", "balanced", "adaptive"),
+                   default="reference", help=specs_help)
+    _add_mesh_out(p, "./denoised")
+    p.set_defaults(fn=cmd_denoise)
+
+    p = sub.add_parser("interpolate", help="slerp + projection between poses")
+    _add_common(p)
+    p.add_argument("--num-steps", type=int, default=10)
+    p.add_argument("--seed", type=int, default=0,
+                   help="seed of the random endpoints (without --pose-a/-b), from "
+                        "torch.Generator: other poses than the JAX CLI's")
+    p.add_argument("--pose-a", default=None, help=".npz endpoint (pose or pose_body)")
+    p.add_argument("--pose-b", default=None, help=".npz endpoint (pose or pose_body)")
+    p.add_argument("--out", default=None)
+    p.set_defaults(fn=cmd_interpolate)
+
+    p = sub.add_parser("denoise-bench",
+                       help="motion-denoising benchmark sweep (HuMoR-style grid)")
+    _add_common(p)
+    p.add_argument("--data-root", required=True,
+                   help="grid root: <root>/<level>/<seq>/observations.npz")
+    p.add_argument("--synthesize", action="store_true",
+                   help="write a synthetic noise grid under --data-root first")
+    p.add_argument("--family-seed", type=int, default=0,
+                   help="with --synthesize: the manifold family's seed; must match the seed "
+                        "the checkpoint's synthetic training set was written with")
+    p.add_argument("--seqs-per-level", type=int, default=2)
+    p.add_argument("--iterations", type=int, default=10)
+    p.add_argument("--steps-per-iter", type=int, default=50)
+    p.add_argument("--serial-clips", action="store_true",
+                   help="solve clips one at a time instead of one batched solve per level")
+    p.add_argument("--specs", choices=("reference", "balanced", "adaptive"),
+                   default="reference", help=specs_help)
+    p.add_argument("--bm-path", default=None)
+    p.add_argument("--out", default=None, help="aggregate results .npz")
+    p.set_defaults(fn=cmd_denoise_bench)
     return parser
 
 

@@ -23,9 +23,12 @@ batch is dispatched.
 Multi-host fan-out is ``label_split(shard=(i, n))``: host i of n takes every
 n-th sequence, restart-safe through the per-sequence skip guard.
 
+``space="joints"`` searches candidates among the corpus's posed SMPL joint
+positions (``_fk_joint_embedding``, the body model's forward kinematics),
+then re-ranks them by the exact metric.
+
 Not ported yet: ``mesh=`` (queries sharded over several cards, ROADMAP
-Queue 1 item 12) and ``space="joints"`` (the SMPL joint-position search
-embedding, Queue 1 item 15); both raise ``NotImplementedError``.
+Queue 1 item 12); it raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -47,8 +50,6 @@ __all__ = [
 
 _NO_MESH = ("mesh= (queries sharded over several cards) is not ported yet: ROADMAP Queue 1 "
             "item 12")
-_NO_JOINTS = ("space='joints' (the SMPL joint-position search embedding) is not ported yet: "
-              "it needs the SMPL port, ROADMAP Queue 1 item 15")
 
 
 # --------------------------------------------------------------------------
@@ -433,6 +434,26 @@ def resolve_knn_precision(
 # stage 3: device-side labelling
 # --------------------------------------------------------------------------
 
+def _fk_joint_embedding(quats, body_model, batch: int = 8192):
+    """(N, 21, 4) quaternions (numpy or a tensor) -> (N, 75) posed joint
+    positions on the body model's device: the joint-space search embedding,
+    Jtr[:, :25] as the reference indexes it (``prepare_traindata.py:42,147``;
+    (N, 72) for a mesh without landmark vertices)."""
+    import torch
+
+    from posendf_torch.quat import quaternion_to_axis_angle
+
+    quats = torch.as_tensor(quats, dtype=torch.float32)
+    outs = []
+    with torch.no_grad():
+        for s in range(0, len(quats), batch):
+            q = quats[s:s + batch].to(body_model.device)
+            aa = quaternion_to_axis_angle(q).reshape(len(q), 63)
+            j = body_model(pose_body=aa).Jtr[:, :25]
+            outs.append(j.reshape(len(q), -1))
+    return torch.cat(outs)
+
+
 def label_sequence(
     seq_quats: np.ndarray,     # clean poses of the sequence (for query sampling)
     corpus,                    # (N, 21, 4): a tensor (searched where it lies) or numpy
@@ -447,6 +468,8 @@ def label_sequence(
     spec: NoiseSpec = NoiseSpec(),
     mesh=None,
     space: str = "quat",
+    body_model=None,
+    corpus_emb=None,
     corpus_np: Optional[np.ndarray] = None,
     precision: str = "highest",
     per_pose_noise: bool = False,
@@ -462,9 +485,18 @@ def label_sequence(
     the reference-shaped two-stage search (L2 candidates in quaternion
     space, then the exact metric's re-rank); 0 = exact single-stage top-k.
 
+    ``space``: the candidate-search embedding. 'quat' searches the raw
+    84-D quaternions; 'joints' runs ``body_model``'s forward kinematics and
+    searches the posed joint positions (the reference's ``faiss_idx_np``
+    index over ``joints[:, :25]``, ``prepare_traindata.py:50-58,147``: 75-D
+    on a real SMPL mesh, 24 skeleton joints and the nose landmark; 72-D on a
+    smaller mesh), ``k_candidates`` wide (500, the reference's width, when
+    it is 0), then re-ranks by the exact metric.
+
     ``corpus``: a tensor is searched on its device; a numpy array is moved
     to ``device`` (the card unless the caller asks for the CPU).
-    ``corpus_np``: its host copy, when the caller has one (``label_split``).
+    ``corpus_np``: its host copy, and ``corpus_emb`` its joint embedding,
+    when the caller has them (``label_split`` makes each once a split).
 
     ``precision``: 'highest' (default) is exact fp32; 'default'/'high' round
     the distance products' inputs to bf16; 'fast' is the bound prescreen +
@@ -488,9 +520,7 @@ def label_sequence(
 
     if mesh is not None:
         raise NotImplementedError(_NO_MESH)
-    if space == "joints":
-        raise NotImplementedError(_NO_JOINTS)
-    if space != "quat":
+    if space not in ("quat", "joints"):
         raise ValueError(f"space must be 'quat' or 'joints', got {space!r}")
     queries = sample_noisy_queries(seq_quats, num_queries, spec, rng,
                                    per_pose_noise=per_pose_noise, runs=runs)
@@ -506,6 +536,10 @@ def label_sequence(
         precision, _ = resolve_knn_precision(
             precision, corpus_np, k=k, weighted=weighted, metric=metric,
             k_candidates=k_candidates, space=space, fused=fused, device=dev)
+    if space == "joints" and corpus_emb is None:
+        if body_model is None:
+            raise ValueError("space='joints' requires a body_model")
+        corpus_emb = _fk_joint_embedding(corpus, body_model).to(dev)
     w = w_np = None
     if weighted:
         w_np = _joint_weights_np()
@@ -515,14 +549,14 @@ def label_sequence(
     # the plain searches have no 'fast' engine; 'fast' promises exact labels,
     # so its plain form is exact 'highest'
     plain_precision = "highest" if precision == "fast" else precision
-    fused_eligible = (metric == "geo" and not k_candidates and k <= 8
+    fused_eligible = (metric == "geo" and corpus_emb is None and not k_candidates and k <= 8
                       and precision in ("highest", "default", "fast"))
     if fused is None:
         use_fused = fused_eligible and dev.type == "cuda"
     elif fused and not fused_eligible:
         raise ValueError(
             "fused=True requires the single-stage geodesic search "
-            "(metric='geo', no candidates, k<=8, "
+            "(metric='geo', no candidates or embedding, k<=8, "
             "precision='highest', 'default' or 'fast')")
     else:
         use_fused = fused
@@ -531,9 +565,16 @@ def label_sequence(
     dists, idxs = [], []
     for start in range(0, len(queries), query_batch):
         q = queries_dev[start:start + query_batch]
-        if k_candidates:
-            _, cand = l2_topk(q.reshape(len(q), -1), corpus.reshape(N, -1),
-                              k=min(k_candidates, N), precision=plain_precision)
+        if corpus_emb is not None or k_candidates:
+            # two stages: candidates in the embedding, then the exact metric's
+            # re-rank (the reference's width: faiss k=500, prepare_traindata.py:45)
+            kc = min(k_candidates if k_candidates else 500, N)
+            if corpus_emb is not None:
+                _, cand = l2_topk(_fk_joint_embedding(q, body_model).to(dev), corpus_emb,
+                                  k=kc, precision=plain_precision)
+            else:
+                _, cand = l2_topk(q.reshape(len(q), -1), corpus.reshape(N, -1), k=kc,
+                                  precision=plain_precision)
             rerank = euclidean_rerank if metric == "euc" else geodesic_rerank
             d, i = rerank(q, corpus, cand, k=k, weights=w)
         elif metric == "euc":
@@ -564,6 +605,7 @@ def label_split(
     metric: str = "geo",
     weighted: bool = False,
     space: str = "quat",
+    body_model=None,
     seed: int = 0,
     skip_if_exists: bool = True,
     shard: Optional[Tuple[int, int]] = None,
@@ -592,8 +634,8 @@ def label_split(
     dev = resolve_device(device)
     if mesh is not None:
         raise NotImplementedError(_NO_MESH)
-    if space == "joints":
-        raise NotImplementedError(_NO_JOINTS)
+    if space == "joints" and body_model is None:
+        raise ValueError("space='joints' requires a body_model")
     corpus, files = build_corpus(sampled_dir, subsets)
     if shard is not None:
         i, n = shard
@@ -603,6 +645,9 @@ def label_split(
         k_candidates=k_candidates, space=space, fused=fused,
         rng=np.random.default_rng([seed, 9999]), device=dev)
     corpus_dev = torch.from_numpy(corpus).to(dev)
+    # the corpus's joint embedding, once for the whole split
+    corpus_emb = (_fk_joint_embedding(corpus_dev, body_model).to(dev) if space == "joints"
+                  else None)
     rng = np.random.default_rng(seed)
     written = []
     for f in files:
@@ -616,12 +661,25 @@ def label_split(
             _load_quats(f), corpus_dev,
             num_queries=num_queries * runs, k=k, k_candidates=k_candidates,
             metric=metric, weighted=weighted, rng=rng, space=space,
-            corpus_np=corpus, precision=precision,
+            body_model=body_model, corpus_emb=corpus_emb, corpus_np=corpus, precision=precision,
             per_pose_noise=per_pose_noise, runs=runs, fused=fused, spec=spec,
         )
         np.savez(out_path, **labeled)
         written.append(out_path)
     return written
+
+
+def _maybe_body_model(bm_path, space: str, device):
+    """The body model of ``--space joints``: the SMPL file at ``--bm-path``
+    (required: the synthetic test skeleton would corrupt the labels)."""
+    if space != "joints":
+        return None
+    if not bm_path:
+        raise SystemExit("--space joints requires --bm-path (a real SMPL model file); "
+                         "the synthetic test skeleton would silently corrupt the labels")
+    from posendf_torch.smpl import BodyModel
+
+    return BodyModel(bm_path=bm_path, device=device)
 
 
 def run_cli(args) -> None:
@@ -639,6 +697,7 @@ def run_cli(args) -> None:
             num_queries=args.num_samples, runs=args.runs,
             k=args.k, k_candidates=args.k_candidates,
             metric=args.metric, weighted=args.weighted, space=args.space,
+            body_model=_maybe_body_model(args.bm_path, args.space, args.device),
             precision=args.knn_precision, per_pose_noise=args.per_pose_noise,
             fused={"auto": None, "on": True, "off": False}[args.fused_knn],
             spec=NoiseSpec(structured_frac=args.structured_frac,

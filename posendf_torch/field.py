@@ -66,6 +66,11 @@ class Field:
         self._weights: Optional[FieldWeights] = None
         self._weights_key = None
 
+    @property
+    def device(self) -> torch.device:
+        """The device of the module's parameters."""
+        return next(self.module.parameters()).device
+
     def weights(self) -> FieldWeights:
         """The kernels' view of the module, packed once; rebuilt if a
         parameter was replaced or changed in place since."""

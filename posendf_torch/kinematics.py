@@ -21,6 +21,7 @@ __all__ = [
     "NUM_BODY_JOINTS",
     "REFERENCE_PARENTS",
     "CORRECTED_PARENTS",
+    "SMPL_FULL_PARENTS",
     "parent_table",
     "level_schedule",
 ]
@@ -36,6 +37,14 @@ REFERENCE_PARENTS: Tuple[int, ...] = (
 # True SMPL body tree with the pelvis removed and indices shifted down by one.
 CORRECTED_PARENTS: Tuple[int, ...] = (
     -1, -1, -1, 0, 1, 2, 3, 4, 5, 6, 7, 8, 8, 8, 11, 12, 13, 15, 16, 17, 18,
+)
+
+
+# The full 24-joint SMPL kinematic tree (pelvis = 0), as smplx's kintree_table;
+# the body model's forward kinematics walks it.
+SMPL_FULL_PARENTS: Tuple[int, ...] = (
+    -1, 0, 0, 0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 9, 9, 12, 13, 14, 16, 17, 18, 19,
+    20, 21,
 )
 
 

@@ -251,12 +251,21 @@ def test_cli_prepare_data_writes_jax_files(raw_amass, tmp_path, capsys):
 
 
 def test_what_is_not_ported_raises(raw_amass, tmp_path):
+    """``mesh=`` is not ported and raises; ``space="joints"`` is, and needs a
+    body model (the CLI a real SMPL file, as JAX's does)."""
     corpus = synthetic_manifold_poses(np.random.default_rng(15), 64)
-    for kw, match in ((dict(space="joints"), "item 15"), (dict(mesh=object()), "item 12")):
-        with pytest.raises(NotImplementedError, match=match):
-            prepare.label_sequence(corpus[:8], corpus, num_queries=10, device="cpu", **kw)
-        with pytest.raises(NotImplementedError, match=match):
-            prepare.label_split(raw_amass, str(tmp_path / "x"), SUBSETS, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="item 15"):
+    with pytest.raises(NotImplementedError, match="item 12"):
+        prepare.label_sequence(corpus[:8], corpus, num_queries=10, device="cpu",
+                               mesh=object())
+    with pytest.raises(NotImplementedError, match="item 12"):
+        prepare.label_split(raw_amass, str(tmp_path / "x"), SUBSETS, device="cpu",
+                            mesh=object())
+    with pytest.raises(ValueError, match="requires a body_model"):
+        prepare.label_sequence(corpus[:8], corpus, num_queries=10, device="cpu",
+                               space="joints")
+    with pytest.raises(ValueError, match="requires a body_model"):
+        prepare.label_split(raw_amass, str(tmp_path / "x"), SUBSETS, device="cpu",
+                            space="joints")
+    with pytest.raises(SystemExit, match="requires --bm-path"):
         cli.main(["prepare-data", "--amass-raw", raw_amass, "--out-dir", str(tmp_path / "y"),
                   "--stage", "label", "--space", "joints", "--device", "cpu"])

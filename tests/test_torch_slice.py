@@ -53,9 +53,14 @@ def test_import_loads_no_jax():
             "posendf_torch.training.init_utils, posendf_torch.training.trainer, "
             "posendf_torch.ops.fused_int8, posendf_torch.ops.int8_probe, posendf_torch.export, "
             "posendf_torch.models.pos_encoder, posendf_torch.models.dfnet, "
-            "posendf_torch.ops.fused_model, posendf_torch.ops.fused_grad\n"
+            "posendf_torch.ops.fused_model, posendf_torch.ops.fused_grad, "
+            "posendf_torch.quat, posendf_torch.smpl, posendf_torch.smpl.lbs, "
+            "posendf_torch.smpl.body_model, posendf_torch.experiments, "
+            "posendf_torch.experiments.optim, posendf_torch.experiments.denoise, "
+            "posendf_torch.experiments.denoise_benchmark, "
+            "posendf_torch.experiments.interpolate, posendf_torch.experiments.render\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "{'jax', 'jaxlib', 'flax', 'msgpack', 'yaml', 'posendf_tpu'})\n"
+            "{'jax', 'jaxlib', 'flax', 'optax', 'msgpack', 'yaml', 'PIL', 'posendf_tpu'})\n"
             "assert not bad, bad\n")
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join([ROOT] + [p for p in [env.get("PYTHONPATH")] if p])
