@@ -5,7 +5,8 @@ and the serving path (the int8 forward, ``torch.export`` artifacts) through
 their hand-written CUDA kernels on the full-width trained field
 ``docs/quality/ckpt_l8_best.msgpack``, the data-manufacturing path (kNN
 labelling) against a 1,048,576-pose corpus, the bf16 / int8 tensor-core
-probe, and the experiments path (motion denoising, interpolation):
+probe, the experiments path (motion denoising, interpolation) and partial
+completion and image fitting, with the port's two examples:
 
   1. device: requires CUDA; prints the card's name and power limit
   2. build: compiles ``posendf_torch/csrc/field_kernels.cu``,
@@ -189,6 +190,33 @@ probe, and the experiments path (motion denoising, interpolation):
      fused one), the device kernels and busy time of a step
      (``torch.profiler``), each sweep's wall seconds and ``lbs_forward`` of
      60 frames alone
+
+ 19. partial completion and image fitting (the kNN kernel with zero joint
+     weights, row 6; the encoder kernel with ``strenc.fused``, row 4):
+     against the JAX package (``tests/data/torch_port_partial_expected.npz``,
+     the 128-vertex body) the 2 x 5 anchor and inpaint solves of a 60-frame
+     clip whose left arm is corrupted (pose and every step's terms), the
+     retrieval's neighbours and completion against a 16,384-pose corpus, and
+     a 2 x 5 three-stage fit of two keypoint sets given JAX's stage-2 draw,
+     at the CPU tests' bars; then a 1,048,576-pose corpus of the L8 field's
+     manifold, made on the card, searched by a 120-frame clip whose left arm
+     is corrupted, the occluded joints' weights 0: every engine against
+     ``knn_topk_ref`` (the exact and bf16 engines' indices all equal,
+     distances within KNN_ATOL x W) and the exact one against plain
+     ``ops/knn.geodesic_topk`` (index sets equal, distances within 1e-6);
+     ``complete_by_retrieval`` on the main path, the kNN launch counts set
+     to 0 before and read after, its visible joints to the bit and the
+     occluded-joint error lowered; the anchor and inpaint solves (10 x 10
+     steps) of the clip at 6,890 vertices on the module path and with
+     ``strenc.fused`` (the encoder count set to 0 before each fused solve
+     and at least 100 after; under inpaint every observed dof keeps its
+     input's bits); ``ImageFitter.optimize`` (10 x 10 steps a stage, the
+     45-joint table) of 1 and 8 keypoint sets rendered from the clip through
+     a camera rotated ~17 degrees, stage 1's torso error below its start;
+     ``examples/torch_end_to_end.py`` and ``examples/torch_serving.py`` (the
+     trained field, ``--int8``) as subprocesses, which must exit 0; times of
+     the search, the completion, a solve step on each path and each fit
+     stage
 
 A 500-step denoise solve is sensitive to rounding: the reference schedule's
 self-weighted prior (1e7 L^2) and the trained head's zero region turn sums
@@ -441,6 +469,11 @@ GRID_FAMILY_SEED, GRID_LATENTS, GRID_FREQ = 123, 8, (0.5, 1.2)   # the L8 field'
 SOLVE_POSE_ATOL, SOLVE_HIST_RTOL = 5e-5, 1e-4   # the 2 x 5 solve vs JAX, the CPU test's bars
 NOISE_D_ATOL, NOISE_S_ATOL = 1e-6, 1e-4         # estimate_clip_noise vs JAX, the CPU test's
 LONG_SOLVE_POSE_ATOL, LONG_SOLVE_TERM_RTOL = 0.1, 5e-3   # two 500-step solves: docstring
+PARTIAL_EXPECTED = "tests/data/torch_port_partial_expected.npz"
+PARTIAL_OCC = (12, 15, 17, 19)           # the left arm: l_collar, l_shoulder, l_elbow, l_wrist
+PARTIAL_FRAMES, PARTIAL_CORPUS, PARTIAL_K = 120, 1 << 20, 5   # cli partial's --max-frames
+FIT_POSE_ATOL = 5e-5                     # the 2 x 5 fit vs JAX, the CPU test's bar
+FIT_ROT = (0.2, -0.15, 0.1)              # the keypoints' camera: ~17 degrees, 10 m away
 REDUCE_FP32_ERR = 7.4e-6  # x max|leaf|: the fp32 CUDA-core reduction it replaced, whole gradient (docstring)
 
 
@@ -844,6 +877,7 @@ def main() -> None:
     knn = knn_phases(card)
     serving = serving_phases(field, card)
     experiments_phase(card)
+    partial = partial_phase(card)
 
     # bounds of the field kernels at the main path's shapes: 3xTF32 products
     fwd_bound = field_bound(w, MAIN_BATCH, backward=False)
@@ -868,6 +902,13 @@ def main() -> None:
          "max_abs_err": errs["proj"], "ms": proj_ms, "plain_ms": proj_plain_ms_step,
          "bound_ms": vag_bound[0], "bound_by": vag_bound[1], "library_ms": proj_lib_ms},
     ] + bf16 + train + knn + serving
+    # the partial-completion path's launches: the retrieval's exact search
+    # (row 6) and the fused-encoder solves (row 4)
+    for row in kernels:
+        if row["name"] == "posendf_encoder":
+            row["launches"] += partial["enc"]
+        elif row["name"].endswith("(vpu)"):
+            row["launches"] += partial["vpu"]
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": torch.cuda.get_device_name(0),
@@ -2617,6 +2658,290 @@ def experiments_phase(card: str) -> None:
     log(f"time lbs_forward, 60 frames, {SMPL_VERTICES} vertices: {ms:.4f} ms (mean of 50 calls "
         f"after one)  [{card}]")
     log(f"experiments phase: {time.perf_counter() - t_phase:.1f} s")
+
+
+def manifold_corpus_cuda(family, n: int, seed: int) -> torch.Tensor:
+    """(n, 21, 4) poses of ``data/synthetic.py``'s manifold ``family`` (its
+    8-latent form), the latents drawn with numpy from ``seed`` and the poses
+    made on the card in float64 (``_poses_from_latents``' formula), then
+    rounded to float32: a 1,048,576-pose corpus without the host's seconds."""
+    axes, freq, phase, weights = (torch.as_tensor(np.asarray(a), dtype=torch.float64,
+                                                  device="cuda") for a in family)
+    z = torch.from_numpy(np.random.default_rng(seed).uniform(
+        0, 2 * np.pi, size=(n, freq.shape[1]))).cuda()
+    angle = torch.sum(weights * torch.sin(freq * z[:, None, :] + phase), dim=-1)   # (n, J)
+    half = 0.5 * angle
+    q = torch.cat([torch.cos(half)[..., None], torch.sin(half)[..., None] * axes], dim=-1)
+    return q.to(torch.float32)
+
+
+def partial_phase(card: str) -> dict:
+    """Phase 19, partial-observation completion and image fitting (the kNN
+    kernel with zero joint weights, row 6; the encoder kernel with
+    ``strenc.fused``, row 4). Returns the launches its main path adds to
+    the ``kernels`` line: ``{"vpu": the retrieval's kNN launches, "enc":
+    the fused solves' encoder launches}``. Raises on any failure."""
+    import tempfile
+
+    from posendf_torch import load_field
+    from posendf_torch.config import PoseNDFConfig
+    from posendf_torch.data.synthetic import manifold_family, synthetic_motion_sequence
+    from posendf_torch.experiments import camera, fit_image, partial
+    from posendf_torch.ops import fused_encoder, fused_knn
+    from posendf_torch.ops.knn import geodesic_topk
+    from posendf_torch.quat import axis_angle_to_matrix, quaternion_to_axis_angle
+    from posendf_torch.smpl import BodyModel, synthetic_model
+
+    sys.path.insert(0, "scripts")
+    try:
+        from make_torch_port_partial_golden import FIT_METRICS, K, WINDOW, make_inputs
+    finally:
+        sys.path.pop(0)
+    t_phase = time.perf_counter()
+    occ = list(PARTIAL_OCC)
+    field = load_field(CKPT, device="cuda")
+    body128 = BodyModel(device="cuda")
+    body = BodyModel(model=synthetic_model(num_vertices=SMPL_VERTICES), device="cuda")
+    ref = np.load(PARTIAL_EXPECTED)
+    log(f"partial completion and image fitting: {CKPT}, bodies of 128 and {SMPL_VERTICES} "
+        f"vertices (Jtr {tuple(body(pose_body=np.zeros((1, 69))).Jtr.shape[1:])})")
+
+    # ---- against the JAX package, on the golden's 128-vertex body ----
+    for mode in ("anchor", "inpaint"):
+        comp = partial.PartialCompleter(field, body128,
+                                        specs=partial.INPAINT_SPECS if mode == "inpaint" else None)
+        init = body128(pose_body=ref["pose"])
+        aux = {"betas": init.betas, "init_joints": init.Jtr[None],
+               "data_joint_mask": torch.from_numpy(partial.observation_mask(body128, occ)).cuda()}
+        if mode == "inpaint":
+            aux["param_mask"] = torch.from_numpy(partial.dof_mask(occ)).cuda().expand(60, 69)[None]
+        pose, hist = comp._solve(init.body_pose[None], aux, 2, 5)
+        bar = max(SOLVE_POSE_ATOL, 2 * float(ref[f"{mode}_ulp_spread"]))
+        assert_close(f"2 x 5 {mode} solve of 60 frames: pose vs JAX (atol: 5e-5 or twice JAX's "
+                     f"one-ulp spread)", pose[0], torch.from_numpy(ref[f"{mode}_pose"]), atol=bar)
+        for k, v in hist.items():
+            assert_close(f"2 x 5 {mode} solve: {k} history vs JAX", v[:, 0],
+                         torch.from_numpy(ref[f"{mode}_hist_{k}"]), rtol=SOLVE_HIST_RTOL,
+                         atol=1e-7)
+    clean, bad, corpus = make_inputs()
+    w, _ = partial.retrieval_weights(occ)
+    d, idx = fused_knn.fused_geodesic_topk(torch.from_numpy(bad).cuda(),
+                                           torch.from_numpy(corpus).cuda(), K, weights=w)
+    if not np.array_equal(idx.cpu().numpy(), ref["retrieval_idx"]):
+        raise AssertionError("the golden retrieval's neighbours differ from JAX's")
+    assert_close("the golden retrieval's distances vs JAX", d,
+                 torch.from_numpy(ref["retrieval_dist"]), atol=KNN_ATOL)
+    done = partial.complete_by_retrieval(torch.from_numpy(corpus).cuda(), bad, occ, k=K,
+                                         temporal_window=WINDOW)
+    assert_close("the golden complete_by_retrieval vs JAX", torch.from_numpy(done),
+                 torch.from_numpy(ref["retrieval_out"]), atol=KNN_ATOL)
+
+    class GoldenDraw(fit_image.ImageFitter):
+        def _stage2_pose(self, B):
+            return torch.from_numpy(ref["stage2_draw"][:B]).cuda()
+
+    got, got_m = GoldenDraw(field, body128).optimize(ref["keypoints"], iterations=2,
+                                                     steps_per_iter=5, center=ref["center"])
+    for k, v in got.items():
+        assert_close(f"2 x 5 fit: {k} vs JAX", v, torch.from_numpy(ref[f"fit_{k}"]),
+                     atol=FIT_POSE_ATOL)
+    for k, want in zip(FIT_METRICS, ref["fit_metrics"]):
+        assert_close(f"2 x 5 fit: {k} vs JAX", torch.tensor([got_m[k]]), torch.tensor([want]),
+                     rtol=1e-4, atol=1e-12)
+
+    # ---- the zero-weight search: 120 frames x 1,048,576 poses ----
+    family = manifold_family(np.random.default_rng(GRID_FAMILY_SEED), 21,
+                             latents=GRID_LATENTS, freq_range=GRID_FREQ)
+    t0 = time.perf_counter()
+    corpus = manifold_corpus_cuda(family, PARTIAL_CORPUS, SEED + 19)
+    torch.cuda.synchronize()
+    from posendf_torch.data.synthetic import _poses_from_latents
+
+    z = np.random.default_rng(SEED + 19).uniform(0, 2 * np.pi, size=(4096, GRID_LATENTS))
+    assert_close("the corpus made on the card vs data/synthetic.py's formula, 4,096 rows",
+                 corpus[:4096], torch.from_numpy(_poses_from_latents(family, z)), atol=1e-6)
+    rng = np.random.default_rng(SEED + 20)
+    clean = synthetic_motion_sequence(rng, PARTIAL_FRAMES, family=family)
+    bad = clean.copy()
+    bad[:, occ] += 0.5 * rng.standard_normal((PARTIAL_FRAMES, len(occ), 4)).astype(np.float32)
+    bad[:, occ] /= np.linalg.norm(bad[:, occ], axis=-1, keepdims=True)
+    q = torch.from_numpy(bad).cuda()
+    log(f"  corpus of {PARTIAL_CORPUS} poses made on the card in "
+        f"{time.perf_counter() - t0:.3f} s; a {PARTIAL_FRAMES}-frame clip, joints {occ} "
+        f"corrupted; weights 0 there and 1 elsewhere over their norm (W = {float(w.sum()):.6f})")
+    w_sum = float(w.sum())
+    for engine in ("vpu", "mxu_bf16", "mxu_fast"):
+        d_k, i_k = fused_knn.fused_geodesic_topk(q, corpus, PARTIAL_K, weights=w, dot_impl=engine)
+        qf, cf, wj, wt = fused_knn.kernel_operands(q, corpus, w, engine)
+        d_p, i_p = fused_knn.knn_topk_ref(qf, cf, PARTIAL_K, weights=wj, w_total=wt,
+                                          dot_impl=engine)
+        # the exact and bf16 engines: the plain arithmetic's bits, so every index
+        name = f"zero-weight search ({engine}) vs knn_topk_ref, {PARTIAL_FRAMES} x {PARTIAL_CORPUS}"
+        err = check_topk(name, d_k, i_k, d_p, i_p,
+                         BOUND_ATOL if engine == "mxu_fast" else KNN_ATOL * w_sum,
+                         exact_idx=engine != "mxu_fast")
+        log(f"  ok {name}: max |err| {err:.3e}, indices equal"
+            + (" where the ranks are apart" if engine == "mxu_fast" else ""))
+    d_k, i_k = fused_knn.fused_geodesic_topk(q, corpus, PARTIAL_K, weights=w)
+    d_x, i_x = geodesic_topk(q, corpus, PARTIAL_K, weights=torch.from_numpy(w).cuda())
+    if not torch.equal(torch.sort(i_k, 1)[0], torch.sort(i_x, 1)[0]):
+        raise AssertionError("the zero-weight search's index sets differ from geodesic_topk's")
+    assert_close("zero-weight search distances vs ops/knn.geodesic_topk", d_k, d_x, atol=1e-6)
+
+    # ---- main path, retrieval: complete_by_retrieval through the kernel ----
+    fused_knn.LAUNCHES = dict.fromkeys(fused_knn.ENGINES, 0)
+    done = partial.complete_by_retrieval(corpus, bad, occ, k=PARTIAL_K)
+    torch.cuda.synchronize()
+    knn_launches = dict(fused_knn.LAUNCHES)
+    log(f"main path, retrieval: complete_by_retrieval of {PARTIAL_FRAMES} frames against "
+        f"{PARTIAL_CORPUS} poses, kNN launches {knn_launches}")
+    if knn_launches["vpu"] <= 0:
+        raise AssertionError("the retrieval launched no kNN kernel")
+    vis = [j for j in range(21) if j not in occ]
+    if not np.array_equal(done[:, vis], bad[:, vis]):
+        raise AssertionError("the retrieval changed a visible joint")
+
+    def occ_err(x):
+        return float(np.mean(1.0 - np.abs(np.sum(x[:, occ] * clean[:, occ], -1))))
+
+    log(f"  occluded-joint geodesic error {occ_err(bad):.5f} -> {occ_err(done):.5f}; visible "
+        f"joints to the bit")
+    if not occ_err(done) < occ_err(bad):
+        raise AssertionError("the retrieval did not lower the occluded-joint error")
+    search_ms = cuda_ms(lambda: fused_knn.fused_geodesic_topk(q, corpus, PARTIAL_K, weights=w), 10)
+    qf, cf, wj, wt = fused_knn.kernel_operands(q, corpus, w, "vpu")
+    plain_ms = cuda_ms(lambda: fused_knn.knn_topk_ref(qf, cf, PARTIAL_K, weights=wj, w_total=wt),
+                       1, warm=False)
+    complete_ms = cuda_ms(lambda: partial.complete_by_retrieval(corpus, bad, occ, k=PARTIAL_K),
+                          10)
+    log(f"time retrieval search, {PARTIAL_FRAMES} x {PARTIAL_CORPUS}, k = {PARTIAL_K} (pack + "
+        f"top-k + merge): {search_ms:.4f} ms (mean of 10 after one), its plain version "
+        f"knn_topk_ref {plain_ms:.4f} ms (one call); the whole complete_by_retrieval "
+        f"{complete_ms:.4f} ms  [{card}]")
+
+    # ---- the anchor and inpaint solves: one 120-frame clip, 10 x 10 steps ----
+    pose = np.zeros((PARTIAL_FRAMES, 69), np.float32)
+    pose[:, :63] = quaternion_to_axis_angle(torch.from_numpy(bad)).reshape(-1, 63).numpy()
+    cfg = PoseNDFConfig()
+    cfg.strenc.fused = True
+    fused_field = load_field(CKPT, config=cfg, device="cuda")
+    occ_dofs = partial.dof_mask(occ).astype(bool)
+    solves, step_ms, enc_launches = {}, {}, 0
+    for mode in ("anchor", "inpaint"):
+        specs = partial.INPAINT_SPECS if mode == "inpaint" else None
+        for path, f in (("module path", field), ("fused encoder", fused_field)):
+            comp = partial.PartialCompleter(f, body, specs=specs)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            fused_encoder.LAUNCHES = 0
+            start.record()
+            out, m = comp.optimize(pose, occluded_joints=occ, mode=mode)
+            end.record()
+            end.synchronize()
+            if path == "fused encoder":
+                log(f"  {mode}, fused encoder: posendf_encoder launched {fused_encoder.LAUNCHES} "
+                    f"times in 100 steps")
+                if fused_encoder.LAUNCHES < 100:
+                    raise AssertionError(f"{mode}: posendf_encoder launched "
+                                         f"{fused_encoder.LAUNCHES} times in a 100-step solve")
+                enc_launches += fused_encoder.LAUNCHES
+            step_ms[(mode, path)] = start.elapsed_time(end) / 100
+            if not bool(torch.isfinite(out).all()) or not all(np.isfinite(list(m.values()))):
+                raise AssertionError(f"{mode} solve, {path}: non-finite pose or metrics {m}")
+            if mode == "inpaint" and not np.array_equal(out.cpu().numpy()[:, ~occ_dofs],
+                                                        pose[:, ~occ_dofs]):
+                raise AssertionError(f"inpaint, {path}: an observed dof moved")
+            solves[(mode, path)] = (out, m)
+        log(f"  ok {mode}: 10 x 10 steps of {PARTIAL_FRAMES} frames on both paths, finite"
+            + ("; every observed dof kept its input's bits" if mode == "inpaint" else ""))
+        assert_close(f"{mode}, 100 steps: fused encoder vs module path, pose",
+                     solves[(mode, "fused encoder")][0], solves[(mode, "module path")][0],
+                     atol=LONG_SOLVE_POSE_ATOL)
+        for k in ("final_pose_pr", "final_temp"):
+            assert_close(f"{mode}, 100 steps: fused encoder vs module path, {k}",
+                         torch.tensor([solves[(mode, "fused encoder")][1][k]]),
+                         torch.tensor([solves[(mode, "module path")][1][k]]),
+                         rtol=LONG_SOLVE_TERM_RTOL, atol=1e-6)
+    for (mode, path), ms in step_ms.items():
+        log(f"time partial solve, {mode}, {path}: {ms:.4f} ms a step (a 10 x 10-step solve of "
+            f"{PARTIAL_FRAMES} frames at {SMPL_VERTICES} vertices, its metrics included; CUDA "
+            f"events around the call)  [{card}]")
+
+    # ---- the fitter: B = 1 and 8 keypoint sets, 10 x 10 steps a stage ----
+    class TimedFitter(fit_image.ImageFitter):
+        """Times each stage's solve (CUDA events around the call)."""
+
+        def _get_solvers(self, B, iterations, steps_per_iter):
+            def timed(i, solve):
+                def run(p, aux):
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    out = solve(p, aux)
+                    end.record()
+                    end.synchronize()
+                    self.stage_ms[i] = start.elapsed_time(end)
+                    return out
+                return run
+
+            self.stage_ms = {}
+            return tuple(timed(i, f) for i, f in
+                         enumerate(super()._get_solvers(B, iterations, steps_per_iter), 1))
+
+    frames = np.linspace(0, PARTIAL_FRAMES - 1, 8).astype(int)
+    gt_pose = np.zeros((8, 69), np.float32)
+    gt_pose[:, :63] = quaternion_to_axis_angle(
+        torch.from_numpy(clean[frames])).reshape(8, 63).numpy()
+    cam = {"rotation": axis_angle_to_matrix(
+        torch.tensor([FIT_ROT], device="cuda")).repeat(8, 1, 1),
+           "translation": torch.tensor([[0.0, 0.0, 10.0]], device="cuda").repeat(8, 1)}
+    center = torch.tensor([[512.0, 384.0]], device="cuda").repeat(8, 1)
+    fitter = TimedFitter(field, body)
+    with torch.no_grad():
+        jtr = body(pose_body=gt_pose).Jtr
+        xy = camera.project_points(cam, fitter._mapped_joints(jtr), 5000.0, center)
+    keypoints = torch.cat([xy, torch.ones_like(xy[..., :1])], dim=-1).cpu().numpy()
+    for B in (1, 8):
+        result, m = fitter.optimize(keypoints[:B], center=center[0].cpu().numpy())
+        with torch.no_grad():
+            start_err = float(fitter._stage1_terms(
+                {"translation": torch.tensor([[0.0, 0.0, 10.0]], device="cuda").repeat(B, 1),
+                 "global_orient": torch.zeros((B, 3), device="cuda"),
+                 "cam_rot": torch.zeros((B, 3), device="cuda")},
+                {"center": center[:B], "gt_xy": torch.from_numpy(keypoints[:B, :, :2]).cuda()}
+            )["data"])
+        for k, v in result.items():
+            if not bool(torch.isfinite(v).all()):
+                raise AssertionError(f"fit, B = {B}: non-finite {k}")
+        if not m["stage1_final_data"] < start_err:
+            raise AssertionError(f"fit, B = {B}: stage 1's torso error {m['stage1_final_data']} "
+                                 f"not below its start {start_err}")
+        rot_err = float((result["camera_rotation"] - cam["rotation"][:B]).abs().max())
+        log(f"  ok fit, B = {B}, 10 x 10 steps a stage, the 45-joint table: stage 1's torso "
+            f"error {start_err:.3f} -> {m['stage1_final_data']:.6f} px^2, the camera's rotation "
+            f"{rot_err:.3e} from the true one; metrics "
+            + ", ".join(f"{k} {v:.6g}" for k, v in m.items()))
+        log(f"time fit, B = {B}: stages " + ", ".join(
+            f"{i} {ms:.3f} ms ({ms / 100:.4f} ms a step)" for i, ms in fitter.stage_ms.items())
+            + f"  [{card}]")
+
+    # ---- the examples, as a user runs them ----
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, argv in (("torch_end_to_end.py", ["--epochs", "2", "--workdir", tmp]),
+                           ("torch_serving.py", ["--ckpt", CKPT, "--int8"])):
+            t0 = time.perf_counter()
+            run = subprocess.run([sys.executable, os.path.join("examples", name), *argv],
+                                 capture_output=True, text=True, timeout=300)
+            lines = [ln for ln in run.stdout.splitlines() if ln.strip()]
+            for ln in lines[-8:]:
+                log(f"    {name}: {ln}")
+            if run.returncode != 0:
+                log(run.stderr[-3000:])
+                raise AssertionError(f"examples/{name} exited {run.returncode}")
+            log(f"  ok examples/{name} {' '.join(argv[:2])}: exit 0 in "
+                f"{time.perf_counter() - t0:.1f} s")
+    log(f"partial phase: {time.perf_counter() - t_phase:.1f} s")
+    return {"vpu": knn_launches["vpu"], "enc": enc_launches}
+
 
 if __name__ == "__main__":
     os.chdir(os.path.dirname(os.path.abspath(__file__)))

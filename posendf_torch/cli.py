@@ -3,9 +3,10 @@
 manifold projection, without the mesh output), ``prepare-data`` (AMASS
 sampling and kNN distance labelling), ``export`` (a ``torch.export``
 artifact of the forward, the int8 forward or a whole projection),
-``denoise`` (a motion clip optimized under the prior), ``denoise-bench``
-(the noise-grid sweep) and ``interpolate`` (slerp + projection between two
-poses).
+``denoise`` (a motion clip optimized under the prior), ``partial``
+(completion of a partly observed clip), ``fit-image`` (SMPL fitted to
+OpenPose keypoints), ``denoise-bench`` (the noise-grid sweep) and
+``interpolate`` (slerp + projection between two poses).
 
 Usage::
 
@@ -17,6 +18,11 @@ Usage::
         --calib poses.npz --save-quantized field.int8.msgpack --out model.int8.pt2
     python -m posendf_torch.cli denoise --ckpt docs/quality/ckpt_l8_best.msgpack \
         --motion-data noisy.npz --gt-data gt.npz --specs adaptive --out denoised.npz
+    python -m posendf_torch.cli partial --ckpt docs/quality/ckpt_l8_best.msgpack \
+        --motion-data clip.npz --occluded-joints 12 15 17 19 --mode retrieval \
+        --corpus corpus.npz --out completed.npz
+    python -m posendf_torch.cli fit-image --ckpt docs/quality/ckpt_l8_best.msgpack \
+        --image-folder img/ --prior-form self --out fit.npz
     python -m posendf_torch.cli denoise-bench --ckpt docs/quality/ckpt_l8_best.msgpack \
         --data-root grid/ --synthesize --out table.npz
     python -m posendf_torch.cli interpolate --ckpt docs/quality/ckpt_l8_best.msgpack \
@@ -153,6 +159,18 @@ def cmd_export(args) -> None:
 
 def cmd_denoise(args) -> None:
     from posendf_torch.experiments.denoise import run_cli
+
+    run_cli(args)
+
+
+def cmd_partial(args) -> None:
+    from posendf_torch.experiments.partial import run_cli
+
+    run_cli(args)
+
+
+def cmd_fit_image(args) -> None:
+    from posendf_torch.experiments.fit_image import run_cli
 
     run_cli(args)
 
@@ -368,6 +386,31 @@ def build_parser() -> argparse.ArgumentParser:
     _add_mesh_out(p, "./denoised")
     p.set_defaults(fn=cmd_denoise)
 
+    p = sub.add_parser("partial", help="partial-observation completion")
+    _add_common(p)
+    p.add_argument("--motion-data", required=True)
+    p.add_argument("--out", default=None)
+    p.add_argument("--bm-path", default=None,
+                   help="SMPL model file (.pkl/.npz); default: the synthetic 128-vertex body")
+    p.add_argument("--max-frames", type=int, default=120)
+    p.add_argument("--occluded-joints", type=int, nargs="+", default=None,
+                   help="body-pose joint indices known to be unobserved; the data term "
+                        "anchors only the observed joints (observation_mask). Default: the "
+                        "reference's anchor-everything solve")
+    p.add_argument("--mode", choices=("anchor", "inpaint", "retrieval"), default="anchor",
+                   help="'anchor': the reference solve (occlusion-aware with "
+                        "--occluded-joints); 'inpaint': the observed dofs frozen, only the "
+                        "occluded limb completed (INPAINT_SPECS); 'retrieval': the occluded "
+                        "joints spliced from the --corpus poses nearest in the visible joints "
+                        "(the kNN kernel)")
+    p.add_argument("--corpus", default=None,
+                   help=".npz of manifold poses ('pose' (N, 21, 4) quaternions) for "
+                        "--mode retrieval")
+    p.add_argument("--retrieval-k", type=int, default=5)
+    p.add_argument("--temporal-window", type=int, default=5)
+    _add_mesh_out(p, "./partial_out")
+    p.set_defaults(fn=cmd_partial)
+
     p = sub.add_parser("interpolate", help="slerp + projection between poses")
     _add_common(p)
     p.add_argument("--num-steps", type=int, default=10)
@@ -378,6 +421,22 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--pose-b", default=None, help=".npz endpoint (pose or pose_body)")
     p.add_argument("--out", default=None)
     p.set_defaults(fn=cmd_interpolate)
+
+    p = sub.add_parser("fit-image", help="image-based SMPL fitting with the prior")
+    _add_common(p)
+    p.add_argument("--image-folder", required=True,
+                   help="folder with kpts.npz (OpenPose BODY_25 (25, 3) or (B, 25, 3)) and, "
+                        "optionally, img.jpg (its center is the principal point)")
+    p.add_argument("--out", default=None)
+    p.add_argument("--bm-path", default=None,
+                   help="SMPL model file (.pkl/.npz); default: the synthetic 128-vertex body")
+    p.add_argument("--prior-form", choices=("reference", "self"), default="reference",
+                   help="stage 2-3 prior weighting: 'reference' = linear 1e2*L/(1+it) "
+                        "(image_fitting.py:40); 'self' = the denoise schedule's self-weighted "
+                        "1e7*L^2/(1+it), which escapes the zero-region pinning of the linear "
+                        "form on trained relu-head fields")
+    _add_mesh_out(p, "the image folder")
+    p.set_defaults(fn=cmd_fit_image)
 
     p = sub.add_parser("denoise-bench",
                        help="motion-denoising benchmark sweep (HuMoR-style grid)")

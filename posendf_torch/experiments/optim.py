@@ -60,9 +60,10 @@ def make_annealed_solver(loss_terms_fn: Callable, specs: Dict[str, AnnealSpec], 
                          iterations: int = 10, steps_per_iter: int = 50, lr: float = 0.02):
     """A reusable solver ``solve(params, aux) -> (params, history)``.
 
-    ``params``: the optimized tensor. ``loss_terms_fn(params, aux)``
-    returns ``{term: loss}``; everything it reads besides ``params`` comes
-    through ``aux``. A loss may be a scalar, or a (C,) tensor of C
+    ``params``: the optimized tensor, or a dict of tensors (each leaf its
+    own Adam moments, as optax keeps them for a pytree; returned as a dict).
+    ``loss_terms_fn(params, aux)`` returns ``{term: loss}``; everything it
+    reads besides ``params`` comes through ``aux``. A loss may be a scalar, or a (C,) tensor of C
     independent problems (clips that share no parameter): the solve then
     descends the sum of their weighted totals, which, Adam being
     elementwise, is C independent solves up to the order of float sums.
@@ -71,10 +72,11 @@ def make_annealed_solver(loss_terms_fn: Callable, specs: Dict[str, AnnealSpec], 
       * ``"anneal_runtime"``: ``{term: {"scale"|"anneal"|"active_after": value}}``,
         run-time overrides of the specs (``power`` stays the spec's);
       * ``"lr_runtime"``: a factor on the updates, broadcastable to the
-        parameters (Adam is invariant to the loss's scale, so only the
-        updates can shrink its late-step oscillation);
+        parameters, or to every leaf of a dict (Adam is invariant to the
+        loss's scale, so only the updates can shrink its late-step
+        oscillation);
       * ``"param_mask"``: a 0/1 mask on the updates, broadcastable to the
-        parameters; a dof masked out never moves.
+        parameters, or to every leaf of a dict; a dof masked out never moves.
 
     ``history``: ``{term: (steps, ...), "total": (steps, ...)}``, the terms
     and the weighted total before each step's update, on the device.
@@ -88,33 +90,43 @@ def make_annealed_solver(loss_terms_fn: Callable, specs: Dict[str, AnnealSpec], 
         return tot, terms
 
     def solve(params, aux):
-        x = params.detach()
-        m, v = torch.zeros_like(x), torch.zeros_like(x)
+        # a dict of tensors is optimized leaf by leaf (optax's tree_map): each
+        # leaf its own moments, the same bias corrections, the runtime step
+        # size and mask applied to every leaf's update
+        keys = list(params) if isinstance(params, dict) else None
+        xs = [params[k].detach() for k in keys] if keys else [params.detach()]
+        ms = [torch.zeros_like(x) for x in xs]
+        vs = [torch.zeros_like(x) for x in xs]
         lr_mult = aux.get("lr_runtime") if isinstance(aux, dict) else None
         pm = aux.get("param_mask") if isinstance(aux, dict) else None
-        its = torch.div(torch.arange(total_steps, device=x.device), steps_per_iter,
+        its = torch.div(torch.arange(total_steps, device=xs[0].device), steps_per_iter,
                         rounding_mode="floor").to(torch.float32)
         history: Dict[str, list] = {}
         for step in range(total_steps):
             with torch.enable_grad():
-                xg = x.requires_grad_(True)
-                tot, terms = total_loss(xg, aux, its[step])
-                (g,) = torch.autograd.grad(tot.sum(), xg)
+                xg = [x.requires_grad_(True) for x in xs]
+                tot, terms = total_loss(dict(zip(keys, xg)) if keys else xg[0], aux, its[step])
+                # a leaf the loss does not read has a zero gradient, as in JAX
+                gs = torch.autograd.grad(tot.sum(), xg, allow_unused=True)
             for k, val in dict(terms, total=tot).items():
                 history.setdefault(k, []).append(val.detach())
             # optax's bias corrections, 1 - b^count, in float32
             bc1 = float(1 - np.float32(B1) ** np.float32(step + 1))
             bc2 = float(1 - np.float32(B2) ** np.float32(step + 1))
             with torch.no_grad():
-                m.mul_(B1).add_((1 - B1) * g)          # (1 - b1) g + b1 m
-                v.mul_(B2).add_((1 - B2) * (g * g))    # (1 - b2) g^2 + b2 v
-                u = (m / bc1) / (torch.sqrt(v / bc2) + EPS) * (-lr)
-                if lr_mult is not None:
-                    u = u * lr_mult
-                if pm is not None:
-                    u = u * pm
-                x = x.detach() + u
-        return x, {k: torch.stack(val) for k, val in history.items()}
+                for i, (x, g, m, v) in enumerate(zip(xs, gs, ms, vs)):
+                    if g is None:
+                        g = torch.zeros_like(x)
+                    m.mul_(B1).add_((1 - B1) * g)          # (1 - b1) g + b1 m
+                    v.mul_(B2).add_((1 - B2) * (g * g))    # (1 - b2) g^2 + b2 v
+                    u = (m / bc1) / (torch.sqrt(v / bc2) + EPS) * (-lr)
+                    if lr_mult is not None:
+                        u = u * lr_mult
+                    if pm is not None:
+                        u = u * pm
+                    xs[i] = x.detach() + u
+        out = dict(zip(keys, xs)) if keys else xs[0]
+        return out, {k: torch.stack(val) for k, val in history.items()}
 
     return solve
 
