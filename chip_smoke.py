@@ -217,6 +217,32 @@ completion and image fitting, with the port's two examples:
      trained field, ``--int8``) as subprocesses, which must exit 0; times of
      the search, the completion, a solve step on each path and each fit
      stage
+ 20. multi-device (``posendf_torch/parallel``; no kernel of its own: the
+     train kernels, row 5, the kNN kernel, row 6, the projection step, row
+     3, and the encoder's, row 4, run on each rank): (a) a process group of
+     one rank on the card (NCCL, ``tcp://localhost``): 3 fused sharded
+     train steps at the main path's 20,000 + 20,000 poses, the labelling
+     of 10,000 queries against a 1,048,576-pose corpus, a 2 x 5-step
+     frame-sharded denoise of the 60-frame golden clip at 6,890 vertices
+     with ``strenc.fused`` and a sharded 20-step projection of 10,000
+     poses, each held to its unsharded run to the bit (a group of one rank
+     runs every collective, and every share is the whole); then
+     ``torchrun --standalone --nproc-per-node 1 examples/torch_multichip.py``,
+     whose stage 4 must lower the mean distance.
+     (b) two gloo ranks on the one card (NCCL refuses two ranks on one
+     GPU; gloo reads tensors as host memory, so every operation stages
+     through the host), spawned after the kernels are built: the same
+     paths against the one-rank results, the labels to the bit, the train
+     steps' losses within TERM_RTOL and the first step's gradient within
+     LEAF_TOL x max|leaf| (a mean of two 10,000-row means against one
+     20,000-row mean: fp32 sums in another order), the weights after three
+     Adam steps within 2 x 3 lr and 99% within lr / 20 (Adam's normalized
+     step turns a tiny gradient's rounding into up to 2 lr), the denoise at
+     the 2 x 5 horizon's bars (pose SOLVE_POSE_ATOL, history
+     SOLVE_HIST_RTOL), the projection at PROJ_RTOL / PROJ_ATOL. Every call
+     timed with CUDA events after a warm-up run of the paths; the launches
+     of rows 3-6 counted (0 before, read after) in both, and added to the
+     ``kernels`` line
 
 A 500-step denoise solve is sensitive to rounding: the reference schedule's
 self-weighted prior (1e7 L^2) and the trained head's zero region turn sums
@@ -402,6 +428,7 @@ from __future__ import annotations
 import copy
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -878,6 +905,7 @@ def main() -> None:
     serving = serving_phases(field, card)
     experiments_phase(card)
     partial = partial_phase(card)
+    multi = multidevice_phase(card)
 
     # bounds of the field kernels at the main path's shapes: 3xTF32 products
     fwd_bound = field_bound(w, MAIN_BATCH, backward=False)
@@ -909,6 +937,14 @@ def main() -> None:
             row["launches"] += partial["enc"]
         elif row["name"].endswith("(vpu)"):
             row["launches"] += partial["vpu"]
+    # the multi-device phase's: rows 3-6 on every rank
+    for row in kernels:
+        key = {"posendf_project_step": "proj", "posendf_train_tile": "tile",
+               "posendf_train_reduce": "reduce", "posendf_encoder": "enc"}.get(row["name"])
+        if key is None and row["name"].endswith("(vpu)"):
+            key = "vpu"
+        if key is not None:
+            row["launches"] += multi[key]
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": torch.cuda.get_device_name(0),
@@ -2941,6 +2977,256 @@ def partial_phase(card: str) -> dict:
                 f"{time.perf_counter() - t0:.1f} s")
     log(f"partial phase: {time.perf_counter() - t_phase:.1f} s")
     return {"vpu": knn_launches["vpu"], "enc": enc_launches}
+
+
+P20_STEPS, P20_QUERIES, P20_LR, P20_PROJ_STEPS = 3, 10_000, 1e-4, 20
+P20_COUNTS = ("proj", "tile", "reduce", "vpu", "enc")
+
+
+def p20_counts(reset: bool = False) -> dict:
+    """The launch counts of rows 3-6 (set to 0 first with ``reset``)."""
+    from posendf_torch.ops import fused_encoder, fused_grad, fused_knn, fused_train
+
+    if reset:
+        fused_grad.PROJ_LAUNCHES = fused_train.TILE_LAUNCHES = fused_train.REDUCE_LAUNCHES = 0
+        fused_encoder.LAUNCHES = 0
+        fused_knn.LAUNCHES["vpu"] = 0
+    return {"proj": fused_grad.PROJ_LAUNCHES, "tile": fused_train.TILE_LAUNCHES,
+            "reduce": fused_train.REDUCE_LAUNCHES, "vpu": fused_knn.LAUNCHES["vpu"],
+            "enc": fused_encoder.LAUNCHES}
+
+
+def p20_corpus() -> torch.Tensor:
+    """The 1,048,576-pose corpus of the L8 field's manifold, made on the card."""
+    from posendf_torch.data.synthetic import manifold_family
+
+    family = manifold_family(np.random.default_rng(GRID_FAMILY_SEED), 21, latents=GRID_LATENTS,
+                             freq_range=GRID_FREQ)
+    return manifold_corpus_cuda(family, PARTIAL_CORPUS, SEED + 20)
+
+
+def p20_paths(mesh, corpus: torch.Tensor):
+    """The four paths of phase 20 on ``mesh`` (None: unsharded): (results
+    on the host, milliseconds of each call by CUDA events)."""
+    from posendf_torch import load_field, project
+    from posendf_torch.config import PoseNDFConfig
+    from posendf_torch.data.prepare import label_sequence
+    from posendf_torch.experiments.denoise import MotionDenoiser
+    from posendf_torch.parallel import gather_rows, shard_batch
+    from posendf_torch.projection import random_poses
+    from posendf_torch.smpl import BodyModel, synthetic_model
+    from posendf_torch.training.trainer import make_optimizer, make_train_step
+
+    res, ms = {}, {}
+
+    def timed(name, fn):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        ms[name] = start.elapsed_time(end)
+        return out
+
+    # fused data-parallel train steps on the trained field
+    module = load_field(CKPT, device="cuda").module
+    step = make_train_step(module, make_optimizer(module.parameters(), P20_LR), loss_type="l1",
+                           weights={"dist": 1.0, "man_loss": 1.0, "eikonal": 1.0}, fused=True,
+                           mesh=mesh)
+    metrics = []
+    for i in range(P20_STEPS):
+        b = {k: torch.from_numpy(v).cuda() for k, v in
+             zip(("pose", "dist", "man_poses"), golden_inputs(SEED + 20 + i, TRAIN_FILES * TRAIN_PTS))}
+        m = timed(f"train step {i}", lambda: step(b))
+        metrics.append(torch.stack([m[k] for k in ("total", "dist", "man_loss", "eikonal")]))
+        if i == 0:
+            res["grads0"] = {n: p.grad.detach().cpu().clone() for n, p in module.named_parameters()}
+    res["train_metrics"] = torch.stack(metrics).cpu()
+    res["params"] = {n: p.detach().cpu().clone() for n, p in module.named_parameters()}
+    # queries sharded against the corpus on the card
+    clean = corpus[:256].cpu().numpy()
+    lab = timed("labelling", lambda: label_sequence(
+        clean, corpus, num_queries=P20_QUERIES, k=KNN_K, rng=np.random.default_rng(SEED),
+        mesh=mesh))
+    res.update(label_pose=lab["pose"], label_dist=lab["dist"], label_nn=lab["nn_pose"])
+    # the frame-sharded denoise at SMPL's 6,890 vertices (the halo moves a
+    # frame of them), the encoder kernel on the solve's path
+    cfg = PoseNDFConfig()
+    cfg.strenc.fused = True
+    body = BodyModel(model=synthetic_model(num_vertices=SMPL_VERTICES), device="cuda")
+    den = MotionDenoiser(load_field(CKPT, config=cfg, device="cuda"), body)
+    noisy = np.load(DENOISE_EXPECTED)["noisy"]
+    pose, m = timed("denoise", lambda: den.optimize(noisy, iterations=2, steps_per_iter=5,
+                                                    mesh=mesh))
+    res["den_pose"], res["den_metrics"] = pose.cpu(), m
+    # each rank's share of the poses through the projection-step kernel
+    field = load_field(CKPT, device="cuda")
+    poses = random_poses(torch.Generator().manual_seed(SEED + 20), MAIN_BATCH, device="cuda")
+    mine = shard_batch(mesh, poses, even=True)
+    out, hist = timed("projection", lambda: project(field, mine, steps=P20_PROJ_STEPS,
+                                                    fused=True))
+    res["proj_out"] = gather_rows(mesh, out).cpu()
+    res["proj_hist"] = gather_rows(mesh, hist.T.contiguous()).T.cpu()
+    return res, ms
+
+
+def p20_rank(rank: int, world: int, port: int, out_dir: str) -> None:
+    """One of phase 20 (b)'s gloo ranks on the one card: the paths, its
+    results (rank 0) and its launch counts saved to ``out_dir``."""
+    from posendf_torch.parallel import init_distributed, make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    init_distributed(init_method=f"tcp://localhost:{port}", world_size=world, rank=rank,
+                     device="cuda", backend="gloo", timeout_s=300)
+    mesh = make_mesh(("data",), device="cuda")
+    corpus = p20_corpus()
+    p20_paths(mesh, corpus)   # warm-up: the libraries' loads, gloo's connections
+    p20_counts(reset=True)
+    res, ms = p20_paths(mesh, corpus)
+    torch.cuda.synchronize()
+    res["counts"], res["ms"] = p20_counts(), ms
+    torch.save(res if rank == 0 else {"counts": res["counts"], "ms": ms},
+               os.path.join(out_dir, f"rank{rank}.pt"))
+    torch.distributed.destroy_process_group()
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def multidevice_phase(card: str) -> dict:
+    """Phase 20, multi-device execution (see the module docstring). Returns
+    the launches of rows 3-6 it made, by ``P20_COUNTS``. Raises on any
+    failure."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from posendf_torch.parallel import all_reduce_sum, init_distributed, make_mesh
+
+    t_phase = time.perf_counter()
+    corpus = p20_corpus()
+    total = dict.fromkeys(P20_COUNTS, 0)
+
+    # ---- (a) NCCL, a group of one rank on the card ----
+    want, _ = p20_paths(None, corpus)           # also the warm-up of every path
+    init_distributed(init_method=f"tcp://localhost:{free_port()}", world_size=1, rank=0,
+                     device="cuda")
+    mesh = make_mesh(("data",), device="cuda")
+    log(f"multi-device (a): {mesh.backend} group of {mesh.size} rank on {mesh.device}")
+    all_reduce_sum(mesh, torch.ones(1, device="cuda"))   # the communicator's set-up
+    p20_counts(reset=True)
+    got, ms = p20_paths(mesh, corpus)
+    torch.cuda.synchronize()
+    counts = p20_counts()
+    torch.distributed.destroy_process_group()
+    again, plain_ms = p20_paths(None, corpus)   # timed after the sharded run
+    for k in ("train_metrics", "label_dist", "den_pose", "proj_out"):
+        if not torch.equal(torch.as_tensor(np.asarray(again[k])),
+                           torch.as_tensor(np.asarray(want[k]))):
+            raise AssertionError(f"two unsharded runs differ in {k}")
+    log(f"  launches of the sharded paths {counts}")
+    for k, n in counts.items():
+        if n <= 0:
+            raise AssertionError(f"the sharded paths launched no {k} kernel")
+        total[k] += n
+    for k in ("train_metrics", "label_dist", "label_pose", "label_nn", "den_pose", "proj_out",
+              "proj_hist"):
+        a, b = (torch.as_tensor(np.asarray(got[k])), torch.as_tensor(np.asarray(want[k])))
+        if not torch.equal(a, b):
+            raise AssertionError(f"one-rank NCCL {k} is not the unsharded one: max |err| "
+                                 f"{max_err(a.double(), b.double()):.3e}")
+    for part in ("grads0", "params"):
+        for n, v in want[part].items():
+            if not torch.equal(got[part][n], v):
+                raise AssertionError(f"one-rank NCCL {part} {n} is not the unsharded one")
+    if got["den_metrics"] != want["den_metrics"]:
+        raise AssertionError(f"one-rank NCCL denoise metrics {got['den_metrics']} != "
+                             f"{want['den_metrics']}")
+    log("  ok one rank on NCCL: train metrics, gradient and weights, labels, denoise pose and "
+        "metrics, projection, each the unsharded run's to the bit")
+    for name in ms:
+        log(f"  time {name}: sharded (one NCCL rank) {ms[name]:.3f} ms, unsharded "
+            f"{plain_ms[name]:.3f} ms (one call each after a warm-up run, CUDA events)  "
+            f"[{card}]")
+    t0 = time.perf_counter()
+    run = subprocess.run(["torchrun", "--standalone", "--nproc-per-node", "1",
+                          os.path.join("examples", "torch_multichip.py"), "--epochs", "5"],
+                         capture_output=True, text=True, timeout=400)
+    for ln in [x for x in run.stdout.splitlines() if x.strip()][-8:]:
+        log(f"    torch_multichip.py: {ln}")
+    if run.returncode != 0 or "== done" not in run.stdout:
+        log(run.stderr[-3000:])
+        raise AssertionError(f"examples/torch_multichip.py under torchrun exited "
+                             f"{run.returncode}")
+    fall = re.search(r"mean distance ([0-9.eE+-]+) -> ([0-9.eE+-]+)", run.stdout)
+    if fall is None or not float(fall.group(2)) < float(fall.group(1)):
+        raise AssertionError("examples/torch_multichip.py: stage 4's projection did not lower "
+                             "the mean distance")
+    log(f"  ok torchrun --standalone --nproc-per-node 1 examples/torch_multichip.py: exit 0 in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # ---- (b) two gloo ranks on the one card ----
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ctx = mp.start_processes(p20_rank, args=(2, free_port(), tmp), nprocs=2, join=False,
+                                 start_method="spawn")
+        deadline = time.monotonic() + 600
+        try:
+            while not ctx.join(timeout=5):
+                if time.monotonic() > deadline:
+                    raise TimeoutError("phase 20's two gloo ranks did not finish in 600 s")
+        finally:
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.kill()
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+                 for r in range(2)]
+    log(f"multi-device (b): two gloo ranks on one card, {time.perf_counter() - t0:.1f} s with "
+        f"their start")
+    got = ranks[0]
+    for r in ranks:
+        log(f"  rank launches {r['counts']}")
+        for k, n in r["counts"].items():
+            if n <= 0:
+                raise AssertionError(f"a gloo rank launched no {k} kernel")
+            total[k] += n
+    for name in got["ms"]:
+        log(f"  time {name}: two gloo ranks {got['ms'][name]:.3f} / {ranks[1]['ms'][name]:.3f} ms, "
+            f"one NCCL rank {ms[name]:.3f} ms (one call each after a warm-up run, CUDA "
+            f"events)  [{card}]")
+    for k in ("label_pose", "label_dist", "label_nn"):
+        if not np.array_equal(got[k], want[k]):
+            raise AssertionError(f"two gloo ranks: {k} is not the one-rank labelling")
+    log(f"  ok two ranks: {len(got['label_pose'])} labels to the bit")
+    assert_close("two ranks: train step losses", got["train_metrics"], want["train_metrics"],
+                 rtol=TERM_RTOL, atol=0.0)
+    assert_leaves("two ranks: first step's gradient", got["grads0"], want["grads0"])
+    worst = 0.0
+    for n, v in want["params"].items():
+        err = (got["params"][n] - v).abs()
+        worst = max(worst, float(err.max()))
+        if float(err.max()) > 2 * P20_STEPS * P20_LR or float((err <= P20_LR / 20).float().mean()) < 0.99:
+            raise AssertionError(f"two ranks: weights {n} after {P20_STEPS} steps: max |err| "
+                                 f"{float(err.max()):.3e}")
+    log(f"  ok two ranks: weights after {P20_STEPS} steps, largest difference {worst:.3e} "
+        f"(lr {P20_LR})")
+    assert_close("two ranks: 2 x 5 denoise pose", got["den_pose"], want["den_pose"],
+                 atol=SOLVE_POSE_ATOL)
+    for k, v in want["den_metrics"].items():
+        assert_close(f"two ranks: denoise {k}", torch.tensor([got["den_metrics"][k]]),
+                     torch.tensor([v]), rtol=SOLVE_HIST_RTOL, atol=1e-7)
+    assert_close("two ranks: projection", got["proj_out"], want["proj_out"], rtol=PROJ_RTOL,
+                 atol=PROJ_ATOL)
+    assert_close("two ranks: projection history", got["proj_hist"], want["proj_hist"],
+                 atol=D_ATOL)
+    log(f"multi-device phase: {time.perf_counter() - t_phase:.1f} s; launches {total}")
+    return total
 
 
 if __name__ == "__main__":

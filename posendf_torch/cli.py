@@ -1,5 +1,6 @@
 """Command line of the PyTorch port, as ``posendf_tpu/cli.py``: ``train``
-(the distance field, on one device), ``generate`` (pose sampling by
+(the distance field, on one device or data-parallel under ``torchrun``),
+``generate`` (pose sampling by
 manifold projection, without the mesh output), ``prepare-data`` (AMASS
 sampling and kNN distance labelling), ``export`` (a ``torch.export``
 artifact of the forward, the int8 forward or a whole projection),
@@ -11,6 +12,7 @@ OpenPose keypoints), ``denoise-bench`` (the noise-grid sweep) and
 Usage::
 
     python -m posendf_torch.cli train --config run.json --fused-grads --max-epoch 10
+    torchrun --standalone --nproc-per-node 4 -m posendf_torch train --config run.json
     python -m posendf_torch.cli generate --ckpt docs/quality/ckpt_l8_best.msgpack \\
         --num-poses 100 --steps 200 --fused --out poses.npz
     python -m posendf_torch.cli prepare-data --amass-raw raw/ --out-dir data/ --stage label
@@ -28,7 +30,9 @@ Usage::
     python -m posendf_torch.cli interpolate --ckpt docs/quality/ckpt_l8_best.msgpack \
         --pose-a a.npz --pose-b b.npz --num-steps 10 --out path.npz
 
-Each runs on the card unless ``--device cpu`` is given.
+Each runs on the card unless ``--device cpu`` is given (under ``torchrun``,
+``train`` takes one card a rank with NCCL, or gloo on the CPU).
+``python -m posendf_torch`` is the same command line.
 """
 
 from __future__ import annotations
@@ -40,9 +44,12 @@ __all__ = ["build_parser", "main"]
 
 
 def cmd_train(args) -> None:
+    import torch.distributed
     from posendf_torch.config import PoseNDFConfig, load_config
     from posendf_torch.data.pipeline import TrainingBatcher
+    from posendf_torch.parallel import init_distributed, make_mesh
     from posendf_torch.training.trainer import Trainer
+    from posendf_torch.utils import enable_nan_debugging, trace
 
     if args.test:
         # the reference CLI's `trainer.py --test` generates poses
@@ -51,6 +58,11 @@ def cmd_train(args) -> None:
         argv += ["--ckpt", args.ckpt] if args.ckpt else []
         gen_args = build_parser().parse_args(argv)
         return gen_args.fn(gen_args)
+    if args.debug_nans:
+        enable_nan_debugging()
+    # under torchrun: one rank a device; a plain run creates no group
+    init_distributed(device=args.device)
+    mesh = make_mesh(device=args.device) if torch.distributed.is_initialized() else None
     cfg = load_config(args.config) if args.config else PoseNDFConfig()
     if args.max_epoch is not None:
         cfg.train.max_epoch = args.max_epoch
@@ -77,24 +89,26 @@ def cmd_train(args) -> None:
                     f"were found ({e}); provide a vald split under data.data_dir or drop the "
                     "flag/config key") from e
             print("experiment.val=True but no vald-split data found; skipping validation")
-    trainer = Trainer(cfg, device=args.device, config_path=args.config)
+    trainer = Trainer(cfg, device=args.device, config_path=args.config, mesh=mesh)
+    say = print if trainer.is_main else (lambda *a, **k: None)
     if args.matched_head_init:
         stats = trainer.matched_head_init(batcher.sample_batch())
         if stats is None:
-            print("matched-head init skipped: resuming from a checkpoint")
+            say("matched-head init skipped: resuming from a checkpoint")
         else:
-            print(f"matched-head init: z {stats['z_mean']:+.4f} +- {stats['z_std']:.4f} -> "
+            say(f"matched-head init: z {stats['z_mean']:+.4f} +- {stats['z_std']:.4f} -> "
                   f"x{stats['scale']:.4f}, head bias {stats['new_bias']:+.4f} (labels "
                   f"{stats['label_mean']:.4f} +- {stats['label_std']:.4f})")
     epochs = t.max_epoch - trainer.epoch
-    print(f"training {cfg.exp_name()} from epoch {trainer.epoch} for {epochs} epochs "
-          f"on {trainer.device}")
-    trainer.fit(batcher, epochs=epochs, val_batcher=val_batcher,
-                val_every=cfg.experiment.val_every, early_stop_patience=t.early_stop_patience)
+    say(f"training {cfg.exp_name()} from epoch {trainer.epoch} for {epochs} epochs "
+        f"on {1 if mesh is None else mesh.size} device(s) ({trainer.device})")
+    with trace(args.profile):
+        trainer.fit(batcher, epochs=epochs, val_batcher=val_batcher,
+                    val_every=cfg.experiment.val_every, early_stop_patience=t.early_stop_patience)
     if val_batcher is not None:
         info = trainer.store.best_info()
         if info:
-            print(f"best checkpoint: epoch {info['epoch']} ({info['mode']} "
+            say(f"best checkpoint: epoch {info['epoch']} ({info['mode']} "
                   f"total={info['metric']:.6f}) -> {trainer.store.directory}/checkpoint_best.tar")
 
 
@@ -280,6 +294,10 @@ def build_parser() -> argparse.ArgumentParser:
     p = sub.add_parser("train", help="train the distance field")
     _add_common(p)
     p.add_argument("--max-epoch", type=int, default=None)
+    p.add_argument("--profile", default=None, metavar="DIR",
+                   help="write a torch.profiler Chrome trace of the training into DIR")
+    p.add_argument("--debug-nans", action="store_true",
+                   help="raise in the backward pass at the operation that made a NaN")
     p.add_argument("--test", action="store_true",
                    help="reference-CLI parity: generate poses instead of training")
     p.add_argument("--matched-head-init", action="store_true",
@@ -383,6 +401,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="SMPL model file (.pkl/.npz); default: the synthetic 128-vertex body")
     p.add_argument("--specs", choices=("reference", "balanced", "adaptive"),
                    default="reference", help=specs_help)
+    p.add_argument("--iterations", type=int, default=10,
+                   help="outer iterations of the annealed schedule (the reference's 10)")
+    p.add_argument("--steps-per-iter", type=int, default=50,
+                   help="Adam steps per iteration (the reference's 50)")
     _add_mesh_out(p, "./denoised")
     p.set_defaults(fn=cmd_denoise)
 

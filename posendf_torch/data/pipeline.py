@@ -1,7 +1,6 @@
 """Host-side training input pipeline.
 
-Port of ``posendf_tpu/data/pipeline.py`` with the numpy backend only (the
-C++ mmap loader is not ported yet). Reference semantics
+Port of ``posendf_tpu/data/pipeline.py``. Reference semantics
 (``model/load_data.py:18-86``): each training example draws ``num_pts``
 random (pose, distance-label) rows from one labelled .npz file (distance =
 mean of the kNN distances) plus ``num_pts`` clean manifold poses from one
@@ -13,6 +12,16 @@ the JAX package's, draw for draw.
 ``flip`` quirk (reference ``load_data.py:51-63``): under ``flip`` with
 ``flip_mode="reference"`` the manifold poses are the flipped NOISY rows;
 ``flip_mode="corrected"`` flips real manifold draws.
+
+Two backends assemble a batch, as in the JAX package: ``numpy`` (the
+draws of a numpy generator) and ``native`` (the C++ loader of
+``data/native.py``: mmap'd files, threaded gathers, rows drawn by a
+splitmix64 hash of a per-file seed; the same files and labels, other
+rows). ``auto`` takes ``native`` when its library is built and ``numpy``
+otherwise; ``native`` builds it, and raises if the build fails. Either
+way a batch consumes one draw of the batcher's generator, so a native
+loader that fails mid-run falls back to numpy without changing the
+batches that follow.
 
 :func:`prefetch_to_device` replaces the JAX prefetcher: a thread assembles
 batches ahead, copies them into pinned host memory and issues
@@ -60,12 +69,15 @@ class TrainingBatcher:
         ``*/*000.npz`` filter, falling back to ``*/*.npz`` with a warning
         when that matches nothing; an explicit glob is used verbatim.
       subsets: overrides the split's subset list.
+      backend: ``auto``, ``numpy`` or ``native`` (see the module docstring).
+      native_threads: the native loader's gather threads.
     """
 
     def __init__(self, data_dir: str, amass_dir: str, split: str = "train",
                  batch_size: int = 4, num_pts: int = 5000, flip: bool = False,
                  flip_mode: str = "reference", seed: int = 0,
-                 file_glob: Optional[str] = None, subsets: Optional[Sequence[str]] = None):
+                 file_glob: Optional[str] = None, subsets: Optional[Sequence[str]] = None,
+                 backend: str = "auto", native_threads: int = 4):
         subsets = list(subsets) if subsets is not None else AMASS_SPLITS[split]
 
         def _labeled(pattern: str) -> List[str]:
@@ -105,6 +117,37 @@ class TrainingBatcher:
             collections.OrderedDict())
         self._cache_lock = threading.Lock()
 
+        if backend not in ("auto", "numpy", "native"):
+            raise ValueError(f"unknown backend {backend!r}")
+        from posendf_torch.data import native as _native
+
+        self.native_threads = native_threads
+        self._native = None
+        self.backend = "numpy"
+        if backend == "native" or (backend == "auto" and _native.available()):
+            _native.build()     # raises if the build fails
+            self._native = _native
+            # a bounded pool of open maps (a file descriptor each), least recently used out
+            self.max_native_handles = 256
+            self._native_handles: "collections.OrderedDict[str, object]" = (
+                collections.OrderedDict())
+            self._native_lock = threading.Lock()
+            self.backend = "native"
+
+    def _native_open(self, path: str):
+        # evicted handles are not closed here (another thread may be gathering
+        # from one): they close when their last user drops them
+        with self._native_lock:
+            h = self._native_handles.get(path)
+            if h is None:
+                h = self._native.NativeNpz(path)
+                self._native_handles[path] = h
+                while len(self._native_handles) > self.max_native_handles:
+                    self._native_handles.popitem(last=False)
+            else:
+                self._native_handles.move_to_end(path)
+            return h
+
     def __len__(self) -> int:
         """Steps per epoch (file-level epochs like the reference loader)."""
         return max(1, len(self.labeled) // self.batch_size)
@@ -131,10 +174,28 @@ class TrainingBatcher:
         other draw comes from a child generator seeded by it, in the JAX
         package's order."""
         rng = rng or self._rng
-        inner = np.random.default_rng(int(rng.integers(0, 2 ** 62)))
-        if lab_idx is None:
+        seed0 = int(rng.integers(0, 2 ** 62))
+        inner = np.random.default_rng(seed0)
+        lab_was_none = lab_idx is None
+        if lab_was_none:
             lab_idx = inner.integers(0, len(self.labeled), self.batch_size)
         man_idx = inner.integers(0, len(self.manifold), self.batch_size)
+        if self._native is not None:
+            try:
+                return self._sample_batch_native(inner, lab_idx, man_idx)
+            except (OSError, RuntimeError) as e:
+                warnings.warn(f"native loader failed ({type(e).__name__}: {e}); falling back "
+                              "to the numpy backend for the rest of the run", stacklevel=2)
+                with self._native_lock:
+                    self._native_handles.clear()
+                self._native = None
+                self.backend = "numpy"
+                # the child generator again from the same seed, its header draws
+                # replayed: the numpy loop then sees a never-native run's stream
+                inner = np.random.default_rng(seed0)
+                if lab_was_none:
+                    inner.integers(0, len(self.labeled), self.batch_size)
+                inner.integers(0, len(self.manifold), self.batch_size)
         poses, dists, mans = [], [], []
         for li, mi in zip(lab_idx, man_idx):
             lab = self._load(self.labeled[li], ("pose", "dist"))
@@ -161,6 +222,25 @@ class TrainingBatcher:
             "dist": np.concatenate(dists).astype(np.float32),
             "man_poses": np.concatenate(mans).astype(np.float32),
         }
+
+    def _sample_batch_native(self, rng, lab_idx, man_idx) -> Dict[str, np.ndarray]:
+        """One batch in one native call, sized by ``len(lab_idx)`` (an
+        epoch's last index slice is short when there are fewer labelled
+        files than ``batch_size``); a seed a file from the child generator,
+        the manifold rows from that seed ^ ``native.MAN_SEED_XOR``."""
+        B, P = len(lab_idx), self.num_pts
+        pose = np.empty((B * P, 21, 4), np.float32)
+        dist = np.empty((B * P,), np.float32)
+        man = np.empty((B * P, 21, 4), np.float32)
+        ref_quirk = self.flip and self.flip_mode == "reference"
+        seeds = [int(rng.integers(0, 2 ** 62)) for _ in range(B)]
+        labs = [self._native_open(self.labeled[li]) for li in lab_idx]
+        mans = None if ref_quirk else [self._native_open(self.manifold[mi])
+                                       for mi in man_idx[:B]]
+        self._native.assemble_batch(labs, mans, seeds, P, self.flip, ref_quirk,
+                                    pose.reshape(B * P, -1), dist, man.reshape(B * P, -1),
+                                    threads=self.native_threads)
+        return {"pose": pose, "dist": dist, "man_poses": man}
 
     def epoch(self, epoch_idx: int) -> Iterator[Dict[str, np.ndarray]]:
         """Deterministic per-epoch stream of ``len(self)`` batches, keyed on

@@ -27,8 +27,15 @@ n-th sequence, restart-safe through the per-sequence skip guard.
 positions (``_fk_joint_embedding``, the body model's forward kinematics),
 then re-ranks them by the exact metric.
 
-Not ported yet: ``mesh=`` (queries sharded over several cards, ROADMAP
-Queue 1 item 12); it raises ``NotImplementedError``.
+Sharded labelling (``mesh=``, a :class:`~posendf_torch.parallel.Mesh`):
+every rank draws the same queries from the same ``rng``, labels its
+contiguous share of each batch against the replicated corpus, and the
+results are gathered back in rank order; no other collective. Under a mesh
+the search is the kNN kernel wherever it applies (the JAX package keeps its
+XLA scan under a mesh unless asked, a choice made for a relay-attached TPU;
+on the card that would put the plain search on the main path). The kernel is
+``knn_topk_ref``'s to the bit, so the labels are the one-device labels to
+the bit. Only rank 0 writes ``label_split``'s files.
 """
 
 from __future__ import annotations
@@ -47,10 +54,6 @@ __all__ = [
     "sample_noisy_queries", "probe_fast_safety", "FAST_ENGINE_BACKENDS", "resolve_knn_precision",
     "label_sequence", "label_split", "run_cli",
 ]
-
-_NO_MESH = ("mesh= (queries sharded over several cards) is not ported yet: ROADMAP Queue 1 "
-            "item 12")
-
 
 # --------------------------------------------------------------------------
 # stage 1: raw AMASS -> per-sequence sampled pose files (host-side, IO bound)
@@ -383,6 +386,7 @@ def resolve_knn_precision(
     k_candidates: int = 0,
     space: str = "quat",
     fused=None,
+    mesh=None,
     rng: Optional[np.random.Generator] = None,
     device="cuda",
     backend: Optional[str] = None,
@@ -395,7 +399,9 @@ def resolve_knn_precision(
     applies to this search (single-stage geodesic, k <= 8, fused not
     disabled, the corpus on a device type of :data:`FAST_ENGINE_BACKENDS`,
     where the bound engine is the faster one) AND :func:`probe_fast_safety`
-    passes on this corpus; **highest** (exact) otherwise. ``device`` is
+    passes on this corpus; **highest** (exact) otherwise. Under a ``mesh``
+    the fast engine applies only with ``fused=True``, as in the JAX
+    package. ``device`` is
     where the corpus is searched (and the probe runs): the card unless the
     caller asks for the CPU;
     ``backend`` ("cuda" or "cpu") overrides its type in the eligibility
@@ -408,12 +414,13 @@ def resolve_knn_precision(
     if backend is None:
         backend = resolve_device(device).type
     applies = (metric == "geo" and space == "quat" and not k_candidates
-               and k <= 8 and fused is not False)
+               and k <= 8 and fused is not False and (mesh is None or fused is True))
     if not applies or backend not in FAST_ENGINE_BACKENDS:
         if verbose:
             why = (f"the bound engine is slower than the exact one on {backend}" if applies
                    else f"fast engine not applicable to this search (metric={metric}, "
-                        f"space={space}, k_candidates={k_candidates}, k={k}, fused={fused})")
+                        f"space={space}, k_candidates={k_candidates}, k={k}, fused={fused}, "
+                        f"sharded={mesh is not None})")
             print(f"knn auto: {why} -> exact 'highest'")
         return "highest", None
     w_np = _joint_weights_np() if weighted else None
@@ -510,6 +517,13 @@ def label_sequence(
     single-stage geodesic search, k <= 8, the corpus on a CUDA device);
     True asks for it (on a CPU tensor that is its plain version); False runs
     the streamed plain search of ``ops/knn.py``.
+
+    ``mesh``: every rank draws the same queries (the same ``rng`` on every
+    rank), searches its contiguous share of each query batch against the
+    corpus on its own device, and gathers the results in rank order; every
+    rank returns the whole result. A numpy corpus goes to the mesh's
+    device. None (auto) ``fused`` runs the kernel wherever it applies, as on
+    one device.
     """
     import torch
 
@@ -517,9 +531,10 @@ def label_sequence(
     from posendf_torch.ops.fused_knn import fused_geodesic_topk, fused_geodesic_topk_fast
     from posendf_torch.ops.knn import (euclidean_rerank, euclidean_topk, geodesic_rerank,
                                        geodesic_topk, l2_topk)
+    from posendf_torch.parallel.mesh import gather_rows, shard_rows
 
     if mesh is not None:
-        raise NotImplementedError(_NO_MESH)
+        device = mesh.device
     if space not in ("quat", "joints"):
         raise ValueError(f"space must be 'quat' or 'joints', got {space!r}")
     queries = sample_noisy_queries(seq_quats, num_queries, spec, rng,
@@ -535,7 +550,7 @@ def label_sequence(
     if precision == "auto":
         precision, _ = resolve_knn_precision(
             precision, corpus_np, k=k, weighted=weighted, metric=metric,
-            k_candidates=k_candidates, space=space, fused=fused, device=dev)
+            k_candidates=k_candidates, space=space, fused=fused, mesh=mesh, device=dev)
     if space == "joints" and corpus_emb is None:
         if body_model is None:
             raise ValueError("space='joints' requires a body_model")
@@ -565,6 +580,8 @@ def label_sequence(
     dists, idxs = [], []
     for start in range(0, len(queries), query_batch):
         q = queries_dev[start:start + query_batch]
+        # this rank's contiguous share (the whole batch on one device)
+        q = q[shard_rows(mesh, len(q))]
         if corpus_emb is not None or k_candidates:
             # two stages: candidates in the embedding, then the exact metric's
             # re-rank (the reference's width: faiss k=500, prepare_traindata.py:45)
@@ -585,9 +602,10 @@ def label_sequence(
             d, i = fused_geodesic_topk(q, corpus, k, weights=w_np, dot_impl=fused_dot)
         else:
             d, i = geodesic_topk(q, corpus, k=k, weights=w, precision=plain_precision)
-        # results stay on the device until every batch is dispatched
-        dists.append(d)
-        idxs.append(i)
+        # results stay on the device until every batch is dispatched; a
+        # batch's shares come back in rank order (padded where they differ)
+        dists.append(gather_rows(mesh, d))
+        idxs.append(gather_rows(mesh, i))
     dist = torch.cat(dists).cpu().numpy()
     idx = torch.cat(idxs).cpu().numpy()
     return {"pose": queries, "dist": dist, "nn_pose": corpus_np[idx]}
@@ -626,14 +644,18 @@ def label_split(
     corpus-safety probe, where it runs, against the split-wide corpus). The
     corpus goes to ``device`` once (the card
     unless the caller asks for the CPU; raises without one).
+
+    ``mesh``: each sequence's queries are sharded over the ranks
+    (:func:`label_sequence`), the corpus on every rank's device; only rank 0
+    writes the files, and every rank returns the paths.
     """
     import torch
 
     from posendf_torch.field import resolve_device
+    from posendf_torch.parallel.mesh import barrier
 
-    dev = resolve_device(device)
-    if mesh is not None:
-        raise NotImplementedError(_NO_MESH)
+    dev = mesh.device if mesh is not None else resolve_device(device)
+    main = mesh is None or mesh.is_main
     if space == "joints" and body_model is None:
         raise ValueError("space='joints' requires a body_model")
     corpus, files = build_corpus(sampled_dir, subsets)
@@ -642,7 +664,7 @@ def label_split(
         files = files[i::n]
     precision, _ = resolve_knn_precision(
         precision, corpus, k=k, weighted=weighted, metric=metric,
-        k_candidates=k_candidates, space=space, fused=fused,
+        k_candidates=k_candidates, space=space, fused=fused, mesh=mesh,
         rng=np.random.default_rng([seed, 9999]), device=dev)
     corpus_dev = torch.from_numpy(corpus).to(dev)
     # the corpus's joint embedding, once for the whole split
@@ -652,8 +674,9 @@ def label_split(
     written = []
     for f in files:
         subset = os.path.basename(os.path.dirname(f))
-        os.makedirs(os.path.join(out_dir, subset), exist_ok=True)
         out_path = os.path.join(out_dir, subset, os.path.basename(f))
+        # every rank sees the same skip: rank 0 writes a file only after
+        # every rank has looked (the barrier at the end of the loop body)
         if skip_if_exists and os.path.exists(out_path):
             written.append(out_path)
             continue
@@ -662,10 +685,14 @@ def label_split(
             num_queries=num_queries * runs, k=k, k_candidates=k_candidates,
             metric=metric, weighted=weighted, rng=rng, space=space,
             body_model=body_model, corpus_emb=corpus_emb, corpus_np=corpus, precision=precision,
-            per_pose_noise=per_pose_noise, runs=runs, fused=fused, spec=spec,
+            per_pose_noise=per_pose_noise, runs=runs, fused=fused, spec=spec, mesh=mesh,
         )
-        np.savez(out_path, **labeled)
+        barrier(mesh)
+        if main:
+            os.makedirs(os.path.join(out_dir, subset), exist_ok=True)
+            np.savez(out_path, **labeled)
         written.append(out_path)
+    barrier(mesh)
     return written
 
 

@@ -22,8 +22,17 @@ the sum of each clip's weighted total (its own runtime scale, anneal and
 step size), so it equals the clips' serial solves up to the order of float
 sums.
 
-Not ported yet: ``mesh=`` (frames sharded over several cards); it raises
-``NotImplementedError``.
+Frame-sharded solves (``optimize(mesh=...)``, a
+:class:`~posendf_torch.parallel.Mesh`): each rank holds T / size contiguous
+frames of the pose, the betas and the input's joints (T must divide). Every
+mean over frames is this rank's mean times its share of the count, summed
+over the ranks by one all-reduce a term (``parallel.sum_across``, which
+autograd passes through); the temporal term takes its one neighbour frame
+through ``parallel/halo.py``. The annealed Adam is elementwise and stays on
+each rank's frames. What is computed on the whole clip before the solve
+(the input's body model output, the adaptive noise statistics) is computed
+on the whole clip by every rank; the metrics are all-reduced and the pose is
+gathered back in frame order.
 """
 
 from __future__ import annotations
@@ -35,6 +44,8 @@ import torch
 
 from posendf_torch.experiments.optim import AnnealSpec, make_annealed_solver
 from posendf_torch.field import Field
+from posendf_torch.parallel.halo import adjacent_difference_sharded
+from posendf_torch.parallel.mesh import gather_rows, shard_rows, sum_across
 from posendf_torch.projection import project
 from posendf_torch.quat import axis_angle_to_quaternion, quaternion_to_axis_angle
 from posendf_torch.smpl.lbs import lbs_forward, with_landmarks
@@ -42,9 +53,6 @@ from posendf_torch.smpl.lbs import lbs_forward, with_landmarks
 __all__ = ["MotionDenoiser", "DENOISE_SPECS", "BALANCED_SPECS", "ADAPTIVE_SPECS",
            "estimate_clip_noise", "estimate_clip_noise_many", "adaptive_runtime",
            "v2v_cm", "run_cli"]
-
-_NO_MESH = ("mesh= (frames sharded over several cards) is not ported yet: ROADMAP Queue 1 "
-            "items 12 (the multi-card mesh) and 19 (the frames' halo)")
 
 DENOISE_SPECS = {
     "pose_pr": AnnealSpec(scale=1e7, power=2, anneal=-1.0),
@@ -202,6 +210,18 @@ def v2v_cm(verts_a: torch.Tensor, verts_b: torch.Tensor, axis=None):
     return (torch.mean(d, dim=axis) * 100.0).cpu().numpy()
 
 
+def _v2v_sharded(verts_a: torch.Tensor, verts_b: torch.Tensor, mesh) -> float:
+    """:func:`v2v_cm` of two whole (T, V, 3) clips, each rank's frames'
+    mean times its share, all-reduced (the unsharded value without a
+    mesh, and to the bit with one rank)."""
+    if mesh is None:
+        return v2v_cm(verts_a, verts_b)
+    T = verts_a.shape[0]
+    rows = shard_rows(mesh, T, even=True)
+    d = torch.sqrt(torch.sum((verts_a[rows] - verts_b[rows]) ** 2, dim=-1))
+    return float(sum_across(mesh, torch.mean(d) * ((rows.stop - rows.start) / T)) * 100.0)
+
+
 class MotionDenoiser:
     """Denoises pose sequences under ``field``'s prior with ``body_model``
     (both on one device).
@@ -240,21 +260,34 @@ class MotionDenoiser:
         return torch.as_tensor(x, dtype=torch.float32).to(self.device)
 
     def _loss_terms(self, pose: torch.Tensor, aux: dict) -> Dict[str, torch.Tensor]:
-        """The three terms of each clip of a (C, T, 69) pose stack, (C,) each."""
-        C, T = pose.shape[:2]
-        flat = pose.reshape(C * T, 69)
-        quat = axis_angle_to_quaternion(flat.reshape(C * T, 23, 3)[:, :21])
-        dist = self.field.module(quat).reshape(C, T)
+        """The three terms of each clip of a (C, T, 69) pose stack, (C,) each.
+
+        Under ``aux["mesh"]`` the stack holds this rank's t of the clip's
+        ``aux["frames"]`` frames: each term is this rank's mean times its
+        share of the count (the temporal one its differences' share),
+        summed over the ranks by one all-reduce. Without a mesh every share
+        is 1 and the sum is the identity."""
+        mesh = aux.get("mesh")
+        C, t = pose.shape[:2]
+        T = aux.get("frames", t)
+        flat = pose.reshape(C * t, 69)
+        quat = axis_angle_to_quaternion(flat.reshape(C * t, 23, 3)[:, :21])
+        dist = self.field.module(quat).reshape(C, t)
         verts, joints = lbs_forward(self.body_model.model, aux["betas"],
-                                    flat.new_zeros((C * T, 3)), flat)
+                                    flat.new_zeros((C * t, 3)), flat)
         # the full smplx Jtr (45 joints on a real mesh), as the input's joints
         # were taken and as the reference's data term reads it (motion_denoise.py:93)
         joints = with_landmarks(verts, joints)
-        verts = verts.reshape(C, T, *verts.shape[1:])
-        joints = joints.reshape(C, T, *joints.shape[1:])
+        verts = verts.reshape(C, t, *verts.shape[1:])
+        joints = joints.reshape(C, t, *joints.shape[1:])
         if T > 1:
-            temp = torch.sqrt(torch.sum((verts[:, :-1] - verts[:, 1:]) ** 2, dim=-1)
-                              + 1e-12).mean((1, 2))
+            # (C, t', V), t' = t or (on the last rank) t - 1
+            d = adjacent_difference_sharded(verts, mesh, dim=1)
+            temp = torch.sqrt(torch.sum(d ** 2, dim=-1) + 1e-12)
+            # a last rank of one frame has no difference of its own; its sum
+            # of none still carries the halo's backward, which every rank runs
+            temp = (temp.mean((1, 2)) * (d.shape[1] / (T - 1)) if d.shape[1]
+                    else temp.sum((1, 2)))
         else:
             # a single frame has no temporal stencil (the mean of none is NaN)
             temp = flat.new_zeros((C,))
@@ -264,8 +297,9 @@ class MotionDenoiser:
             m = aux["data_joint_mask"]
             data = torch.sum(diff * m, dim=(1, 2)) / (T * torch.clamp_min(torch.sum(m), 1e-9))
         else:
-            data = diff.mean((1, 2))
-        return {"pose_pr": dist.mean(1), "temp": temp, "data": data}
+            data = diff.mean((1, 2)) * (t / T)
+        terms = sum_across(mesh, torch.stack([dist.mean(1) * (t / T), temp, data], 1))
+        return {"pose_pr": terms[:, 0], "temp": terms[:, 1], "data": terms[:, 2]}
 
     def _solve(self, pose0: torch.Tensor, aux: dict, iterations: int, steps_per_iter: int):
         solve = make_annealed_solver(self._loss_terms, self.specs, iterations=iterations,
@@ -281,10 +315,15 @@ class MotionDenoiser:
         ``data_joint_mask``: a float mask over the body model's Jtr rows; the
         data term anchors only the joints masked in. ``param_mask``: a float
         mask broadcastable to the (T, 69) pose; the dofs masked out stay at
-        their input values, to the bit. ``mesh``: not ported (raises).
+        their input values, to the bit.
+
+        ``mesh``: the frames are split over the mesh's ranks (T must divide;
+        every rank passes the whole clip and gets the whole result; see the
+        module docstring). ``mesh_axis`` names the mesh's axis, as in the
+        JAX package.
         """
-        if mesh is not None:
-            raise NotImplementedError(_NO_MESH)
+        if mesh is not None and mesh.axis != mesh_axis:
+            raise ValueError(f"mesh axis {mesh.axis!r} is not mesh_axis {mesh_axis!r}")
         noisy = self._tensor(noisy_pose_body)
         if gt_pose_body is not None and len(gt_pose_body) != len(noisy):
             raise ValueError(
@@ -295,6 +334,11 @@ class MotionDenoiser:
         pose0 = init_out.body_pose
         T = pose0.shape[0]
         aux = {"betas": init_out.betas, "init_joints": init_out.Jtr[None]}
+        if mesh is not None:
+            rows = shard_rows(mesh, T, even=True)
+            betas_rows = init_out.betas[rows] if init_out.betas.shape[0] == T else init_out.betas
+            aux = {"betas": betas_rows, "init_joints": init_out.Jtr[None, rows], "mesh": mesh,
+                   "frames": T}
         if data_joint_mask is not None:
             mask = self._tensor(data_joint_mask)
             if mask.shape != init_out.Jtr.shape[1:2]:
@@ -306,6 +350,8 @@ class MotionDenoiser:
             mask = self._tensor(param_mask)
             try:
                 aux["param_mask"] = torch.broadcast_to(mask, pose0.shape)[None]
+                if mesh is not None:
+                    aux["param_mask"] = aux["param_mask"][:, rows]
             except RuntimeError:
                 raise ValueError(
                     f"param_mask has shape {tuple(mask.shape)}; expected a shape "
@@ -317,13 +363,17 @@ class MotionDenoiser:
             noise_est = estimate_clip_noise(self.field, in_quats)
             aux["anneal_runtime"] = adaptive_runtime(noise_est["s"], self.prior_gain)
             aux["lr_runtime"] = _lr_runtime(noise_est["s"])
-        final, history = self._solve(pose0[None], aux, iterations, steps_per_iter)
-        final_pose = final[0]
+        if mesh is None:
+            final, history = self._solve(pose0[None], aux, iterations, steps_per_iter)
+            final_pose = final[0]
+        else:
+            final, history = self._solve(pose0[None, rows], aux, iterations, steps_per_iter)
+            final_pose = gather_rows(mesh, final[0])
 
         with torch.no_grad():
             out = self.body_model(pose_body=final_pose, betas=betas)
             metrics = {
-                "v2v_vs_input_cm": v2v_cm(out.vertices, init_out.vertices),
+                "v2v_vs_input_cm": _v2v_sharded(out.vertices, init_out.vertices, mesh),
                 "final_pose_pr": float(history["pose_pr"][-1, 0]),
                 "final_temp": float(history["temp"][-1, 0]),
             }
@@ -334,9 +384,9 @@ class MotionDenoiser:
                 metrics["noise_d_probe"] = noise_est["d_probe"]
             if gt_pose_body is not None:
                 gt_out = self.body_model(pose_body=gt_pose_body, betas=betas)
-                metrics["v2v_cm"] = v2v_cm(out.vertices, gt_out.vertices)
+                metrics["v2v_cm"] = _v2v_sharded(out.vertices, gt_out.vertices, mesh)
                 # the number denoising must beat: the raw input's error
-                metrics["v2v_input_cm"] = v2v_cm(init_out.vertices, gt_out.vertices)
+                metrics["v2v_input_cm"] = _v2v_sharded(init_out.vertices, gt_out.vertices, mesh)
         return final_pose, metrics
 
     def optimize_many(self, noisy_pose_body, gt_pose_body=None, iterations: int = 10,
@@ -432,7 +482,8 @@ def run_cli(args) -> None:
         noisy = noisy[: len(gt)]
     specs = {"balanced": BALANCED_SPECS, "adaptive": "adaptive"}.get(args.specs)
     denoiser = MotionDenoiser(field, bm, specs=specs)
-    final_pose, metrics = denoiser.optimize(noisy, gt)
+    final_pose, metrics = denoiser.optimize(noisy, gt, iterations=args.iterations,
+                                            steps_per_iter=args.steps_per_iter)
     for k, v in metrics.items():
         print(f"{k}: {v:0.8f}")
     if args.out:

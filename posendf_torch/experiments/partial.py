@@ -162,7 +162,11 @@ def complete_by_retrieval(corpus, quats, occluded_joints, *, k: int = 5,
     (the joint-weighted geodesic top-k of ``ops/fused_knn.py``, the occluded
     joints' weights 0; ``precision`` "highest" the exact engine, "default"
     or "high" the bf16 one) are found on ``device`` (the card unless the
-    caller asks for the CPU, where the kernel's plain version runs), their
+    caller asks for the CPU, where the kernel's plain version runs); the
+    kernel keeps at most ``fused_knn.KMAX`` = 32 neighbours, so a larger
+    ``k`` takes the streamed search of ``ops/knn.py`` at the same
+    ``precision``, the counterpart of the XLA search the JAX package runs
+    for every k. Their
     sign-aligned mean is spliced into the occluded joints, and the spliced
     joints are smoothed by a ``temporal_window``-frame quaternion moving
     average. The observed joints come back to the bit. Only the k
@@ -174,7 +178,8 @@ def complete_by_retrieval(corpus, quats, occluded_joints, *, k: int = 5,
     inpainting drifts (``docs/quality/partial_closed_loop.json``).
     """
     from posendf_torch.field import resolve_device
-    from posendf_torch.ops.fused_knn import fused_geodesic_topk
+    from posendf_torch.ops.fused_knn import KMAX, fused_geodesic_topk
+    from posendf_torch.ops.knn import geodesic_topk
 
     if temporal_window > 1 and temporal_window % 2 == 0:
         raise ValueError(f"temporal_window={temporal_window} must be odd (the smoothing window "
@@ -188,8 +193,12 @@ def complete_by_retrieval(corpus, quats, occluded_joints, *, k: int = 5,
     J = q_np.shape[-2]
     w, occ = retrieval_weights(occluded_joints, J)
     corpus_t = torch.as_tensor(corpus).to(dev, torch.float32)
-    _, idx = fused_geodesic_topk(torch.from_numpy(q_np).to(dev), corpus_t, k, weights=w,
-                                 dot_impl=_ENGINE[precision])
+    q_t = torch.from_numpy(q_np).to(dev)
+    if k <= KMAX:
+        _, idx = fused_geodesic_topk(q_t, corpus_t, k, weights=w, dot_impl=_ENGINE[precision])
+    else:
+        _, idx = geodesic_topk(q_t, corpus_t, k, weights=torch.from_numpy(w).to(dev),
+                               precision=precision)
     nn = corpus_t[idx].cpu().numpy()                  # (T, k, 21, 4)
     mean_q = _aligned_quat_mean(nn, nn[:, :1])        # (T, 21, 4)
     out = q_np.copy()

@@ -21,12 +21,17 @@ the activations rounded to bf16 to nearest even; each k16 step's 16
 products (exact in fp32) go into an fp32 accumulator that rounds toward
 zero, a fresh one for each 64 of K (a slab, or each half of a chain's first
 slab), added to the layer's sums in fp32 in the order of K.
+
+``one_thread`` is a module-scoped fixture for the port's CPU test modules
+of many small products; a module takes it with ``from tests.tc_model import
+one_thread`` and ``pytestmark = pytest.mark.usefixtures("one_thread")``.
 """
 
 from __future__ import annotations
 
 from typing import Callable, Dict, List
 
+import pytest
 import torch
 
 from posendf_torch.models.dfnet import bf16_round
@@ -35,8 +40,20 @@ from posendf_torch.ops.fused_model import BF16_SLAB, BF16_SLAB_K, TC_CHUNK, TC_K
     TC_SLAB_N
 from posendf_torch.ops.fused_train import tf32_split
 
-__all__ = ["slab_blocks", "bf16_slab_blocks", "features", "toward_zero", "SlabStream", "product",
-           "product_bf16", "program", "z_widths", "run"]
+__all__ = ["one_thread", "slab_blocks", "bf16_slab_blocks", "features", "toward_zero",
+           "SlabStream", "product", "product_bf16", "program", "z_widths", "run"]
+
+
+@pytest.fixture(scope="module")
+def one_thread():
+    """One intra-op thread for a module: its many small CPU products gain
+    nothing from a pool, and under a parallel test run (several workers on
+    the machine's cores) a pool's threads wait on each other for most of
+    the module's time."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def slab_blocks(tc) -> List[torch.Tensor]:

@@ -45,6 +45,9 @@ from posendf_torch.ops import fused_grad, fused_model  # noqa: E402
 from posendf_torch.ops.fused_model import TC_SLAB_K  # noqa: E402
 from posendf_torch.ops.fused_train import tf32_split  # noqa: E402
 from tests import tc_model  # noqa: E402
+from tests.tc_model import one_thread  # noqa: E402,F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 CKPT = "docs/quality/ckpt_l8_best.msgpack"
 D_ATOL = G_ATOL = 1e-5

@@ -65,9 +65,12 @@ from posendf_torch.data.synthetic import (manifold_family, synthetic_manifold_po
 from posendf_torch.experiments import optim, partial  # noqa: E402
 from posendf_torch.experiments.partial import PartialCompleter  # noqa: E402
 from posendf_torch.models import PoseNDF  # noqa: E402
-from posendf_torch.ops import fused_knn  # noqa: E402
+from posendf_torch.ops import fused_knn, knn  # noqa: E402
 from posendf_torch.quat import quaternion_to_axis_angle  # noqa: E402
 from posendf_torch.smpl import BodyModel  # noqa: E402
+from tests.tc_model import one_thread  # noqa: E402,F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 torch.backends.cuda.matmul.allow_tf32 = False
 
@@ -334,9 +337,12 @@ def test_complete_by_retrieval_refuses_bad_subsets(retrieval_case, occluded, mat
 
 
 def test_complete_by_retrieval_refusals(retrieval_case):
-    """An even window, a corpus smaller than k, an unknown precision, more
-    neighbours than the kernel keeps; and no silent fall back to the CPU
-    when the card is asked for and absent."""
+    """An even window, a corpus smaller than k, an unknown precision; no
+    silent fall back to the CPU when the card is asked for and absent. And
+    more neighbours than the kernel keeps (k = 33) is no refusal: it takes
+    the streamed search of ``ops/knn.py``, whose neighbours are JAX's XLA
+    search's (distances within 1e-6) and whose completion is JAX's within
+    1e-6."""
     corpus, _, bad = retrieval_case
     for w in (2, 4):
         with pytest.raises(ValueError, match="must be odd"):
@@ -346,8 +352,16 @@ def test_complete_by_retrieval_refusals(retrieval_case):
     with pytest.raises(ValueError, match="precision"):
         partial.complete_by_retrieval(corpus, bad, OCC, precision="fast", device="cpu")
     # the kNN kernel keeps at most 32 neighbours; JAX's XLA search takes any k
-    with pytest.raises(ValueError, match="k <= 32"):
-        partial.complete_by_retrieval(corpus, bad, OCC, k=33, device="cpu")
+    w, _ = partial.retrieval_weights(OCC)
+    want_d, want_i = jax_geodesic_topk(jnp.asarray(bad), jnp.asarray(corpus), k=33,
+                                       weights=jnp.asarray(w), precision="highest")
+    got_d, got_i = knn.geodesic_topk(torch.from_numpy(bad), torch.from_numpy(corpus), 33,
+                                     weights=torch.from_numpy(w), precision="highest")
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+    np.testing.assert_allclose(got_d.numpy(), np.asarray(want_d), rtol=0, atol=1e-6)
+    want = jax_partial.complete_by_retrieval(corpus, bad, OCC, k=33)
+    got = partial.complete_by_retrieval(corpus, bad, OCC, k=33, device="cpu")
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             partial.complete_by_retrieval(corpus, bad, OCC)

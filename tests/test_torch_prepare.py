@@ -251,15 +251,24 @@ def test_cli_prepare_data_writes_jax_files(raw_amass, tmp_path, capsys):
 
 
 def test_what_is_not_ported_raises(raw_amass, tmp_path):
-    """``mesh=`` is not ported and raises; ``space="joints"`` is, and needs a
-    body model (the CLI a real SMPL file, as JAX's does)."""
+    """``mesh=`` is ported (its sharded runs: ``tests/test_torch_parallel.py``):
+    a one-process mesh labels as no mesh does, to the bit. ``space="joints"``
+    needs a body model (the CLI a real SMPL file, as JAX's does)."""
+    from posendf_torch.parallel import make_mesh
+
     corpus = synthetic_manifold_poses(np.random.default_rng(15), 64)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        prepare.label_sequence(corpus[:8], corpus, num_queries=10, device="cpu",
-                               mesh=object())
-    with pytest.raises(NotImplementedError, match="item 12"):
-        prepare.label_split(raw_amass, str(tmp_path / "x"), SUBSETS, device="cpu",
-                            mesh=object())
+    mesh = make_mesh(device="cpu")
+    got, want = (prepare.label_sequence(corpus[:8], corpus, num_queries=10, device="cpu",
+                                        rng=np.random.default_rng(3), mesh=m)
+                 for m in (mesh, None))
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k])
+    sampled = tmp_path / "sampled" / SUBSETS[0]
+    sampled.mkdir(parents=True)
+    np.savez(sampled / "seq.npz", pose=corpus[:16])
+    paths = prepare.label_split(str(tmp_path / "sampled"), str(tmp_path / "x"), SUBSETS,
+                                device="cpu", num_queries=4, runs=1, mesh=mesh)
+    assert len(paths) == 1 and os.path.exists(paths[0])
     with pytest.raises(ValueError, match="requires a body_model"):
         prepare.label_sequence(corpus[:8], corpus, num_queries=10, device="cpu",
                                space="joints")

@@ -44,6 +44,9 @@ from posendf_torch.ops.fused_model import TC_KPERM, TC_SLAB_FLOATS, TC_SLAB_K  #
 from posendf_torch.ops.fused_train import BranchRows, tf32_split  # noqa: E402
 from posendf_torch.ops.train_grad import manual_train_grads  # noqa: E402
 from tests import tc_model  # noqa: E402
+from tests.tc_model import one_thread  # noqa: E402,F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 CKPT = "docs/quality/ckpt_l8_best.msgpack"
 LEAF_TOL = 1e-4     # x max|leaf|: chip_smoke.py's bar of the card's gradient
