@@ -177,13 +177,14 @@ completion and image fitting, with the port's two examples:
      bars; then on a synthetic body of SMPL's 6,890 vertices (its Jtr with
      smplx's 21 landmarks) ``run_sweep`` of ``synthesize_grid``'s
      ``DEFAULT_GRID`` (4 levels x 2 clips x 60 frames, the trained field's
-     manifold), 10 x 50 steps batched, with the reference and the adaptive
+     manifold), 10 x 5 steps batched (``SWEEP_DEPTH``; the 500-step horizon
+     against JAX is phase 21's), with the reference and the adaptive
      schedule: every v2v finite, every clip's final pose_pr below its
      input's mean field distance; the sigma-0.1 level again serially, each
      clip's pose held to its batched solve (atol 2e-5) and the v2v table
      (rtol 1e-3, atol 1e-4), the bars of ``tests/test_experiments.py``;
      that level's first clip solved again with ``strenc.fused`` (the
-     ``posendf_encoder`` count set to 0 before and at least 500 after; the
+     ``posendf_encoder`` count set to 0 before and at least 50 after; the
      final pose and terms held to its serial module-path solve's); the
      2 x 4-step horizon of both comparisons at the tight bars (pose atol
      2e-5); times: ms a solve step on both paths (the serial solves and the
@@ -243,6 +244,65 @@ completion and image fitting, with the port's two examples:
      timed with CUDA events after a warm-up run of the paths; the launches
      of rows 3-6 counted (0 before, read after) in both, and added to the
      ``kernels`` line
+ 21. the quality loops (``scripts/torch_*quality*.py``, driven through
+     their stage functions; the train kernels, row 5, the kNN kernel, row
+     6, the forward kernel, row 1): (a) training from random weights at the
+     run of record's shapes: a 131,072-pose corpus of the L8 manifold,
+     65,536 labelled queries (exact engine), he-matched init, then 10 fused
+     steps, each against autodiff (``training_loss`` under autograd) at the
+     same weights and batch (two runs, one fused and one autodiff, part by
+     some 300 lr within 500 steps, so the steps are held at shared weights):
+     the terms at phase 10's bars (TERM_RTOL / TERM_ROW_ATOL against fp32
+     autodiff) and every gradient leaf at phase 10's LEAF_TOL x max|leaf|
+     of fp32 autodiff, over the rows that sit clear of every kink. At
+     65,536 + 65,536 rows near the he-matched init the gradient's sums
+     cancel, and a row whose L1 residual, head ReLU or any lrelu unit lies
+     within rounding of its kink takes it on the side its sums round to:
+     one such row moves a small leaf by its whole share (on an H100 the two
+     fp32 gradients came out 1.4e-4 x max|leaf| apart in ``dfnet.w2``, and
+     one L1 residual of 65,536 on the other side put the fused gradient
+     2.28e-4 from float64 in relative L2 where fp32 autodiff's was 3.1e-5).
+     So each step's rows are first run through the network in float64
+     (``q21_forward``), and a row is left out of both branches on every side
+     (fused, fp32 and float64 autodiff) where a unit's |z|, or the L1
+     residual, is within Q21_KINK_NEAR = 3e-6 of the scale its fp32 sum
+     rounds with, |x| @ |W| + |b| (``q21_margin``; some 7% of the rows).
+     The kernel's and fp32 torch.matmul's hidden pre-activations came out
+     at most 6.4e-7 and 9.0e-7 of that scale from float64 (the manifold
+     rows' scratch keeps x_l = act(z_{l-1}); H100), so the bar has 3.3x
+     room, and the phase fails if a kept row's observable kink (the L1
+     sign, the head, a manifold hidden unit) falls on the other side than
+     in float64. The log splits each step's distance from float64 autodiff
+     into the tile's share (the reduction's sums taken in float64 over the
+     tile kernel's own scratch, ``q21_reduce64``) and the reduction's, and
+     counts the kinks the kernel took on the other side over the whole
+     batch. Then 1,000 fused steps of 65,536 +
+     65,536 poses in two chunks with the validation gate: every step's
+     terms finite, the last chunk's mean total below the first step's, the
+     held-out correlation above its value at init, live fraction above 0,
+     and exactly 1,000 tile and 1,000 reduce launches (set to 0 before);
+     (b) ``--load-ckpt`` of the L8 field at ``same_clips_reference.json``'s
+     settings (2,048 queries), the grid cut to sigma 0.05 and 0.5, one clip
+     each, with the prior ablation, against the JAX script's run on the CPU
+     (``tests/data/torch_port_quality_expected.npz``, made by
+     ``scripts/make_torch_port_quality_golden.py``): the field's MAE within
+     1e-4 relative, its correlation and clean / noisy means within 1e-5,
+     each row's input v2v and prior at input within rtol 1e-5, the clips'
+     2 x 4-step solves at the tight bars (pose 2e-5, metrics rtol 1e-3), and
+     the 500-step rows' v2v with and without the prior at the metric bar
+     (rtol 1e-3, atol 1e-4) or twice JAX's own spread under a one-ulp
+     change of the clip, the larger (the golden's ``ulp_spread``: on the
+     CPU the port's prior-off 500-step v2v came out 1.84e-2 cm, 0.24%, from
+     JAX's while the 2 x 4-step solves stayed within 5e-6 of JAX's poses:
+     rounding, not a fault); (c) the three closed loops, one seed and one
+     pair, clip or batch each, on the L8 field (the partial solves and the
+     fit cut in depth): each result's keys those of the JAX script's record
+     in ``docs/quality/`` (plus ``device`` and ``card``), every value
+     finite, and the metrics the JAX records improve moving the same way:
+     the projection lowers the true 5-NN distance of noisy paths, the
+     retrieval the occluded joints' error, and the prior-off fit keeps the
+     lower 2D residual. Its launches of rows 1, 5 and 6 join the
+     ``kernels`` line
 
 A 500-step denoise solve is sensitive to rounding: the reference schedule's
 self-weighted prior (1e7 L^2) and the trained head's zero region turn sums
@@ -254,6 +314,8 @@ while the same comparisons at 2 x 4 steps stayed within 5.4e-6. So phase
 18 holds the short horizon at the bars of ``tests/test_experiments.py``
 (pose 2e-5; metrics rtol 1e-3, atol 1e-4) and the 500-step solves' v2v at
 that metric bar, their final terms at rtol 5e-3 and their poses at 0.1.
+Phase 18 now runs 10 x 5 steps; the 500-step horizon is held in phase 21
+(b), against the JAX script itself.
 
 Kernel and plain times are medians over rounds of plain, kernel, kernel,
 plain, each round a mean over a few calls (one call of the kNN plain
@@ -426,6 +488,7 @@ second-to-last line is a JSON object describing the kernels, the last line is
 from __future__ import annotations
 
 import copy
+import dataclasses
 import json
 import os
 import re
@@ -496,6 +559,7 @@ GRID_FAMILY_SEED, GRID_LATENTS, GRID_FREQ = 123, 8, (0.5, 1.2)   # the L8 field'
 SOLVE_POSE_ATOL, SOLVE_HIST_RTOL = 5e-5, 1e-4   # the 2 x 5 solve vs JAX, the CPU test's bars
 NOISE_D_ATOL, NOISE_S_ATOL = 1e-6, 1e-4         # estimate_clip_noise vs JAX, the CPU test's
 LONG_SOLVE_POSE_ATOL, LONG_SOLVE_TERM_RTOL = 0.1, 5e-3   # two 500-step solves: docstring
+SWEEP_DEPTH = (10, 5)    # phase 18's solves: iterations x steps (the 500-step horizon: phase 21)
 PARTIAL_EXPECTED = "tests/data/torch_port_partial_expected.npz"
 PARTIAL_OCC = (12, 15, 17, 19)           # the left arm: l_collar, l_shoulder, l_elbow, l_wrist
 PARTIAL_FRAMES, PARTIAL_CORPUS, PARTIAL_K = 120, 1 << 20, 5   # cli partial's --max-frames
@@ -906,6 +970,7 @@ def main() -> None:
     experiments_phase(card)
     partial = partial_phase(card)
     multi = multidevice_phase(card)
+    quality = quality_phase(card)
 
     # bounds of the field kernels at the main path's shapes: 3xTF32 products
     fwd_bound = field_bound(w, MAIN_BATCH, backward=False)
@@ -945,6 +1010,14 @@ def main() -> None:
             key = "vpu"
         if key is not None:
             row["launches"] += multi[key]
+    # the quality loops': rows 1, 5 and 6
+    for row in kernels:
+        key = {"posendf_forward": "fwd", "posendf_train_tile": "tile",
+               "posendf_train_reduce": "reduce"}.get(row["name"])
+        if key is None and row["name"].endswith("(vpu)"):
+            key = "vpu"
+        if key is not None:
+            row["launches"] += quality[key]
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": torch.cuda.get_device_name(0),
@@ -2549,6 +2622,7 @@ def experiments_phase(card: str) -> None:
             return pose, m
 
     t_phase = time.perf_counter()
+    steps = SWEEP_DEPTH[0] * SWEEP_DEPTH[1]
     field = load_field(CKPT, device="cuda")
     body = BodyModel(model=synthetic_model(num_vertices=SMPL_VERTICES), device="cuda")
     ref = np.load(DENOISE_EXPECTED)
@@ -2576,7 +2650,7 @@ def experiments_phase(card: str) -> None:
     assert_close("interpolate distances vs JAX", dist, torch.from_numpy(ref["interp_dist"]),
                  atol=D_ATOL)
 
-    # ---- the sweep: 4 levels x 2 clips x 60 frames, 10 x 50 steps, batched ----
+    # ---- the sweep: 4 levels x 2 clips x 60 frames, SWEEP_DEPTH steps, batched ----
     family = manifold_family(np.random.default_rng(GRID_FAMILY_SEED), 21,
                              latents=GRID_LATENTS, freq_range=GRID_FREQ)
     with tempfile.TemporaryDirectory() as tmp:
@@ -2585,7 +2659,8 @@ def experiments_phase(card: str) -> None:
         for specs in ("reference", "adaptive"):
             den = Recording(field, body, specs=specs)
             t0 = time.perf_counter()
-            table = run_sweep(den, root, iterations=10, steps_per_iter=50)
+            table = run_sweep(den, root, iterations=SWEEP_DEPTH[0],
+                              steps_per_iter=SWEEP_DEPTH[1])
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             sweeps[specs] = (den, table)
@@ -2611,17 +2686,17 @@ def experiments_phase(card: str) -> None:
         # one level serially: each clip alone against its batched solve
         level = "noise_0.1_60"
         serial_den = Recording(field, body, specs="reference")
-        serial = run_sweep(serial_den, root, grid_names=[level], iterations=10,
-                           steps_per_iter=50, batch_clips=False)
+        serial = run_sweep(serial_den, root, grid_names=[level], iterations=SWEEP_DEPTH[0],
+                           steps_per_iter=SWEEP_DEPTH[1], batch_clips=False)
         noisy, gt = (np.stack([denoise._load_pose_file(os.path.join(root, level, q, f))
                                for q in sorted(os.listdir(os.path.join(root, level)))])
                      for f in ("observations.npz", "gt_results.npz"))
     batched = [(n, p) for n, p, _ in sweeps["reference"][0].solves]
     for c, (noisy_c, pose_c, _) in enumerate(serial_den.solves):
         want = next(p[c] for n, p in batched if np.array_equal(n[c], noisy_c[0]))
-        assert_close(f"{level} clip {c}: 500-step serial solve vs batched, pose", pose_c[0], want,
-                     atol=LONG_SOLVE_POSE_ATOL)
-    assert_close(f"{level}: 500-step serial v2v vs batched", torch.from_numpy(serial[level]),
+        assert_close(f"{level} clip {c}: {steps}-step serial solve vs batched, pose", pose_c[0],
+                     want, atol=LONG_SOLVE_POSE_ATOL)
+    assert_close(f"{level}: {steps}-step serial v2v vs batched", torch.from_numpy(serial[level]),
                  torch.from_numpy(sweeps["reference"][1][level]), rtol=1e-3, atol=1e-4)
     # the horizon of tests/test_experiments.py's serial-vs-batched test (2 x 4 steps), its bars
     den = denoise.MotionDenoiser(field, body)
@@ -2643,25 +2718,26 @@ def experiments_phase(card: str) -> None:
              for name, f in (("module path", field), ("fused encoder", fused_field))}
     assert_close("2 x 4-step solve, fused encoder vs module path: pose",
                  short["fused encoder"][0], short["module path"][0], atol=2e-5)
-    # clip 0 of the level again, 10 x 50 steps with strenc.fused, against its serial solve
+    # clip 0 of the level again, SWEEP_DEPTH steps with strenc.fused, against its serial solve
     fused_den = Recording(fused_field, body, specs="reference")
     fused_encoder.LAUNCHES = 0
-    pose_f, m_f = fused_den.optimize(noisy[0], gt[0], iterations=10, steps_per_iter=50)
+    pose_f, m_f = fused_den.optimize(noisy[0], gt[0], iterations=SWEEP_DEPTH[0],
+                                     steps_per_iter=SWEEP_DEPTH[1])
     launches = fused_encoder.LAUNCHES
-    log(f"  500-step solve of 60 frames at {SMPL_VERTICES} vertices with strenc.fused: "
+    log(f"  {steps}-step solve of 60 frames at {SMPL_VERTICES} vertices with strenc.fused: "
         f"posendf_encoder launched {launches} times")
-    if launches < 500:
-        raise AssertionError(f"posendf_encoder launched {launches} times in a 500-step solve")
+    if launches < steps:
+        raise AssertionError(f"posendf_encoder launched {launches} times in a {steps}-step solve")
     pose_m, m_m = serial_den.solves[0][1][0], serial_den.solves[0][2]
-    assert_close(f"{level} clip 0, 500 steps: fused encoder vs module path, pose", pose_f,
+    assert_close(f"{level} clip 0, {steps} steps: fused encoder vs module path, pose", pose_f,
                  pose_m, atol=LONG_SOLVE_POSE_ATOL)
     for k in ("final_pose_pr", "final_temp", "v2v_cm"):
-        assert_close(f"{level} clip 0, 500 steps: fused encoder vs module path, {k}",
+        assert_close(f"{level} clip 0, {steps} steps: fused encoder vs module path, {k}",
                      torch.tensor([m_f[k]]), torch.tensor([m_m[k]]), rtol=LONG_SOLVE_TERM_RTOL,
                      atol=1e-6)
-    step_ms = statistics.median(serial_den.ms) / 500
-    for name, ms in (("module path", step_ms), ("fused encoder", fused_den.ms[0] / 500)):
-        log(f"time denoise solve, {name}: {ms:.4f} ms a step (a 500-step solve of 60 frames at "
+    step_ms = statistics.median(serial_den.ms) / steps
+    for name, ms in (("module path", step_ms), ("fused encoder", fused_den.ms[0] / steps)):
+        log(f"time denoise solve, {name}: {ms:.4f} ms a step (a {steps}-step solve of 60 frames at "
             f"{SMPL_VERTICES} vertices, its metrics' body-model passes included; CUDA events "
             f"around the call)  [{card}]")
 
@@ -3226,6 +3302,441 @@ def multidevice_phase(card: str) -> dict:
     assert_close("two ranks: projection history", got["proj_hist"], want["proj_hist"],
                  atol=D_ATOL)
     log(f"multi-device phase: {time.perf_counter() - t_phase:.1f} s; launches {total}")
+    return total
+
+
+QUALITY_EXPECTED = "tests/data/torch_port_quality_expected.npz"
+Q21_STEPS = 1000     # phase 21 (a): steps of the run of record's recipe (qg.RUN_OF_RECORD)
+Q21_CHECK_STEPS = 10                 # fused vs autodiff steps from the same weights and batches
+Q21_KINK_NEAR = 3e-6     # a row this near a kink (x its sum's scale) is left out on every side
+Q21_FIELD_RTOL, Q21_FIELD_ATOL = 1e-4, 1e-5   # (b): the MAE (relative); corr and means (absolute)
+Q21_INPUT_RTOL = 1e-5                # (b): a row's input v2v and prior at input
+Q21_DEPTHS = {"partial": {"anchor": (2, 5), "inpaint": (2, 5)}, "fit": (5, 5)}   # (c)
+
+
+def load_script(name: str):
+    """``scripts/<name>.py`` as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, os.path.join("scripts", name + ".py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def q21_counts(reset: bool = False) -> dict:
+    """The launch counts of rows 1, 5 and 6 (set to 0 first with ``reset``)."""
+    from posendf_torch.ops import fused_knn, fused_model, fused_train
+
+    if reset:
+        fused_model.LAUNCHES = fused_train.TILE_LAUNCHES = fused_train.REDUCE_LAUNCHES = 0
+        fused_knn.LAUNCHES["vpu"] = 0
+    return {"fwd": fused_model.LAUNCHES, "tile": fused_train.TILE_LAUNCHES,
+            "reduce": fused_train.REDUCE_LAUNCHES, "vpu": fused_knn.LAUNCHES["vpu"]}
+
+
+def check_keys(name: str, got: dict, want: dict, extra=()) -> None:
+    """``got``'s keys are ``want``'s (a JAX record's) and ``extra``."""
+    if set(got) != set(want) | set(extra):
+        raise AssertionError(f"{name}: keys {sorted(set(got) ^ set(want))} differ from the JAX "
+                             "record's")
+
+
+def check_finite(name: str, tree) -> None:
+    vals = []
+
+    def walk(x):
+        if isinstance(x, dict):
+            for v in x.values():
+                walk(v)
+        elif isinstance(x, (list, tuple)):
+            for v in x:
+                walk(v)
+        elif isinstance(x, (float, np.floating)):
+            vals.append(float(x))
+
+    walk(tree)
+    if not np.isfinite(vals).all():
+        raise AssertionError(f"{name}: a non-finite value")
+
+
+def q21_forward(w, q: torch.Tensor, normalize: bool):
+    """The DFNet's forward in ``w``'s dtype: each group's pre-activations z
+    (the encoder's hidden and feature units joint by joint, then each
+    layer's) and the scale |x| @ |W| + |b| that the rounding of its sum
+    grows with."""
+    act = torch.relu if w.activation == "relu" else (lambda z: torch.where(z >= 0, z, 0.01 * z))
+    R, J, F = q.shape[0], w.num_joints, w.feature_size
+    zs, ss = [], []
+
+    def unit(x, wt, b):
+        zs.append(x @ wt + b)
+        ss.append(x.abs() @ wt.abs() + b.abs())
+        return act(zs[-1])
+
+    # the reference's joint-axis normalization (over dim 1, as ``fused_train.branch_ref``)
+    x = q / torch.sqrt(torch.clamp_min((q * q).sum(1, keepdim=True), 1e-24)) if normalize else q
+    feat = [None] * J
+    for j in range(J):
+        p = w.parents[j]
+        inp = torch.cat([x[:, j], q.new_zeros((R, F)) if p < 0 else feat[p]], dim=-1)
+        h = unit(inp, w.enc["w1"][j], w.enc["b1"][j])
+        feat[j] = unit(h, w.enc["w2"][j], w.enc["b2"][j])
+    x = torch.cat(feat, dim=-1)
+    for wl, bl in w.layers:
+        x = unit(x, wl, bl)
+    return zs, ss
+
+
+def q21_margin(zs, ss, gt=None) -> torch.Tensor:
+    """Each row's nearest kink relative to its sum's scale: the smallest
+    |z| / scale over the units (the last is the head's ReLU) and, with
+    labels ``gt``, the L1 residual |relu(z) - gt| / (the head's scale + |gt|)."""
+    m = torch.stack([(z.abs() / s.clamp_min(1e-300)).amin(1) for z, s in zip(zs, ss)]).amin(0)
+    if gt is not None:
+        r = torch.relu(zs[-1][:, 0]) - gt
+        m = torch.minimum(m, r.abs() / (ss[-1][:, 0] + gt.abs()))
+    return m
+
+
+def q21_reduce64(w, noisy, man) -> dict:
+    """What the reduction computes, in float64 from the tile kernel's own
+    outputs (its scratch rows, cotangents and per-CTA encoder slots)."""
+    rows_n = noisy.branch_rows(w)
+    rows_m = dataclasses.replace(man, eikonal=True).branch_rows(w)   # the raw x_l
+    ddn, ddm = noisy.dd.double(), man.dd.double()
+    flat = noisy.enc_slot.double().sum(0) + man.enc_slot.double().sum(0)
+    grads, off = {}, 0
+    for k in ("w1", "b1", "w2", "b2"):
+        n = w.enc[k].numel()
+        grads[f"enc.{k}"] = flat[off:off + n].view(w.enc[k].shape)
+        off += n
+    for l in range(len(w.layers)):
+        cn, cm = rows_n.c[l].double(), rows_m.c[l].double()
+        grads[f"dfnet.w{l}"] = (rows_n.a[l].double().T @ cn
+                                + (ddm[:, None] * rows_m.a[l].double()).T @ cm)
+        grads[f"dfnet.b{l}"] = ddn @ cn + ddm @ cm
+    return grads
+
+
+def leaf_errs(got: dict, ref: dict) -> dict:
+    """Each leaf's largest error relative to its max |value| in ``ref``."""
+    return {k: float((got[k].double() - r).abs().max() / r.abs().max().clamp_min(1e-300))
+            for k, r in ref.items()}
+
+
+def q21_grad_check(module, data, cfg, args, sz, card, tau: float = Q21_KINK_NEAR,
+                   steps: int = Q21_CHECK_STEPS, strict: bool = True) -> dict:
+    """Phase 21 (a)'s check: ``steps`` fused steps, each against autodiff at
+    the same weights and batch, the rows near a kink left out (docstring).
+    Returns the worst readings; raises (with ``strict``) on a failure."""
+    from posendf_torch.losses import training_loss
+    from posendf_torch.ops import fused_train
+    from posendf_torch.ops.fused_model import FieldWeights, aligned_contiguous
+    from posendf_torch.training.trainer import make_optimizer, make_train_step
+
+    qg = load_script("torch_quality_grid")
+    dev = data["q_pose"].device
+    checked = copy.deepcopy(module)
+    kw = dict(loss_type=cfg.train.loss_type, weight_dist=1.0, weight_man=1.0,
+              weight_eikonal=args.w_eikonal)
+    step = make_train_step(checked, make_optimizer(checked.parameters(), sz["LR"],
+                                                   cfg.train.weight_decay),
+                           loss_type=kw["loss_type"],
+                           weights={"dist": 1.0, "man_loss": 1.0, "eikonal": args.w_eikonal},
+                           fused=True)
+    gen = qg.make_generator(SEED, 99, dev)
+    names = [n for n, _ in checked.named_parameters()]
+    relu = checked.activation == "relu"
+
+    def autodiff(m, b):
+        loss, terms = training_loss(m, b["pose"], b["dist"], b["man_poses"], **kw)
+        grads = torch.autograd.grad(loss, list(m.parameters()))
+        return dict(terms, total=loss), dict(zip(names, grads))
+
+    def tiles(w, b):
+        kw_n, kw_m = fused_train.branch_args(w, b["pose"], b["dist"], b["man_poses"], **kw)
+        return fused_train.launch_tiles(w, aligned_contiguous(b["pose"]), b["dist"],
+                                        aligned_contiguous(b["man_poses"]), kw_n, kw_m)
+
+    def pos(z):
+        return z > 0 if relu else z >= 0
+
+    def flips(w, b, noisy, man, z_n, z_m, gt64):
+        """Rows where the tile kernel took an observable kink on the other side
+        than float64: the L1 residual's sign (its dd), the head's ReLU (c of
+        the head on the noisy rows, dd on the manifold rows) and, on the
+        manifold rows, whose scratch keeps x_l = act(z_{l-1}), every DFNet
+        hidden unit."""
+        rows_m = dataclasses.replace(man, eikonal=True).branch_rows(w)
+        rows_n = noisy.branch_rows(w)
+        L = len(w.layers)
+        r64 = torch.relu(z_n[-1][:, 0]) - gt64
+        f = {"l1": (noisy.dd > 0) != (r64 > 0),
+             "head": torch.cat([(rows_n.c[L - 1][:, 0] > 0) != (z_n[-1][:, 0] > 0),
+                                (man.dd != 0) != (z_m[-1][:, 0] > 0)]),
+             "units": torch.zeros(man.rows, dtype=torch.bool, device=dev)}
+        for l in range(1, L):
+            z64 = z_m[len(z_m) - L + l - 1]
+            f["units"] |= (pos(rows_m.a[l]) != pos(z64)).any(1)
+        return {k: int(v.sum()) for k, v in f.items()}
+
+    worst = {"fused_vs_fp32": 0.0, "fused": 0.0, "fp32": 0.0, "tile": 0.0, "reduce": 0.0,
+             "dropped": 0, "flips_full": {"l1": 0, "head": 0, "units": 0}, "err_s": 0.0,
+             "err_s_fp32": 0.0}
+    for i in range(steps):
+        idx = torch.randint(0, sz["Q"], (sz["BATCH"],), generator=gen, device=dev)
+        midx = torch.randint(0, sz["N"], (sz["BATCH"],), generator=gen, device=dev)
+        b = {"pose": data["q_pose"][idx], "dist": data["q_dist"][idx],
+             "man_poses": data["corpus"][midx]}
+        m64 = copy.deepcopy(checked).double()
+        with torch.no_grad():
+            w64, w = FieldWeights.from_module(m64), FieldWeights.from_module(checked)
+            gt64 = b["dist"].double()
+            z_n, s_n = q21_forward(w64, b["pose"].double(), True)
+            z_m, s_m = q21_forward(w64, b["man_poses"].double(), False)
+            keep_n = q21_margin(z_n, s_n, gt64) >= tau
+            keep_m = q21_margin(z_m, s_m) >= tau
+            # the whole batch: the kinks the kernel took on the other side, and how far its
+            # and fp32 torch.matmul's hidden pre-activations (manifold rows) sit from float64
+            noisy, man = tiles(w, b)
+            full = flips(w, b, noisy, man, z_n, z_m, gt64)
+            L = len(w.layers)
+            rows_m = dataclasses.replace(man, eikonal=True).branch_rows(w)
+            z32, _ = q21_forward(w, b["man_poses"], False)
+            err_k = err_a = 0.0
+            for l in range(1, L):
+                j = len(z_m) - L + l - 1
+                x = rows_m.a[l].double()
+                zk = torch.where(x >= 0, x, 100.0 * x) if not relu else x
+                live = zk > 0 if relu else torch.ones_like(zk, dtype=torch.bool)
+                err_k = max(err_k, float(((zk - z_m[j]).abs() / s_m[j])[live].max()))
+                err_a = max(err_a, float(((z32[j].double() - z_m[j]).abs() / s_m[j]).max()))
+            del noisy, man, rows_m, z32, z_n, s_n, z_m, s_m
+        kept = {"pose": b["pose"][keep_n], "dist": b["dist"][keep_n],
+                "man_poses": b["man_poses"][keep_m]}
+        _, want64 = autodiff(m64, {k: v.double() for k, v in kept.items()})
+        want_terms, want = autodiff(checked, kept)
+        with torch.no_grad():
+            z_n, _ = q21_forward(w64, kept["pose"].double(), True)
+            z_m, _ = q21_forward(w64, kept["man_poses"].double(), False)
+            noisy, man = tiles(w, kept)
+            left = flips(w, kept, noisy, man, z_n, z_m, kept["dist"].double())
+            red64 = q21_reduce64(w, noisy, man)
+            del noisy, man, z_n, z_m
+        got_terms = step(kept)   # the fused step: its terms and gradient at the same weights
+        got = {n: p.grad for n, p in checked.named_parameters()}
+        for k in got_terms:
+            assert_close(f"quality (a) step {i}: fused {k} vs autodiff", got_terms[k],
+                         want_terms[k].detach(), rtol=TERM_RTOL, atol=TERM_ROW_ATOL)
+        e = {"fused_vs_fp32": leaf_errs(got, {k: v.double() for k, v in want.items()}),
+             "fused": leaf_errs(got, want64), "fp32": leaf_errs(want, want64),
+             "tile": leaf_errs(red64, want64), "reduce": leaf_errs(got, red64)}
+        top = {k: max(v.items(), key=lambda kv: kv[1]) for k, v in e.items()}
+        dropped = (sz["BATCH"] - len(kept["pose"]), sz["BATCH"] - len(kept["man_poses"]))
+        log(f"  quality (a) step {i}: rows within {tau:g} of a kink left out: {dropped[0]} "
+            f"noisy, {dropped[1]} manifold of {sz['BATCH']} each; in the whole batch the "
+            f"kernel took kinks on the other side than float64 on {full} rows; hidden "
+            f"pre-activations' largest |z - z64| / scale: kernel {err_k:.3e}, fp32 "
+            f"torch.matmul {err_a:.3e}; kept rows' kinks on the other side: {left}")
+        log("    largest leaf error x max|leaf|: " + ", ".join(
+            f"{k} {v:.3e} ({n})" for k, (n, v) in top.items()))
+        finite = all(bool(torch.isfinite(g).all()) for g in got.values())
+        if strict and (not finite or any(left.values())
+                       or top["fused_vs_fp32"][1] > LEAF_TOL):
+            raise AssertionError(
+                f"quality (a) step {i}: finite {finite}; kept rows' kinks on the other side "
+                f"{left}; fused vs fp32 autodiff {top['fused_vs_fp32'][1]:.3e} x max|leaf| in "
+                f"{top['fused_vs_fp32'][0]} (bar {LEAF_TOL})")
+        for k, (_, v) in top.items():
+            worst[k] = max(worst[k], v)
+        worst["dropped"] = max(worst["dropped"], *dropped)
+        worst["err_s"], worst["err_s_fp32"] = max(worst["err_s"], err_k), max(
+            worst["err_s_fp32"], err_a)
+        for k in full:
+            worst["flips_full"][k] += full[k]
+        del m64, w64, w, want64, want, want_terms, red64, got
+    log(f"  ok {steps} fused steps of {sz['BATCH']} + {sz['BATCH']} less the rows within "
+        f"{tau:g} of a kink (at most {worst['dropped']} a branch), each against autodiff at its "
+        f"weights: terms within rtol {TERM_RTOL}, every leaf within {worst['fused_vs_fp32']:.3e} "
+        f"x max|leaf| of fp32 autodiff (bar {LEAF_TOL}); from float64: fused "
+        f"{worst['fused']:.3e}, fp32 autodiff {worst['fp32']:.3e}, of which the tile "
+        f"{worst['tile']:.3e} and the reduction {worst['reduce']:.3e}; over the whole batches "
+        f"the kernel took {worst['flips_full']} kinks on the other side than float64 "
+        f"(hidden |z - z64| / scale up to {worst['err_s']:.3e}, fp32 torch.matmul "
+        f"{worst['err_s_fp32']:.3e})  [{card}]")
+    return worst
+
+
+def quality_phase(card: str) -> dict:
+    """Phase 21, the quality loops (rows 1, 5 and 6 on the drivers' paths).
+    Returns the launches its paths add to the ``kernels`` line. Raises on
+    any failure."""
+    from posendf_torch.field import Field
+    from posendf_torch.smpl import BodyModel
+
+    t_phase = time.perf_counter()
+    qg = load_script("torch_quality_grid")
+    dev = torch.device("cuda")
+    total = dict.fromkeys(("fwd", "tile", "reduce", "vpu"), 0)
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] += v
+
+    # ---- (a) training from random weights at the run of record's shapes ----
+    args = qg.parse_args(qg.RUN_OF_RECORD + ["--steps", str(Q21_STEPS)])
+    sz = qg.sizes(args)
+    family = qg.gentle_family(123, *args.freq, args.latents)
+    q21_counts(reset=True)
+    t0 = time.perf_counter()
+    data = qg.manufacture(args, family, sz["N"], sz["Q"], dev)
+    torch.cuda.synchronize()
+    label_s = time.perf_counter() - t0
+    log(f"quality (a): labelled {sz['Q']} + {len(data['h_pose'])} queries against {sz['N']} "
+        f"poses in {label_s:.3f} s (exact engine, host sampling included)  [{card}]")
+    cfg, module = qg.build_module(args, dev)
+    qg.init_params(args, module, data["q_pose"], data["q_dist"])
+    field = Field(module)
+    corr0 = qg.held_corr(qg.field_values(field, data["h_pose"], True), data["h_dist"])
+
+    q21_grad_check(module, data, cfg, args, sz, card)
+    add(q21_counts())
+
+    q21_counts(reset=True)
+    tr = qg.train(args, module, cfg, data, sz["STEPS"], sz["BATCH"], sz["LR"], True, True)
+    torch.cuda.synchronize()
+    train_counts = q21_counts()
+    add(train_counts)
+    traj = np.concatenate([np.stack([c[k] for k in sorted(c)], 1) for c in tr["chunks"]])
+    if traj.shape != (sz["STEPS"], 4) or not np.isfinite(traj).all():
+        raise AssertionError(f"quality (a): terms {traj.shape}, finite {np.isfinite(traj).all()}")
+    first, last = float(tr["chunks"][0]["total"][0]), float(tr["chunks"][-1]["total"].mean())
+    fq = qg.field_quality(field, data["h_pose"], data["h_dist"], data["corpus_np"], True)
+    best = tr["best"]
+    log(f"  {sz['STEPS']} fused steps in {tr['train_s']:.3f} s ({1e3 * tr['train_s'] / sz['STEPS']:.3f}"
+        f" ms a step, the gate's two evaluations and the first chunk's builds included); total "
+        f"{first:.5f} -> last chunk's mean {last:.5f}; held-out corr {corr0:.4f} at init -> best "
+        f"{best['corr']:.4f} @ step {best['step']}, final {fq['corr']:.4f}, live "
+        f"{fq['live_frac']:.4f}, MAE {fq['mae']:.5f}; launches {train_counts}  [{card}]")
+    if not last < first:
+        raise AssertionError(f"quality (a): the last chunk's mean total {last} is not below the "
+                             f"first step's {first}")
+    if not best["corr"] > corr0:
+        raise AssertionError(f"quality (a): held-out corr {best['corr']} not above init's {corr0}")
+    if not fq["live_frac"] > 0:
+        raise AssertionError("quality (a): the trained field is 0 on every held-out pose")
+    if train_counts["tile"] != sz["STEPS"] or train_counts["reduce"] != sz["STEPS"]:
+        raise AssertionError(f"quality (a): {sz['STEPS']} steps, launches {train_counts}")
+    del data, tr, module, field
+
+    # ---- (b) the L8 field against the JAX script's run ----
+    ref = np.load(QUALITY_EXPECTED)
+    args = qg.parse_args(["--preset", "full", "--corpus", str(int(ref["corpus"])), "--queries",
+                          str(int(ref["queries"])), "--latents", str(int(ref["latents"])),
+                          "--freq", *map(str, ref["freq"]), "--load-ckpt", CKPT, "--sigmas",
+                          *map(str, ref["sigmas"]), "--clips", "1", "--ablate-prior"])
+    sz = qg.sizes(args)
+    family = qg.gentle_family(123, *args.freq, args.latents)
+    q21_counts(reset=True)
+    data = qg.manufacture(args, family, sz["N"], sz["Q"], dev)
+    cfg, module = qg.build_module(args, dev)
+    qg.load_ckpt(CKPT, module)
+    field = Field(module)
+    fq = qg.field_quality(field, data["h_pose"], data["h_dist"], data["corpus_np"], True)
+    want = dict(zip(("mae", "corr", "live_frac", "clean_mean", "noisy_mean"), ref["field"]))
+    assert_close("quality (b): field_mae vs JAX", torch.tensor([fq["mae"]]),
+                 torch.tensor([want["mae"]]), rtol=Q21_FIELD_RTOL, atol=0.0)
+    for k in ("corr", "live_frac", "clean_mean", "noisy_mean"):
+        assert_close(f"quality (b): field {k} vs JAX", torch.tensor([fq[k]]),
+                     torch.tensor([want[k]]), atol=Q21_FIELD_ATOL)
+    log(f"  ok quality (b): field quality vs the JAX script's run {fq}")
+    body = BodyModel(device=dev)
+    rng = qg.make_rng(args.seed, 7)
+    dens = qg.make_denoisers(field, body, "reference", ablate=True)
+    for i, sigma in enumerate(ref["sigmas"]):
+        gt, noisy = qg.eval_clip(rng, family, args.frames, float(sigma))
+        assert_close(f"quality (b) sigma {sigma}: clip vs JAX's", torch.from_numpy(noisy),
+                     torch.from_numpy(ref["noisy"][i]), atol=1e-6)
+        for j, (den, tag) in enumerate(zip(dens, ("prior on", "prior off"))):
+            pose, m = den.optimize(noisy, gt, iterations=int(ref["short"][0]),
+                                   steps_per_iter=int(ref["short"][1]))
+            assert_close(f"quality (b) sigma {sigma}, {tag}: 2 x 4-step pose vs JAX", pose,
+                         torch.from_numpy(ref["short_pose"][i, j]), atol=2e-5)
+            for k, w in zip(("v2v_cm", "v2v_input_cm", "final_pose_pr"),
+                            ref["short_metrics"][i, j]):
+                assert_close(f"quality (b) sigma {sigma}, {tag}: 2 x 4-step {k} vs JAX",
+                             torch.tensor([m[k]]), torch.tensor([w]), rtol=1e-3, atol=1e-4)
+    t0 = time.perf_counter()
+    rows = qg.run_grid(field, body, family, args, *qg.GRID_SCHEDULE)
+    torch.cuda.synchronize()
+    grid_s = time.perf_counter() - t0
+    add(q21_counts())
+    keys = ("v2v_input_cm", "v2v_out_cm", "prior_at_input", "final_pose_pr",
+            "v2v_out_noprior_cm", "improvement_pct")
+    for i, (row, want_row) in enumerate(zip(rows, ref["rows"])):
+        w = dict(zip(keys, want_row))
+        log(f"  sigma {row['sigma']}: v2v {row['v2v_input_cm']:.6f} -> {row['v2v_out_cm']:.6f} "
+            f"(JAX {w['v2v_out_cm']:.6f}), no prior {row['v2v_out_noprior_cm']:.6f} (JAX "
+            f"{w['v2v_out_noprior_cm']:.6f})")
+        for k in ("v2v_input_cm", "prior_at_input"):
+            assert_close(f"quality (b) sigma {row['sigma']}: {k} vs JAX", torch.tensor([row[k]]),
+                         torch.tensor([w[k]]), rtol=Q21_INPUT_RTOL, atol=0.0)
+        for k, spread in zip(("v2v_out_cm", "v2v_out_noprior_cm"), ref["ulp_spread"][i]):
+            # the metric bar, or twice JAX's own one-ulp spread where that is larger (docstring)
+            bar = max(1e-4 + 1e-3 * abs(w[k]), 2 * float(spread))
+            assert_close(f"quality (b) sigma {row['sigma']}: 500-step {k} vs JAX (JAX's one-ulp "
+                         f"spread {float(spread):.3e})", torch.tensor([row[k]]),
+                         torch.tensor([w[k]]), atol=bar)
+    n_solves = 2 * len(rows)
+    steps = qg.GRID_SCHEDULE[0] * qg.GRID_SCHEDULE[1]
+    log(f"  ok quality (b): the grid's {n_solves} solves of {steps} steps in {grid_s:.3f} s "
+        f"({1e3 * grid_s / (n_solves * steps):.4f} ms a step)  [{card}]")
+    del data
+
+    # ---- (c) the closed loops, one seed and one pair, clip or batch each ----
+    runs = {"interp": (load_script("torch_interp_quality"), ["--seeds", "1", "--pairs", "1"],
+                       {}, "docs/quality/interp_closed_loop_l8.json"),
+            "partial": (load_script("torch_partial_quality"), ["--seeds", "1", "--clips", "1"],
+                        {"schedules": Q21_DEPTHS["partial"]},
+                        "docs/quality/partial_closed_loop.json"),
+            "fit": (load_script("torch_fit_image_quality"),
+                    ["--seeds", "1", "--iterations", str(Q21_DEPTHS["fit"][0]),
+                     "--steps-per-iter", str(Q21_DEPTHS["fit"][1])], {},
+                    "docs/quality/fit_image_closed_loop.json")}
+    for name, (mod, argv, kw, record) in runs.items():
+        q21_counts(reset=True)
+        t0 = time.perf_counter()
+        res = mod.main(argv, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        add(q21_counts())
+        jax_rec = json.load(open(record))
+        check_keys(f"quality (c) {name}", res, jax_rec, ("device", "card"))
+        check_finite(f"quality (c) {name}", res)
+        if name == "interp":
+            check_keys("quality (c) interp rows", res["rows"][0], jax_rec["rows"][0])
+            s = res["summary"]["noisy"]
+            ok = s["true_proj_mean"] < s["true_raw_mean"]
+            what = f"noisy paths' true 5-NN {s['true_raw_mean']:.5f} -> {s['true_proj_mean']:.5f}"
+        elif name == "partial":
+            check_keys("quality (c) partial rows", res["rows"][0], jax_rec["rows"][0])
+            ok = all(r["occ_retrieval"] < r["occ_in"] for r in res["rows"])
+            what = "occluded-joint error, input -> retrieval: " + ", ".join(
+                f"{r['condition']} {r['occ_in']:.3f} -> {r['occ_retrieval']:.3f}"
+                for r in res["rows"])
+        else:
+            check_keys("quality (c) fit runs", res["runs"][0], jax_rec["runs"][0])
+            on = {r["condition"]: r["stage2_px_residual"] for r in res["runs"] if r["prior"] == "on"}
+            off = {r["condition"]: r["stage2_px_residual"] for r in res["runs"]
+                   if r["prior"] == "off"}
+            ok = all(off[c] < on[c] for c in on)
+            what = "2D residual, prior on / off: " + ", ".join(
+                f"{c} {on[c]:.3f} / {off[c]:.3f}" for c in on)
+        log(f"  {'ok' if ok else 'FAILED'} quality (c) {name}: {what}; {wall:.3f} s  [{card}]")
+        if not ok:
+            raise AssertionError(f"quality (c) {name}: the metric moved against the JAX record")
+    log(f"quality phase: {time.perf_counter() - t_phase:.1f} s; launches {total}")
     return total
 
 

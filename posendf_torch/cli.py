@@ -137,6 +137,19 @@ def cmd_generate(args) -> None:
         np.savez(args.out, pose=out.cpu().numpy(), pose_init=noisy.cpu().numpy(),
                  dist_history=hist.cpu().numpy())
         print(f"wrote {args.out}")
+    if args.save_mesh or args.render:
+        # the reference projection script's meshes and renders
+        # (sample_poses.py:59-62,79-82): the initial and the projected poses
+        from posendf_torch.experiments.render import export_pose_meshes
+        from posendf_torch.quat import quaternion_to_axis_angle
+        from posendf_torch.smpl import BodyModel
+
+        bm = BodyModel(bm_path=args.bm_path, device=args.device)
+        out_dir = args.mesh_dir or "./generated"
+        export_pose_meshes(out_dir, bm, [(name, quaternion_to_axis_angle(q).reshape(-1, 63))
+                                         for name, q in (("init", noisy), ("out", out))],
+                           save_mesh=args.save_mesh, render=args.render)
+        print(f"wrote meshes/renders -> {out_dir}")
 
 
 def cmd_prepare_data(args) -> None:
@@ -322,6 +335,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--fused", action="store_true",
                    help="one CUDA kernel launch per projection step")
     p.add_argument("--out", default=None, help="output .npz path")
+    _add_mesh_out(p, "./generated")
+    p.add_argument("--bm-path", default=None,
+                   help="SMPL model file (default: the 128-vertex synthetic body)")
     p.set_defaults(fn=cmd_generate)
 
     p = sub.add_parser("prepare-data", help="AMASS sampling + kNN distance labelling")

@@ -4,8 +4,9 @@ One module-scoped fixture spawns the group once (``init_method="file://..."``,
 the spawn start method) and runs every sharded check in it: the 1-frame halo
 (``parallel/halo.py``), two fused and two autodiff steps of the data-parallel
 ``Trainer``, a batch that does not divide over the ranks, sharded labelling
-(``label_sequence`` / ``label_split``), a frame-sharded denoise, ``cli
-train`` in the group, and which rank wrote files. Each rank saves what it computed; each test below reads
+(``label_sequence`` / ``label_split``), a frame-sharded denoise, a
+batch-sharded projection and int8 forward, ``cli train`` in the group, and
+which rank wrote files. Each rank saves what it computed; each test below reads
 its part and holds it to the one-process result, computed here, and to the
 JAX package's sharded result on 4 virtual devices
 (``tests/data/torch_port_parallel_expected.npz``, made by
@@ -26,7 +27,10 @@ The bars:
     plain version answers each query alone), and JAX's within 1e-6;
   * the 1 x 4-step denoise is the unsharded one within 1e-5 and JAX's within
     1e-4 (the bar of the JAX package's own ``tests/test_parallel.py``), its
-    last prior term within 1e-5.
+    last prior term within 1e-5;
+  * the sharded projection is the one-process one within 1e-5 (poses) and
+    1e-6 (history), the sharded int8 forward within 1e-6: the bars of
+    ``__graft_entry__.py``'s dry runs of the JAX package's sharded paths.
 """
 
 import os
@@ -132,8 +136,35 @@ def _record_writes(log):
     np.savez = np_savez
 
 
+def _unit(seed, n):
+    """``n`` unit-quaternion poses of numpy stream ``seed``."""
+    q = np.random.default_rng(seed).normal(size=(n, 21, 4)).astype(np.float32)
+    return torch.from_numpy(q / np.linalg.norm(q, axis=-1, keepdims=True))
+
+
+def _projection_module():
+    """The projection dry run's field: one 32-wide softplus layer."""
+    from posendf_torch.models import PoseNDF
+
+    return PoseNDF(dfnet_dims=(32,), activation="softplus")
+
+
+def _int8_field_and_poses():
+    """The int8 dry run's quantized field (the default architecture with a
+    live head, calibrated on 256 poses) and the poses it serves."""
+    from posendf_torch.config import PoseNDFConfig
+    from posendf_torch.field import Field
+
+    cfg = PoseNDFConfig()
+    cfg.dfnet.live_head = True
+    calib_and_poses = _unit(5, 256 + 8 * WORLD)
+    return Field(cfg.make_model()).quantize_int8(calib_and_poses[:256]), calib_and_poses[256:]
+
+
 def _rank_checks(rank, out_dir, init_file):
     from posendf_torch.data.prepare import label_sequence, label_split
+    from posendf_torch.field import Field
+    from posendf_torch.projection import project
     from posendf_torch.parallel import (adjacent_difference_sharded, gather_rows,
                                         init_distributed, make_mesh, shard_batch,
                                         temporal_loss_sharded)
@@ -191,6 +222,14 @@ def _rank_checks(rank, out_dir, init_file):
     # the frame-sharded denoise
     pose, m = _denoiser(g).optimize(g["den_noisy"], iterations=1, steps_per_iter=4, mesh=mesh)
     res["den_pose"], res["den_metrics"] = pose.numpy(), m
+
+    # the serving paths, batch-sharded (__graft_entry__.py's two dry runs)
+    out, hist = project(Field(_projection_module()), shard_batch(mesh, _unit(4, 8 * WORLD),
+                                                                   even=True), steps=5)
+    res["proj_out"] = gather_rows(mesh, out).numpy()
+    res["proj_hist"] = gather_rows(mesh, hist.t().contiguous()).t().numpy()
+    qfield, poses = _int8_field_and_poses()
+    res["int8_d"] = gather_rows(mesh, qfield.distance(shard_batch(mesh, poses, even=True))).numpy()
 
     # cli train in the group, as under torchrun
     import contextlib
@@ -336,6 +375,30 @@ def test_sharded_labelling_is_the_one_process_labelling_to_the_bit(ranks, golden
         np.testing.assert_array_equal(r["label_nn"], want["nn_pose"])
     np.testing.assert_array_equal(ranks[0]["label_pose"], golden["label_pose"])
     np.testing.assert_allclose(ranks[0]["label_dist"], golden["label_dist"], rtol=0, atol=1e-6)
+
+
+def test_sharded_projection_matches_one_process(ranks):
+    """A batch-sharded 5-step projection gathered back: the one-process
+    projection within 1e-5, its history within 1e-6
+    (``__graft_entry__.py::_dryrun_sharded_projection``'s bars)."""
+    from posendf_torch.field import Field
+    from posendf_torch.projection import project
+
+    out, hist = project(Field(_projection_module()), _unit(4, 8 * WORLD), steps=5)
+    assert float(hist[0].mean()) > 0
+    for r in ranks:
+        np.testing.assert_allclose(r["proj_out"], out.numpy(), rtol=0, atol=1e-5)
+        np.testing.assert_allclose(r["proj_hist"], hist.numpy(), rtol=0, atol=1e-6)
+
+
+def test_sharded_int8_forward_matches_one_process(ranks):
+    """The int8 forward on each rank's shard, gathered back: the one-process
+    forward within 1e-6 (``__graft_entry__.py::_dryrun_sharded_int8_forward``)."""
+    qfield, poses = _int8_field_and_poses()
+    want = qfield.distance(poses).numpy()
+    assert float(np.abs(want).max()) > 0
+    for r in ranks:
+        np.testing.assert_allclose(r["int8_d"], want, rtol=0, atol=1e-6)
 
 
 def test_only_rank0_writes(ranks, tmp_path):

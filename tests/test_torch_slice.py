@@ -139,3 +139,43 @@ def test_random_poses_and_projector():
     torch.testing.assert_close(hist, ref_hist, **PROJ)
     empty_out, empty_hist = project(field, a, steps=0, fused=True)
     assert torch.equal(empty_out, a) and empty_hist.shape == (0, 8)
+
+
+def test_cli_generate_writes_jax_meshes_and_renders(tmp_path, monkeypatch):
+    """``generate --save-mesh --render`` on the golden field with the
+    128-vertex ``BodyModel()``: the files JAX's ``generate`` writes for the
+    same poses (its draw of the initial poses replaced by the port's), the
+    same names, the meshes' vertices within 1e-5 and the faces equal."""
+    import posendf_tpu.projection as jax_projection
+    from posendf_tpu import cli as jax_cli
+
+    common = ["--ckpt", os.path.join(GOLDEN, "golden.msgpack"), "--config",
+              os.path.join(GOLDEN, "golden.yaml"), "--num-poses", "3", "--steps", "4",
+              "--seed", "3", "--save-mesh", "--render"]
+    port_dir, jax_dir = tmp_path / "port", tmp_path / "jax"
+    cli.main(["generate", *common, "--device", "cpu", "--mesh-dir", str(port_dir),
+              "--out", str(tmp_path / "gen.npz")])
+    init = jnp.asarray(np.load(tmp_path / "gen.npz")["pose_init"])
+    monkeypatch.setattr(jax_projection, "random_poses", lambda key, n: init)
+    jax_cli.main(["generate", *common, "--mesh-dir", str(jax_dir)])
+
+    def files(root):
+        return sorted(str(p.relative_to(root)) for p in root.rglob("*") if p.is_file())
+
+    names = files(port_dir)
+    assert names == files(jax_dir)
+    assert [n for n in names if n.startswith("meshes/")] == [
+        f"meshes/{p}_{i:04d}.obj" for p in ("init", "out") for i in range(3)]
+    assert len([n for n in names if n.startswith("render/")]) == 6
+
+    def obj(path):
+        lines = path.read_text().splitlines()
+        v = np.array([[float(x) for x in ln.split()[1:]] for ln in lines if ln.startswith("v ")])
+        f = [ln for ln in lines if ln.startswith("f ")]
+        return v, f
+
+    for n in names:
+        if n.endswith(".obj"):
+            (v, f), (jv, jf) = obj(port_dir / n), obj(jax_dir / n)
+            assert v.shape == jv.shape and len(v) == 128 and f == jf
+            np.testing.assert_allclose(v, jv, rtol=0, atol=1e-5, err_msg=n)
