@@ -28,6 +28,7 @@ import torch
 from posendf_torch.config import PoseNDFConfig, load_config
 from posendf_torch.ops.fused_grad import fused_distance_and_grad
 from posendf_torch.ops.fused_model import FieldWeights, fused_posendf_forward
+from posendf_torch.utils.profiling import span
 
 __all__ = ["Field", "QuantizedField", "make_field", "load_field", "distance_and_grad",
            "resolve_device"]
@@ -86,9 +87,11 @@ class Field:
 
     def distance_fused(self, pose: torch.Tensor) -> torch.Tensor:
         """Whole-model forward in one kernel; differentiable (its backward is
-        the plain formula's) but in bf16, where the backward raises."""
-        pose = pose.reshape(-1, self.module.num_joints, 4)
-        return fused_posendf_forward(pose, self.weights())
+        the plain formula's) but in bf16, where the backward raises. Its span
+        is ``posendf.forward`` (``utils.profiling``)."""
+        with span("posendf.forward"):
+            pose = pose.reshape(-1, self.module.num_joints, 4)
+            return fused_posendf_forward(pose, self.weights())
 
     def distance_and_grad(self, pose: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         return distance_and_grad(self.module, pose)

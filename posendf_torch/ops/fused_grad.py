@@ -45,6 +45,7 @@ from posendf_torch.ops.fused_model import (
     stream_handle,
 )
 from posendf_torch.quat import quat_normalize
+from posendf_torch.utils.profiling import span
 
 __all__ = [
     "fused_distance_and_grad", "fused_distance_and_grad_ref",
@@ -179,11 +180,23 @@ def fused_project(poses: torch.Tensor, weights: FieldWeights, *, steps: int,
                   tangent: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """Whole projection, one kernel launch per step over two pose buffers
     used in turn. Returns (projected (B, J, 4), history (steps, B)), where
-    history[i] is d before step i's update."""
-    check_poses(poses, weights)
-    B = poses.shape[0]
-    history = torch.empty((steps, B), dtype=torch.float32, device=poses.device)
-    if poses.device.type == "cpu":
+    history[i] is d before step i's update. Its two spans (``utils.profiling``):
+    ``posendf.project.prepare`` (the checks, the copy and the scratch) and
+    ``posendf.project.steps`` (the launches)."""
+    cuda = poses.device.type == "cuda"
+    with span("posendf.project.prepare"):
+        check_poses(poses, weights)
+        history = torch.empty((steps, poses.shape[0]), dtype=torch.float32, device=poses.device)
+        if cuda:
+            bufs = [poses.clone(memory_format=torch.contiguous_format)]   # a fresh, aligned copy
+            bufs.append(torch.empty_like(bufs[0]))
+            scratch = _zscratch(poses, weights)
+    with span("posendf.project.steps"):
+        if cuda:
+            for i in range(steps):
+                _launch_project_step(bufs[i % 2], weights, history[i], bufs[(i + 1) % 2],
+                                     scratch, step_scale, tangent, renormalize)
+            return bufs[steps % 2], history
         q = poses
         with torch.no_grad():
             for i in range(steps):
@@ -191,10 +204,3 @@ def fused_project(poses: torch.Tensor, weights: FieldWeights, *, steps: int,
                                         renormalize=renormalize)
                 history[i] = d[:, 0]
         return q.clone() if steps == 0 else q, history
-    bufs = [poses.clone(memory_format=torch.contiguous_format)]   # a fresh, aligned copy
-    bufs.append(torch.empty_like(bufs[0]))
-    scratch = _zscratch(poses, weights)
-    for i in range(steps):
-        _launch_project_step(bufs[i % 2], weights, history[i], bufs[(i + 1) % 2], scratch,
-                             step_scale, tangent, renormalize)
-    return bufs[steps % 2], history

@@ -19,6 +19,7 @@ import torch
 from posendf_torch.field import Field
 from posendf_torch.ops.fused_grad import fused_project
 from posendf_torch.quat import quat_normalize
+from posendf_torch.utils.profiling import span
 
 __all__ = ["project", "make_projector", "random_poses"]
 
@@ -54,8 +55,11 @@ def project(field: Field, poses: torch.Tensor, steps: int = 10, renormalize: boo
       is d before step i's update.
     """
     if fused:
-        return fused_project(poses, field.weights(), steps=steps, renormalize=renormalize,
-                             step_scale=step_scale, tangent=tangent)
+        with span("posendf.project"):
+            with span("posendf.project.prepare"):
+                weights = field.weights()
+            return fused_project(poses, weights, steps=steps, renormalize=renormalize,
+                                 step_scale=step_scale, tangent=tangent)
     module = field.module
     q = poses
     history = poses.new_empty((steps, poses.shape[0]))

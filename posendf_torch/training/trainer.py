@@ -55,6 +55,7 @@ from posendf_torch.parallel.mesh import (Mesh, all_reduce_mean, all_reduce_sum, 
                                          broadcast_object, replicated, shard_batch)
 from posendf_torch.training.checkpoints import CheckpointStore
 from posendf_torch.training.metrics import MetricsLogger, RunningAverage
+from posendf_torch.utils.profiling import SETUP_S, span
 
 __all__ = ["Trainer", "make_optimizer", "make_train_step"]
 
@@ -64,9 +65,14 @@ _KEYS = ("total", "dist", "man_loss", "eikonal")
 def make_optimizer(params: Iterable[torch.nn.Parameter], lr: float,
                    weight_decay: float = 1e-4) -> torch.optim.Adam:
     """Adam with coupled L2: ``weight_decay * p`` is added to the gradient
-    before the moment updates (torch's Adam, not AdamW)."""
-    return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
-                            weight_decay=weight_decay)
+    before the moment updates (torch's Adam, not AdamW). The process's first
+    call records its seconds in ``utils.profiling.SETUP_S["make_optimizer"]``
+    (it loads ``torch._dynamo``)."""
+    t0 = time.perf_counter()
+    opt = torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                           weight_decay=weight_decay)
+    SETUP_S.setdefault("make_optimizer", time.perf_counter() - t0)
+    return opt
 
 
 class _NullLogger:
@@ -127,44 +133,59 @@ def make_train_step(module, optimizer: torch.optim.Optimizer, *, loss_type: str,
 
     def step(batch: Dict[str, torch.Tensor],
              global_rows: Optional[Tuple[int, int]] = None) -> Dict[str, torch.Tensor]:
+        with span("posendf.train.step"):
+            return _step(batch, global_rows)
+
+    def _step(batch, global_rows):
         local = batch
         if mesh is not None and global_rows is None:
             local = shard_batch(mesh, batch, even=fused)
             global_rows = (len(batch["pose"]), len(batch["man_poses"]))
         if fused:
-            # packed anew each step: the kernels read the weights of this step
-            total, terms, grads = fused_train_grads(FieldWeights.from_module(module), local["pose"],
-                                                    local["dist"], local["man_poses"], **kw)
-            grads = [grads[name] for name, _ in named]
+            with span("posendf.train.pack"):
+                # packed anew each step: the kernels read the weights of this step
+                w = FieldWeights.from_module(module)
+                if w.device.type == "cuda":     # the packs the kernels read; the CPU path reads none
+                    w.packed()
+                    w.tc_packed()
+            with span("posendf.train.grads"):
+                total, terms, grads = fused_train_grads(w, local["pose"], local["dist"],
+                                                        local["man_poses"], **kw)
+                grads = [grads[name] for name, _ in named]
             if mesh is not None:
-                # each rank's means over its equal shard; their mean is the global one
-                vals = [total] + [terms[k] for k in term_keys] + grads
-                vals = _unflat(all_reduce_mean(mesh, _flat(vals)), vals)
-                total, terms, grads = vals[0], dict(zip(term_keys, vals[1:4])), vals[4:]
+                with span("posendf.train.allreduce"):
+                    # each rank's means over its equal shard; their mean is the global one
+                    vals = [total] + [terms[k] for k in term_keys] + grads
+                    vals = _unflat(all_reduce_mean(mesh, _flat(vals)), vals)
+                    total, terms, grads = vals[0], dict(zip(term_keys, vals[1:4])), vals[4:]
             for (_, p), g in zip(named, grads):
                 p.grad = g
         else:
-            optimizer.zero_grad(set_to_none=True)
-            total, terms = training_loss(module, local["pose"], local["dist"],
-                                         local["man_poses"], remat=remat, **kw)
+            with span("posendf.train.grads"):
+                optimizer.zero_grad(set_to_none=True)
+                total, terms = training_loss(module, local["pose"], local["dist"],
+                                             local["man_poses"], remat=remat, **kw)
+                if mesh is not None:
+                    # each rank's term weighted by its share of the rows: the sum
+                    # over ranks is the mean over the global batch, for any split
+                    fn = len(local["pose"]) / global_rows[0]
+                    fm = len(local["man_poses"]) / global_rows[1]
+                    terms = {"dist": terms["dist"] * fn, "man_loss": terms["man_loss"] * fm,
+                             "eikonal": terms["eikonal"] * fn}
+                    total = (weights["dist"] * terms["dist"]
+                             + weights["man_loss"] * terms["man_loss"]
+                             + weights["eikonal"] * terms["eikonal"])
+                total.backward()
             if mesh is not None:
-                # each rank's term weighted by its share of the rows: the sum
-                # over ranks is the mean over the global batch, for any split
-                fn = len(local["pose"]) / global_rows[0]
-                fm = len(local["man_poses"]) / global_rows[1]
-                terms = {"dist": terms["dist"] * fn, "man_loss": terms["man_loss"] * fm,
-                         "eikonal": terms["eikonal"] * fn}
-                total = (weights["dist"] * terms["dist"] + weights["man_loss"] * terms["man_loss"]
-                         + weights["eikonal"] * terms["eikonal"])
-            total.backward()
-            if mesh is not None:
-                vals = ([total.detach()] + [terms[k].detach() for k in term_keys]
-                        + [p.grad for _, p in named])
-                vals = _unflat(all_reduce_sum(mesh, _flat(vals)), vals)
-                total, terms = vals[0], dict(zip(term_keys, vals[1:4]))
-                for (_, p), g in zip(named, vals[4:]):
-                    p.grad = g
-        optimizer.step()
+                with span("posendf.train.allreduce"):
+                    vals = ([total.detach()] + [terms[k].detach() for k in term_keys]
+                            + [p.grad for _, p in named])
+                    vals = _unflat(all_reduce_sum(mesh, _flat(vals)), vals)
+                    total, terms = vals[0], dict(zip(term_keys, vals[1:4]))
+                    for (_, p), g in zip(named, vals[4:]):
+                        p.grad = g
+        with span("posendf.train.adam"):
+            optimizer.step()
         return {k: v.detach() for k, v in dict(terms, total=total).items()}
 
     return step

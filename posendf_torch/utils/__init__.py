@@ -1,3 +1,3 @@
-from posendf_torch.utils.profiling import StepTimer, enable_nan_debugging, trace
+from posendf_torch.utils.profiling import SETUP_S, enable_nan_debugging, span, trace
 
-__all__ = ["trace", "StepTimer", "enable_nan_debugging"]
+__all__ = ["trace", "span", "SETUP_S", "enable_nan_debugging"]
