@@ -84,7 +84,9 @@ completion and image fitting, with the port's two examples:
      B = M in {1, 63, 65, 129} (cutting its 64-pose CTAs); the tile kernel's
      relu instance on the trained weights with relu activations, the same
      checks at B = M = 4096 and B = 1000, M = 700, and the tile alone at
-     B = M = 63 and 129; the encoder kernel
+     B = M = 63 and 129; the same checks on the lrelu twin of the wide
+     encoder field (32 joints of 8 features: the tile's walks at the
+     run-time width, ``fused_train.TILE_WALK_LAUNCHES`` read); the encoder kernel
      (its ``-Xptxas -v`` lines logged) against its plain version at B = 1,
      63, 65, 129, 1,000 and 131,072 (cutting its 64-pose CTAs), and at 1,000
      and 131,072 on poses one float into their buffer against the aligned
@@ -97,7 +99,8 @@ completion and image fitting, with the port's two examples:
      ``live_head``, batch 4 x 5000, matched-head init,
      ``fit`` for one epoch of 11 steps, the checkpoint reloaded with
      ``load_field``, then 2 autodiff steps with ``strenc.fused``; the train
-     and encoder kernels' launch counts set to 0 before and read after
+     and encoder kernels' launch counts set to 0 before and read after, the
+     tile's by walk width too (every one the compiled width)
  10. at the main path's batch of 20,000 + 20,000 poses: the checks of phase 7
      on it, for the trained field and for the relu field (the trained
      weights under relu, 0 on nearly every pose of the synthetic manifold:
@@ -1272,16 +1275,19 @@ def bf16_phases(field, card: str) -> list:
     ]
 
 
-def wide_encoder_field(compute_dtype: str):
+def wide_encoder_field(compute_dtype: str, activation: str = "softplus"):
     """A seeded softplus field whose encoder the field kernels walk with the
     feature width at run time and the poses read from device memory (32
     joints of 8 features: its rows and poses do not both fit the ring's
-    space): a binary tree of joints, DFNet (200, 300), weights doubled."""
+    space): a binary tree of joints, DFNet (200, 300), weights doubled.
+    ``activation="lrelu"``: its twin for the train tile kernel (which takes
+    no softplus), whose walks it runs at the run-time width, at the widest
+    rows the ring's space holds beside gx."""
     from posendf_torch.models import PoseNDF
 
     parents = (-1,) + tuple((j - 1) // 2 for j in range(1, 32))
     module = PoseNDF(num_joints=32, parents=parents, feature_size=8, dfnet_dims=(200, 300),
-                     activation="softplus", compute_dtype=compute_dtype,
+                     activation=activation, compute_dtype=compute_dtype,
                      generator=torch.Generator().manual_seed(4)).cuda()
     with torch.no_grad():
         for param in module.dfnet.parameters():
@@ -1348,6 +1354,7 @@ def train_phases(field, card: str) -> list:
     from posendf_torch.data.pipeline import TrainingBatcher
     from posendf_torch.data.splits import AMASS_SPLITS
     from posendf_torch.data.synthetic import write_synthetic_dataset
+    from posendf_torch.field import Field
     from posendf_torch.models.encoder import structure_encoder_apply
     from posendf_torch.ops import fused_encoder, fused_train
     from posendf_torch.ops.fused_model import FieldWeights, pack_tc
@@ -1482,6 +1489,22 @@ def train_phases(field, card: str) -> list:
         log(f"tile kernel vs branch_ref, the relu field, B = M = {B}")
         check_tile(*batch_on_card(B, B, SEED + 9 + B),
                    dict(loss_type="l1", weight_dist=0.7, weight_man=1.3, weight_eikonal=0.9), relu)
+    # the walks at the run-time feature width: the lrelu twin of the wide
+    # encoder field (32 joints of 8 features, its rows the widest)
+    wide = Field(wide_encoder_field("float32", activation="lrelu"))
+    walks = dict(fused_train.TILE_WALK_LAUNCHES)
+    for (B, M), loss_type in (((4096, 4096), "l1"), ((1000, 700), "l2")):
+        log(f"train kernels vs plain, the 32-joint 8-feature lrelu field, B = {B}, M = {M}, "
+            f"{loss_type}")
+        q_n, q_m = (random_poses(gen, n, device="cuda", num_joints=32) for n in (B, M))
+        dist = torch.rand(B, generator=gen).cuda() * 0.5
+        check_train_kernels(q_n, dist, q_m, dict(loss_type=loss_type, weight_dist=0.7,
+                                                 weight_man=1.3, weight_eikonal=0.9), wide)
+    walks = {k: fused_train.TILE_WALK_LAUNCHES[k] - v for k, v in walks.items()}
+    log(f"  tile launches by walk width on the 32-joint field: {walks}")
+    if walks["compiled"] != 0 or walks["runtime"] <= 0:
+        raise AssertionError(f"the 8-feature field's tiles took other walks: {walks}")
+    del wide
     # the instances of this field's feature width (one an activation)
     for line in ptxas_lines(_build.build_info("train")["log"],
                             (f"encoder_kernelILi{w.feature_size}E",)):
@@ -1555,6 +1578,7 @@ def train_phases(field, card: str) -> list:
             f"of {TRAIN_FILES} x {TRAIN_PTS} poses; data made in "
             f"{time.perf_counter() - t0:.1f} s")
         fused_train.TILE_LAUNCHES = fused_train.REDUCE_LAUNCHES = fused_encoder.LAUNCHES = 0
+        fused_train.TILE_WALK_LAUNCHES.update(compiled=0, runtime=0)
         t0 = time.perf_counter()
         trainer = Trainer(cfg, device="cuda")
         stats = trainer.matched_head_init(batcher.sample_batch())
@@ -1572,13 +1596,16 @@ def train_phases(field, card: str) -> list:
         torch.cuda.synchronize()
         launches = {"tile": fused_train.TILE_LAUNCHES, "reduce": fused_train.REDUCE_LAUNCHES,
                     "enc": fused_encoder.LAUNCHES}
+        walks = dict(fused_train.TILE_WALK_LAUNCHES)
         log(f"  matched-head init {stats}")
         log(f"  1 epoch, {len(batcher)} fused steps in {fit_s:.3f} s (first run, build and "
             f"data included): {rec}  [{card}]")
-        log(f"  launches {launches}")
+        log(f"  launches {launches}, tile walks {walks}")
         for name, n in launches.items():
             if n <= 0:
                 raise AssertionError(f"the training path launched no {name} kernel")
+        if walks != {"compiled": launches["tile"], "runtime": 0}:
+            raise AssertionError(f"the SMPL field's tiles took the run-time walk: {walks}")
         if launches["reduce"] != len(batcher) or launches["tile"] != len(batcher):
             raise AssertionError(f"expected {len(batcher)} fused steps, launches {launches}")
         for k in ("train/total", "train/dist", "train/man_loss", "train/eikonal"):

@@ -71,6 +71,8 @@ _SIGNATURES = {
                                + 2 * [_P, _I, _P, _F, _P, _P, _P, _P, _P, _P] + [_P], _I),
         # B -> CTAs (encoder and loss slots) of a branch of the tile kernel
         "posendf_train_tile_ctas": ([_I], _I),
+        # F -> the tile's encoder walk: 1 compiled width, 0 run-time width, -1 not taken
+        "posendf_train_tile_walk": ([_I], _I),
         # (B, J, F, zsum) -> floats of a branch's scratch of the tile kernel
         "posendf_train_tile_scratch_floats": ([_I, _I, _I, _I], ctypes.c_longlong),
         # meta, meta_host, L, a_n, c_n, dd_n, rows_n, a_m, c_m, dd_m, rows_m, enc_slot,

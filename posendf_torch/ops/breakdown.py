@@ -54,9 +54,14 @@ of the trained field, the main path's training batch):
   ``base``     the kernel as it is
   ``noenc``    without the encoder's walks (forward, reverse, the e-chain's
                encoder half with the encoder's weight gradient) and the
-               eikonal term
+               eikonal term (the calls of ``walk_forward``, ``walk_backward``,
+               ``eikonal`` and ``walk_echain``, each walk with its rows'
+               staging; before the four-lanes-a-pose walks, of ``encode``,
+               ``encode_backward``, ``eikonal`` and ``encoder_grad``: the
+               same cut)
   ``nograd``   without the e-chain's encoder half and the encoder's weight
-               gradient alone
+               gradient alone (the call of ``walk_echain``; before, of
+               ``encoder_grad``)
   ``nomma``    without the wgmma products (as the field kernels' cut)
   ``nostore``  without the scratch stores (x_l, c_l, the e-chain's folds)
   ``ring``     those three cut, the epilogues and the A fragments' loads
@@ -163,11 +168,11 @@ CUTS: Dict[str, Dict[str, List[Tuple[str, str]]]] = {
     },
 }
 CUTS["train"] = {
-    "noenc": [("  encode<kAct>(a, row0, x, __ldg(head + 2), cs, scal, ez);\n", ""),
-              ("  encode_backward<kAct>(a, row0 + static_cast<int>(threadIdx.x) % kRows < a.B, x, ez, gg, gx, cs);\n", ""),
+    "noenc": [("  walk_forward<kAct>(a, row0, x, __ldg(head + 2), scal, ez, ezb, parents, reinterpret_cast<float*>(ring));\n", ""),
+              ("  walk_backward<kAct>(a, row0, x, ezb, gg, gx, parents);\n", ""),
               ("  if (a.eikonal) eikonal(a, row0, gx, gx + J * 4 * kRows, scal);\n", ""),
-              ("  encoder_grad<kAct>(a, cta, x, ez, gg, gx, cs, scal);\n", "")],
-    "nograd": [("  encoder_grad<kAct>(a, cta, x, ez, gg, gx, cs, scal);\n", "")],
+              ("  walk_echain<kAct>(a, cta, x, ez, ezb, gg, lr, gx, scal, parents, gx + J * 4 * kRows);\n", "")],
+    "nograd": [("  walk_echain<kAct>(a, cta, x, ez, ezb, gg, lr, gx, scal, parents, gx + J * 4 * kRows);\n", "")],
     "nomma": [("        wgmma_tf32_rs<64>(acc, al[kk], desc_sw128(hi + kk * 32), kk > 0);\n"
                "        wgmma_tf32_rs<64>(acc, ah[kk], desc_sw128(lo + kk * 32), 1);\n"
                "        wgmma_tf32_rs<64>(acc, ah[kk], desc_sw128(hi + kk * 32), 1);\n",

@@ -37,14 +37,27 @@ from posendf_torch.ops.train_grad import manual_train_grads
 
 __all__ = ["fused_train_grads", "BranchRows", "branch_args",
            "branch_ref", "reduce_ref", "tf32_split", "TileOut", "launch_tiles", "launch_reduce",
-           "TILE_LAUNCHES", "REDUCE_LAUNCHES"]
+           "TILE_LAUNCHES", "TILE_WALK_LAUNCHES", "REDUCE_LAUNCHES", "walk_width"]
 
-# launches of each kernel since its count was last set to 0
+# launches of each kernel since its count was last set to 0; the tile's also
+# by the walk its encoder phases took (walk_width)
 TILE_LAUNCHES = 0
+TILE_WALK_LAUNCHES = {"compiled": 0, "runtime": 0}
 REDUCE_LAUNCHES = 0
 
 _EPS2 = 1e-24     # joint_axis_normalize guard (eps = 1e-12 squared)
 _EIK_EPS = 1e-12  # the eikonal norm's epsilon (losses.py)
+
+
+def walk_width(feature_size: int, lib=None) -> str:
+    """Which walk the tile kernel's encoder phases take for a feature width,
+    as the train library (``lib``, by default the built one) says:
+    ``"compiled"`` (the width its walks know at compile time, the SMPL
+    fields' 6) or ``"runtime"`` (any other width it takes)."""
+    code = (lib or _build.library("train")).posendf_train_tile_walk(feature_size)
+    if code < 0:
+        raise ValueError(f"the train tile kernel takes no feature size {feature_size}")
+    return "compiled" if code else "runtime"
 
 
 def _check_args(w: FieldWeights, pose, dist_gt, man_poses, loss_type: str,
@@ -271,6 +284,7 @@ def launch_tiles(w: FieldWeights, pose: torch.Tensor, gt: torch.Tensor, man: tor
     pk, tc = w.packed(), w.tc_packed()
     lib = _build.library("train")
     J, F = w.num_joints, w.feature_size
+    width = walk_width(F, lib)
     ins = sum(wl.shape[0] for wl, _ in w.layers)
     outs = sum(wl.shape[1] for wl, _ in w.layers)
     args, tiles = [], []
@@ -297,6 +311,7 @@ def launch_tiles(w: FieldWeights, pose: torch.Tensor, gt: torch.Tensor, man: tor
         _build.ACT_CODES[w.activation], int(kw_n["l2"]), float(kw_n["eik_coef"]), *args,
         stream_handle(pose)), "posendf_train_tile", "train")
     TILE_LAUNCHES += 1
+    TILE_WALK_LAUNCHES[width] += 1
     return tiles[0][0], tiles[1][0]
 
 

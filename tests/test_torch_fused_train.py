@@ -105,6 +105,43 @@ def test_fused_train_grads_refuses_what_the_kernels_do_not_take():
                         weights={"dist": 1.0, "man_loss": 1.0, "eikonal": 1.0}, fused=True)
 
 
+class _WalkLib:
+    """Stands in for the train library's ``posendf_train_tile_walk``: answers
+    ``code`` and records the widths asked."""
+
+    def __init__(self, code):
+        self.code, self.asked = code, []
+
+    def posendf_train_tile_walk(self, feature_size):
+        self.asked.append(feature_size)
+        return self.code
+
+
+@pytest.mark.parametrize("feature_size, code, width",
+                         [(6, 1, "compiled"), (8, 0, "runtime"), (8, 1, "compiled")])
+def test_tile_walk_width_bookkeeping(feature_size, code, width):
+    """``walk_width`` keys ``TILE_WALK_LAUNCHES`` by the walk the library says
+    its tile takes for the width (no width of its own: a library compiled for
+    8 makes 8 the compiled walk), and the CPU path, which launches nothing,
+    moves neither count."""
+    lib = _WalkLib(code)
+    assert fused_train.walk_width(feature_size, lib) == width
+    assert lib.asked == [feature_size]
+    assert set(fused_train.TILE_WALK_LAUNCHES) == {"compiled", "runtime"}
+    _, _, tm, pose, gt, man = make_case("lrelu", B=8, M=8)
+    walks = dict(fused_train.TILE_WALK_LAUNCHES)
+    fused_train.fused_train_grads(FieldWeights.from_module(tm), _t(pose), _t(gt), _t(man))
+    assert fused_train.TILE_WALK_LAUNCHES == walks
+
+
+@pytest.mark.parametrize("feature_size", [0, 9])
+def test_tile_walk_width_refuses_what_the_kernel_does_not_take(feature_size):
+    """A width the library's tile takes not (its answer -1) is refused before
+    a launch."""
+    with pytest.raises(ValueError, match=f"no feature size {feature_size}"):
+        fused_train.walk_width(feature_size, _WalkLib(-1))
+
+
 @pytest.mark.parametrize("fused", [False, True])
 def test_train_step_matches_jax(fused):
     """One Adam step (coupled L2): the metrics and the new weights. Adam's
