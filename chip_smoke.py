@@ -46,7 +46,10 @@ completion and image fitting, with the port's two examples:
      same rounds; the forward at 10,000 and at 131,072 poses (the latter in
      the ``kernels`` line); the launches by the cluster size of their split
      tiles (``fused_model.SPLIT_LAUNCHES``: 1 none, 2 the launch plan split
-     the last wave's tiles) and the plan at 10,000 poses
+     the last wave's tiles) and the plan at 10,000 poses; the value-and-grad
+     and projection-step launches by the derivative state they keep
+     (``fused_model.STATE_LAUNCHES``: "bits" on this lrelu field, "slope"
+     on a softplus one)
  4b. the bf16 route (the trained field loaded with
      ``compute_dtype="bfloat16"``): at B = 4096 and the ragged B = 4159
      (65 CTAs, an odd count) and 1000 the bf16 forward, value-and-grad and
@@ -56,9 +59,9 @@ completion and image fitting, with the port's two examples:
      bit; the three kernels on the poses in reverse order (the ragged tail
      CTA's poses then in the first CTA) against the result reversed, to the
      bit; the forward and value-and-grad of seeded softplus and relu bf16
-     fields at the trained widths (softplus keeps fp32 pre-activations,
-     lrelu and relu a bit a unit) against their plain versions, and the
-     three kernels on their poses reversed; the 32-joint field of
+     fields at the trained widths (softplus keeps its fp32 slope
+     sigmoid(beta z), lrelu and relu a bit a unit) against their plain
+     versions, and the three kernels on their poses reversed; the 32-joint field of
      phase 4 in bf16; the derivative-state
      scratch of each activation (a bit a unit: at most 1/32 of softplus's
      floats).
@@ -938,6 +941,7 @@ def main() -> None:
     poses = random_poses(gen, MAIN_BATCH, device="cuda")
     fused_model.LAUNCHES = fused_grad.VAG_LAUNCHES = fused_grad.PROJ_LAUNCHES = 0
     fused_model.SPLIT_LAUNCHES.update(dict.fromkeys(fused_model.SPLIT_LAUNCHES, 0))
+    fused_model.STATE_LAUNCHES.update(dict.fromkeys(fused_model.STATE_LAUNCHES, 0))
     t0 = time.perf_counter()
     with torch.no_grad():
         d_serve = field.distance_fused(poses)
@@ -947,12 +951,15 @@ def main() -> None:
     wall_first = time.perf_counter() - t0
     launches = {"fwd": fused_model.LAUNCHES, "vag": fused_grad.VAG_LAUNCHES,
                 "proj": fused_grad.PROJ_LAUNCHES}
-    split = dict(fused_model.SPLIT_LAUNCHES)
+    split, state = dict(fused_model.SPLIT_LAUNCHES), dict(fused_model.STATE_LAUNCHES)
     log(f"main path: {MAIN_BATCH} poses, {MAIN_STEPS} fused steps, launches {launches}, "
         f"first run {wall_first:.3f} s; by cluster size (1: no split tile) {split}, the plan "
-        f"{fused_model.plan_launch(poses, w)._asdict()}")
+        f"{fused_model.plan_launch(poses, w)._asdict()}; by derivative state {state}")
     if sum(split.values()) != sum(launches.values()):
         raise AssertionError(f"split launches {split} do not count the launches {launches}")
+    want = {"bits": 0, "slope": 0, fused_model.state_kind(w): launches["vag"] + launches["proj"]}
+    if state != want:
+        raise AssertionError(f"launches by derivative state {state}, not {want}")
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"the main path launched no {name} kernel")
@@ -1196,7 +1203,7 @@ def bf16_phases(field, card: str) -> list:
         raise AssertionError(f"derivative-state scratch at B = {MAIN_BATCH}: {scratch} floats")
     log(f"  derivative state in device memory at B = {MAIN_BATCH}: {4 * scratch['lrelu']} bytes for "
         f"lrelu and relu (a bit a unit; the encoder's in shared memory), {4 * scratch['softplus']} "
-        f"for softplus (fp32 pre-activations)")
+        f"for softplus (its fp32 slope sigmoid(beta z) a unit)")
 
     # ---- 5 (bf16). against the JAX package ----
     ref, ref32 = np.load(BF16_EXPECTED), np.load(EXPECTED)

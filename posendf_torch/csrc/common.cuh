@@ -33,6 +33,19 @@ __device__ __forceinline__ float softplus(float beta, float z) {
   return (fmaxf(bz, 0.f) + log1pf(expf(-fabsf(bz)))) / beta;
 }
 
+// softplus(beta, z), to the bit, and with `slope` its slope act'(z) =
+// sigmoid(bz) into s, from the same exp t = exp(-|bz|): s = 1 / (1 + t) for
+// bz >= 0, which is 1 / (1 + exp(-bz)) to the bit, and t / (1 + t) below,
+// where that form's exp(|bz|) overflows past |bz| = 88.7. The field kernels
+// keep s as softplus's derivative state, so that their backward multiplies
+// by it as by lrelu's bit's slope.
+__device__ __forceinline__ float softplus_slope(float beta, float z, bool slope, float& s) {
+  const float bz = beta * z;
+  const float t = expf(-fabsf(bz));
+  if (slope) s = (bz >= 0.f ? 1.f : t) / (1.f + t);
+  return (fmaxf(bz, 0.f) + log1pf(t)) / beta;
+}
+
 __device__ __forceinline__ float act_fwd(int act, float beta, float z) {
   if (act == kLRelu) return z >= 0.f ? z : 0.01f * z;
   if (act == kRelu) return z > 0.f ? z : 0.f;
@@ -44,15 +57,9 @@ __device__ __forceinline__ float out_act_fwd(int act, float beta, float z) {
   return z > 0.f ? z : 0.f;
 }
 
-__device__ __forceinline__ float act_grad(int act, float beta, float z) {
-  if (act == kLRelu) return z >= 0.f ? 1.f : 0.01f;
-  if (act == kRelu) return z > 0.f ? 1.f : 0.f;
-  return 1.f / (1.f + expf(-beta * z));
-}
-
 // lrelu's and relu's act'(z) takes two values, so the field kernels keep it
-// as one bit: act_grad_bit(act, act_bit(act, z)) == act_grad(act, beta, z)
-// for every z (z == 0 and NaN included)
+// as one bit: act_grad_bit(act, act_bit(act, z)) is act'(z) for every z (z
+// == 0 and NaN included)
 __device__ __forceinline__ uint32_t act_bit(int act, float z) {
   return act == kLRelu ? (z >= 0.f ? 1u : 0u) : (z > 0.f ? 1u : 0u);
 }

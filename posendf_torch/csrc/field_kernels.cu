@@ -123,7 +123,9 @@
 //    word of its 32 (16 in a chain's chunk) bits a column group and the
 //    backward loading it before the layer's products; the encoder's in
 //    shared memory, a byte a unit and warp (8 poses). For softplus the fp32
-//    pre-activations, all in the global scratch (806 KB a CTA).
+//    slope act'(z) = sigmoid(beta z), made by the forward from the exp its
+//    value takes (common.cuh's softplus_slope), all in the global scratch
+//    (806 KB a CTA): the backward multiplies by it, with no exp or division.
 //  * The last wave (3xTF32). One CTA fills an SM, so B poses take ceil(B /
 //    64) tiles in waves of 132, and a last wave of a few tiles leaves most
 //    SMs idle for a whole tile's time (10,000 poses: 157 tiles, 25 alone).
@@ -208,7 +210,7 @@ constexpr size_t field_smem() {
 }
 
 // Bytes of derivative state a unit (a hidden column or an encoder unit) of
-// a CTA's 64 poses: one bit a pose (lrelu, relu) or the fp32 pre-activation
+// a CTA's 64 poses: one bit a pose (lrelu, relu) or the fp32 slope act'(z)
 // (softplus).
 template <int kAct>
 constexpr int kZUnit = kAct == kSoftplus ? kRows * 4 : kRows / 8;
@@ -250,8 +252,8 @@ __device__ __forceinline__ float* at(const Buf& b, int r, int c) {
   return b.p + r * b.ld + (c ^ ((r & 3) << 3));
 }
 
-// An epilogue: forward (bias set) z = acc + b, its derivative state kept at
-// z where set, then act(z); backward (bias null) acc times act'(z) read from
+// An epilogue: forward (bias set) z = acc + b, then act(z), its derivative
+// state kept at z where set; backward (bias null) acc times act'(z) read from
 // z where set. The result goes to dst, column c - col0.
 struct Epi {
   const float* bias;
@@ -584,10 +586,28 @@ __device__ __forceinline__ void step_sync() {
   }
 }
 
+// A forward epilogue's softplus of four units (common.cuh's softplus_slope):
+// their values returned and, where zp is set, their slopes stored there. Out
+// of line, so that the instance holds one copy of this math, called from
+// every unrolled epilogue: inlined in each, the exp, log1p and divisions of
+// every unit made the softplus instance 130,000 instructions to lrelu's
+// 34,000, and on an H100 fetching them cost more of the step than computing
+// them.
+__device__ __noinline__ float4 softplus4(float beta, float4 z, float4* zp) {
+  const bool keep = zp != nullptr;
+  float s[4] = {0.f, 0.f, 0.f, 0.f};
+  z.x = softplus_slope(beta, z.x, keep, s[0]);
+  z.y = softplus_slope(beta, z.y, keep, s[1]);
+  z.z = softplus_slope(beta, z.z, keep, s[2]);
+  z.w = softplus_slope(beta, z.w, keep, s[3]);
+  if (keep) *zp = make_float4(s[0], s[1], s[2], s[3]);
+  return z;
+}
+
 // The epilogue of column groups cg0..cg0+NG-1, each 16 NJ columns wide (8
 // NJ a warpgroup: NJ = 8 after m64n64 products, 4 after m64n32). Register
 // 4j + i of group cg is row r + 8 (i / 2), column 16 NJ cg + 8 NJ w + 8 j +
-// 2 (t % 4) + i % 2. Its derivative state: softplus, the pre-activations,
+// 2 (t % 4) + i % 2. Its derivative state: softplus, the slopes act'(z),
 // float4 (((cg * 2 + w) NJ + j) 128 + t) of z; lrelu and relu, bit 4j + i
 // of word ((cg * 2 + w) 128 + t) of z (32-bit words for NJ = 8, 16-bit for
 // 4). A group's loads (bias or z) are issued before its stores, which the
@@ -614,7 +634,7 @@ __device__ __forceinline__ void epilogue(const float (&acc)[NG][4 * NJ / kC], in
     float4* zp = !kSel && e.z != nullptr ? reinterpret_cast<float4*>(e.z) + blk * NJs * 128 + cx.tw
                                          : nullptr;
     Word* zw = kSel && e.z != nullptr ? reinterpret_cast<Word*>(e.z) + blk * 128 + cx.tw : nullptr;
-    float4 in[NJs];   // the bias pair (forward) or z (backward, softplus) of each j
+    float4 in[NJs];   // the bias pair (forward) or the slopes (backward, softplus) of each j
     // lrelu, relu: act'(z) a bit (backward: loaded by the caller before the
     // products, off this path), or the forward's bits
     uint32_t bits = e.bias == nullptr ? zbits[cg] : 0u;
@@ -635,18 +655,25 @@ __device__ __forceinline__ void epilogue(const float (&acc)[NG][4 * NJ / kC], in
         v[1] += in[j].y;
         v[2] += in[j].z;
         v[3] += in[j].w;
-        if (zp != nullptr) zp[j * 128] = make_float4(v[0], v[1], v[2], v[3]);
+        if constexpr (kSel) {
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          if constexpr (kSel)
+          for (int i = 0; i < 4; ++i) {
             if (zw != nullptr) bits |= act_bit(kAct, v[i]) << (4 * j + i);
-          v[i] = act_fwd(kAct, cx.beta, v[i]);
+            v[i] = act_fwd(kAct, cx.beta, v[i]);
+          }
+        } else {   // softplus, and where kept its slopes, from the one exp
+          const float4 sp = softplus4(cx.beta, make_float4(v[0], v[1], v[2], v[3]),
+                                      zp != nullptr ? zp + j * 128 : nullptr);
+          v[0] = sp.x;
+          v[1] = sp.y;
+          v[2] = sp.z;
+          v[3] = sp.w;
         }
-      } else if (zp != nullptr) {
-        v[0] *= act_grad(kAct, cx.beta, in[j].x);
-        v[1] *= act_grad(kAct, cx.beta, in[j].y);
-        v[2] *= act_grad(kAct, cx.beta, in[j].z);
-        v[3] *= act_grad(kAct, cx.beta, in[j].w);
+      } else if (zp != nullptr) {   // softplus: times the kept slopes
+        v[0] *= in[j].x;
+        v[1] *= in[j].y;
+        v[2] *= in[j].z;
+        v[3] *= in[j].w;
       } else if (zw != nullptr) {
 #pragma unroll
         for (int i = 0; i < 4; ++i) v[i] *= act_grad_bit(kAct, (bits >> (4 * j + i)) & 1u);
@@ -837,20 +864,19 @@ __device__ __forceinline__ float from_part(const float (&mine)[kSlots], int u) {
 }
 
 // The encoder's derivative state, unit u of J (E + F) (joint j's hidden
-// units, then its features) of pose p: softplus, the pre-activation at float
-// u 64 + p of ez; lrelu and relu, bit p % 8 of byte 8u + p / 8 (a warp's 8
-// poses).
+// units, then its features) of pose p: softplus, the slope at float u 64 + p
+// of ez; lrelu and relu, bit p % 8 of byte 8u + p / 8 (a warp's 8 poses).
 template <int kAct>
-__device__ __forceinline__ float enc_grad(const unsigned char* ez, int u, int p, float beta) {
-  if constexpr (kAct == kSoftplus)
-    return act_grad(kAct, beta, reinterpret_cast<const float*>(ez)[u * kRows + p]);
+__device__ __forceinline__ float enc_grad(const unsigned char* ez, int u, int p) {
+  if constexpr (kAct == kSoftplus) return reinterpret_cast<const float*>(ez)[u * kRows + p];
   return act_grad_bit(kAct, (ez[8 * u + p / 8] >> (p % 8)) & 1u);
 }
 
 // keep the derivative state of units u0 + 4 i + r (r the part, i < kSlots,
-// those below n) of the pose, pre-activations z[i]: softplus as they are;
-// lrelu and relu a ballot of the warp a slot, its lanes 0-3 each storing
-// the byte of one unit. Every lane of the warp calls this.
+// those below n) of the pose: softplus the slopes z[i] (walk_act's) as they
+// are; lrelu and relu, from the pre-activations z[i], a ballot of the warp a
+// slot, its lanes 0-3 each storing the byte of one unit. Every lane of the
+// warp calls this.
 template <int kAct, int kSlots>
 __device__ __forceinline__ void enc_keep(unsigned char* ez, int u0, int n, const float (&z)[kSlots]) {
   const int t = threadIdx.x, p = t / 4, r = t % 4, lane = t % 32;
@@ -867,6 +893,19 @@ __device__ __forceinline__ void enc_keep(unsigned char* ez, int u0, int n, const
       if (lane < 4 && 4 * i + lane < n) ez[8 * (u0 + 4 * i + lane) + t / 32] = static_cast<unsigned char>(b);
     }
   }
+}
+
+// act(z) in the encoder walk; softplus with `slope` (a backward to come)
+// also replaces z by its slope, the state enc_keep keeps
+template <int kAct>
+__device__ __forceinline__ float walk_act(float beta, float& z, bool slope) {
+  if constexpr (kAct == kSoftplus) {
+    float s = 0.f;
+    const float v = softplus_slope(beta, z, slope, s);
+    if (slope) z = s;
+    return v;
+  }
+  return act_fwd(kAct, beta, z);
 }
 
 // Input normalization and encoder walk of the CTA's 64 poses into the code
@@ -933,7 +972,7 @@ __device__ __forceinline__ void encode(const Args& a, int row0, const Buf& x, in
     for (int i = 0; i < kMaxE / 4; ++i) {
       const int u = r + 4 * i;
       z[i] = u < E ? walk_dot(in, rows + u * w.R, E, true) : 0.f;
-      mine[i] = op<kBf16>(act_fwd(kAct, a.beta, z[i]));
+      mine[i] = op<kBf16>(walk_act<kAct>(a.beta, z[i], ez != nullptr));
     }
     if (ez != nullptr) enc_keep<kAct>(ez, j * (E + F), E, z);
     float h[kMaxE];
@@ -944,7 +983,7 @@ __device__ __forceinline__ void encode(const Args& a, int row0, const Buf& x, in
     for (int i = 0; i < kMaxF / 4; ++i) {
       const int k = r + 4 * i;
       zf[i] = k < F ? walk_dot(h, rows + (E + k) * w.R, E, true) : 0.f;
-      if (k < F) *at(x, p, j * F + k) = act_fwd(kAct, a.beta, zf[i]);
+      if (k < F) *at(x, p, j * F + k) = walk_act<kAct>(a.beta, zf[i], ez != nullptr);
     }
     if (ez != nullptr) enc_keep<kAct>(ez, j * (E + F) + E, F, zf);
     __syncwarp();
@@ -998,9 +1037,7 @@ __device__ __forceinline__ void backward_start(const Buf& x, int K, const float*
       const int c = blk * 64 + (64 / kC) * rank_of<kC>(cx) + 8 * j + 2 * (cx.tw % 4);
       float4 gz;   // act'(z) of the thread's four values
       if constexpr (kAct == kSoftplus) {
-        const float4 zz = reinterpret_cast<const float4*>(z)[(blk * NJs + j) * 128 + cx.tw];
-        gz = make_float4(act_grad(kAct, cx.beta, zz.x), act_grad(kAct, cx.beta, zz.y),
-                         act_grad(kAct, cx.beta, zz.z), act_grad(kAct, cx.beta, zz.w));
+        gz = reinterpret_cast<const float4*>(z)[(blk * NJs + j) * 128 + cx.tw];
       } else {
         gz = make_float4(act_grad_bit(kAct, (bits >> (4 * j)) & 1u),
                          act_grad_bit(kAct, (bits >> (4 * j + 1)) & 1u),
@@ -1040,14 +1077,14 @@ __device__ __forceinline__ void encode_backward(const Args& a, const Buf& x,
     float gf[kMaxF];
 #pragma unroll
     for (int k = 0; k < kMaxF; ++k)
-      gf[k] = k < F ? op<kBf16>(*at(x, p, j * F + k) * enc_grad<kAct>(ez, u0 + E + k, p, a.beta))
+      gf[k] = k < F ? op<kBf16>(*at(x, p, j * F + k) * enc_grad<kAct>(ez, u0 + E + k, p))
                     : 0.f;
     float mine[kMaxE / 4];
 #pragma unroll
     for (int i = 0; i < kMaxE / 4; ++i) {
       const int o = r + 4 * i;
       mine[i] = o < E ? op<kBf16>(walk_dot(gf, w2 + (j * E + o) * w.RF, F, false) *
-                                  enc_grad<kAct>(ez, u0 + o, p, a.beta))
+                                  enc_grad<kAct>(ez, u0 + o, p))
                       : 0.f;
     }
     float gh[kMaxE];
@@ -1391,7 +1428,7 @@ int posendf_project_step(const float* pose, int B, const float* enc, const int* 
 // or projection launch over B poses with activation act (a launch of n CTAs
 // that splits tiles: B = 64 n): per CTA, the DFNet's zsum units of 64 bits
 // (lrelu, relu: two words; the encoder's bits stay in shared memory) or of
-// 64 fp32 pre-activations, then the encoder's J (E + F) units of those
+// 64 fp32 slopes act'(z), then the encoder's J (E + F) units of those
 // (softplus).
 long long posendf_field_scratch_floats(int B, int J, int F, int zsum, int act) {
   const long long ctas = (B + kRows - 1) / kRows;

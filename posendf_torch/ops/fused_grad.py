@@ -23,9 +23,9 @@ as the TPU kernels' ``compute_dtype="bfloat16"``: every product of the
 forward and of the backward on operands rounded to bf16 (the weights, and
 the cotangent at each product: ``g`` before each W^T, ``gf`` and ``gh`` in
 the encoder's reverse walk), summed in fp32; the derivative state (act'
-exact: a bit a unit for lrelu and relu, the fp32 pre-activations for
-softplus, in both routes), the normalization's VJP and the update in
-fp32.
+exact: a bit a unit for lrelu and relu, softplus's fp32 slope sigmoid(beta
+z), made from the exp of its forward, in both routes), the normalization's
+VJP and the update in fp32.
 
 Each wrapper launches its kernel for a CUDA tensor and runs the plain
 PyTorch version (``fused_distance_and_grad_ref``, ``project_step_ref``) for
@@ -119,8 +119,9 @@ def _zscratch(quat: torch.Tensor, weights: FieldWeights, plan: LaunchPlan) -> to
     """The derivative state the kernels keep for their backward, as many
     floats as the library says a launch of the plan's CTAs needs (each CTA
     of a split tile keeps its own): a bit a unit and pose for lrelu and relu
-    (act' takes two values), the fp32 pre-activations for softplus, as the
-    TPU kernels' ``_act_store``."""
+    (act' takes two values), the fp32 slope act'(z) = sigmoid(beta z) a unit
+    and pose for softplus (``fused_model.state_kind``); the TPU kernels'
+    ``_act_store`` keeps a bit or the pre-activation."""
     n = _build.library().posendf_field_scratch_floats(
         TILE_POSES * plan.ctas, weights.num_joints, weights.feature_size,
         weights.tc_packed().zsum, _build.ACT_CODES[weights.activation])
@@ -147,6 +148,7 @@ def fused_distance_and_grad(quat: torch.Tensor,
         scratch.data_ptr(), stream_handle(quat)), "posendf_value_and_grad")
     VAG_LAUNCHES += 1
     fused_model.SPLIT_LAUNCHES[plan.split] += 1
+    fused_model.STATE_LAUNCHES[fused_model.state_kind(weights)] += 1
     return d, g
 
 
@@ -161,6 +163,7 @@ def _launch_project_step(q: torch.Tensor, weights: FieldWeights, plan: LaunchPla
         stream_handle(q)), "posendf_project_step")
     PROJ_LAUNCHES += 1
     fused_model.SPLIT_LAUNCHES[plan.split] += 1
+    fused_model.STATE_LAUNCHES[fused_model.state_kind(weights)] += 1
 
 
 def project_step(q: torch.Tensor, weights: FieldWeights, *, step_scale: float = 1.0,

@@ -40,13 +40,17 @@ __all__ = ["FieldWeights", "fused_posendf_forward", "fused_posendf_forward_ref",
            "int_table", "aligned_contiguous", "TcPacked", "pack_tc", "pack_bf16", "tc_width",
            "tc_widths", "tc_schedule", "tc_slab_offsets", "bf16_slab_offsets", "pack_walk", "operand",
            "bf16_hold", "TC_CHUNK", "BF16_SLAB", "BF16_SLAB_K", "LAUNCHES", "LaunchPlan",
-           "launch_plan", "plan_launch", "SPLIT_SIZES", "SPLIT_LAUNCHES"]
+           "launch_plan", "plan_launch", "SPLIT_SIZES", "SPLIT_LAUNCHES", "STATE_LAUNCHES",
+           "state_kind"]
 
 # launches of the forward kernel since the count was last set to 0
 LAUNCHES = 0
 # launches of the three field kernels by the cluster size of their split tiles
 # (1: a CTA a tile), since the counts were last set to 0
 SPLIT_LAUNCHES: Dict[int, int] = {1: 0, 2: 0}
+# value-and-grad and projection-step launches by the derivative state their
+# backward reads (state_kind), since the counts were last set to 0
+STATE_LAUNCHES: Dict[str, int] = {"bits": 0, "slope": 0}
 
 _MAX_JOINTS, _MAX_FEATURE, _MAX_LAYERS = 32, 8, 16
 
@@ -206,11 +210,11 @@ def tc_schedule(widths: Tuple[int, ...], slab_k: int = TC_SLAB_K):
     (chain 0: K -> N, every N column from one pass over K) or a chain of
     two (chain 1: K -> N -> N2, N made TC_CHUNK columns at a time and at
     once taken as K of the second product). bias: offset in ``vec`` of a
-    forward epilogue's bias, -1 in the backward; z: offset, in floats a
-    pose, of the pre-activations the forward keeps or the backward reads
-    for act', -1 for none. A slab is (matrix, layer, K block, column group,
-    columns): matrix "wt" = W^T (out, in) for the forward, "w" = W (in,
-    out) for the backward, both (N, K); 128 columns x ``slab_k`` of K, or,
+    forward epilogue's bias, -1 in the backward; z: offset, in units a
+    pose, of the derivative state (act', ``state_kind``) the forward keeps
+    or the backward reads, -1 for none. A slab is (matrix, layer, K block,
+    column group, columns): matrix "wt" = W^T (out, in) for the forward,
+    "w" = W (in, out) for the backward, both (N, K); 128 columns x ``slab_k`` of K, or,
     for the first product of a chain, TC_CHUNK = 64 columns x 2 ``slab_k``
     of K (blocks and groups counted in those units). The program does not
     depend on ``slab_k``, only the slabs do. The header is [forward steps, backward
@@ -354,7 +358,7 @@ class TcPacked:
     widths: Tuple[int, ...]       # padded widths D[0..L-1]
     nfwd: int                     # slabs of the forward
     nbwd: int                     # slabs of the backward
-    zsum: int                     # pre-activation floats a pose (padded hidden widths)
+    zsum: int                     # units of derivative state a pose (padded hidden widths)
     order: List[Tuple[str, int, int, int, int]]   # (matrix, layer, K block, column group, columns)
     bf16: bool = False
     _split: Dict[int, torch.Tensor] = field(default_factory=dict, repr=False)
@@ -692,6 +696,15 @@ def plan_launch(quat: torch.Tensor, weights: "FieldWeights") -> LaunchPlan:
         return launch_plan(B, ())
     slots = _cluster_slots(quat.device, _build.ACT_CODES[weights.activation])
     return launch_plan(B, slots, SPLIT_SIZES)
+
+
+def state_kind(weights: "FieldWeights") -> str:
+    """The derivative state the value-and-grad and projection-step kernels
+    keep for the backward, by the field's activation (both routes): "bits",
+    one a unit and pose (lrelu and relu, whose act' takes two values), or
+    "slope", softplus's act'(z) = sigmoid(beta z) in fp32, made from the exp
+    its forward takes (``common.cuh``'s ``softplus_slope``)."""
+    return "slope" if weights.activation == "softplus" else "bits"
 
 
 def check_poses(quat: torch.Tensor, weights: FieldWeights) -> None:

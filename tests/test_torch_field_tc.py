@@ -25,7 +25,14 @@ chained with the next 64 columns at a time.
   (``docs/quality/ckpt_l8_best.msgpack``); a seeded relu field of its
   widths, where relu's kink takes a unit's whole gradient, so a sum left
   unfolded over K shows; and a seeded softplus field whose widths need
-  padding and a chain of another width.
+  padding and a chain of another width. The model's backward multiplies by
+  the derivative state as the kernels keep it: lrelu's and relu's act' from
+  a bit, softplus's slope sigmoid(beta z) as the forward makes it from its
+  one exp (``common.cuh``'s ``softplus_slope``: ``kernel_slope`` here).
+* That slope, against float64 sigmoid over a dense grid of beta z in
+  [-120, 120] with the edges of exp's range: for beta z >= 0 it is the slope
+  from the pre-activation, ``1 / (1 + exp(-beta z))``, to the bit, and below
+  no more than an ulp further from sigmoid than that form at worst.
 
 The kernels themselves run on the card only (``chip_smoke.py`` holds them
 to the plain versions there).
@@ -58,6 +65,23 @@ N_POSES = 256
 def _poses(seed, n):
     q = np.random.default_rng(seed).normal(size=(n, 21, 4)).astype(np.float32)
     return torch.from_numpy(q / np.linalg.norm(q, axis=-1, keepdims=True))
+
+
+def kernel_slope(beta: float, z: torch.Tensor) -> torch.Tensor:
+    """softplus's slope sigmoid(beta z) as the field kernels make and keep it
+    (``common.cuh``'s ``softplus_slope``), in fp32: t = exp(-|beta z|) from
+    the forward's exp, then 1 / (1 + t) for beta z >= 0 and t / (1 + t)
+    below."""
+    bz = beta * z
+    t = torch.exp(-bz.abs())
+    return torch.where(bz >= 0, 1.0 / (1.0 + t), t / (1.0 + t))
+
+
+def state_grad(name: str, beta: float, z: torch.Tensor) -> torch.Tensor:
+    """act'(z) as the field kernels' backward takes it from their derivative
+    state: lrelu's and relu's from a bit (exactly ``act_grad``), softplus's
+    the kept slope."""
+    return kernel_slope(beta, z) if name == "softplus" else act_grad(name, beta, z)
 
 
 @pytest.fixture(scope="module", params=["trained", "softplus", "relu"])
@@ -134,7 +158,7 @@ def _model(q, weights):
         return act(z[zo][:, cols])
 
     def bwd_epi(acc, _, zo, cols):
-        return acc * act_grad(name, beta, z[zo][:, cols]) if zo >= 0 else acc
+        return acc * state_grad(name, beta, z[zo][:, cols]) if zo >= 0 else acc
 
     # the encoder and the normalization, as the plain version computes them
     s = torch.sum(q * q, dim=1, keepdim=True)
@@ -146,7 +170,7 @@ def _model(q, weights):
     K = head[3]
     d = out_act(x[:, :K] @ vec[head[4]:head[4] + K][:, None] + vec[head[5]])
     g = (out_act_grad_from_value(name, beta, d) * vec[head[4]:head[4] + K]) * \
-        act_grad(name, beta, z[head[6]])
+        state_grad(name, beta, z[head[6]])
     g, _ = tc_model.run(stream, g, bwd, bwd_epi)
     assert stream.pos == len(stream.blocks)   # every slab read
     # the encoder's reverse walk and the normalization's VJP, as the plain version
@@ -155,8 +179,8 @@ def _model(q, weights):
     w1, w2 = weights.enc["w1"], weights.enc["w2"]
     gx = [None] * J
     for j in range(J - 1, -1, -1):
-        gf = gfeat[j] * act_grad(name, beta, zf[j])
-        gh = torch.matmul(gf, w2[j].t()) * act_grad(name, beta, zh[j])
+        gf = gfeat[j] * state_grad(name, beta, zf[j])
+        gh = torch.matmul(gf, w2[j].t()) * state_grad(name, beta, zh[j])
         gin = torch.matmul(gh, w1[j].t())
         gx[j] = gin[:, :4]
         if weights.parents[j] >= 0:
@@ -181,6 +205,53 @@ def test_3xtf32_model_holds_the_bars(weights):
     q_next = q_next / q_next.norm(dim=-1, keepdim=True).clamp_min(1e-12)
     _, q_ref = fused_grad.project_step_ref(q, weights)
     torch.testing.assert_close(q_next, q_ref, rtol=PROJ_RTOL, atol=PROJ_ATOL)
+
+
+def _slope_grid(beta: float) -> np.ndarray:
+    """fp32 z whose beta z covers [-120, 120] densely, with both zeros, the
+    subnormals' and the normals' edges, and where exp over- and underflows
+    (|beta z| near 88.72, 87.34 and 103.97), and the infinities."""
+    bz = [np.linspace(-120.0, 120.0, 2_400_001, dtype=np.float32),
+          np.linspace(-1e-3, 1e-3, 200_001, dtype=np.float32)]
+    edges = np.array([0.0, np.finfo(np.float32).smallest_subnormal, np.finfo(np.float32).tiny,
+                      1e-30, 1e-7, 0.5, 1.0, 16.635532, 17.0, 87.33655, 88.72284, 103.97208,
+                      104.0], dtype=np.float32)
+    steps = np.arange(-64, 65).astype(np.float32)
+    for x in edges:   # each edge and the 64 floats either side of it
+        bz.append((x + steps * np.spacing(x)).astype(np.float32))
+    bz.append(np.array([np.inf], dtype=np.float32))
+    bz = np.concatenate(bz + [-x for x in bz])
+    return (bz / np.float32(beta)).astype(np.float32)
+
+
+@pytest.mark.parametrize("beta", [100.0, 20.0])
+def test_softplus_slope_state(beta):
+    """The slope the field kernels keep for softplus (``kernel_slope``, as
+    ``softplus_slope`` makes it) against float64 sigmoid(beta z) and against
+    the slope from the pre-activation, 1 / (1 + exp(-beta z)) in fp32."""
+    z = torch.from_numpy(_slope_grid(beta))
+    b = torch.tensor(beta, dtype=torch.float32)
+    new = kernel_slope(beta, z)
+    old = 1.0 / (1.0 + torch.exp(-b * z))   # -beta * z as CUDA C reads it: (-beta) z
+    bz = (b * z).double()
+    zero = z == 0
+    assert bool(torch.signbit(z[zero]).any()) and not bool(torch.signbit(z[zero]).all())
+    exact = torch.sigmoid(bz)   # float64
+    up, down = bz >= 0, bz < 0
+    assert torch.equal(new[up].view(torch.int32), old[up].view(torch.int32))   # to the bit
+    assert bool(((new >= 0) & (new <= 1)).all())
+    assert float(new[zero].min()) == float(new[zero].max()) == 0.5
+
+    def ulps(got, mask):   # |got - sigmoid| in fp32 ulps at sigmoid (2^-149 at and below subnormals)
+        want = exact[mask]
+        spacing = torch.from_numpy(np.spacing(want.float().numpy()).astype(np.float64))
+        return (got[mask].double() - want).abs() / spacing
+
+    normal = down & (exact >= float(np.finfo(np.float32).tiny))
+    for mask in (down, normal):   # every unit below 0, and those whose slope is a normal float
+        worst_new, worst_old = float(ulps(new, mask).max()), float(ulps(old, mask).max())
+        assert worst_new <= worst_old + 1.0, (worst_new, worst_old)
+    assert float(ulps(new, normal).max()) <= 3.0   # t, 1 + t and the division: a few ulps
 
 
 def test_schedule_pads_chains_and_refuses():

@@ -6,7 +6,11 @@ last, partial wave of tiles leaves most SMs idle. The plan splits that
 wave's tiles by output columns across the CTAs of a thread-block cluster,
 each rank streaming only its columns' weights and storing its outputs into
 every rank's shared memory; every sum keeps its order, so a split tile's
-results are the unsplit tile's to the bit.
+results are the unsplit tile's to the bit. With them, on the card, the
+derivative state the backward reads (``fused_model.state_kind``): a softplus
+field's value-and-grad and projection step, whose backward multiplies by the
+slope its forward keeps, against their plain versions at ``chip_smoke.py``'s
+bars, and the launches counted by that state.
 
 This file imports no JAX: on the card (where there is none) run it as
 ``python -m pytest --noconftest -p no:cacheprovider tests/test_torch_split_launch.py``;
@@ -107,6 +111,36 @@ def test_split_slabs_are_each_ranks_pieces(c):
     assert torch.equal(got.flatten().sort().values, tc.slabs.flatten().sort().values)
 
 
+@pytest.mark.parametrize("act,kind", [("lrelu", "bits"), ("relu", "bits"), ("softplus", "slope")])
+def test_state_kind(act, kind):
+    """The derivative state a field's value-and-grad and projection-step
+    launches keep, by its activation, in both routes; ``STATE_LAUNCHES``
+    counts launches by it, and the plain versions a CPU tensor takes count
+    nothing."""
+    from posendf_torch.models import PoseNDF
+
+    w = fused_model.FieldWeights.from_module(_module(act, False))
+    w16 = fused_model.FieldWeights.from_module(PoseNDF(activation=act, compute_dtype="bfloat16"))
+    assert w16.bf16 and fused_model.state_kind(w) == fused_model.state_kind(w16) == kind
+    before = dict(fused_model.STATE_LAUNCHES)
+    assert set(before) == {"bits", "slope"}
+    q = torch.nn.functional.normalize(torch.rand((3, 21, 4), generator=torch.Generator().manual_seed(1)),
+                                      dim=-1)
+    fused_grad.fused_distance_and_grad(q, w)
+    fused_grad.project_step(q, w)
+    assert fused_model.STATE_LAUNCHES == before
+
+
+def test_softplus_backward_takes_the_kept_slope():
+    """The field kernels' softplus backward multiplies by the slope its
+    forward keeps (``softplus_slope``): no act' is computed from a
+    pre-activation in the field source or the header it shares."""
+    from posendf_torch import _build
+
+    src = _build.SOURCES["field"].read_text() + "".join(h.read_text() for h in _build.HEADERS)
+    assert "softplus_slope(" in src and "act_grad(" not in src
+
+
 # ---- on the card ----
 
 @pytest.fixture
@@ -117,6 +151,10 @@ def card():
 
 
 def _field(act: str, wide: bool):
+    return fused_model.FieldWeights.from_module(_module(act, wide).cuda())
+
+
+def _module(act: str, wide: bool):
     from posendf_torch.models import PoseNDF
 
     if wide:   # 32 joints of 8 features: the encoder walks at the run-time width
@@ -128,7 +166,7 @@ def _field(act: str, wide: bool):
     with torch.no_grad():
         for p in module.dfnet.parameters():
             p.mul_(2.0)
-    return fused_model.FieldWeights.from_module(module.cuda())
+    return module
 
 
 def _unsplit(monkeypatch, fn):
@@ -149,6 +187,7 @@ def test_split_launch_equals_unsplit(card, monkeypatch, act, wide):
     gen = torch.Generator().manual_seed(21)
     J = w.num_joints
     counts = dict(fused_model.SPLIT_LAUNCHES)
+    states = dict(fused_model.STATE_LAUNCHES)
     split_launches = 0
     for B in (1000, 8449, 10000):
         q = torch.nn.functional.normalize(torch.rand((B, J, 4), generator=gen) - 0.5, dim=-1).to(card)
@@ -169,6 +208,52 @@ def test_split_launch_equals_unsplit(card, monkeypatch, act, wide):
             assert torch.equal(got, want), (act, wide, B, name, float((got - want).abs().max()))
     moved = {c: fused_model.SPLIT_LAUNCHES[c] - counts[c] for c in counts}
     assert moved == {1: split_launches, 2: split_launches}
+    # the value-and-grad and step launches (two of each three), by their derivative state
+    kind = "slope" if act == "softplus" else "bits"
+    moved = {k: fused_model.STATE_LAUNCHES[k] - states[k] for k in states}
+    assert moved == {"bits": 0, "slope": 0, kind: 2 * 2 * split_launches // 3}
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("B", [10000, 8449])
+def test_softplus_slope_state_holds_the_bars(card, B):
+    """A softplus field at the published widths, whose backward multiplies by
+    the slope sigmoid(beta z) its forward keeps: the value-and-grad kernel
+    and the projection step at the main path's 10,000 poses (25 tiles split)
+    and at 8,449 (one), against ``fused_distance_and_grad_ref`` and
+    ``project_step_ref`` at ``chip_smoke.py``'s bars, a pose beyond a bar held
+    to float64 as there (``assert_rows_close``); each launch counted as
+    "slope" state."""
+    import copy
+
+    from chip_smoke import (D_ATOL, G_ATOL, PROJ_ATOL, PROJ_RTOL, assert_close,
+                            assert_rows_close)
+
+    module = _module("softplus", False).to(card)
+    w = fused_model.FieldWeights.from_module(module)
+    w64 = fused_model.FieldWeights.from_module(copy.deepcopy(module).double())
+    gen = torch.Generator().manual_seed(22)
+    q = torch.nn.functional.normalize(torch.rand((B, 21, 4), generator=gen) - 0.5, dim=-1).to(card)
+    assert fused_model.plan_launch(q, w).rem > 0
+    states = dict(fused_model.STATE_LAUNCHES)
+    with torch.no_grad():
+        d_k, g_k = fused_grad.fused_distance_and_grad(q, w)
+        s_k = fused_grad.project_step(q, w, step_scale=100.0)
+        d_p, g_p = fused_grad.fused_distance_and_grad_ref(q, w)
+        s_p = fused_grad.project_step_ref(q, w, step_scale=100.0)
+        q64 = q.double()
+        _, g_64 = fused_grad.fused_distance_and_grad_ref(q64, w64)
+        s_64 = fused_grad.project_step_ref(q64, w64, step_scale=100.0)
+        x64 = q64 / (q64 ** 2).sum(1, keepdim=True).clamp_min(1e-24).sqrt()
+        _, (_, _, zs) = fused_model.field_forward_ref(x64, w64, keep=True)
+    torch.cuda.synchronize()
+    assert {k: fused_model.STATE_LAUNCHES[k] - states[k] for k in states} == {"bits": 0, "slope": 2}
+    kink = torch.cat(zs, 1).abs().amin(1)
+    assert_close("softplus value-and-grad d", d_k, d_p, atol=D_ATOL)
+    assert_rows_close("softplus value-and-grad g", g_k, g_p, g_64, atol=G_ATOL, kink=kink)
+    assert_close("softplus step d", s_k[0], s_p[0], atol=D_ATOL)
+    assert_rows_close("softplus step q", s_k[1], s_p[1], s_64[1], rtol=PROJ_RTOL, atol=PROJ_ATOL,
+                      kink=kink)
 
 
 @pytest.mark.card
