@@ -10,7 +10,9 @@ header, so it compiles in seconds:
   ``int8``   ``csrc/int8_kernels.cu``   int8 serving forward, bf16 / int8 probe chains
 
 All include ``csrc/common.cuh`` and ``csrc/hopper.cuh`` (the PTX of wgmma,
-mbarriers and bulk copies, and the ring of slabs they share). A library goes to
+mbarriers and bulk copies, and the ring of slabs they share); ``field`` and
+``train`` also include ``csrc/tc_tile.cuh`` (the 64-pose tile, the program's
+header, the 3xTF32 A split and the encoder walk they share). A library goes to
 ``build/posendf_torch/<name>_<hash>.so`` under the repository root, keyed by
 a hash of its source, the headers and the compiler flags: an edited source is
 rebuilt, an unchanged one is loaded as it is. Different libraries may be
@@ -36,7 +38,7 @@ __all__ = ["library", "check", "build_info", "SOURCES", "ACT_CODES"]
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = {"field": CSRC / "field_kernels.cu", "train": CSRC / "train_kernels.cu",
            "knn": CSRC / "knn_kernels.cu", "int8": CSRC / "int8_kernels.cu"}
-HEADERS = [CSRC / "common.cuh", CSRC / "hopper.cuh"]
+HEADERS = [CSRC / "common.cuh", CSRC / "hopper.cuh", CSRC / "tc_tile.cuh"]
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "posendf_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-I", str(CSRC)]

@@ -159,22 +159,18 @@
 
 #include "common.cuh"
 #include "hopper.cuh"
+#include "tc_tile.cuh"
 
 namespace {
 
 using namespace posendf;
 using namespace hopper;
+using namespace tc_tile;
 
 enum Mode { kForward = 0, kValueAndGrad = 1, kProjectStep = 2 };
 
-constexpr int kRows = 64;                        // poses a CTA: one wgmma M
 constexpr int kConsumers = 256;                  // two consumer warpgroups
-constexpr int kSlabN = 128;                      // output columns a slab: 64 a warpgroup
 constexpr int kHalfBytes = 16384;                // 3xTF32: a slab's hi (or lo) half, 128 x 32 tf32
-constexpr int kXMax = 512;                       // widest activation kept whole
-constexpr int kChunk = 64;                       // a chained layer's output, a chunk at a time
-constexpr int kHead = 8, kStep = 8;              // ints of the program's header and of a step
-constexpr uint32_t kBar = 1;                     // named barrier of the consumers
 constexpr int kSplit = 2;                        // CTAs a split tile (fused_model.SPLIT_SIZES)
 
 // The two routes' slabs and rings.
@@ -198,7 +194,6 @@ struct Route<true> {                              // bf16
 };
 
 constexpr int kVecSmem = 3072;                  // floats of vec kept in shared memory, if it fits
-constexpr int kEzSmem = 8 * kMaxJ * (kMaxE + kMaxF);   // bytes: the encoder's act' bits (lrelu, relu)
 
 // ring | activations (64, 512) | chunk (64, 64) | vec | encoder bits |
 // parents | barriers (full, then empty); 1024 to align the ring
@@ -206,7 +201,7 @@ template <bool kBf16>
 constexpr size_t field_smem() {
   return 1024 + static_cast<size_t>(Route<kBf16>::kStages) * Route<kBf16>::kSlot +
          static_cast<size_t>(kRows) * (kXMax + kChunk) * sizeof(float) + kVecSmem * sizeof(float) +
-         kEzSmem + kMaxJ * sizeof(int) + 2 * Route<kBf16>::kBars * sizeof(uint64_t);
+         kEncBitBytes + kMaxJ * sizeof(int) + 2 * Route<kBf16>::kBars * sizeof(uint64_t);
 }
 
 // Bytes of derivative state a unit (a hidden column or an encoder unit) of
@@ -239,18 +234,6 @@ struct Args {
                                // tile is split across a cluster of `split` CTAs (1: none)
   const unsigned char* split_slabs;   // the slabs as a split tile's ranks read them (split > 1)
 };
-
-// A (64, ld) fp32 activation tile in shared memory; column c of row r sits
-// at c ^ (8 (r % 4)), which spreads a warp's 8-byte fragment accesses over
-// all 32 banks.
-struct Buf {
-  float* p;
-  int ld;
-};
-
-__device__ __forceinline__ float* at(const Buf& b, int r, int c) {
-  return b.p + r * b.ld + (c ^ ((r & 3) << 3));
-}
 
 // An epilogue: forward (bias set) z = acc + b, then act(z), its derivative
 // state kept at z where set; backward (bias null) acc times act'(z) read from
@@ -312,25 +295,6 @@ __device__ __forceinline__ float op(float x) {
 // bytes; no empty barriers); in the bf16 route thread 0 of each consumer
 // warpgroup arrives on the slot's empty barrier through a predicated asm
 // block and the producer warpgroup refills it.
-
-// wait until the phase of `parity` of barrier `bar` has completed; a wait
-// of more than 2^35 clocks (about 20 s) is a lost arrival and traps
-__device__ __forceinline__ void spin_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n.reg .pred p;\n.reg .u64 t0, t1;\n"
-      "mov.u64 t0, %%clock64;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@p bra.uni DONE;\n"
-      "mov.u64 t1, %%clock64;\n"
-      "sub.u64 t1, t1, t0;\n"
-      "setp.gt.u64 p, t1, 34359738368;\n"
-      "@p trap;\n"
-      "bra.uni WAIT;\n"
-      "DONE:\n}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
 
 // The 3xTF32 ring of a tile split across kC CTAs: a CTA copies 1 / kC of
 // each slab (fill), so the ring's space holds 2 kC slots of 32 KB / kC and
@@ -395,28 +359,6 @@ __device__ __forceinline__ void release_slab(const Ctx& cx, int g) {
   } else {
     named_bar_sync(kBar, kConsumers);
     fill<kC>(cx, g + S);
-  }
-}
-
-template <int N>
-__device__ __forceinline__ void keep_regs(uint32_t (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
-}
-
-// The A fragment of one k8 step, split: register j holds row r + 8 (j % 2)
-// at K position t%4 + 4 (j / 2), i.e. feature c (j < 2) or c + 1, c = the
-// 8-group's 2 (t % 4).
-__device__ __forceinline__ void load_a(const Buf& b, int r, int c, uint32_t (&hi)[4],
-                                       uint32_t (&lo)[4]) {
-  const float2 u = *reinterpret_cast<const float2*>(at(b, r, c));
-  const float2 v = *reinterpret_cast<const float2*>(at(b, r + 8, c));
-  const float x[4] = {u.x, v.x, u.y, v.y};
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const float h = tf32_round(x[j]);
-    hi[j] = __float_as_uint(h);
-    lo[j] = __float_as_uint(tf32_round(x[j] - h));
   }
 }
 
@@ -792,39 +734,17 @@ __device__ __forceinline__ void run_step(const int* st, const Buf& x, const Buf&
 }
 
 // ---- the encoder walks ----
-// Four threads a pose, its four neighbouring lanes of a warp (pose t / 4,
-// part r = t % 4; a warp holds 8 poses): part r sums the hidden units (and
-// then the features, and in the reverse walk the rows) r, r + 4, ..., one
-// FMA a term in index order from the packed rows of fused_model.pack_walk
-// (float4 loads, each feeding four FMAs), and the pose's four parts trade
-// hidden units by shuffles, so a joint needs no CTA barrier: its features
-// (or its parent's code gradient) stay in the pose's row of x, read by the
-// same warp after a __syncwarp. A walk first copies its rows (and the
-// forward walk the CTA's poses, where they fit) into the ring's space, which
-// the walks have to themselves: the forward walk runs before the ring's
-// first copy (the bf16 producer waits on kBarRing), the reverse walk after
-// its last slab. So no joint waits on L2. kF: the feature width at compile
-// time (6, the SMPL fields'), or 0 for any width at run time.
+// Four threads a pose (tc_tile.cuh), from the packed rows of
+// fused_model.pack_walk (float4 loads, each feeding four FMAs): per joint E
+// hidden rows and F feature rows of R floats (tc_tile::Walk), then W2's rows
+// (J, E, RF) and W1's (J, E, RE). A joint's features (or its parent's code
+// gradient) stay in the pose's row of x, read by the same warp after a
+// __syncwarp. A walk first copies its rows (and the forward walk the CTA's
+// poses, where they fit) into the ring's space, which the walks have to
+// themselves: the forward walk runs before the ring's first copy (the bf16
+// producer waits on kBarRing), the reverse walk after its last slab. So no
+// joint waits on L2.
 
-// the packed walk rows (fused_model.pack_walk): per joint E hidden rows and
-// F feature rows of E weights, the bias and zeros to R = 4 ceil((E + 1) / 4)
-// floats; then W2's rows (J, E, 4 ceil(F / 4)) and W1's (J, E, 4 ceil(E / 4)).
-// nf, nb: the floats of each walk's rows.
-template <int kF>
-struct Walk {
-  int F, E, R, RF, RE, nf, nb;
-  __device__ __forceinline__ explicit Walk(const Args& a) {
-    F = kF > 0 ? kF : a.F;
-    E = 4 + F;
-    R = round4(E + 1);
-    RF = round4(F);
-    RE = round4(E);
-    nf = a.J * (E + F) * R;
-    nb = a.J * E * (RF + RE);
-  }
-};
-
-constexpr int kRingFloats = 16384;   // the ring's space in floats (64 KB in both routes)
 constexpr uint32_t kBarRing = 2;     // the consumers' arrival: the forward walk is done with the ring
 
 // copy n floats from global `src` to shared `dst` in float4s (every
@@ -834,64 +754,30 @@ __device__ __forceinline__ void stage(float* dst, const float* src, int n) {
     reinterpret_cast<float4*>(dst)[i] = __ldg(reinterpret_cast<const float4*>(src) + i);
 }
 
-// z = sum_{i < n} in[i] row[i] in order from 0 (one FMA a term), then, with
-// `bias`, + row[n]; the row (in shared memory) read as float4
-template <int N>
-__device__ __forceinline__ float walk_dot(const float (&in)[N], const float* row, int n, bool bias) {
-  const float4* r4 = reinterpret_cast<const float4*>(row);
-  float z = 0.f;
-#pragma unroll
-  for (int c = 0; c < (N + 4) / 4; ++c) {
-    if (4 * c < n + (bias ? 1 : 0)) {   // a float4 the row holds
-      const float4 v = r4[c];
-      const float f[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = 4 * c + e;
-        if (i < N && i < n) z = fmaf(in[i], f[e], z);
-        else if (bias && i == n) z += f[e];
-      }
-    }
-  }
-  return z;
-}
-
-// the value of unit u from the pose's part u % 4 (each part passing its slot
-// u / 4); every lane of the warp calls this
-template <int kSlots>
-__device__ __forceinline__ float from_part(const float (&mine)[kSlots], int u) {
-  return __shfl_sync(0xffffffffu, mine[u / 4], (threadIdx.x & 28) | (u & 3));
-}
-
 // The encoder's derivative state, unit u of J (E + F) (joint j's hidden
 // units, then its features) of pose p: softplus, the slope at float u 64 + p
-// of ez; lrelu and relu, bit p % 8 of byte 8u + p / 8 (a warp's 8 poses).
+// of ez; lrelu and relu, the act' bits of tc_tile.cuh.
 template <int kAct>
 __device__ __forceinline__ float enc_grad(const unsigned char* ez, int u, int p) {
   if constexpr (kAct == kSoftplus) return reinterpret_cast<const float*>(ez)[u * kRows + p];
-  return act_grad_bit(kAct, (ez[8 * u + p / 8] >> (p % 8)) & 1u);
+  return enc_slope<kAct>(ez, u, p);
 }
 
 // keep the derivative state of units u0 + 4 i + r (r the part, i < kSlots,
 // those below n) of the pose: softplus the slopes z[i] (walk_act's) as they
-// are; lrelu and relu, from the pre-activations z[i], a ballot of the warp a
-// slot, its lanes 0-3 each storing the byte of one unit. Every lane of the
-// warp calls this.
+// are; lrelu and relu, the act' bits of the pre-activations z[i]
+// (enc_keep_bits). Every lane of the warp calls this.
 template <int kAct, int kSlots>
 __device__ __forceinline__ void enc_keep(unsigned char* ez, int u0, int n, const float (&z)[kSlots]) {
-  const int t = threadIdx.x, p = t / 4, r = t % 4, lane = t % 32;
+  if constexpr (kAct == kSoftplus) {
+    const int t = threadIdx.x, p = t / 4, r = t % 4;
 #pragma unroll
-  for (int i = 0; i < kSlots; ++i) {
-    const int k = r + 4 * i;
-    if constexpr (kAct == kSoftplus) {
+    for (int i = 0; i < kSlots; ++i) {
+      const int k = r + 4 * i;
       if (k < n) reinterpret_cast<float*>(ez)[(u0 + k) * kRows + p] = z[i];
-    } else {
-      const uint32_t bits = __ballot_sync(0xffffffffu, k < n && act_bit(kAct, z[i]));
-      uint32_t b = 0;   // lane l < 4: bit 4 pp + l of each pose pp of the warp
-#pragma unroll
-      for (int pp = 0; pp < 8; ++pp) b |= ((bits >> (4 * pp + (lane & 3))) & 1u) << pp;
-      if (lane < 4 && 4 * i + lane < n) ez[8 * (u0 + 4 * i + lane) + t / 32] = static_cast<unsigned char>(b);
     }
+  } else {
+    enc_keep_bits<kAct>(ez, u0, n, z);
   }
 }
 
@@ -1172,8 +1058,8 @@ __device__ __forceinline__ void finish(const Args& a, int row0, const float* gx,
 template <int kAct, bool kBf16>
 __device__ __forceinline__ void walk_forward(const Args& a, int row0, const Buf& x, int D0,
                                              unsigned char* ez, const int* parents, float* wr) {
-  if (a.F == 6)
-    encode<kAct, kBf16, 6>(a, row0, x, D0, ez, parents, wr);
+  if (a.F == kWalkF)
+    encode<kAct, kBf16, kWalkF>(a, row0, x, D0, ez, parents, wr);
   else
     encode<kAct, kBf16, 0>(a, row0, x, D0, ez, parents, wr);
 }
@@ -1181,8 +1067,8 @@ __device__ __forceinline__ void walk_forward(const Args& a, int row0, const Buf&
 template <int kAct, bool kBf16>
 __device__ __forceinline__ void walk_backward(const Args& a, const Buf& x, const unsigned char* ez,
                                               float* gx, const int* parents) {
-  if (a.F == 6)
-    encode_backward<kAct, kBf16, 6>(a, x, ez, gx, parents);
+  if (a.F == kWalkF)
+    encode_backward<kAct, kBf16, kWalkF>(a, x, ez, gx, parents);
   else
     encode_backward<kAct, kBf16, 0>(a, x, ez, gx, parents);
 }
@@ -1200,20 +1086,20 @@ __device__ __forceinline__ bool dfnet(const Args& a, Ctx& cx, int row0, const Bu
                                       unsigned char* zb, float* cs) {
   const bool grad = a.mode != kForward;
   const int* head = a.prog;
-  const int nfwd_steps = __ldg(head), nbwd_steps = __ldg(head + 1);
+  const int nfwd_steps = prog_nfwd(head), nbwd_steps = prog_nbwd(head);
   if constexpr (!kBf16)
     for (int g = 0; g < kRingStages<false, kC>; ++g) fill<kC>(cx, g);
   const int* step = head + kHead;
   for (int i = 0; i < nfwd_steps; ++i, step += kStep) run_step<kAct, kBf16, kC>(step, x, cb, vec, zb, cx);
   if (!grad && rank_of<kC>(cx) != 0) return false;
   // the output layer: d
-  const int K = __ldg(head + 3);
-  const float* wl = vec + __ldg(head + 4);
+  const int K = prog_K(head);
+  const float* wl = vec + prog_w_out(head);
   output_layer<kAct, kBf16>(a, row0, x, K, wl, vec[nvec - 1], cs, cs + 4 * kRows,
                             rank_of<kC>(cx) == 0);
   if (!grad) return false;
   if constexpr (kC > 1) step_sync<kC>();   // every CTA of the tile has read x
-  backward_start<kAct, kBf16, kC>(x, K, wl, zb + static_cast<size_t>(kZUnit<kAct>) * __ldg(head + 6),
+  backward_start<kAct, kBf16, kC>(x, K, wl, zb + static_cast<size_t>(kZUnit<kAct>) * prog_z_last(head),
                                   cs + 4 * kRows, cx);
   for (int i = 0; i < nbwd_steps; ++i, step += kStep) run_step<kAct, kBf16, kC>(step, x, cb, vec, zb, cx);
   return rank_of<kC>(cx) == 0;
@@ -1233,10 +1119,10 @@ __device__ __forceinline__ void consume(const Args& a, Ctx& cx, int row0, int ct
   const bool grad = a.mode != kForward;
   const int E = 4 + a.F;
   const int* head = a.prog;
-  const int zsum = __ldg(head + 7);
+  const int zsum = prog_zsum(head);
   const Buf x{xs, kXMax}, cb{cs, kChunk};
   // vec: the biases, the output layer's w and (last) its b
-  const int nvec = __ldg(head + 5) + 1;
+  const int nvec = prog_b_out(head) + 1;
   const float* vec = a.vec;
   if (nvec <= kVecSmem) {   // read before the first epilogue, after encode's barriers
     for (int i = threadIdx.x; i < nvec; i += kConsumers) vs[i] = __ldg(a.vec + i);
@@ -1282,7 +1168,7 @@ __global__ void __launch_bounds__(Route<kBf16>::kThreads, 1)
   float* cs = xs + kRows * kXMax;
   float* vs = cs + kRows * kChunk;
   unsigned char* ezs = reinterpret_cast<unsigned char*>(vs + kVecSmem);
-  int* ps = reinterpret_cast<int*>(ezs + kEzSmem);
+  int* ps = reinterpret_cast<int*>(ezs + kEncBitBytes);
   uint64_t* bars = reinterpret_cast<uint64_t*>(ps + kMaxJ);
   // full barriers (one arrival, the slab's bytes); bf16: empty ones (an
   // arrival of each consumer warpgroup)

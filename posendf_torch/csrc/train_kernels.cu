@@ -108,6 +108,7 @@
 
 #include "common.cuh"
 #include "hopper.cuh"
+#include "tc_tile.cuh"
 
 namespace {
 
@@ -260,23 +261,17 @@ int dispatch_encoder(const float* quat, int B, const float* wp, const int* paren
 
 namespace tile {
 
-constexpr int kRows = 64;                        // poses a CTA: one wgmma M
+using namespace tc_tile;
+
 constexpr int kTileThreads = 256;                // two warpgroups; thread 0 also fills the ring
-constexpr int kSlabN = 128;                      // output columns a slab: 64 a warpgroup
 constexpr int kSlabK = 32;                       // K a slab: a 128-byte line of tf32
 constexpr int kHalfBytes = kSlabN * kSlabK * 4;  // the hi (or lo) half: 16 KB
 constexpr int kSlabBytes = 2 * kHalfBytes;
 constexpr int kStages = 2;
-constexpr int kXMax = 512;                       // widest activation kept whole
-constexpr int kChunk = 64;                       // a chained layer's output, a chunk at a time
-constexpr int kHead = 8, kStep = 8;              // ints of the program's header and of a step
-constexpr uint32_t kBar = 1;                     // named barrier of the CTA
-constexpr int kRingFloats = kStages * kSlabBytes / 4;   // the ring's space in floats (64 KB)
+static_assert(kStages * kSlabBytes == 4 * kRingFloats, "the ring's space");
 // per-pose scalars (rows of kRows): norms (4), squared sums (4), d, dd, distance term, eikonal term
 enum { kPN = 0, kPS = 4, kPD = 8, kPDD = 9, kPL = 10, kPE = 11, kScalars = 12 };
 constexpr int kMaxU = kMaxE + kMaxF;             // encoder units a joint: hidden, then features
-// the encoder's act' bits: a byte a unit of J (E + F) and warp (8 poses)
-constexpr int kEncBitBytes = kMaxJ * kMaxU * 8;
 // ring | activations (64, 512) | chunk (64, 64) | scalars | layer table (4 x kMaxL) | parents
 // (kMaxJ) | encoder act' bits | barriers
 constexpr size_t kTileSmem = 1024 + static_cast<size_t>(kStages) * kSlabBytes +
@@ -327,18 +322,6 @@ __host__ __device__ inline size_t scratch_floats(int J, int F, int zsum) {
          2 * static_cast<size_t>(J) * ((4 + 2 * F) + (4 + F)) * kRows;
 }
 
-// A (64, ld) fp32 activation tile in shared memory; column c of row r sits
-// at c ^ (8 (r % 4)), which spreads a warp's 8-byte fragment accesses over
-// all 32 banks.
-struct Buf {
-  float* p;
-  int ld;
-};
-
-__device__ __forceinline__ float* at(const Buf& b, int r, int c) {
-  return b.p + r * b.ld + (c ^ ((r & 3) << 3));
-}
-
 // An epilogue: forward (bias set) z = acc + b, act'(z) kept as bits where
 // `bits` is set, then act(z); else acc times act'(z) read from the bits
 // where set. The result goes to dst, column c - col0.
@@ -376,25 +359,6 @@ struct Ctx {
 // predicated asm block (full barriers count that one arrival and the
 // slab's bytes; no empty barriers).
 
-// wait until the phase of `parity` of barrier `bar` has completed; a wait
-// of more than 2^35 clocks (about 20 s) is a lost arrival and traps
-__device__ __forceinline__ void spin_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n.reg .pred p;\n.reg .u64 t0, t1;\n"
-      "mov.u64 t0, %%clock64;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@p bra.uni DONE;\n"
-      "mov.u64 t1, %%clock64;\n"
-      "sub.u64 t1, t1, t0;\n"
-      "setp.gt.u64 p, t1, 34359738368;\n"
-      "@p trap;\n"
-      "bra.uni WAIT;\n"
-      "DONE:\n}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-
 // slab g has landed; returns its slot
 __device__ __forceinline__ int wait_slab(const Ctx& cx, int g) {
   const int s = g % kStages;
@@ -424,28 +388,6 @@ __device__ __forceinline__ void fill(const Ctx& cx, int g) {
 __device__ __forceinline__ void release_slab(const Ctx& cx, int g) {
   named_bar_sync(kBar, kTileThreads);
   fill(cx, g + kStages);
-}
-
-template <int N>
-__device__ __forceinline__ void keep_regs(uint32_t (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
-}
-
-// The A fragment of one k8 step, split: register j holds row r + 8 (j % 2)
-// at K position t%4 + 4 (j / 2), i.e. feature c (j < 2) or c + 1, c = the
-// 8-group's 2 (t % 4).
-__device__ __forceinline__ void load_a(const Buf& b, int r, int c, uint32_t (&hi)[4],
-                                       uint32_t (&lo)[4]) {
-  const float2 u = *reinterpret_cast<const float2*>(at(b, r, c));
-  const float2 v = *reinterpret_cast<const float2*>(at(b, r + 8, c));
-  const float x[4] = {u.x, v.x, u.y, v.y};
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const float h = tf32_round(x[j]);
-    hi[j] = __float_as_uint(h);
-    lo[j] = __float_as_uint(tf32_round(x[j] - h));
-  }
 }
 
 // tot[cg] += A . B for nkb K-blocks of A (from `a`) and, per K-block, the
@@ -723,12 +665,7 @@ __device__ __forceinline__ void run_step(const int* st, int pass, int l, const R
 }
 
 // ---- the encoder walks ----
-// Four threads a pose, its four neighbouring lanes of a warp (pose t / 4,
-// part r = t % 4; a warp holds 8 poses), as the field kernels' walks: part
-// r sums the hidden units (then the features, and in the reverse walk the
-// rows) r, r + 4, ..., one FMA a term in index order from rows in shared
-// memory read as float4 (each load feeding four FMAs), and the pose's four
-// parts trade units by shuffles, so a joint needs no CTA barrier: its
+// Four threads a pose (tc_tile.cuh), as the field kernels' walks: a joint's
 // features (in the reverse walk its parent's code gradient, in the e-chain
 // its code e-cotangent) stay in the pose's row of x, read by the same warp
 // after a __syncwarp. Each walk first stages the rows it reads from the
@@ -740,30 +677,12 @@ __device__ __forceinline__ void run_step(const int* st, int pass, int l, const R
 // rows stay in the CTA's global scratch, each pose's written and read by its
 // own lanes, the loads of the joint two ahead issued before this joint's
 // arithmetic; act'(z) of every unit also stays in shared memory as one bit
-// a pose (enc_keep), which the reverse walk and the e-chain read, so only
-// the e-chain reads pre-activations back, for the values act(z).
+// a pose (enc_keep_bits), which the reverse walk and the e-chain read, so
+// only the e-chain reads pre-activations back, for the values act(z).
 // The encoder's weight gradient is summed after the e-chain's walk, behind
-// one barrier. kF: the feature width at compile time (6, the SMPL fields'),
-// or 0 for any width at run time.
-
-// the widths of the staged rows: the forward's, R = 4 ceil((E + 1) / 4)
-// (E weights, the bias, zeros); the reverse walk's W2 and W1 rows, RF = 4
-// ceil(F / 4) and RE = 4 ceil(E / 4); the e-chain's forward rows without the
-// bias, RE
-constexpr int kWalkF = 6;   // the feature width the walks take at compile time
-
-template <int kF>
-struct Walk {
-  int F, E, U, R, RF, RE;
-  __device__ __forceinline__ explicit Walk(const Args& a) {
-    F = kF > 0 ? kF : a.F;
-    E = 4 + F;
-    U = E + F;
-    R = round4(E + 1);
-    RF = round4(F);
-    RE = round4(E);
-  }
-};
+// one barrier. The staged rows are tc_tile::Walk's: the forward's R wide,
+// the reverse walk's W2 and W1 rows RF and RE, the e-chain's forward rows
+// without the bias RE.
 
 // the rows of each walk, and the reverse and the e-chain's beside gx, fit
 // the ring's space at the widest J and F
@@ -830,65 +749,11 @@ __device__ __forceinline__ void stage_rows(float* dst, const Args& a, const Walk
   });
 }
 
-// z = sum_{i < n} in[i] row[i] in order from 0 (one FMA a term), then, with
-// `bias`, + row[n]; the row (in shared memory) read as float4
-template <int N>
-__device__ __forceinline__ float walk_dot(const float (&in)[N], const float* row, int n, bool bias) {
-  const float4* r4 = reinterpret_cast<const float4*>(row);
-  float z = 0.f;
-#pragma unroll
-  for (int c = 0; c < (N + 4) / 4; ++c) {
-    if (4 * c < n + (bias ? 1 : 0)) {   // a float4 the row holds
-      const float4 v = r4[c];
-      const float f[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = 4 * c + e;
-        if (i < N && i < n) z = fmaf(in[i], f[e], z);
-        else if (bias && i == n) z += f[e];
-      }
-    }
-  }
-  return z;
-}
-
-// the value of unit u from the pose's part u % 4 (each part passing its slot
-// u / 4); every lane of the warp calls this
-template <int kSlots>
-__device__ __forceinline__ float from_part(const float (&mine)[kSlots], int u) {
-  return __shfl_sync(0xffffffffu, mine[u / 4], (threadIdx.x & 28) | (u & 3));
-}
-
-// act'(z) of unit u of J (E + F) (joint j's hidden units, then its
-// features) of pose p: bit p % 8 of byte 8u + p / 8 (a warp's 8 poses);
-// act_grad_bit of it is act_grad of the pre-activation, for every z
-template <int kAct>
-__device__ __forceinline__ float enc_slope(const unsigned char* bits, int u, int p) {
-  return act_grad_bit(kAct, (bits[8 * u + p / 8] >> (p % 8)) & 1u);
-}
-
-// keep act'(z) of units u0 + 4 i + r (r the part, i < kSlots, those below n)
-// of the pose, pre-activations z[i]: a ballot of the warp a slot, its lanes
-// 0-3 each storing the byte of one unit. Every lane of the warp calls this.
-template <int kAct, int kSlots>
-__device__ __forceinline__ void enc_keep(unsigned char* bits, int u0, int n,
-                                         const float (&z)[kSlots]) {
-  const int t = threadIdx.x, r = t % 4, lane = t % 32;
-#pragma unroll
-  for (int i = 0; i < kSlots; ++i) {
-    const uint32_t b = __ballot_sync(0xffffffffu, r + 4 * i < n && act_bit(kAct, z[i]));
-    uint32_t v = 0;   // lane l < 4: bit 4 pp + l of each pose pp of the warp
-#pragma unroll
-    for (int pp = 0; pp < 8; ++pp) v |= ((b >> (4 * pp + (lane & 3))) & 1u) << pp;
-    if (lane < 4 && 4 * i + lane < n) bits[8 * (u0 + 4 * i + lane) + t / 32] = static_cast<unsigned char>(v);
-  }
-}
-
 // Input normalization (noisy branch; the manifold rows go in as they are)
 // and encoder walk of the CTA's 64 poses into the code x (64, D0), four
 // threads a pose (above), from the forward's rows (and the CTA's poses,
 // where they fit) staged in the ring's space wr. The pre-activations go to
-// ez[(j (E + F) + o) 64 + pose] and their act' to ezb (enc_keep), the
+// ez[(j (E + F) + o) 64 + pose] and their act' to ezb (enc_keep_bits), the
 // norms and squared sums to the scalars. Ends with a named barrier after an
 // async-proxy fence: x holds the code, and the ring's copies may overwrite
 // wr.
@@ -902,7 +767,7 @@ __device__ __forceinline__ void encode(const Args& a, int row0, const Buf& x, in
   const int E = w.E, F = w.F, U = w.U;
   // the rows, then the CTA's poses (p, j) as float4 nf / 4 + p J + j, zeros
   // past B, where they fit
-  const int nf = J * U * w.R;
+  const int nf = J * U * w.R;   // w.nf here changes the tile's SASS
   stage_columns(wr, a, w, w.R, true);
   const bool staged = nf + kRows * J * 4 <= kRingFloats;
   float* qs = wr + nf;
@@ -967,7 +832,7 @@ __device__ __forceinline__ void encode(const Args& a, int row0, const Buf& x, in
       if (u < E) zj[u * kRows] = z[i];
       mine[i] = act_fwd(kAct, 0.f, z[i]);
     }
-    enc_keep<kAct>(ezb, j * U, E, z);
+    enc_keep_bits<kAct>(ezb, j * U, E, z);
     float h[kMaxE];
 #pragma unroll
     for (int u = 0; u < kMaxE; ++u) h[u] = u < E ? from_part(mine, u) : 0.f;
@@ -981,7 +846,7 @@ __device__ __forceinline__ void encode(const Args& a, int row0, const Buf& x, in
         *at(x, p, j * F + k) = act_fwd(kAct, 0.f, zf[i]);
       }
     }
-    enc_keep<kAct>(ezb, j * U + E, F, zf);
+    enc_keep_bits<kAct>(ezb, j * U + E, F, zf);
     __syncwarp();
   }
   fence_proxy_async();   // the staged rows and poses, before the ring's copies overwrite them
@@ -1389,8 +1254,8 @@ __global__ void __launch_bounds__(kTileThreads, 1)
   const int nv = min(kRows, a.B - row0);
   const int J = a.J, F = a.F, E = 4 + F;
   const int* head = a.prog;
-  const int nfwd_steps = __ldg(head), nbwd_steps = __ldg(head + 1);
-  const int zsum = __ldg(head + 7);
+  const int nfwd_steps = prog_nfwd(head), nbwd_steps = prog_nbwd(head);
+  const int zsum = prog_zsum(head);
   const int n = a.L - 1;   // DFNet products on the tensor cores: layers 0 .. n - 1
   const Buf x{xs, kXMax}, cb{cs, kChunk};
   const Rows rows{&a, lay, lay + kMaxL, lay + 2 * kMaxL, lay + 3 * kMaxL, row0};
@@ -1409,12 +1274,12 @@ __global__ void __launch_bounds__(kTileThreads, 1)
     run_step<kAct>(step, kForward, l, rows, x, cb, a.vec, bits, nv, dd, cx);
     l += __ldg(step) ? 2 : 1;
   }
-  const int K = __ldg(head + 3);
-  const float* wl = a.vec + __ldg(head + 4);
-  output_layer(a, row0, x, K, wl, __ldg(a.vec + __ldg(head + 5)), cs, scal,
+  const int K = prog_K(head);
+  const float* wl = a.vec + prog_w_out(head);
+  output_layer(a, row0, x, K, wl, __ldg(a.vec + prog_b_out(head)), cs, scal,
                rows.c_rows(a.L - 1));
   // ---- inner pullback with a unit cotangent: every c_l to the scratch ----
-  pullback_start<kAct>(x, K, wl, bits + 4 * __ldg(head + 6), scal, cx);
+  pullback_start<kAct>(x, K, wl, bits + 4 * prog_z_last(head), scal, cx);
   to_sink(Sink{rows.c_rows(n - 1), rows.out[n - 1], false}, 0, x, K, nv, dd);
   for (int i = 0, l = n - 1; i < nbwd_steps; ++i, step += kStep) {
     run_step<kAct>(step, kPullback, l, rows, x, cb, a.vec, bits, nv, dd, cx);

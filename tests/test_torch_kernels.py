@@ -12,6 +12,8 @@ multiple of the JAX tile of 128) and a zero pose. Bars as in
 projections.
 """
 
+import re
+
 import numpy as np
 import pytest
 
@@ -187,6 +189,35 @@ def test_build_needs_nvcc_and_keys_on_the_source(monkeypatch):
             assert f"{name}(" in src, name
         assert _build._target(lib).name.startswith(f"{lib}_")
     assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
+
+
+@pytest.mark.parametrize("lib", sorted(_build.SOURCES))
+def test_every_included_header_keys_the_build(lib):
+    """Each header a source includes, and each one those include, is in
+    ``_build.HEADERS``, whose bytes the library's hash covers: an edited
+    header rebuilds every library, a stale one is never loaded."""
+    seen, todo = set(), [_build.SOURCES[lib]]
+    while todo:
+        for name in re.findall(r'^#include "([^"]+)"', todo.pop().read_text(), re.M):
+            path = _build.CSRC / name
+            assert path in _build.HEADERS, (lib, name)
+            if path not in seen:
+                seen.add(path)
+                todo.append(path)
+    assert _build.CSRC / "common.cuh" in seen
+
+
+@pytest.mark.parametrize("lib", ["int8", "field", "train", "knn"])
+def test_breakdown_cuts_match_the_sources(lib):
+    """Every variant of ``python -m posendf_torch.ops.breakdown`` finds the
+    statements its cuts replace in the library's source (a cut that no
+    longer matches stops the tool on the card)."""
+    from posendf_torch.ops import breakdown
+
+    assert set(breakdown.VARIANTS) == set(_build.SOURCES)
+    base = _build.SOURCES[lib].read_text()
+    for name, cuts in breakdown.VARIANTS[lib].items():
+        assert (breakdown.variant_source(lib, name) == base) == (not cuts), name
 
 
 def test_fused_forward_backward_is_the_module_gradient():
