@@ -16,7 +16,7 @@ completion and image fitting, with the port's two examples:
      activations, each on the 3xTF32 and the bf16 ``wgmma`` route:
      registers, spills, shared memory); here and in phases 7, 11 and 14 a
      wgmma kernel whose products ptxas serializes fails the run, but for the
-     two of ``SERIALIZED_KNOWN`` (PERF.md section 7)
+     kNN bound engine's (``SERIALIZED_KNOWN``; PERF.md section 7)
   3. load: ``posendf_torch.load_field(ckpt, device="cuda")``
   4. kernel vs plain on the card, at B = 4096 and a ragged B = 1000
      (every tile split across a cluster of two CTAs):
@@ -561,10 +561,11 @@ WGMMA_KERNELS = {"field": ("field_kernel",),                             # by li
                  "train": ("train_tile_kernel", "train_reduce_kernel"),
                  "knn": ("knn_bound_kernel", "knn_pack_kernel", "knn_joint_kernel",
                          "knn_pack_joint_kernel")}
-# wgmma kernels whose products ptxas serializes (C7518: its dependence barrier
-# in a divergent path; its cost is an open question, PERF.md section 7); any
-# other fails the run
-SERIALIZED_KNOWN = ("train_reduce_kernel", "knn_bound_kernel")
+# wgmma kernels whose products ptxas serializes (C7518: "program dependence
+# on compiler-inserted WG.DP in divergent path"; its cost is an open
+# question, PERF.md section 7); any other fails the run, the training
+# reduction's included
+SERIALIZED_KNOWN = ("knn_bound_kernel",)
 DENOISE_EXPECTED = "tests/data/torch_port_denoise_expected.npz"
 SMPL_VERTICES = 6890                     # SMPL's mesh: the skinning as large as a real solve's
 GRID_FAMILY_SEED, GRID_LATENTS, GRID_FREQ = 123, 8, (0.5, 1.2)   # the L8 field's manifold

@@ -126,6 +126,31 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// The same copies as predicated instructions, with no branch around them:
+// nothing is copied where `go` is false (a wgmma group in flight around such
+// a copy meets no divergent path)
+__device__ __forceinline__ void cp_async16_if(uint32_t dst, const void* src, uint32_t src_bytes,
+                                              bool go) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.u32 p, %0, 0;\n"
+      "@p cp.async.cg.shared.global [%1], [%2], 16, %3;\n"
+      "}\n" ::"r"(static_cast<uint32_t>(go)),
+      "r"(dst), "l"(src), "r"(src_bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void cp_async4_if(uint32_t dst, const void* src, uint32_t src_bytes,
+                                             bool go) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.u32 p, %0, 0;\n"
+      "@p cp.async.ca.shared.global [%1], [%2], 4, %3;\n"
+      "}\n" ::"r"(static_cast<uint32_t>(go)),
+      "r"(dst), "l"(src), "r"(src_bytes)
+      : "memory");
+}
+
 // ---- barriers and fences inside a CTA ----
 
 __device__ __forceinline__ void named_bar_sync(uint32_t id, uint32_t threads) {

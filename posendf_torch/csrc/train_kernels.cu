@@ -110,6 +110,8 @@
 #include "hopper.cuh"
 #include "tc_tile.cuh"
 
+#include <type_traits>
+
 namespace {
 
 using namespace posendf;
@@ -1347,11 +1349,11 @@ __global__ void __launch_bounds__(kTileThreads, 1)
 //    each own 64 rows of the tile, copy, split and issue 12 wgmmas a step
 //    (a producer warpgroup of its own, with both operands split into shared
 //    memory, was measured slower on an H100: PERF.md). Step g's products
-//    read one of two B slots and one of two register fragments, so step
-//    g + 1's copies and splits overlap them. The accumulators start anew
-//    every kFold steps and are then added to totals in registers with IEEE
-//    adds: the tensor cores' fp32 accumulation rounds otherwise than an IEEE
-//    add, so its error spans kFold steps only.
+//    read one of two B slots, so step g + 1's B split overlaps them, and A's
+//    split waits for them (reduce_tile). The accumulators start anew every
+//    kFold steps and are then added to totals in registers with IEEE adds:
+//    the tensor cores' fp32 accumulation rounds otherwise than an IEEE add,
+//    so its error spans kFold steps only.
 //  * The bias row db = dd^T C: the threads that split B in a layer's first
 //    row tile sum dd[r] c[r][o] for their column and half of each step's
 //    rows on the CUDA cores (fp32 FMAs), the two halves added in order at
@@ -1401,23 +1403,30 @@ struct ReduceArgs {
 
 // Copies of the step's kRK rows x `cols` columns (row stride `ld` floats)
 // from `src` into a raw (kRK, ldr) fp32 tile, zeros where a row is past
-// nrows or a column past cols; 16-byte copies where `vec` (cols and ld
-// multiples of 4, src 16-byte aligned), else 4-byte copies. Thread t of the
-// CTA's kRThreads.
+// nrows or a column past cols. Thread t of the CTA's kRThreads. kVec
+// (cols and ld multiples of 4, src 16-byte aligned): 16-byte copies, thread
+// t the 16-byte chunks t % 8 + 8 j of row t / 8, so a thread's four copies
+// share one row address (a past-the-end row reads row nrows - 1's address
+// for no bytes); else 4-byte copies, thread t column t % kRM of every other
+// row.
+template <bool kVec>
 __device__ __forceinline__ void copy_raw(uint32_t dst, int ldr, const float* src, int ld, int cols,
-                                         int k0, int nrows, bool vec, int t) {
-  if (vec) {
+                                         int k0, int nrows, int t) {
+  if constexpr (kVec) {
+    constexpr int kChunks = kRM / 4 / 8;   // a thread's chunks of its row
+    static_assert(kRK * 8 == kRThreads && kChunks == 4, "a row a group of 8 threads");
+    const int row = t / 8, c = 4 * (t % 8);
+    const bool ok = k0 + row < nrows;
+    const float* s = src + static_cast<size_t>(min(k0 + row, nrows - 1)) * ld + c;
+    const uint32_t d = dst + (row * ldr + c) * 4;
 #pragma unroll
-    for (int j = 0; j < kRK * kRM / 4 / kRThreads; ++j) {
-      const int e = t + kRThreads * j, row = e / (kRM / 4), c = 4 * (e % (kRM / 4));
-      const bool ok = k0 + row < nrows && c < cols;
-      cp_async16(dst + (row * ldr + c) * 4,
-                 ok ? src + static_cast<size_t>(k0 + row) * ld + c : src, ok ? 16 : 0);
-    }
+    for (int j = 0; j < kChunks; ++j)
+      cp_async16(d + 128 * j, s + 32 * j, ok && c + 32 * j < cols ? 16 : 0);
   } else {
     const int col = t % kRM;
-#pragma unroll 4
-    for (int row = t / kRM; row < kRK; row += kRThreads / kRM) {
+#pragma unroll
+    for (int j = 0; j < kRK * kRM / kRThreads; ++j) {
+      const int row = t / kRM + (kRThreads / kRM) * j;
       const bool ok = k0 + row < nrows && col < cols;
       cp_async4(dst + (row * ldr + col) * 4,
                 ok ? src + static_cast<size_t>(k0 + row) * ld + col : src, ok ? 4 : 0);
@@ -1425,40 +1434,142 @@ __device__ __forceinline__ void copy_raw(uint32_t dst, int ldr, const float* src
   }
 }
 
+// B: column tw of the step's rows 16 half .. 16 half + 15, split into the
+// slot at `hi` (hi | lo, kROp bytes apart) in the K-major 128-byte swizzle;
+// returns the column's sum of dd[r] c[r] over those rows (fp32 FMAs in row
+// order).
+__device__ __forceinline__ float split_b(const float* rc, const float* rd, unsigned char* hi,
+                                         int tw, int half) {
+  float b = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {   // rows 4 q .. 4 q + 3
+    const int q = 4 * half + i;
+    const float4 d4 = reinterpret_cast<const float4*>(rd)[q];
+    const float dq[4] = {d4.x, d4.y, d4.z, d4.w};
+    float v[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      v[u] = rc[(4 * q + u) * kRM + tw];
+      b = fmaf(dq[u], v[u], b);
+    }
+    const int off = sw128_offset(tw, 16 * q);
+    const float h0 = tf32_round(v[0]), h1 = tf32_round(v[1]), h2 = tf32_round(v[2]),
+                h3 = tf32_round(v[3]);
+    *reinterpret_cast<float4*>(hi + off) = make_float4(h0, h1, h2, h3);
+    *reinterpret_cast<float4*>(hi + kROp + off) =
+        make_float4(tf32_round(v[0] - h0), tf32_round(v[1] - h1), tf32_round(v[2] - h2),
+                    tf32_round(v[3] - h3));
+  }
+  return b;
+}
+
+// A: the thread's 16 values of the step's rows, times dd where `scale` (the
+// manifold branch); x[kk][j] is (fm + 8 (j % 2), 8 kk + fk + 4 (j / 2)),
+// register j of k8 step kk's fragment.
+__device__ __forceinline__ void load_a(const float* ra, const float* rd, bool scale, int fm, int fk,
+                                       float (&x)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {   // rows k = 8 kk + fk + 4 h: registers 2 h, 2 h + 1
+      const int k = 8 * kk + fk + 4 * h;
+      float v0 = ra[k * kRawA + fm], v1 = ra[k * kRawA + fm + 8];
+      if (scale) {
+        const float d = rd[k];
+        v0 *= d;
+        v1 *= d;
+      }
+      x[kk][2 * h] = v0;
+      x[kk][2 * h + 1] = v1;
+    }
+  }
+}
+
+// k8 step KK of A split into its fragment registers (hi, lo), once the
+// previous step's products of k8 step KK, which read them, are done (a step
+// commits one wgmma group a k8 step, so wgmma_wait<3 - KK>), and before the
+// next k8 step's wait.
+template <int KK>
+__device__ __forceinline__ void split_a(float (&x)[4], uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+  wgmma_wait<3 - KK>();
+  fence_regs(x);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float h = tf32_round(x[j]);
+    hi[j] = __float_as_uint(h);
+    lo[j] = __float_as_uint(tf32_round(x[j] - h));
+  }
+  tc_tile::keep_regs(hi);
+  tc_tile::keep_regs(lo);
+}
+
+// The step's 12 products into acc, one commit group a k8 step: B hi | lo
+// at b_hi | b_lo, the small terms first; `fresh`: the first product
+// overwrites acc.
+template <int NT>
+__device__ __forceinline__ void step_products(float (&acc)[NT / 2], const uint32_t (&af)[4][2][4],
+                                              uint32_t b_hi, uint32_t b_lo, bool fresh) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    wgmma_tf32_rs<NT>(acc, af[kk][1], desc_sw128(b_hi + kk * 32), !(fresh && kk == 0));
+    wgmma_tf32_rs<NT>(acc, af[kk][0], desc_sw128(b_lo + kk * 32), 1);
+    wgmma_tf32_rs<NT>(acc, af[kk][0], desc_sw128(b_hi + kk * 32), 1);
+    wgmma_commit();
+  }
+}
+
 // The CTA's tile: A and C point at the range's first row, at the tile's
 // first column (acols / ccols of them are in the layer); dd at the range's
 // first row; `scale`: A's rows times dd (the manifold branch); `bias`: the
-// tile's column block of db into bias_dst.
-template <int NT>
+// tile's column block of db into bias_dst. kVec: A's, C's and dd's rows take
+// 16-byte copies.
+//
+// The pipeline, one CTA barrier a step: step g splits A into the fragment
+// registers k8 step by k8 step, each once step g - 1's products of that k8
+// step are done (one wgmma commit group a k8 step); after the barrier it
+// issues its 12 products and, while they run, splits step g + 1's B into the
+// other B slot. Nothing branches while products are in flight and every
+// wgmma wait's depth is fixed when the code is compiled: ptxas serializes
+// the products of a pipeline it cannot follow. The steps go in fold groups
+// of kFold, unrolled, so that every slot is fixed by the step's position p in
+// its group (raw slots p % kRaw and (p + 1) % kRaw, B slots p % kRStages and
+// (p + 1) % kRStages); a group's last step waits for its products and folds
+// the accumulator into the totals (IEEE adds). A range's last group runs
+// whole: its steps past `steps` (and the one B split past it) read rows that
+// the copies zero-fill, whose products add exact zeros to the group's
+// accumulator and whose bias terms are zeros, so every sum is that of the
+// steps alone.
+template <int NT, bool kVec>
 __device__ __forceinline__ void reduce_tile(unsigned char* ring, float* raw, float* bsum,
                                             int steps, int nrows, const float* A, int in,
                                             int acols, const float* C, int out, int ccols,
                                             const float* dd, bool scale, bool bias, float* dst,
                                             float* bias_dst, int i0, int o0) {
+  static_assert(kFold % kRaw == 0 && kFold % kRStages == 0 && kRaw == 4,
+                "a fold group's slots are fixed by its positions; rows of steps g .. g + 3");
   const int t = threadIdx.x, wg = t / 128, tw = t % 128, half = t / 128;
-  const bool vec_a = in % 4 == 0 && reinterpret_cast<uintptr_t>(A) % 16 == 0;
-  const bool vec_c = out % 4 == 0 && reinterpret_cast<uintptr_t>(C) % 16 == 0;
-  const bool vec_d = reinterpret_cast<uintptr_t>(dd) % 16 == 0;
   const uint32_t raw_u = smem_u32(raw);
-  auto issue = [&](int g) {
-    if (g < steps) {
-      const uint32_t dst_u = raw_u + (g % kRaw) * kRawFloats * 4;
-      const int k0 = g * kRK;
-      copy_raw(dst_u, kRawA, A, in, acols, k0, nrows, vec_a, t);
-      copy_raw(dst_u + kRK * kRawA * 4, kRM, C, out, ccols, k0, nrows, vec_c, t);
-      if (t < kRK / 4) {
-        const int k = k0 + 4 * t;
-        const int n = max(0, min(4, nrows - k));
-        const uint32_t d_u = dst_u + (kRK * kRawA + kRK * kRM + 4 * t) * 4;
-        if (vec_d) {
-          cp_async16(d_u, n > 0 ? dd + k : dd, 4 * n);
-        } else {
-          for (int u = 0; u < 4; ++u) cp_async4(d_u + 4 * u, u < n ? dd + k + u : dd, u < n ? 4 : 0);
-        }
-      }
+  // step g's rows into raw slot `slot` (g % kRaw), one commit group
+  auto issue = [&](int g, int slot) {
+    const uint32_t dst_u = raw_u + slot * kRawFloats * 4;
+    const int k0 = g * kRK;
+    copy_raw<kVec>(dst_u, kRawA, A, in, acols, k0, nrows, t);
+    copy_raw<kVec>(dst_u + kRK * kRawA * 4, kRM, C, out, ccols, k0, nrows, t);
+    const int q = t % (kRK / 4), k = k0 + 4 * q;   // dd: kRK / 4 threads, 4 rows each
+    const int n = max(0, min(4, nrows - k));
+    const uint32_t d_u = dst_u + (kRK * kRawA + kRK * kRM + 4 * q) * 4;
+    const bool gd = t < kRK / 4;
+    if constexpr (kVec) {
+      cp_async16_if(d_u, n > 0 ? dd + k : dd, 4 * n, gd);
+    } else {
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        cp_async4_if(d_u + 4 * u, u < n ? dd + k + u : dd, u < n ? 4 : 0, gd);
     }
-    cp_async_commit();   // one group a step, empty past the last
+    cp_async_commit();
   };
+  auto rows = [&](int slot) { return raw + slot * kRawFloats; };   // A (32, kRawA) | C | dd
+  auto bslot = [&](int s) { return ring + s * kRSlot; };
 
   float acc[NT / 2], tot[NT / 2];
 #pragma unroll
@@ -1467,80 +1578,52 @@ __device__ __forceinline__ void reduce_tile(unsigned char* ring, float* raw, flo
   const bool sums_bias = bias && tw < ccols;
   // the thread's A fragment rows (of the tile) and K offsets within a k8 step
   const int fm = 64 * wg + 16 * ((t % 128) / 32) + (t % 32) / 4, fk = t % 4;
+  uint32_t af[4][2][4];   // A fragments: hi and lo of 4 k8 steps
 
-  // step g: A fragments into af (hi and lo of 4 k8 steps), B into its slot,
-  // then the 12 products
-  auto step = [&](int g, uint32_t(&af)[4][2][4]) {
-    cp_async_wait<kRaw - 2>();
-    // step g's rows have landed (every thread's copies); step g - 1's raw
-    // rows are read, and the products of step g - 2 (B slot g % 2, these
-    // registers) are done
+  // step g = g0 + P (P = pos, its place in the fold group)
+  auto step = [&](auto pos, int g0) {
+    constexpr int P = decltype(pos)::value;
+    cp_async_wait<kRaw - 3>();   // this thread's copies of step g + 1's rows have landed
+    const float* ra = rows(P % kRaw);
+    float x[4][4];
+    load_a(ra, ra + kRK * kRawA + kRK * kRM, scale, fm, fk, x);
+    split_a<0>(x[0], af[0][0], af[0][1]);
+    split_a<1>(x[1], af[1][0], af[1][1]);
+    split_a<2>(x[2], af[2][0], af[2][1]);
+    split_a<3>(x[3], af[3][0], af[3][1]);
+    // step g's B is in its slot (every thread's split, fenced); step g - 1's
+    // products are done (B slot (P + 1) % 2 free) and its rows read (raw slot
+    // (P + 3) % 4 free); step g + 1's rows have landed
     __syncthreads();
-    issue(g + kRaw - 1);
-    const float* ra = raw + (g % kRaw) * kRawFloats;
-    const float* rc = ra + kRK * kRawA;
-    const float* rd = rc + kRK * kRM;
-    unsigned char* hi = ring + (g % kRStages) * kRSlot;
-    float b = 0.f;
-#pragma unroll
-    for (int q = 4 * half; q < 4 * half + 4; ++q) {   // B: column tw, rows 4 q .. 4 q + 3
-      const float4 d4 = reinterpret_cast<const float4*>(rd)[q];
-      const float dq[4] = {d4.x, d4.y, d4.z, d4.w};
-      float v[4];
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        v[u] = rc[(4 * q + u) * kRM + tw];
-        if (sums_bias) b = fmaf(dq[u], v[u], b);
-      }
-      const int off = sw128_offset(tw, 16 * q);
-      const float h0 = tf32_round(v[0]), h1 = tf32_round(v[1]), h2 = tf32_round(v[2]),
-                  h3 = tf32_round(v[3]);
-      *reinterpret_cast<float4*>(hi + off) = make_float4(h0, h1, h2, h3);
-      *reinterpret_cast<float4*>(hi + kROp + off) =
-          make_float4(tf32_round(v[0] - h0), tf32_round(v[1] - h1), tf32_round(v[2] - h2),
-                      tf32_round(v[3] - h3));
-    }
-    btot += b;
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {   // A: register j is (fm + 8 (j % 2), 8 kk + fk + 4 (j / 2))
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int k = 8 * kk + fk + 4 * (j / 2);
-        float v = ra[k * kRawA + fm + 8 * (j % 2)];
-        if (scale) v *= rd[k];
-        const float h = tf32_round(v);
-        af[kk][0][j] = __float_as_uint(h);
-        af[kk][1][j] = __float_as_uint(tf32_round(v - h));
-      }
-    }
-    fence_proxy_async();
-    __syncthreads();   // B slot g % 2 holds step g's B
-    const uint32_t b_hi = smem_u32(hi), b_lo = b_hi + kROp;
-    const bool fresh = g % kFold == 0;
+    issue(g0 + P + kRaw - 1, (P + kRaw - 1) % kRaw);
+    const uint32_t b_hi = smem_u32(bslot(P % kRStages)), b_lo = b_hi + kROp;
     wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      // the small terms first
-      wgmma_tf32_rs<NT>(acc, af[kk][1], desc_sw128(b_hi + kk * 32), !(fresh && kk == 0));
-      wgmma_tf32_rs<NT>(acc, af[kk][0], desc_sw128(b_lo + kk * 32), 1);
-      wgmma_tf32_rs<NT>(acc, af[kk][0], desc_sw128(b_hi + kk * 32), 1);
-    }
-    wgmma_commit();
-    if (g % kFold == kFold - 1 || g == steps - 1) {
+    step_products<NT>(acc, af, b_hi, b_lo, P == 0);
+    // step g + 1's B while step g's products run
+    const float* rn = rows((P + 1) % kRaw);
+    btot += split_b(rn + kRK * kRawA, rn + kRK * kRawA + kRK * kRM, bslot((P + 1) % kRStages),
+                    tw, half);
+    fence_proxy_async();
+    if constexpr (P == kFold - 1) {   // the group's sums into tot
       wgmma_wait<0>();
       fence_regs(acc);
 #pragma unroll
       for (int i = 0; i < NT / 2; ++i) tot[i] += acc[i];
-    } else {
-      wgmma_wait<1>();   // step g's products run on while step g + 1 is staged
     }
   };
-  uint32_t af0[4][2][4], af1[4][2][4];   // the register fragments of even and odd steps
-  for (int g = 0; g < kRaw - 1; ++g) issue(g);
-  for (int g = 0; g < steps; g += 2) {
-    step(g, af0);
-    if (g + 1 < steps) step(g + 1, af1);
+  for (int g = 0; g < kRaw - 1; ++g) issue(g, g);
+  cp_async_wait<kRaw - 2>();   // step 0's rows
+  __syncthreads();
+  btot += split_b(rows(0) + kRK * kRawA, rows(0) + kRK * kRawA + kRK * kRM, bslot(0), tw, half);
+  fence_proxy_async();
+  for (int g0 = 0; g0 < steps; g0 += kFold) {
+    step(std::integral_constant<int, 0>(), g0);
+    step(std::integral_constant<int, 1>(), g0);
+    step(std::integral_constant<int, 2>(), g0);
+    step(std::integral_constant<int, 3>(), g0);
   }
+  static_assert(kFold == 4, "the group above is written out for kFold = 4");
+  cp_async_wait<0>();   // the zero rows copied past the last group
   // db: the second half's sums to shared memory, then the first half adds them
   if (half == 1) bsum[tw] = btot;
   __syncthreads();
@@ -1556,9 +1639,30 @@ __device__ __forceinline__ void reduce_tile(unsigned char* ring, float* raw, flo
   }
 }
 
+// reduce_tile with its copies chosen: 16-byte where A's, C's and dd's rows
+// allow them (their widths multiples of 4, their rows 16-byte aligned)
+template <int NT>
+__device__ __forceinline__ void reduce_tile_any(unsigned char* ring, float* raw, float* bsum,
+                                                int steps, int nrows, const float* A, int in,
+                                                int acols, const float* C, int out, int ccols,
+                                                const float* dd, bool scale, bool bias,
+                                                float* dst, float* bias_dst, int i0, int o0) {
+  const bool vec = in % 4 == 0 && out % 4 == 0 && reinterpret_cast<uintptr_t>(A) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(C) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(dd) % 16 == 0;
+  if (vec)
+    reduce_tile<NT, true>(ring, raw, bsum, steps, nrows, A, in, acols, C, out, ccols, dd, scale,
+                          bias, dst, bias_dst, i0, o0);
+  else
+    reduce_tile<NT, false>(ring, raw, bsum, steps, nrows, A, in, acols, C, out, ccols, dd, scale,
+                           bias, dst, bias_dst, i0, o0);
+}
+
 __global__ void __launch_bounds__(kRThreads, 1) train_reduce_kernel(const ReduceArgs a) {
   extern __shared__ unsigned char smem_raw[];
-  unsigned char* ring = align1024(smem_raw);
+  // 1024-aligned as align1024 would, but as an offset into smem_raw, so that
+  // the compiler keeps the shared window (LDS / STS, 32-bit addresses)
+  unsigned char* ring = smem_raw + (1024 - smem_u32(smem_raw) % 1024) % 1024;
   float* raw = reinterpret_cast<float*>(ring + kRStages * kRSlot);
   float* bsum = raw + kRaw * kRawFloats;
 
@@ -1593,14 +1697,14 @@ __global__ void __launch_bounds__(kRThreads, 1) train_reduce_kernel(const Reduce
   // B columns past out are zeros; past nt they are not read
   const int acols = min(kRM, in - i0), ccols = min(nt, out - o0);
   if (nt == 128)
-    reduce_tile<128>(ring, raw, bsum, steps, nrows, A, in, acols, C, out, ccols,
-                     a.dd[seg] + r_begin, seg == 1, i0 == 0, dst, bias_dst, i0, o0);
+    reduce_tile_any<128>(ring, raw, bsum, steps, nrows, A, in, acols, C, out, ccols,
+                         a.dd[seg] + r_begin, seg == 1, i0 == 0, dst, bias_dst, i0, o0);
   else if (nt == 64)
-    reduce_tile<64>(ring, raw, bsum, steps, nrows, A, in, acols, C, out, ccols,
-                    a.dd[seg] + r_begin, seg == 1, i0 == 0, dst, bias_dst, i0, o0);
+    reduce_tile_any<64>(ring, raw, bsum, steps, nrows, A, in, acols, C, out, ccols,
+                        a.dd[seg] + r_begin, seg == 1, i0 == 0, dst, bias_dst, i0, o0);
   else
-    reduce_tile<8>(ring, raw, bsum, steps, nrows, A, in, acols, C, out, ccols,
-                   a.dd[seg] + r_begin, seg == 1, i0 == 0, dst, bias_dst, i0, o0);
+    reduce_tile_any<8>(ring, raw, bsum, steps, nrows, A, in, acols, C, out, ccols,
+                       a.dd[seg] + r_begin, seg == 1, i0 == 0, dst, bias_dst, i0, o0);
 }
 
 struct SumArgs {

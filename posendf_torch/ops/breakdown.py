@@ -68,6 +68,21 @@ of the trained field, the main path's training batch):
                too: the weight ring alone (three passes a noisy CTA, two a
                manifold one, with the output layer and the loss)
 
+and its reduction (``fused_train.launch_reduce`` on the tile kernel's
+output of the same batch: ``train_reduce_kernel`` and its range sums):
+
+  ``rnomma``   the reduction's 12 products a step cut to m64n8 slivers of
+               them (1/16 of the work, an NT = 8 tile's), the copies and
+               the B and A splits kept: the staging alone, near enough
+  ``rnostage`` without the B and A splits' loads (their values zeros, so
+               the compiler drops B's arithmetic; A's split runs on them):
+               the copies, the products and the splits' stores
+  ``rcopies``  both cut
+
+(ptxas 12.9 segfaults on this reduction with its products removed outright,
+by a run-time return or with its A fragments kept live: hence the slivers.
+A variant that nvcc cannot build is reported and skipped.)
+
 and its encoder kernel (131,072 poses of the trained field):
 
   ``base``     the kernel as it is (two threads a pose)
@@ -107,8 +122,10 @@ Run on the card::
 
 One line a kernel and variant: the median of CUDA-event means, at the main
 shapes (131,072 poses of the trained field; (131,072, 512) x 8 layers;
-10,000 poses a projection step; 20,000 + 20,000 poses a training step). A cut that no longer finds its statement in
-the source stops the run.
+10,000 poses a projection step; 20,000 + 20,000 poses a training step). The
+train library's variants are timed in turns (a round times each once, so a
+drift of the card's clock reaches every variant alike); the others' one after
+another. A cut that no longer finds its statement in the source stops the run.
 """
 
 from __future__ import annotations
@@ -117,7 +134,7 @@ import ctypes
 import os
 import subprocess
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -187,6 +204,16 @@ CUTS["train"] = {
                  ("  for (int i = t; i < n / 4; i += kEncThreads)", "  for (int i = t; B < 0 && i < n / 4; i += kEncThreads)")],
     "wconst": [("    const float4 v = *reinterpret_cast<const float4*>(w + 4 * c);",
                 "    const float4 v = make_float4(1e-3f * c, 2e-3f, 3e-3f, 4e-3f);")],
+    "rnomma": [("    wgmma_tf32_rs<NT>(acc, af[kk][1], desc_sw128(b_hi + kk * 32), !(fresh && kk == 0));\n"
+                "    wgmma_tf32_rs<NT>(acc, af[kk][0], desc_sw128(b_lo + kk * 32), 1);\n"
+                "    wgmma_tf32_rs<NT>(acc, af[kk][0], desc_sw128(b_hi + kk * 32), 1);\n",
+                "    float (&sliver)[4] = *reinterpret_cast<float(*)[4]>(acc);\n"
+                "    wgmma_tf32_rs<8>(sliver, af[kk][1], desc_sw128(b_hi + kk * 32), !(fresh && kk == 0));\n"
+                "    wgmma_tf32_rs<8>(sliver, af[kk][0], desc_sw128(b_lo + kk * 32), 1);\n"
+                "    wgmma_tf32_rs<8>(sliver, af[kk][0], desc_sw128(b_hi + kk * 32), 1);\n")],
+    "rnostage": [("      v[u] = rc[(4 * q + u) * kRM + tw];\n", "      v[u] = 0.f;\n"),
+                 ("      float v0 = ra[k * kRawA + fm], v1 = ra[k * kRawA + fm + 8];\n",
+                  "      float v0 = 0.f, v1 = 0.f;\n")],
     "encio": [("  for (int j = 0; j < J; ++j) {\n    const int pj = par[j];",
                "  for (int j = 0; j < (B < 0 ? J : 0); ++j) {\n    const int pj = par[j];")],
     "noepi": [("__device__ __forceinline__ void epilogue(const float (&acc)[NG][4 * NJ], int cg0, const Epi& e,\n"
@@ -224,6 +251,7 @@ VARIANTS = {
     "train": {"base": [], "noenc": ["noenc"], "nograd": ["nograd"], "nomma": ["nomma"],
               "nostore": ["nostore"],
               "ring": ["noenc", "nomma", "nostore", "noepi", "noload"],
+              "rnomma": ["rnomma"], "rnostage": ["rnostage"], "rcopies": ["rnomma", "rnostage"],
               "encio": ["encio"], "walkonly": ["walkonly"],
               "wconst": ["wconst"]},
     "knn": {"base": [], "late": ["late"], "pend0": ["pend0"], "nomark": ["nomark"],
@@ -245,7 +273,8 @@ def variant_source(lib: str, name: str) -> str:
     return text
 
 
-def _build_variant(job: Tuple[str, str]) -> ctypes.CDLL:
+def _build_variant(job: Tuple[str, str]) -> Optional[ctypes.CDLL]:
+    """The variant's library, or None (reported) where nvcc cannot build it."""
     lib_name, name = job
     out = _build.BUILD_DIR / "breakdown"
     out.mkdir(parents=True, exist_ok=True)
@@ -254,7 +283,9 @@ def _build_variant(job: Tuple[str, str]) -> ctypes.CDLL:
     proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so), str(cu)],
                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on breakdown variant {lib_name} {name}:\n{proc.stdout}")
+        print(f"breakdown variant {lib_name} {name}: nvcc failed ({proc.returncode}), skipped:\n"
+              f"{proc.stdout[-2000:]}", flush=True)
+        return None
     lib = ctypes.CDLL(str(so))
     for fn, (argtypes, restype) in _build._SIGNATURES[lib_name].items():
         getattr(lib, fn).argtypes = argtypes
@@ -277,6 +308,27 @@ def _knn_inputs():
     return torch.from_numpy(queries).cuda(), torch.from_numpy(corpus).cuda()
 
 
+def _in_turns(turns, rounds: int = 5) -> None:
+    """Time each ``(label, lib_name, lib, fn, reps)`` of ``turns`` with
+    ``lib`` as library ``lib_name``, a round timing each once: prints the
+    median, min and max over ``rounds`` of the mean milliseconds of ``reps``
+    calls (CUDA events, after a warm-up call)."""
+    from posendf_torch.ops import int8_probe as P
+
+    library = _build.library
+    times = {label: [] for label, *_ in turns}
+    try:
+        for _ in range(rounds):
+            for label, lib_name, lib, fn, reps in turns:
+                _build.library = (lambda which="field", lib=lib, lib_name=lib_name:
+                                  lib if which == lib_name else library(which))
+                times[label].append(P.cuda_ms(fn, reps=reps, rounds=1)[0])
+    finally:
+        _build.library = library
+    for label, t in times.items():
+        print(f"{label}: {np.median(t):.4f} ms [{min(t):.4f}-{max(t):.4f}]", flush=True)
+
+
 def main(which=None) -> None:
     if not torch.cuda.is_available():
         raise SystemExit("breakdown: torch.cuda.is_available() is false; it needs a card")
@@ -288,7 +340,7 @@ def main(which=None) -> None:
     which = list(VARIANTS) if not which else which
     jobs = [(lib, name) for lib in which for name in VARIANTS[lib]]
     with ThreadPoolExecutor(len(jobs)) as pool:   # one nvcc a variant, all at once
-        libs = dict(zip(jobs, pool.map(_build_variant, jobs)))
+        libs = {job: lib for job, lib in zip(jobs, pool.map(_build_variant, jobs)) if lib is not None}
     root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     ckpt = os.path.join(root, "docs", "quality", "ckpt_l8_best.msgpack")
     field = posendf_torch.load_field(ckpt, device="cuda")
@@ -316,6 +368,8 @@ def main(which=None) -> None:
     gt = torch.from_numpy(np.abs(np.random.default_rng(5).normal(size=rows)).astype(np.float32)
                           * 0.1).cuda()
     kw_n, kw_m = fused_train.branch_args(w, qt[0], gt, qt[1], "l1", 1.0, 1.0, 1.0)
+    tiles = fused_train.launch_tiles(w, qt[0], gt, qt[1], kw_n, kw_m) if "train" in which else None
+    turns = []   # the train library's timings, taken in turns after the others
     kq, kc = _knn_inputs() if "knn" in which else (None, None)
     knn_base = {}
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -364,15 +418,14 @@ def main(which=None) -> None:
                 continue
             if lib_name == "train":
                 if name in ("base", "encio", "walkonly", "wconst"):
-                    t = P.cuda_ms(encoder, reps=20, rounds=5)
-                    print(f"encoder B=131072 {name}: {t[0]:.4f} ms [{t[1]:.4f}-{t[2]:.4f}]",
-                          flush=True)
-                if name in ("encio", "walkonly", "wconst"):
-                    continue
-                t = P.cuda_ms(lambda: fused_train.launch_tiles(w, qt[0], gt, qt[1], kw_n, kw_m),
-                              reps=3, rounds=5)
-                print(f"train tile B=M={rows} {name}: {t[0]:.4f} ms [{t[1]:.4f}-{t[2]:.4f}]",
-                      flush=True)
+                    turns.append((f"encoder B=131072 {name}", lib_name, lib, encoder, 20))
+                if name not in ("encio", "walkonly", "wconst", "rnomma", "rnostage", "rcopies"):
+                    turns.append((f"train tile B=M={rows} {name}", lib_name, lib,
+                                  lambda: fused_train.launch_tiles(w, qt[0], gt, qt[1], kw_n, kw_m),
+                                  3))
+                if name in ("base", "rnomma", "rnostage", "rcopies"):
+                    turns.append((f"train reduce B=M={rows} {name}", lib_name, lib,
+                                  lambda: fused_train.launch_reduce(w, *tiles), 10))
                 continue
             with torch.no_grad():
                 for route, fw, ww in (("", field, w), ("bf16 ", f16, w16)):
@@ -384,6 +437,7 @@ def main(which=None) -> None:
                           flush=True)
     finally:
         _build.library = library
+    _in_turns(turns)
 
 
 if __name__ == "__main__":

@@ -7,8 +7,10 @@
   |x x' - (lo hi' + hi lo' + hi hi')| <= (3 + 2^-9) 2^-22 |x x'|: a product
   of 2,048 rows is held to the float64 product within that times the sum of
   |x x'|, and the model of the kernel's fp32 sums (fold groups of 128 rows,
-  row ranges of 2,048, ranges in order) to ``reduce_ref`` within the leaf
-  bar of ``chip_smoke.py`` (1e-4 x max|leaf|).
+  a range's last group run whole on zero rows, row ranges of 2,048, ranges
+  in order) to ``reduce_ref`` within the leaf bar of ``chip_smoke.py``
+  (1e-4 x max|leaf|); the zero rows leave the model's sums as they are, to
+  the bit.
 * the kNN bound engine (bf16 ``wgmma``): the packed corpus of
   ``fused_knn.pack_bound_ref`` (what ``posendf_knn_pack`` writes) read back
   by the swizzle's formula to the bf16 split; and the thread-partitioned
@@ -67,26 +69,48 @@ def test_3xtf32_product_within_its_bound():
     assert float(((ah.T @ ch - exact).abs() / bound).max()) > 10.0
 
 
-def _kernel_model(a, c, dd):
+def _kernel_model(a, c, dd, pad=True):
     """dW and db as the kernel sums them: per range of 2,048 rows and fold
     group of 128, the three TF32 passes in fp32; fold groups and ranges added
-    in order in fp32; db = dd^T c in fp32."""
+    in order in fp32; db = dd^T c in fp32. A range's last group, where the
+    range's rows end inside it, runs whole in the kernel on zero rows past
+    the range's end; ``pad`` models it so (else the group stops at the
+    range's last row)."""
     ah, al = fused_train.tf32_split(a)
     ch, cl = fused_train.tf32_split(c)
     total = torch.zeros(a.shape[1], c.shape[1])
     for r0 in range(0, a.shape[0], REDUCE_RANGE):
         part = torch.zeros_like(total)
-        for f0 in range(r0, min(a.shape[0], r0 + REDUCE_RANGE), REDUCE_FOLD):
-            s = slice(f0, min(a.shape[0], f0 + REDUCE_FOLD))
-            part = part + ((al[s].T @ ch[s] + ah[s].T @ cl[s]) + ah[s].T @ ch[s])
+        r1 = min(a.shape[0], r0 + REDUCE_RANGE)
+        for f0 in range(r0, r1, REDUCE_FOLD):
+            s = slice(f0, min(r1, f0 + REDUCE_FOLD))
+            gah, gal, gch, gcl = (x[s] for x in (ah, al, ch, cl))
+            if pad:
+                gah, gal, gch, gcl = (torch.cat([x, x.new_zeros(REDUCE_FOLD - x.shape[0], x.shape[1])])
+                                      for x in (gah, gal, gch, gcl))
+            part = part + ((gal.T @ gch + gah.T @ gcl) + gah.T @ gch)
         total = total + part
     return total, dd @ c
 
 
-@pytest.mark.parametrize("rows_n,rows_m", [(2048, 2048), (3000, 700)])
+@pytest.mark.parametrize("rows", [1, 700, 1568, 3000, 20000])
+def test_3xtf32_reduction_zero_rows_leave_the_sums(rows):
+    """The kernel runs a range's last fold group whole, on zero rows past
+    the range's end (20,000 rows: each range's last, of 1,568 rows, ends a
+    quarter into its group): the padded model's leaves are the unpadded
+    model's to the bit."""
+    a, c, dd = _normal(40, rows, 126), _normal(41, rows, 64), _normal(42, rows) * 1e-4
+    assert rows % REDUCE_RANGE % REDUCE_FOLD != 0   # a ragged last group
+    for x, y in zip(_kernel_model(a, c, dd), _kernel_model(a, c, dd, pad=False)):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("rows_n,rows_m", [(2048, 2048), (3000, 700), (20000, 20000)])
 def test_3xtf32_reduction_model_within_the_leaf_bar(rows_n, rows_m):
     """Both branches' rows (the manifold's a scaled by dd, as the kernel
-    scales them) through the kernel's model and through ``reduce_ref``."""
+    scales them) through the kernel's model and through ``reduce_ref``; at
+    the train cell's 20,000 + 20,000 each branch's last range (1,568 rows)
+    ends inside a fold group, which the model pads as the kernel does."""
     widths = [(126, 64), (64, 8), (8, 1)]
     enc = {k: torch.zeros(1) for k in ("w1", "b1", "w2", "b2")}
 
